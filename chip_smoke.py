@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (seevcn_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from seevcn_torch/csrc, holds each against
+its plain PyTorch version on the card, runs one SEE frame (isolation -> VCN
+completion -> replacement) at the shapes bench.py uses (150,000 scan points,
+32 detections on a 384x1280 image, VCN_VC at full width with weights made
+from a seed) through ``seevcn_torch.see.frame.complete_frame``, checks that
+the frame went through the kernels and that its output is right, and prints
+timings. Every failed check raises, so the exit code is not 0. The last line
+of standard output is one JSON object naming the device; the line before it
+holds the kernel summary.
+
+It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from seevcn_torch.models.vcn.inference import VCNInference
+from seevcn_torch.models.vcn.nets import build_vcn
+from seevcn_torch.ops import cuda as K
+from seevcn_torch.ops.clustering import largest_cluster_batch
+from seevcn_torch.ops.cuda import min_dist as MD
+from seevcn_torch.ops.sampling import partial_mesh_batch
+from seevcn_torch.see import device_pipeline as DP
+from seevcn_torch.see import frame as F
+
+# bench.py:165-170: KITTI P2-style camera for a 384x1280 image, and the
+# lidar -> camera axes (x -> depth, y -> -u, z -> -v)
+PROJ = np.array([[720.0, 0.0, 640.0, 0.0], [0.0, 720.0, 190.0, 0.0],
+                 [0.0, 0.0, 1.0, 0.0]], np.float32)
+LIDAR_TO_CAM = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0],
+                         [1.0, 0.0, 0.0]], np.float32)
+IMAGE_SIZE = (384, 1280)
+CAR_DIMS = (4.2, 1.8, 1.5)
+
+# H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
+# cores and HBM3 bandwidth
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+RADIUS = 0.1
+
+
+def _box_corners(centre, dims, heading):
+    sx, sy, sz = np.asarray(dims) / 2
+    c = np.array([[x, y, z] for x in (-sx, sx) for y in (-sy, sy)
+                  for z in (-sz, sz)])
+    cs, sn = np.cos(heading), np.sin(heading)
+    rot = np.array([[cs, sn, 0], [-sn, cs, 0], [0, 0, 1]])
+    return c @ rot + centre
+
+
+def _visible_surface(rng, centre, heading, n):
+    """~n points on the faces of a car box that face the sensor."""
+    dx, dy, dz = CAR_DIMS
+    faces = [(0, 1, dy * dz), (0, -1, dy * dz), (1, 1, dx * dz),
+             (1, -1, dx * dz), (2, 1, dx * dy)]
+    area = np.array([f[2] for f in faces])
+    cs, sn = np.cos(heading), np.sin(heading)
+    rot = np.array([[cs, sn, 0], [-sn, cs, 0], [0, 0, 1]])
+    out = []
+    for (axis, sign, _), k in zip(faces, rng.multinomial(2 * n, area / area.sum())):
+        local = (rng.rand(k, 3) - 0.5) * CAR_DIMS
+        local[:, axis] = sign * CAR_DIMS[axis] / 2
+        normal = np.zeros(3)
+        normal[axis] = sign
+        if (normal @ rot) @ centre < 0:            # the face looks at the sensor
+            out.append(local @ rot + centre)
+    pts = np.concatenate(out) if out else np.zeros((0, 3))
+    return pts + rng.randn(*pts.shape) * 0.01
+
+
+def make_scene(seed: int, n_points: int, n_cars: int,
+               image_size=IMAGE_SIZE, proj=PROJ, lidar_to_cam=LIDAR_TO_CAM,
+               pts_per_car: int = 600):
+    """A lidar scan in bench.py's layout (x 1..69, y -39..39, z -2.9..0.9 m)
+    holding ``n_cars`` box-surface cars in the camera's view, and one
+    detection per car: its projected 2D box, a 28x28 mask patch that covers
+    the car's projection, and a score. Returns numpy arrays."""
+    rng = np.random.RandomState(seed)
+    h, w = image_size
+    cars, det_boxes, det_masks = [], [], []
+    for i in range(n_cars):
+        rng_m = 12.0 + 6.0 * (i // 4) + rng.uniform(-1, 1)
+        bearing = (-0.45, -0.15, 0.15, 0.45)[i % 4]
+        centre = np.array([rng_m * np.cos(bearing), rng_m * np.sin(bearing),
+                           -1.0 + rng.uniform(-0.1, 0.1)])
+        heading = bearing + rng.uniform(-0.3, 0.3)
+        surf = _visible_surface(rng, centre, heading, pts_per_car)
+        cars.append((centre, heading, surf))
+
+        def project(p):
+            cam = p @ lidar_to_cam.T
+            uvw = cam @ proj[:, :3].T + proj[:, 3]
+            return uvw[:, 0] / uvw[:, 2], uvw[:, 1] / uvw[:, 2]
+
+        u, v = project(_box_corners(centre, CAR_DIMS, heading))
+        box = np.array([max(u.min(), 0), max(v.min(), 0), min(u.max(), w - 1),
+                        min(v.max(), h - 1)])
+        su, sv = project(surf)
+        mi = np.clip(((sv - box[1]) / (box[3] - box[1]) * 28).astype(int), 0, 27)
+        mj = np.clip(((su - box[0]) / (box[2] - box[0]) * 28).astype(int), 0, 27)
+        occ = np.zeros((30, 30), bool)
+        occ[mi + 1, mj + 1] = True
+        grown = np.zeros((28, 28), bool)          # 3x3 dilation
+        for di in range(3):
+            for dj in range(3):
+                grown |= occ[di:di + 28, dj:dj + 28]
+        det_boxes.append(box)
+        det_masks.append(np.where(grown, 0.9, 0.1) + rng.uniform(-0.05, 0.05,
+                                                                 (28, 28)))
+
+    def outside_cars(p):
+        keep = np.ones(len(p), bool)
+        for centre, heading, _ in cars:
+            cs, sn = np.cos(heading), np.sin(heading)
+            rel = p - centre
+            lx = rel[:, 0] * cs + rel[:, 1] * sn
+            ly = -rel[:, 0] * sn + rel[:, 1] * cs
+            keep &= ~((np.abs(lx) < CAR_DIMS[0] / 2 + 0.3)
+                      & (np.abs(ly) < CAR_DIMS[1] / 2 + 0.3)
+                      & (np.abs(rel[:, 2]) < CAR_DIMS[2] / 2 + 0.3))
+        return keep
+
+    car_pts = np.concatenate([c[2] for c in cars])[: n_points // 2]
+    n_bg = n_points - len(car_pts)
+    bg = np.stack([rng.uniform(1, 69, 2 * n_bg), rng.uniform(-39, 39, 2 * n_bg),
+                   rng.uniform(-2.9, 0.9, 2 * n_bg)], 1)
+    bg = bg[outside_cars(bg)][:n_bg]
+    pts = np.concatenate([car_pts, bg])[rng.permutation(n_points)]
+    return {"points": pts.astype(np.float32),
+            "valid": np.ones(n_points, bool),
+            "det_boxes": np.stack(det_boxes).astype(np.float32),
+            "det_masks": np.stack(det_masks).astype(np.float32),
+            "det_scores": rng.uniform(0.6, 1.0, n_cars).astype(np.float32)}
+
+
+def seeded_vcn_state_dict(seed: int, model_name: str = "VCN_VC",
+                          num_coarse: int = 1024) -> dict:
+    """Random VCN weights from a torch.Generator at the scale of flax's
+    default init, which bench.py's VCN gets: every Conv1d/Linear weight
+    normal with std 1/sqrt(fan_in) (lecun normal), biases zero, BatchNorm at
+    identity statistics."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = build_vcn(model_name, num_coarse=num_coarse).state_dict()
+    out = {}
+    for k, v in sd.items():
+        mod, leaf = k.rsplit(".", 1)
+        if leaf == "weight" and v.dim() >= 2:
+            out[k] = torch.randn(v.shape, generator=gen) / math.sqrt(v.shape[1])
+        elif leaf == "bias" and f"{mod}.running_mean" not in sd:
+            out[k] = torch.zeros_like(v)
+        else:                               # BatchNorm: identity statistics
+            out[k] = v.clone()
+    return out
+
+
+def _to(dev, scene):
+    return {k: torch.from_numpy(v).to(dev) for k, v in scene.items()}
+
+
+def time_cuda(fn, reps: int = 11, warmup: int = 2) -> float:
+    """Median ms of ``fn()`` over ``reps`` runs, each between CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_contract(got, plain, r):
+    """The pruned kernel's contract against its plain version: the same
+    within-radius set, equal values where the plain one is <= r^2, and never
+    below it. Returns the worst |difference| inside the radius."""
+    r2 = torch.tensor(r * r, dtype=torch.float32)
+    inside = plain <= r2.to(plain.device)
+    if not torch.equal(got <= r2.to(got.device), inside):
+        raise AssertionError("kernel and plain version disagree on the "
+                             "within-radius set")
+    err = (got[inside] - plain[inside]).abs().max().item() if inside.any() else 0.0
+    if err > 1e-4:
+        raise AssertionError(f"kernel differs from plain by {err} inside r")
+    finite = torch.isfinite(plain)
+    if not (got[finite] >= plain[finite] * (1 - 1e-5) - 1e-4).all():
+        raise AssertionError("kernel reads below the true minimum")
+    if not (got[~finite] >= 1e17).all():
+        raise AssertionError("kernel reads a finite distance with no valid b")
+    return err
+
+
+def contract_cases(dev):
+    """Small cases, as in tests/test_torch_min_dist.py: wide queries against
+    clustered supports, ragged sizes, invalid rows, N = 1."""
+    rng = np.random.RandomState(0)
+    for n, k_c, per, r, inval in ((2500, 4, 300, 0.8, 0.0), (1029, 3, 347, 0.3, 0.2),
+                                  (3, 1, 5, 1.0, 0.0), (1, 2, 600, 0.5, 0.0),
+                                  (300, 2, 100, 0.5, 1.0), (40000, 8, 1000, 0.1, 0.1)):
+        a = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+        centres = rng.uniform(-40, 40, (k_c, 3))
+        b = (centres[:, None] + rng.uniform(-2, 2, (k_c, per, 3))).reshape(-1, 3)
+        b = b.astype(np.float32)
+        q = n // 4
+        a[:q] = b[rng.randint(0, len(b), q)] + rng.uniform(-r, r, (q, 3))
+        valid = rng.rand(len(b)) >= inval
+        yield (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+               torch.from_numpy(valid).to(dev), r)
+
+
+def unpruned_pairs(a, b, b_valid, r):
+    """Query-support pairs the kernel sweeps on these inputs: those of the
+    (TQ-row query tile, TS-row support tile) pairs its AABB test keeps."""
+    n, m = a.shape[0], b.shape[0]
+    qbox = MD.support_tile_boxes(a, None, MD.TQ)              # (gi, 6)
+    sbox = MD.support_tile_boxes(b, b_valid, MD.TS)           # (gj, 6)
+    gap = torch.maximum(qbox[:, None, :3] - sbox[None, :, 3:],
+                        sbox[None, :, :3] - qbox[:, None, 3:]).clamp_min(0)
+    keep = (gap * gap).sum(-1) <= r * r
+    rows_q = torch.full((qbox.shape[0],), MD.TQ, device=a.device)
+    rows_q[-1] = n - MD.TQ * (qbox.shape[0] - 1)
+    rows_s = torch.full((sbox.shape[0],), MD.TS, device=a.device)
+    rows_s[-1] = m - MD.TS * (sbox.shape[0] - 1)
+    return int((keep * rows_q[:, None] * rows_s[None, :]).sum().item())
+
+
+@torch.no_grad()
+def check_small_frame_against_cpu(dev):
+    """Each SEE stage on the card against the port's CPU path (which the
+    tests hold against JAX) on a small scene, both stages fed the CPU's
+    inputs, so a difference cannot cascade from one stage to the next."""
+    cpu = torch.device("cpu")
+    small = make_scene(1, 4096, 4, pts_per_car=300)
+    sd = seeded_vcn_state_dict(1)
+    sc = {w: _to(w, small) for w in (dev, cpu)}
+    vcn = {w: VCNInference("VCN_VC", sd, device=w) for w in (dev, cpu)}
+    cam = {w: (torch.from_numpy(PROJ).to(w), torch.from_numpy(LIDAR_TO_CAM).to(w))
+           for w in (dev, cpu)}
+    iso, ok = {}, {}
+    for w in (dev, cpu):
+        iso[w], ok[w] = F.isolate_stage(
+            sc[w]["points"], sc[w]["valid"], sc[w]["det_boxes"],
+            sc[w]["det_masks"], sc[w]["det_scores"], *cam[w], IMAGE_SIZE)
+    iso_err = (iso[dev].cpu() - iso[cpu]).abs().max().item()
+    x = iso[cpu]
+    coarse = {w: vcn[w].model({"input": x.to(w)})["coarse"].cpu()
+              for w in (dev, cpu)}
+    coarse_err = (coarse[dev] - coarse[cpu]).abs().max().item()
+    # partial mesh, cluster and the sanity guard, fed the CPU's coarse cloud
+    comp, sane = {}, {}
+    for w in (dev, cpu):
+        xs, cs = x.to(w), coarse[cpu].to(w)
+        surface = partial_mesh_batch(xs, cs, k=30, surface_pts=cs.shape[1])
+        c = largest_cluster_batch(surface, eps=0.4, min_points=2,
+                                  total_pts=cs.shape[1])
+        comp[w] = c.cpu()
+        sane[w] = DP.completion_sanity_mask(
+            xs, c, torch.ones(c.shape[0], dtype=torch.bool, device=w)).cpu()
+    comp_diff = int((comp[dev] != comp[cpu]).any(-1).sum())
+    iv = ok[cpu] & sane[cpu]
+    nv = {w: F.replace_stage(sc[w]["points"], sc[w]["valid"], comp[cpu].to(w),
+                             iv.to(w), cand_cap=512)[1].cpu() for w in (dev, cpu)}
+    nv_diff = int((nv[dev] != nv[cpu]).sum())
+    print(f"small frame, card vs CPU stage by stage: isolation ok equal "
+          f"{torch.equal(ok[dev].cpu(), ok[cpu])}, max |iso diff| {iso_err:.3g} m; "
+          f"max |coarse diff| {coarse_err:.3g} m; completed points that differ "
+          f"{comp_diff}, sane equal {torch.equal(sane[dev], sane[cpu])}; "
+          f"replacement validity differences {nv_diff} "
+          f"({int(iv.sum())} valid instances)")
+    if not torch.equal(ok[dev].cpu(), ok[cpu]) or iso_err > 1e-5:
+        raise AssertionError("small frame: isolation differs from the CPU path")
+    if coarse_err > 1e-3 or comp_diff or not torch.equal(sane[dev], sane[cpu]):
+        raise AssertionError("small frame: VCN differs from the CPU path")
+    if nv_diff or not iv.any():
+        raise AssertionError("small frame: replacement differs from the CPU path")
+
+
+def profile_frame(args):
+    """One frame under torch.profiler: (device ms summed over its kernels,
+    the six PyTorch ops and kernels whose own launches took most device
+    time, as (name, ms))."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        F.complete_frame(*args)
+        torch.cuda.synchronize()
+    busy, per_op = 0.0, {}
+    for e in prof.key_averages():
+        ms = (getattr(e, "self_device_time_total", 0) or 0) / 1e3
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += ms
+        elif ms:
+            per_op[e.key] = per_op.get(e.key, 0.0) + ms
+    return busy, sorted(per_op.items(), key=lambda kv: -kv[1])[:6]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    print(smi)
+    print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # --- 1. build every kernel, one nvcc per source, all at once ----------
+    t0 = time.time()
+    logs = K.build(K.KERNELS)
+    print(f"build: {time.time() - t0:.1f} s for {list(K.KERNELS)}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # --- 2. K1 against its plain version at test sizes ---------------------
+    worst = 0.0
+    for a, b, valid, r in contract_cases(dev):
+        got = MD.min_sqdist(a, b, valid, prune_radius=r)
+        torch.cuda.synchronize()
+        worst = max(worst, check_contract(got, MD.min_sqdist_plain(a, b, valid), r))
+    print(f"K1 contract at test sizes: ok, worst |kernel - plain| inside r = {worst}")
+
+    # --- 3. the SEE frame at bench shapes, counted --------------------------
+    scene = make_scene(0, 150_000, 32)
+    s = _to(dev, scene)
+    proj = torch.from_numpy(PROJ).to(dev)
+    l2c = torch.from_numpy(LIDAR_TO_CAM).to(dev)
+    vcn = VCNInference("VCN_VC", seeded_vcn_state_dict(0), device=dev)
+    args = (s["points"], s["valid"], s["det_boxes"], s["det_masks"],
+            s["det_scores"], vcn, proj, l2c, IMAGE_SIZE)
+    K.reset_launches()
+    new_pts, new_valid, stats = F.complete_frame(*args)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"frame launches: {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched by the frame")
+
+    p, d = scene["points"].shape[0], scene["det_boxes"].shape[0]
+    if new_pts.shape != (p + d * 1024, 3) or not torch.isfinite(new_pts).all():
+        raise AssertionError(f"bad output cloud {tuple(new_pts.shape)}")
+    ok, sane, inst_valid = stats["ok"], stats["sane"], stats["inst_valid"]
+    n_inst = int(inst_valid.sum())
+    dropped = int((s["valid"] & ~new_valid[:p]).sum())
+    print(f"frame: {int(ok.sum())}/{d} isolated, {int(sane.sum())}/{d} sane, "
+          f"{n_inst} completions spliced, {dropped} scan points dropped")
+    if n_inst < 1 or dropped < 1:
+        raise AssertionError("the frame did no real work")
+
+    # replacement held against the plain full-cloud sweep, no compaction
+    completed = stats["completed"]
+    flat = completed.reshape(-1, 3)
+    flat_valid = inst_valid.repeat_interleave(completed.shape[1])
+    cand = DP.replacement_candidates(s["points"], s["valid"], completed,
+                                     inst_valid, RADIUS, 32768)
+    n_cand = int((cand >= 0).sum())
+    plain_d = MD.min_sqdist_plain(s["points"], flat, flat_valid)
+    expect = s["valid"] & ~(plain_d <= RADIUS * RADIUS)
+    tie = (plain_d - RADIUS * RADIUS).abs() <= 1e-5 * RADIUS * RADIUS
+    mismatch = (expect != new_valid[:p]) & ~tie
+    print(f"replacement vs plain full sweep: {int(mismatch.sum())} mismatches, "
+          f"{int(tie.sum())} points within 1e-5 r^2 of r^2, "
+          f"{n_cand} candidates of cap 32768")
+    if mismatch.any():
+        raise AssertionError("replacement disagrees with the plain sweep")
+
+    check_small_frame_against_cpu(dev)
+
+    # --- 4. K1 at the frame's own replacement inputs: check and time ------
+    sub = s["points"][cand.clamp_min(0)].contiguous()
+    got = MD.min_sqdist(sub, flat, flat_valid, prune_radius=RADIUS)
+    plain = MD.min_sqdist_plain(sub, flat, flat_valid)
+    max_err = check_contract(got, plain, RADIUS)
+    k_ms = time_cuda(lambda: MD.min_sqdist(sub, flat, flat_valid,
+                                           prune_radius=RADIUS))
+    plain_ms = time_cuda(lambda: MD.min_sqdist_plain(sub, flat, flat_valid),
+                         reps=10)
+    b_far = torch.where(flat_valid[:, None], flat, MD.FAR)
+    lib_ms = time_cuda(lambda: torch.cdist(sub, b_far).amin(1).square(),
+                       reps=10)
+    n_q, n_s = sub.shape[0], flat.shape[0]
+    pairs = unpruned_pairs(sub, torch.where(flat_valid[:, None], flat, MD.FAR),
+                           flat_valid, RADIUS)
+    flop_ms = 9 * pairs / FP32_FLOPS * 1e3
+    byte_ms = (n_q * 12 + n_s * 12 + n_s + n_q * 4) / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max((flop_ms, "operations"), (byte_ms, "bytes"))
+    print(f"K1 at bench shape N={n_q} M={n_s} r={RADIUS}: max |err| inside r "
+          f"{max_err}; kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"cdist+amin {lib_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{pairs} of {n_q * n_s} pairs unpruned) on {card}")
+
+    # --- 5. per-stage and frame times --------------------------------------
+    iso, ok_ = F.isolate_stage(s["points"], s["valid"], s["det_boxes"],
+                               s["det_masks"], s["det_scores"], proj, l2c,
+                               IMAGE_SIZE)
+    comp, sane_ = F.vcn_stage(vcn, iso)
+    with torch.no_grad():
+        stage_ms = {
+            "isolation": time_cuda(lambda: F.isolate_stage(
+                s["points"], s["valid"], s["det_boxes"], s["det_masks"],
+                s["det_scores"], proj, l2c, IMAGE_SIZE), reps=5),
+            "vcn": time_cuda(lambda: F.vcn_stage(vcn, iso), reps=5),
+            "replace": time_cuda(lambda: F.replace_stage(
+                s["points"], s["valid"], comp, ok_ & sane_), reps=5),
+        }
+    frame_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F.complete_frame(*args)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    f_ms = statistics.median(frame_ms)
+    print("stage ms: " + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items())
+          + f"; frame {f_ms:.2f} ms = {1e3 / f_ms:.2f} frames/s on {card}")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    busy_ms, top = profile_frame(args)
+    print(f"profiled frame: device busy {busy_ms:.2f} ms of {f_ms:.2f} ms "
+          f"({busy_ms / f_ms:.3f}); device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+
+    # --- 6. summary lines ----------------------------------------------------
+    print(json.dumps({"kernels": [{
+        "name": "min_sqdist_pruned", "route": "cuda",
+        "source": "seevcn_torch/csrc/min_dist.cu",
+        "replaces": "seevcn_tpu/ops/pallas/min_dist.py:52",
+        "launches": launches["min_sqdist_pruned"], "max_abs_err": max_err,
+        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}],
+        "stage_ms": stage_ms, "frame_ms": f_ms, "device_busy_ms": busy_ms,
+        "card": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,79 @@
+"""One SEE frame on the device: isolation -> VCN completion -> replacement.
+
+The port of the chain that bench.py composes from ``see_stage``,
+``vcn_stage`` and ``replace_stage`` (bench.py:172-212): the SEE program of
+the reference, which turns a scan and its 2D instance masks into the
+completed cloud the detector reads.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from . import device_pipeline as DP
+
+
+def isolate_stage(points, valid, det_boxes, det_masks, det_scores, proj,
+                  lidar_to_cam, image_size, max_instance_pts: int = 2048,
+                  out_pts: int = 1024):
+    """Mask membership on the camera frame (3% shrink, 20% core) and
+    isolation of each detection's object: -> ((D, out_pts, 3), (D,) ok)."""
+    cam_pts = points @ lidar_to_cam.T
+    member, core = DP.mask_membership(cam_pts, valid, proj, det_boxes,
+                                      det_masks, det_scores, score_thresh=0.0,
+                                      mask_thresh=0.5, image_size=image_size,
+                                      shrink_pct=3.0, core_shrink_pct=20.0)
+    return DP.isolate_and_resample(points, member,
+                                   max_instance_pts=max_instance_pts,
+                                   out_pts=out_pts, core_membership=core)
+
+
+def vcn_stage(vcn, iso):
+    """VCN completion + partial mesh + largest cluster, then the 2 m guard
+    against completions that left their object: -> ((D, n, 3), (D,) sane)."""
+    completed = vcn(iso)[3]
+    sane = DP.completion_sanity_mask(
+        iso, completed, torch.ones(completed.shape[0], dtype=torch.bool,
+                                   device=completed.device))
+    return completed, sane
+
+
+def replace_stage(points, valid, completed, inst_valid, cand_cap: int = 32768):
+    """Drop scan points within 0.1 m of a completed point, append the
+    completed points."""
+    return DP.replace_with_completed(points, valid, completed, inst_valid,
+                                     point_dist_thresh=0.1, cand_cap=cand_cap)
+
+
+@torch.no_grad()
+def complete_frame(points, valid, det_boxes, det_masks, det_scores, vcn, proj,
+                   lidar_to_cam, image_size=(384, 1280), *,
+                   max_instance_pts: int = 2048, out_pts: int = 1024,
+                   cand_cap: int = 32768, device="cuda"):
+    """Run one SEE frame on ``device`` (CUDA unless the caller passes "cpu").
+
+    points (P, 3) lidar frame, valid (P,), det_* the D <= 32 detections of
+    the camera image (boxes xyxy, 28x28 mask patches, scores), ``vcn`` a
+    ``VCNInference`` on the same device, proj (3, 4) camera matrix,
+    lidar_to_cam (3, 3). Returns (new_pts (P + D*n, 3), new_valid, stats)
+    where stats holds the isolated and completed instances and their
+    validity (``ok``, ``sane``, ``inst_valid = ok & sane``).
+
+    TF32 is switched off for matrix products and cuDNN: the reference runs
+    its geometry at full f32 precision (Precision.HIGHEST)."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    points, valid, det_boxes, det_masks, det_scores, proj, lidar_to_cam = (
+        t.to(dev) for t in (points, valid, det_boxes, det_masks, det_scores,
+                            proj, lidar_to_cam))
+    iso, ok = isolate_stage(points, valid, det_boxes, det_masks, det_scores,
+                            proj, lidar_to_cam, image_size,
+                            max_instance_pts=max_instance_pts, out_pts=out_pts)
+    completed, sane = vcn_stage(vcn, iso)
+    inst_valid = ok & sane
+    new_pts, new_valid = replace_stage(points, valid, completed, inst_valid,
+                                       cand_cap=cand_cap)
+    stats = {"isolated": iso, "completed": completed, "ok": ok, "sane": sane,
+             "inst_valid": inst_valid}
+    return new_pts, new_valid, stats
