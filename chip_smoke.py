@@ -3,14 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from seevcn_torch/csrc, holds each against
-its plain PyTorch version on the card, runs one SEE frame (isolation -> VCN
-completion -> replacement) at the shapes bench.py uses (150,000 scan points,
-32 detections on a 384x1280 image, VCN_VC at full width with weights made
-from a seed) through ``seevcn_torch.see.frame.complete_frame``, checks that
-the frame went through the kernels and that its output is right, and prints
-timings. Every failed check raises, so the exit code is not 0. The last line
-of standard output is one JSON object naming the device; the line before it
+Builds the port's CUDA kernels from seevcn_torch/csrc (K1, K2, K3 of the
+min-distance family), holds each against its plain PyTorch version on the
+card, runs one SEE frame (isolation -> VCN completion -> replacement) at the
+shapes bench.py uses (150,000 scan points, 32 detections on a 384x1280
+image, VCN_VC at full width with weights made from a seed) through
+``seevcn_torch.see.frame.complete_frame``, runs K2 and K3 through
+``min_sqdist`` on that frame's scan and completed points, and runs the
+SECOND-IoU detector at ``_flagship_detector_cfg`` (weights made from a seed)
+on the frame's output cloud through ``detect_stage``. It checks that each
+path went through its kernels and that its output is right (the detector
+against the port's CPU path at ``_tiny_detector_cfg``, and its first sparse
+conv against a dense conv3d at the flagship input), and prints timings.
+Every failed check raises, so the exit code is not 0. The last line of
+standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
 
 It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
@@ -27,12 +33,19 @@ import time
 import numpy as np
 import torch
 
+from seevcn_torch.models.detectors import configs as DC
+from seevcn_torch.models.detectors.second import build_detector
 from seevcn_torch.models.vcn.inference import VCNInference
 from seevcn_torch.models.vcn.nets import build_vcn
 from seevcn_torch.ops import cuda as K
+from seevcn_torch.ops import nms as NMS
+from seevcn_torch.ops import sparse as SP
 from seevcn_torch.ops.clustering import largest_cluster_batch
 from seevcn_torch.ops.cuda import min_dist as MD
+from seevcn_torch.ops.iou3d import boxes_iou_bev
+from seevcn_torch.ops.nms import nms_bev
 from seevcn_torch.ops.sampling import partial_mesh_batch
+from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
 
@@ -224,6 +237,214 @@ def contract_cases(dev):
                torch.from_numpy(valid).to(dev), r)
 
 
+def dense_cases(dev):
+    """K2 / K3 cases: those of tests/test_pallas_min_dist.py (and of the
+    port's tests), N and M that are not tile multiples, a support with
+    invalid rows and one with no valid row."""
+    rng = np.random.RandomState(1)
+    cases = {
+        "randn_scaled": (rng.randn(700, 3) * 5, rng.randn(1300, 3) * 5, None),
+        "lidar_range": (rng.randn(500, 3) * 3 + [45.0, -20.0, 0.0],
+                        rng.randn(900, 3) * 3 + [44.0, -19.0, 0.0], None),
+        "b_valid_mask": ([[10.0, 0, 0]], [[10.1, 0, 0], [15.0, 0, 0]],
+                         [False, True]),
+        "tiny_ragged": (rng.randn(3, 3), rng.randn(5, 3), None),
+        "past_two_tiles": (rng.uniform(-30, 30, (2051, 3)),
+                           rng.uniform(-30, 30, (2305, 3)),
+                           rng.rand(2305) > 0.3),
+        "no_valid_row": (rng.uniform(-30, 30, (300, 3)),
+                         rng.uniform(-30, 30, (200, 3)), np.zeros(200, bool)),
+        "wide_vs_clustered": next(contract_cases("cpu"))[:2] + (None,),
+    }
+    for name, (a, b, v) in cases.items():
+        yield (name, torch.as_tensor(np.asarray(a, np.float32)).to(dev),
+               torch.as_tensor(np.asarray(b, np.float32)).to(dev),
+               None if v is None else torch.as_tensor(np.asarray(v)).to(dev))
+
+
+def check_dense_kernels(dev):
+    """K2 bit for bit against its plain version; K3 bit for bit against
+    min_sqdist_gram_plain (the stated tolerance is 0: the same f32
+    operations in the same order) and within atol 2e-3, rtol 1e-3 of the
+    exact difference form, the reference's own tolerance for its Gram
+    kernel. A support with no valid row reads about 3e18 on both kernels,
+    as the reference's do. Returns the worst |K3 - exact| over valid rows."""
+    worst = 0.0
+    for name, a, b, v in dense_cases(dev):
+        k2 = MD.min_sqdist(a, b, v, form="diff")
+        k3 = MD.min_sqdist(a, b, v, form="gram")
+        torch.cuda.synchronize()
+        if not torch.equal(k2, MD.min_sqdist_plain(a, MD.push_invalid(b, v))):
+            raise AssertionError(f"K2 differs from its plain version on {name}")
+        if not torch.equal(k3, MD.min_sqdist_gram_plain(a, b, v)):
+            raise AssertionError(f"K3 differs from its plain version on {name}")
+        exact = MD.min_sqdist_plain(a, b, v)
+        ok = torch.isfinite(exact)
+        if not torch.equal(k2[ok], exact[ok]):
+            raise AssertionError(f"K2 differs from the exact form on {name}")
+        err = (k3[ok] - exact[ok]).abs()
+        if not (err <= 2e-3 + 1e-3 * exact[ok]).all():
+            raise AssertionError(f"K3 off the exact form by {err.max()} on {name}")
+        worst = max(worst, err.max().item() if ok.any() else 0.0)
+        for k in (k2, k3):
+            if not ((k[~ok] > 1e18) & torch.isfinite(k[~ok])).all():
+                raise AssertionError(f"no-valid-row support on {name}")
+    return worst
+
+
+def kernel_entry(name, source_line, launches, max_err, k_ms, plain_ms,
+                 bound_ms, bound_by, lib_ms):
+    return {"name": name, "route": "cuda", "source": "seevcn_torch/csrc/min_dist.cu",
+            "replaces": f"seevcn_tpu/ops/pallas/min_dist.py:{source_line}",
+            "launches": launches, "max_abs_err": max_err, "ms": k_ms,
+            "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def seeded_detector_state_dict(seed: int, model, random_stats: bool = False) -> dict:
+    """Random SECOND-IoU weights from a torch.Generator at the scale of
+    flax's default init, as seeded_vcn_state_dict does for VCN_VC: every
+    conv / linear weight normal with std 1/sqrt(fan_in), biases zero, batch
+    norm at identity statistics. fan_in is the product of all dimensions
+    but the output one: the first for every layout but ConvTranspose2d's
+    (in, out, kh, kw). ``random_stats`` draws the biases and the batch-norm
+    affine and running statistics too, so that empty BEV cells do not all
+    score alike."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = model.state_dict()
+    out = {}
+    for k, v in sd.items():
+        mod, leaf = k.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            out[k] = v.clone()
+        elif f"{mod}.running_var" in sd:                   # batch norm
+            if not random_stats:
+                out[k] = v.clone()
+            elif leaf in ("weight", "running_var"):
+                out[k] = 0.5 + torch.rand(v.shape, generator=gen)
+            else:
+                out[k] = 0.1 * torch.randn(v.shape, generator=gen)
+        elif leaf == "bias":
+            out[k] = 0.1 * torch.randn(v.shape, generator=gen) if random_stats \
+                else torch.zeros_like(v)
+        else:
+            fan = v.shape[0] * math.prod(v.shape[2:]) if ".deblocks." in k \
+                else math.prod(v.shape[1:])
+            out[k] = torch.randn(v.shape, generator=gen) / math.sqrt(fan)
+    return out
+
+
+def blob_points(seed: int, n: int = 600):
+    """One small frame for _tiny_detector_cfg: three car-sized blobs and a
+    strip of ground points, as numpy (points (n, 3), valid (n,))."""
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    for c in range(3):
+        ctr = [rng.uniform(3, 13), rng.uniform(-5, 5), rng.uniform(-1, 0.5)]
+        pts[60 * c:60 * c + 60] = ctr + rng.uniform(-1, 1, (60, 3)) * [2.0, 0.9, 0.7]
+    pts[180:220] = np.stack([rng.uniform(0, 16, 40), rng.uniform(-8, 8, 40),
+                             rng.uniform(-1.9, -1.7, 40)], 1)
+    return pts, np.arange(n) < 220
+
+
+@torch.no_grad()
+def check_tiny_detector_against_cpu(dev):
+    """_tiny_detector_cfg with TF32 off: the detector on the card against
+    the port's CPU path (which the tests hold against JAX): pre-NMS class
+    and box predictions within atol 1e-4, rtol 1e-4 (f32 sums in another
+    order), and the same kept boxes after both NMS passes (the same set,
+    each box within 1e-3: scores that tie to f32 rounding may list two kept
+    boxes in the other order)."""
+    cfg = DC.tiny_detector_cfg()
+    cpu = torch.device("cpu")
+    model, _ = build_detector(cfg, device=cpu)
+    sd = seeded_detector_state_dict(2, model, random_stats=True)
+    pts, valid = blob_points(3)
+    res = {}
+    for w in (dev, cpu):
+        m, _ = build_detector(cfg, sd, device=w)
+        res[w] = F.detect_stage(m, cfg, torch.from_numpy(pts),
+                                torch.from_numpy(valid), device=w)
+    (pp_d, out_d), (pp_c, out_c) = res[dev], res[cpu]
+    worst = {}
+    for k in ("batch_cls_preds", "batch_box_preds", "rcnn_iou"):
+        got, ref = out_d[k].cpu(), out_c[k]
+        worst[k] = (got - ref).abs().max().item()
+        if not ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all():
+            raise AssertionError(f"tiny detector: {k} off the CPU by {worst[k]}")
+    for k in ("roi_mask", "roi_labels"):
+        if not torch.equal(out_d[k].cpu(), out_c[k]):
+            raise AssertionError(f"tiny detector: proposal NMS differs ({k})")
+    for k in ("pred_mask", "pred_labels"):
+        if not torch.equal(pp_d[k].cpu().sum(-1), pp_c[k].sum(-1)):
+            raise AssertionError(f"tiny detector: final NMS differs ({k})")
+
+    def kept(pp):
+        b = pp["pred_boxes"][pp["pred_mask"]].cpu().double()
+        return b[np.lexsort(b[:, :2].T.numpy()[::-1].copy())]
+
+    box_err = (kept(pp_d) - kept(pp_c)).abs().max().item()
+    if box_err > 1e-3:
+        raise AssertionError(f"tiny detector: kept boxes differ by {box_err}")
+    kept = int(pp_c["pred_mask"].sum())
+    print(f"tiny detector, card vs CPU (TF32 off): max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; proposals {int(out_c['roi_mask'].sum())} and kept boxes {kept} "
+          f"equal, max |box diff| {box_err:.3g}")
+    if kept < 1:
+        raise AssertionError("tiny detector kept no box")
+
+
+@torch.no_grad()
+def check_conv_input_dense(model, dcfg, points, valid):
+    """conv_input, a submanifold conv, through the rulebook at the flagship
+    input against a dense F.conv3d of the scattered grid, read at the active
+    sites (f32, TF32 off). Returns (active voxels, max |diff|, scale)."""
+    feats, coords, mask = voxelize_batch(
+        points[None], valid[None], point_cloud_range=dcfg.point_cloud_range,
+        voxel_size=dcfg.voxel_size, max_voxels=dcfg.max_voxels,
+        max_points_per_voxel=dcfg.max_points_per_voxel)
+    st = SP.make_sparse_tensor(feats, coords, mask, dcfg.sparse_shape, 1)
+    conv = model.backbone_3d.conv_input._modules["0"]
+    got = SP.subm_conv3d(st, conv.rulebook(torch.float32), 3, 1).features
+    dense = SP.to_dense(st).permute(0, 4, 1, 2, 3)          # (1, C, D, H, W)
+    ref = torch.nn.functional.conv3d(
+        dense, conv.weight.permute(0, 4, 1, 2, 3).float(), padding=1)
+    c = coords[mask].long()
+    ref = ref[0].permute(1, 2, 3, 0)[c[:, 1], c[:, 2], c[:, 3]]   # (N, C)
+    err = (got[mask] - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if not err <= 1e-5 * scale + 1e-4:
+        raise AssertionError(f"conv_input off the dense conv3d by {err}")
+    return int(mask.sum()), err, scale
+
+
+def time_nms(out, dcfg, cfg):
+    """CUDA-event ms of the two NMS passes of a detector frame, fed the
+    frame's own inputs, and of the proposal pass's greedy scan alone."""
+    rcfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG["TEST"]
+    post = cfg.MODEL.POST_PROCESSING
+    scores, _ = out["batch_cls_preds"][0].max(-1)
+    boxes = out["batch_box_preds"][0, :, :7]
+    k = min(int(rcfg.NMS_PRE_MAXSIZE), boxes.shape[0])
+    top = boxes[torch.topk(scores, k).indices]
+    overlap = boxes_iou_bev(top, top)
+    valid = torch.ones(k, dtype=torch.bool, device=top.device)
+    iou = torch.sigmoid(out["rcnn_iou"][0])
+    return {
+        "proposal_nms": time_cuda(lambda: nms_bev(
+            boxes, scores, float(rcfg.NMS_THRESH), int(rcfg.NMS_PRE_MAXSIZE),
+            int(rcfg.NMS_POST_MAXSIZE)), reps=5),
+        "proposal_greedy_scan": time_cuda(lambda: NMS._greedy_suppress(
+            overlap, valid, float(rcfg.NMS_THRESH)), reps=5),
+        "final_nms": time_cuda(lambda: nms_bev(
+            out["rois"][0, :, :7], iou, float(post.NMS_CONFIG.NMS_THRESH),
+            int(post.NMS_CONFIG.NMS_PRE_MAXSIZE),
+            int(post.NMS_CONFIG.NMS_POST_MAXSIZE), float(post.SCORE_THRESH),
+            out["roi_mask"][0]), reps=5),
+        "k": k}
+
+
 def unpruned_pairs(a, b, b_valid, r):
     """Query-support pairs the kernel sweeps on these inputs: those of the
     (TQ-row query tile, TS-row support tile) pairs its AABB test keeps."""
@@ -291,13 +512,13 @@ def check_small_frame_against_cpu(dev):
         raise AssertionError("small frame: replacement differs from the CPU path")
 
 
-def profile_frame(args):
-    """One frame under torch.profiler: (device ms summed over its kernels,
-    the six PyTorch ops and kernels whose own launches took most device
-    time, as (name, ms))."""
+def profile_frame(args, fn=F.complete_frame):
+    """One call of ``fn`` (a SEE frame by default) under torch.profiler:
+    (device ms summed over its kernels, the six PyTorch ops and kernels
+    whose own launches took most device time, as (name, ms))."""
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        F.complete_frame(*args)
+        fn(*args)
         torch.cuda.synchronize()
     busy, per_op = 0.0, {}
     for e in prof.key_averages():
@@ -324,6 +545,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
 
     # --- 1. build every kernel, one nvcc per source, all at once ----------
     t0 = time.time()
@@ -334,13 +556,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # --- 2. K1 against its plain version at test sizes ---------------------
+    # --- 2. K1, K2, K3 against their plain versions at test sizes ---------
     worst = 0.0
     for a, b, valid, r in contract_cases(dev):
         got = MD.min_sqdist(a, b, valid, prune_radius=r)
         torch.cuda.synchronize()
         worst = max(worst, check_contract(got, MD.min_sqdist_plain(a, b, valid), r))
     print(f"K1 contract at test sizes: ok, worst |kernel - plain| inside r = {worst}")
+    k3_exact = check_dense_kernels(dev)
+    print(f"K2, K3 at test sizes: bit-equal to their plain versions; worst "
+          f"|K3 - exact difference form| {k3_exact:.3g} (atol 2e-3, rtol 1e-3)")
 
     # --- 3. the SEE frame at bench shapes, counted --------------------------
     scene = make_scene(0, 150_000, 32)
@@ -351,13 +576,14 @@ def main() -> int:
     args = (s["points"], s["valid"], s["det_boxes"], s["det_masks"],
             s["det_scores"], vcn, proj, l2c, IMAGE_SIZE)
     K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     new_pts, new_valid, stats = F.complete_frame(*args)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    print(f"frame launches: {launches}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"kernel {name} was not launched by the frame")
+    frame_launches = dict(K.LAUNCHES)
+    see_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"SEE frame launches: {frame_launches}")
+    if frame_launches["min_sqdist_pruned"] < 1:
+        raise AssertionError("kernel K1 was not launched by the frame")
 
     p, d = scene["points"].shape[0], scene["det_boxes"].shape[0]
     if new_pts.shape != (p + d * 1024, 3) or not torch.isfinite(new_pts).all():
@@ -397,13 +623,11 @@ def main() -> int:
     k_ms = time_cuda(lambda: MD.min_sqdist(sub, flat, flat_valid,
                                            prune_radius=RADIUS))
     plain_ms = time_cuda(lambda: MD.min_sqdist_plain(sub, flat, flat_valid),
-                         reps=10)
+                         reps=5)
     b_far = torch.where(flat_valid[:, None], flat, MD.FAR)
-    lib_ms = time_cuda(lambda: torch.cdist(sub, b_far).amin(1).square(),
-                       reps=10)
+    lib_ms = time_cuda(lambda: torch.cdist(sub, b_far).amin(1).square(), reps=5)
     n_q, n_s = sub.shape[0], flat.shape[0]
-    pairs = unpruned_pairs(sub, torch.where(flat_valid[:, None], flat, MD.FAR),
-                           flat_valid, RADIUS)
+    pairs = unpruned_pairs(sub, b_far, flat_valid, RADIUS)
     flop_ms = 9 * pairs / FP32_FLOPS * 1e3
     byte_ms = (n_q * 12 + n_s * 12 + n_s + n_q * 4) / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = max((flop_ms, "operations"), (byte_ms, "bytes"))
@@ -411,8 +635,93 @@ def main() -> int:
           f"{max_err}; kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"cdist+amin {lib_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
           f"{pairs} of {n_q * n_s} pairs unpruned) on {card}")
+    kernels = [kernel_entry("min_sqdist_pruned", 52,
+                            frame_launches["min_sqdist_pruned"], max_err, k_ms,
+                            plain_ms, bound_ms, bound_by, lib_ms)]
 
-    # --- 5. per-stage and frame times --------------------------------------
+    # --- 5. K2 and K3 through min_sqdist at the replacement stage's scan:
+    # the whole scan (N = 150,000) against the 32 x 1024 completed points
+    scan = s["points"]
+    K.reset_launches()
+    k2 = MD.min_sqdist(scan, flat, flat_valid, form="diff")
+    k3 = MD.min_sqdist(scan, flat, flat_valid, form="gram")
+    torch.cuda.synchronize()
+    dense_launches = dict(K.LAUNCHES)
+    print(f"min_sqdist(form=diff / gram) launches: {dense_launches}")
+    for name in ("min_sqdist_diff", "min_sqdist_gram"):
+        if dense_launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched")
+    k2_plain = MD.min_sqdist_plain(scan, MD.push_invalid(flat, flat_valid))
+    k3_plain = MD.min_sqdist_gram_plain(scan, flat, flat_valid)
+    k2_err = (k2 - k2_plain).abs().max().item()
+    k3_err = (k3 - k3_plain).abs().max().item()
+    k3_vs_exact = (k3 - k2).abs().max().item()
+    if k2_err or k3_err:
+        raise AssertionError(f"K2 / K3 off their plain versions by {k2_err} / {k3_err}")
+    if not ((k3 - k2).abs() <= 2e-3 + 1e-3 * k2).all():
+        raise AssertionError(f"K3 off the exact form by {k3_vs_exact}")
+    if not torch.equal(k2 <= RADIUS * RADIUS, plain_d <= RADIUS * RADIUS):
+        raise AssertionError("K2's within-radius set differs from the frame's")
+    n_q, n_s = scan.shape[0], flat.shape[0]
+    byte_ms = (n_q * 12 + n_s * 12 + n_s + n_q * 4) / HBM_BYTES_PER_S * 1e3
+    b_far = MD.push_invalid(flat, flat_valid)
+    for name, line, ops, fn, plain_fn, mode, err in (
+            ("min_sqdist_diff", 31, 9, lambda: MD.min_sqdist(
+                scan, flat, flat_valid, form="diff"),
+             lambda: MD.min_sqdist_plain(scan, b_far),
+             "donot_use_mm_for_euclid_dist", k2_err),
+            ("min_sqdist_gram", 88, 10, lambda: MD.min_sqdist(
+                scan, flat, flat_valid, form="gram"),
+             lambda: MD.min_sqdist_gram_plain(scan, flat, flat_valid),
+             "use_mm_for_euclid_dist", k3_err)):
+        k_ms = time_cuda(fn, reps=5)
+        plain_ms = time_cuda(plain_fn, reps=3, warmup=1)
+        lib_ms = time_cuda(lambda: torch.cdist(scan, b_far, compute_mode=mode)
+                           .amin(1).square(), reps=3, warmup=1)
+        flop_ms = ops * n_q * n_s / FP32_FLOPS * 1e3
+        bound_ms, bound_by = max((flop_ms, "operations"), (byte_ms, "bytes"))
+        print(f"{name} at N={n_q} M={n_s}: max |kernel - plain| {err}; kernel "
+              f"{k_ms:.4f} ms, plain {plain_ms:.3f} ms, cdist({mode})+amin "
+              f"{lib_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}, {ops} per "
+              f"pair) on {card}")
+        kernels.append(kernel_entry(name, line, dense_launches[name], err, k_ms,
+                                    plain_ms, bound_ms, bound_by, lib_ms))
+    print(f"K3 vs the exact difference form at N={n_q}: max |diff| {k3_vs_exact:.3g}")
+
+    # --- 6. the detector at _flagship_detector_cfg on the frame's output --
+    check_tiny_detector_against_cpu(dev)
+    det_cfg = DC.flagship_detector_cfg()
+    det, dcfg = build_detector(det_cfg, device="cpu")
+    det, _ = build_detector(det_cfg, seeded_detector_state_dict(0, det), device=dev)
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pp, out = F.detect_stage(det, det_cfg, new_pts, new_valid)
+    torch.cuda.synchronize()
+    det_launches = dict(K.LAUNCHES)
+    det_peak = torch.cuda.max_memory_allocated() / 2**30
+    active = [int(v) for v in out["active_voxels"]]
+    n_props, n_kept = int(out["roi_mask"].sum()), int(pp["pred_mask"].sum())
+    print(f"detector at the flagship config on the frame's {int(new_valid.sum())} "
+          f"valid points: active voxels input / conv1 / conv2 / conv3 / conv4 / "
+          f"conv_out {active} (voxel cap {dcfg.max_voxels}); {n_props} proposals, "
+          f"{n_kept} boxes kept; kernel launches {det_launches}; peak device "
+          f"memory {det_peak:.2f} GiB in the detector's run (the SEE frame's "
+          f"{see_peak:.2f} GiB)")
+    for k in ("batch_cls_preds", "batch_box_preds", "rcnn_iou"):
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"detector output {k} is not finite")
+    if out["batch_box_preds"].shape != (1, 17600, 7) or n_props < 1 or n_kept < 1 \
+            or active[0] < 1000:
+        raise AssertionError("the detector did no real work")
+    n_vox, conv_err, conv_scale = check_conv_input_dense(det, dcfg, new_pts, new_valid)
+    print(f"conv_input at the flagship input ({n_vox} active voxels) vs a dense "
+          f"masked conv3d: max |diff| {conv_err:.3g} of max |y| {conv_scale:.3g}")
+    nms_ms = time_nms(out, dcfg, det_cfg)
+    print(f"NMS: proposal pass (K={nms_ms['k']}) {nms_ms['proposal_nms']:.2f} ms, "
+          f"of which the greedy scan {nms_ms['proposal_greedy_scan']:.2f} ms; "
+          f"final pass {nms_ms['final_nms']:.2f} ms (CUDA events, median of 5)")
+
+    # --- 7. per-stage and frame times --------------------------------------
     iso, ok_ = F.isolate_stage(s["points"], s["valid"], s["det_boxes"],
                                s["det_masks"], s["det_scores"], proj, l2c,
                                IMAGE_SIZE)
@@ -425,32 +734,45 @@ def main() -> int:
             "vcn": time_cuda(lambda: F.vcn_stage(vcn, iso), reps=5),
             "replace": time_cuda(lambda: F.replace_stage(
                 s["points"], s["valid"], comp, ok_ & sane_), reps=5),
+            "detector": time_cuda(lambda: F.detect_stage(
+                det, det_cfg, new_pts, new_valid), reps=5),
         }
-    frame_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        F.complete_frame(*args)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-    f_ms = statistics.median(frame_ms)
+
+    def host_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    f_ms = host_ms(lambda: F.complete_frame(*args))
+    fd_ms = host_ms(lambda: F.see_and_detect(*args[:6], proj, l2c, det, det_cfg,
+                                             IMAGE_SIZE))
     print("stage ms: " + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items())
-          + f"; frame {f_ms:.2f} ms = {1e3 / f_ms:.2f} frames/s on {card}")
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          + f"; SEE frame {f_ms:.2f} ms = {1e3 / f_ms:.2f} frames/s; SEE + "
+          f"detector frame {fd_ms:.2f} ms = {1e3 / fd_ms:.2f} frames/s on {card}")
     busy_ms, top = profile_frame(args)
-    print(f"profiled frame: device busy {busy_ms:.2f} ms of {f_ms:.2f} ms "
+    print(f"profiled SEE frame: device busy {busy_ms:.2f} ms of {f_ms:.2f} ms "
           f"({busy_ms / f_ms:.3f}); device time by op: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+    det_busy, det_top = profile_frame((det, det_cfg, new_pts, new_valid),
+                                      F.detect_stage)
+    print(f"profiled detector stage: device busy {det_busy:.2f} ms of "
+          f"{stage_ms['detector']:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in det_top))
+    print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 6. summary lines ----------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "min_sqdist_pruned", "route": "cuda",
-        "source": "seevcn_torch/csrc/min_dist.cu",
-        "replaces": "seevcn_tpu/ops/pallas/min_dist.py:52",
-        "launches": launches["min_sqdist_pruned"], "max_abs_err": max_err,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}],
-        "stage_ms": stage_ms, "frame_ms": f_ms, "device_busy_ms": busy_ms,
+    # --- 8. summary lines ----------------------------------------------------
+    print(json.dumps({
+        "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
+        "see_detect_frame_ms": fd_ms, "device_busy_ms": busy_ms,
+        "detector": {"active_voxels": active, "proposals": n_props,
+                     "kept": n_kept, "nms_ms": nms_ms,
+                     "peak_gib": det_peak},
+        "see_frame_peak_gib": see_peak,
         "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,3 +55,9 @@ def rotation_matrix_from_ortho6d(ortho6d: torch.Tensor) -> torch.Tensor:
     z = z / torch.linalg.norm(z, dim=1, keepdim=True).clamp_min(1e-8)
     y = torch.linalg.cross(z, x, dim=1)
     return torch.stack([x, y, z], dim=-1)
+
+
+def limit_period(val: torch.Tensor, offset: float = 0.5,
+                 period: float = torch.pi) -> torch.Tensor:
+    """Wrap val into [-offset*period, (1-offset)*period)."""
+    return val - torch.floor(val / period + offset) * period

@@ -24,15 +24,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("min_dist",)
-LAUNCHES: dict[str, int] = {"min_sqdist_pruned": 0}
+LAUNCHES: dict[str, int] = {"min_sqdist_pruned": 0, "min_sqdist_diff": 0,
+                            "min_sqdist_gram": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# int min_sqdist_{diff,gram}(a, b, n, m, out, stream)
+_DENSE_SIG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int)
 _SIGNATURES = {
-    # int min_sqdist_pruned(a, b, bbox, n, m, r2, out, stream)
-    "min_dist": {"min_sqdist_pruned": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
-        ctypes.c_int)},
+    "min_dist": {
+        # int min_sqdist_pruned(a, b, bbox, n, m, r2, out, stream)
+        "min_sqdist_pruned": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int),
+        "min_sqdist_diff": _DENSE_SIG,
+        "min_sqdist_gram": _DENSE_SIG,
+    },
 }
 
 

@@ -1,15 +1,19 @@
-"""One SEE frame on the device: isolation -> VCN completion -> replacement.
+"""One SEE frame on the device: isolation -> VCN completion -> replacement,
+then the detector.
 
 The port of the chain that bench.py composes from ``see_stage``,
-``vcn_stage`` and ``replace_stage`` (bench.py:172-212): the SEE program of
-the reference, which turns a scan and its 2D instance masks into the
-completed cloud the detector reads.
+``vcn_stage``, ``replace_stage`` and ``det_stage`` (bench.py:172-231): the
+SEE program of the reference, which turns a scan and its 2D instance masks
+into the completed cloud, and SECOND-IoU, which reads that cloud.
+``see_and_detect`` is bench.py's ``frame_fused`` (bench.py:238-246) without
+its mask stage: the masks are an input here.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import resolve_device
+from ..models.detectors.second import post_processing
 from . import device_pipeline as DP
 
 
@@ -77,3 +81,37 @@ def complete_frame(points, valid, det_boxes, det_masks, det_scores, vcn, proj,
     stats = {"isolated": iso, "completed": completed, "ok": ok, "sane": sane,
              "inst_valid": inst_valid}
     return new_pts, new_valid, stats
+
+
+@torch.no_grad()
+def detect_stage(model, cfg, points, valid, *, device="cuda"):
+    """bench.py's ``det_stage``: the detector's eval forward on one frame
+    (points (P, 3), valid (P,)), then its post-processing NMS. ``model`` is
+    a SECONDNetIoU on ``device`` (``build_detector``), ``cfg`` the full
+    config it was built from. Returns (post-processed dict with a batch axis
+    of 1, the forward's output dict).
+
+    Runs in the backbone's dtype (BACKBONE_3D.DTYPE) with f32 products and
+    with TF32 off, as ``complete_frame`` leaves it."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = model(points.to(dev)[None], valid.to(dev)[None])
+    pp = post_processing(out, cfg.MODEL.POST_PROCESSING,
+                         len(cfg.CLASS_NAMES), has_roi_head=True)
+    return pp, out
+
+
+@torch.no_grad()
+def see_and_detect(points, valid, det_boxes, det_masks, det_scores, vcn,
+                   proj, lidar_to_cam, detector, det_cfg,
+                   image_size=(384, 1280), *, device="cuda", **frame_kw):
+    """One SEE frame (``complete_frame``) and the detector on its output
+    cloud (``new_pts``, ``new_valid``), as bench.py's ``frame_fused`` does
+    after its mask stage. Returns (post-processed detections, SEE stats,
+    new_pts, new_valid)."""
+    new_pts, new_valid, stats = complete_frame(
+        points, valid, det_boxes, det_masks, det_scores, vcn, proj,
+        lidar_to_cam, image_size, device=device, **frame_kw)
+    pp, _ = detect_stage(detector, det_cfg, new_pts, new_valid, device=device)
+    return pp, stats, new_pts, new_valid

@@ -1,12 +1,14 @@
-"""Carry flax VCN weights into the port's torch modules.
+"""Carry flax weights into the port's torch modules.
 
-A copy of the VCN export of seevcn_tpu/utils/ckpt_compat.py
-(``vcn_state_dict_from_variables``), kept here because the port imports
-nothing of the JAX package. It takes the flax variable tree as numpy arrays
-(``{"params": ..., "batch_stats": ...}``) and returns a state dict in the
-reference's key names, which ``VCNVC`` / ``VCNCN`` load with ``strict=True``.
-A flax Dense kernel is (in, out); Conv1d's weight is (out, in, 1) and
-Linear's (out, in).
+Copies of the VCN and detector exports of seevcn_tpu/utils/ckpt_compat.py
+(``vcn_state_dict_from_variables``, ``detector_state_dict_from_variables``),
+kept here because the port imports nothing of the JAX package. Each takes
+the flax variable tree as numpy arrays (``{"params": ..., "batch_stats":
+...}``) and returns a state dict in the reference's key names, which the
+port's modules load with ``strict=True``. A flax Dense kernel is (in, out);
+Conv1d's weight is (out, in, 1) and Linear's (out, in); a flax Conv kernel
+is (kh, kw, in, out), Conv2d's (out, in, kh, kw); a rulebook sparse-conv
+kernel is (K, in, out), spconv 2.x's (out, kz, ky, kx, in).
 """
 from __future__ import annotations
 
@@ -61,4 +63,88 @@ def vcn_state_dict_from_flax(variables: dict, model_name: str) -> dict:
                 _dense_to_conv1d(p["pose_encoder"][f"dense{i}"]))
         for i, li in enumerate((0, 2)):
             put(f"pose_fc.{li}", _dense_to_linear(p["pose_fc"][f"fc{i}"]))
+    return sd
+
+
+def _conv_to_conv2d(leaf: dict) -> dict:
+    out = {"weight": np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1))}
+    if "bias" in leaf:
+        out["bias"] = np.asarray(leaf["bias"])
+    return out
+
+
+def _convtranspose_to_deconv2d(leaf: dict) -> dict:
+    # flax places a transposed conv's taps mirrored with respect to torch's
+    # ConvTranspose2d: flip spatially, then (in, out, kh, kw)
+    w = np.flip(np.asarray(leaf["kernel"]), axis=(0, 1))
+    return {"weight": np.transpose(w, (2, 3, 0, 1)).copy()}
+
+
+def _spconv_export(kernel, kz, ky, kx) -> np.ndarray:
+    """(K, in, out) -> spconv 2.x (out, kz, ky, kx, in)."""
+    kernel = np.asarray(kernel)
+    w = kernel.reshape(kz, ky, kx, kernel.shape[1], kernel.shape[2])
+    return np.transpose(w, (4, 0, 1, 2, 3))
+
+
+def detector_state_dict_from_flax(variables: dict) -> dict:
+    """Flax SECONDNetIoU variables (numpy leaves) -> torch state dict in the
+    reference's OpenPCDet / spconv 2.x key names and layouts."""
+    p = variables["params"]
+    s = variables["batch_stats"]
+    sd = {}
+
+    def put(prefix, leaf):
+        for k, v in leaf.items():
+            sd[f"{prefix}.{k}"] = torch.tensor(np.array(v))
+
+    bb, bbs = p["backbone_3d"], s["backbone_3d"]
+    layout = [("conv_input", "conv_input", (3, 3, 3)),
+              ("conv1_0", "conv1.0", (3, 3, 3))]
+    for stage in (2, 3, 4):
+        for j, my in enumerate((f"conv{stage}_down", f"conv{stage}_0",
+                                f"conv{stage}_1")):
+            layout.append((my, f"conv{stage}.{j}", (3, 3, 3)))
+    layout.append(("conv_out", "conv_out", (3, 1, 1)))
+    for my, key, k in layout:
+        put(f"backbone_3d.{key}.0", {"weight": _spconv_export(bb[my]["kernel"], *k)})
+        put(f"backbone_3d.{key}.1", _bn_join(bb[my]["bn"], bbs[my]["bn"]))
+
+    b2, b2s = p["backbone_2d"], s["backbone_2d"]
+    blocks = sorted({k.split("_")[0] for k in b2 if k.startswith("block")})
+    for bi, blk in enumerate(blocks):
+        down = f"{blk}_down"
+        put(f"backbone_2d.blocks.{bi}.1",
+            {"weight": _conv_to_conv2d(b2[down]["conv"])["weight"]})
+        put(f"backbone_2d.blocks.{bi}.2", _bn_join(b2[down]["bn"], b2s[down]["bn"]))
+        layers = sorted(int(k.split("_")[1]) for k in b2
+                        if k.startswith(f"{blk}_") and k.split("_")[1].isdigit())
+        for j in layers:
+            my = f"{blk}_{j}"
+            put(f"backbone_2d.blocks.{bi}.{4 + 3 * j}",
+                {"weight": _conv_to_conv2d(b2[my]["conv"])["weight"]})
+            put(f"backbone_2d.blocks.{bi}.{5 + 3 * j}",
+                _bn_join(b2[my]["bn"], b2s[my]["bn"]))
+    di = 0
+    while f"deblock{di}" in b2:
+        leaf = b2[f"deblock{di}"]
+        put(f"backbone_2d.deblocks.{di}.0", _convtranspose_to_deconv2d(leaf["deconv"]))
+        put(f"backbone_2d.deblocks.{di}.1", _bn_join(leaf["bn"], b2s[f"deblock{di}"]["bn"]))
+        di += 1
+
+    for name in ("conv_cls", "conv_box", "conv_dir_cls"):
+        if name in p["dense_head"]:
+            put(f"dense_head.{name}", _conv_to_conv2d(p["dense_head"][name]))
+
+    r, rs = p["roi_head"], s["roi_head"]
+    # conv positions of make_fc_layers: a Dropout sits at index 3
+    for i in range(len([k for k in r if k.startswith("shared_fc")])):
+        put(f"roi_head.shared_fc_layer.{4 * i}", _dense_to_conv1d(r[f"shared_fc{i}"]))
+        put(f"roi_head.shared_fc_layer.{4 * i + 1}",
+            _bn_join(r[f"shared_bn{i}"], rs[f"shared_bn{i}"]))
+    n_iou = len([k for k in r if k.startswith("iou_fc")])
+    for i in range(n_iou):
+        put(f"roi_head.iou_layers.{4 * i}", _dense_to_conv1d(r[f"iou_fc{i}"]))
+        put(f"roi_head.iou_layers.{4 * i + 1}", _bn_join(r[f"iou_bn{i}"], rs[f"iou_bn{i}"]))
+    put(f"roi_head.iou_layers.{4 * n_iou - 1}", _dense_to_conv1d(r["iou_out"]))
     return sd

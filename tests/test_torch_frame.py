@@ -24,8 +24,10 @@ from seevcn_tpu.ops.pallas.min_dist import min_sqdist as jax_min_sqdist
 from seevcn_tpu.ops.sampling import partial_mesh_batch
 from seevcn_tpu.see import device_pipeline as JDP
 from seevcn_torch import resolve_device
+from seevcn_torch.models.detectors.configs import tiny_detector_cfg
+from seevcn_torch.models.detectors.second import build_detector
 from seevcn_torch.models.vcn.inference import VCNInference
-from seevcn_torch.see.frame import complete_frame
+from seevcn_torch.see.frame import complete_frame, detect_stage, see_and_detect
 from seevcn_torch.testing import assert_close, to_numpy, to_torch
 from seevcn_torch.utils.weights import vcn_state_dict_from_flax
 
@@ -126,4 +128,14 @@ def test_default_device_raises_without_cuda():
         complete_frame(z, torch.ones(8, dtype=torch.bool), torch.zeros((1, 4)),
                        torch.zeros((1, 28, 28)), torch.ones(1), None,
                        to_torch(PROJ), to_torch(LIDAR_TO_CAM), IMG)
+    cfg = tiny_detector_cfg()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_detector(cfg)
+    det, _ = build_detector(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect_stage(det, cfg, z, torch.ones(8, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        see_and_detect(z, torch.ones(8, dtype=torch.bool), torch.zeros((1, 4)),
+                       torch.zeros((1, 28, 28)), torch.ones(1), None,
+                       to_torch(PROJ), to_torch(LIDAR_TO_CAM), det, cfg, IMG)
     assert resolve_device("cpu") == torch.device("cpu")
