@@ -1,111 +1,277 @@
-// Row-wise minimum squared distance with AABB tile pruning (kernel K1).
+// Row-wise minimum squared distance with AABB pruning (kernel K1).
 //
 // Replaces seevcn_tpu/ops/pallas/min_dist.py:_make_kernel_diff_pruned.
 // For each query row a_i: min over support rows b_j of
-// ((ax-bx)^2 + (ay-by)^2) + (az-bz)^2, skipping every support tile whose
-// AABB lies farther than r from the query tile's AABB. Rows whose every
-// tile was skipped read 1e18. Exact where the true minimum is <= r^2 and
-// never below the truth elsewhere.
+// ((ax-bx)^2 + (ay-by)^2) + (az-bz)^2, skipping every support block whose
+// box lies farther than r from the row. Rows that no box is near read 1e18.
+// Exact where the true minimum is <= r^2 and never below the truth
+// elsewhere. Invalid support rows never win and never widen a box.
 //
-// What bounds it on an H100: FP32 CUDA-core arithmetic, about 9 operations
-// (3 sub, 3 mul, 2 add, 1 min) for each query-support pair left unpruned.
-// The bytes are negligible: N*12 + M*12 read and N*4 written.
+// What bounds it on an H100: FP32 CUDA-core arithmetic, 9 operations (3 sub,
+// 3 mul, 2 add, 1 min) for each query-support pair that has to be looked at,
+// which at the SEE frame's replacement inputs is a few million pairs; the
+// bytes (N*12 + M*12 read, N*4 written) are negligible. So the real limits
+// are keeping the 132 SMs busy and not sweeping pairs that cannot matter.
 //
-// What the design does about that: the TPU kernel carried its running
-// minimum from one grid step to the next along the sequential support axis;
-// here one block owns one query tile and loops over the support tiles
-// itself, so the minimum stays in a register for the whole sweep and the
-// output is written once. The pruning test runs once per (query tile,
-// support tile) pair and is uniform across the block, so a pruned tile costs
-// no load and no arithmetic. An unpruned tile is staged once in shared
-// memory (coalesced loads) and every thread reads each support point as a
-// broadcast, which leaves the FP32 pipes as the limit. The products and sums
-// are rounded separately (no FMA contraction), in the order of the plain
-// PyTorch version, so the two agree bit for bit.
+// What the design does about that. The route is one call from the host
+// (a launch costs the host more than most of these kernels cost the card),
+// which makes one memset and five launches on one stream:
+//   1. k1_support_prepare, one 1024-thread block per 1024-row support tile:
+//      writes the support as float4 (x, y, z, 0) with invalid and padding
+//      rows at 1e9, the box of each 32-row sub-tile over its valid rows, and
+//      the box of each tile (an empty one is (+inf, -inf)).
+//   2-4. a stable counting sort of the query rows by key, so that the rows
+//      near one car sit next to each other:
+//      2. k1_query_keys, one thread a row in blocks of 256 rows: each row's
+//         key, the index of the first tile whose box lies within r of it, or
+//         the tile count ("none") where there is no such tile; a block radix
+//         sort (CUB's block-level primitive) gives each row its rank among
+//         the block's rows of the same key, and the block's count of each
+//         key goes to a (key, block) table;
+//      3. k1_offsets, one block: the exclusive scan of that table, key-major,
+//         which is each (key, block)'s first place in the order;
+//      4. k1_scatter, one thread a row: perm[place + rank] = row.
+//      It gives the order torch.argsort(keys, stable=True) gives.
+//   5. k1_sweep, one block of K1_WARPS warps per 32 ordered rows: every
+//      warp holds the same 32 rows, one a lane, and takes every K1_WARPS-th
+//      sub-tile. For each tile, then each of its sub-tiles if the tile
+//      passes, every lane tests its own row against the box and a
+//      __ballot_sync sweeps the sub-tile if any lane needs it, so the branch
+//      is uniform across the warp. Rows near one car sweep that car's
+//      sub-tiles and skip the rest; a block whose rows are all "none" sweeps
+//      nothing. The warps' minima meet in shared memory and each result is
+//      written straight to the row's original position. The rows that have
+//      a key fill only a few hundred groups, so one warp a group would leave
+//      the card latency-bound on a fraction of its SMs; 16 warps a group put
+//      about 32 warps on each SM.
+//      A sub-tile is read as 32 float4 broadcast loads from a per-warp copy
+//      in shared memory, which measured faster than the same loads straight
+//      from L1/L2 (PERF.md).
+// Products and sums are rounded separately (no FMA contraction), in the
+// order of the plain PyTorch version, so every swept pair gives the plain
+// version's value bit for bit; the box tests round the same way, so a box's
+// gap never exceeds the distance to any point inside it.
 #include <cuda_runtime.h>
+
+#include <cub/block/block_discontinuity.cuh>
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 
 namespace {
 
-constexpr int TQ = 128;    // query rows per block, one per thread
-constexpr int TS = 1024;   // support rows per shared-memory tile
+constexpr int TQ = 128;    // K2: query rows per block, one per thread
+constexpr int TS = 1024;   // support rows per tile
+constexpr int SUB = 32;    // K1: support rows per sub-tile (one box each)
+constexpr int K1_WARPS = 16;  // K1: warps per sweep block, sharing its 32 rows
+constexpr int KEY_THREADS = 256;  // K1's sort: threads per block
+constexpr int KEY_ITEMS = 1;      // K1's sort: rows per thread
+constexpr int KEY_ROWS = KEY_THREADS * KEY_ITEMS;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInit = 1e18f;
+constexpr float kFar = 1e9f;
 
 __device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-__global__ void __launch_bounds__(TQ)
-min_sqdist_pruned_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                         const float* __restrict__ bbox, int n, int m, float r2,
-                         float* __restrict__ out) {
-  __shared__ float sb[TS * 3];
-  __shared__ float part[6][TQ / 32];
-  __shared__ float abox[6];
+// squared gap between a point and a box [min xyz, max xyz], rounded in the
+// order of min_dist.py:box_gap2
+__device__ __forceinline__ float box_gap2(float ax, float ay, float az,
+                                          const float* __restrict__ box) {
+  const float p[3] = {ax, ay, az};
+  float gap2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float g = fmaxf(fmaxf(__fsub_rn(__ldg(box + c), p[c]),
+                                __fsub_rn(p[c], __ldg(box + 3 + c))), 0.f);
+    gap2 = __fadd_rn(gap2, __fmul_rn(g, g));
+  }
+  return gap2;
+}
 
-  const int tid = threadIdx.x;
-  const long long i = static_cast<long long>(blockIdx.x) * TQ + tid;
-  const bool real = i < n;
-  const float ax = real ? a[3 * i + 0] : 0.f;
-  const float ay = real ? a[3 * i + 1] : 0.f;
-  const float az = real ? a[3 * i + 2] : 0.f;
+__device__ __forceinline__ float diff_sqdist(float ax, float ay, float az, float4 s) {
+  const float dx = __fsub_rn(ax, s.x);
+  const float dy = __fsub_rn(ay, s.y);
+  const float dz = __fsub_rn(az, s.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
 
-  // the query tile's AABB over its real rows: padding never widens it
+__global__ void __launch_bounds__(TS)
+k1_support_prepare(const float* __restrict__ b, const unsigned char* __restrict__ valid,
+                   int m, float4* __restrict__ b4, float* __restrict__ sub_box,
+                   float* __restrict__ tile_box) {
+  __shared__ float part[6][TS / SUB];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const long long j = static_cast<long long>(blockIdx.x) * TS + tid;
+  const bool ok = j < m && (valid == nullptr || valid[j]);
+  const float x = ok ? b[3 * j + 0] : kFar;
+  const float y = ok ? b[3 * j + 1] : kFar;
+  const float z = ok ? b[3 * j + 2] : kFar;
+  const long long s = j / SUB;
+  const bool has_sub = s < (static_cast<long long>(m) + SUB - 1) / SUB;
+  if (has_sub) b4[j] = make_float4(x, y, z, 0.f);  // padded to whole sub-tiles
+
   const float inf = __int_as_float(0x7f800000);
-  float v[6] = {real ? ax : inf, real ? ay : inf, real ? az : inf,
-                real ? ax : -inf, real ? ay : -inf, real ? az : -inf};
+  float v[6] = {ok ? x : inf, ok ? y : inf, ok ? z : inf,
+                ok ? x : -inf, ok ? y : -inf, ok ? z : -inf};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     v[c] = warp_min(v[c]);
     v[3 + c] = warp_max(v[3 + c]);
   }
-  if ((tid & 31) == 0) {
+  if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < 6; ++c) part[c][tid >> 5] = v[c];
+    for (int c = 0; c < 6; ++c) {
+      if (has_sub) sub_box[6 * s + c] = v[c];
+      part[c][w] = v[c];
+    }
   }
   __syncthreads();
   if (tid < 6) {
     float r = part[tid][0];
-    for (int w = 1; w < TQ / 32; ++w)
-      r = tid < 3 ? fminf(r, part[tid][w]) : fmaxf(r, part[tid][w]);
-    abox[tid] = r;
+    for (int k = 1; k < TS / SUB; ++k)
+      r = tid < 3 ? fminf(r, part[tid][k]) : fmaxf(r, part[tid][k]);
+    tile_box[6 * blockIdx.x + tid] = r;
   }
-  __syncthreads();
+}
 
-  float best = kInit;
-  const int tiles = (m + TS - 1) / TS;
-  for (int t = 0; t < tiles; ++t) {
-    const float* bb = bbox + 6 * t;
-    float gap2 = 0.f;
+struct NotEqual {
+  __device__ bool operator()(unsigned x, unsigned y) const { return x != y; }
+};
+
+struct MaxOp {
+  __device__ int operator()(int x, int y) const { return x > y ? x : y; }
+};
+
+__global__ void __launch_bounds__(KEY_THREADS)
+k1_query_keys(const float* __restrict__ a, const float* __restrict__ tile_box, int n,
+              int tiles, float r2, int nblk, int* __restrict__ keys,
+              int* __restrict__ rank, int* __restrict__ hist) {
+  using Sort = cub::BlockRadixSort<unsigned, KEY_THREADS, KEY_ITEMS, int>;
+  using Disc = cub::BlockDiscontinuity<unsigned, KEY_THREADS>;
+  using Scan = cub::BlockScan<int, KEY_THREADS>;
+  __shared__ union {
+    typename Sort::TempStorage sort;
+    typename Disc::TempStorage disc;
+    typename Scan::TempStorage scan;
+  } tmp;
+
+  const long long base = static_cast<long long>(blockIdx.x) * KEY_ROWS;
+  unsigned k[KEY_ITEMS];
+  int local[KEY_ITEMS];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float g = fmaxf(fmaxf(abox[c] - bb[3 + c], bb[c] - abox[3 + c]), 0.f);
-      gap2 = __fadd_rn(gap2, __fmul_rn(g, g));
+  for (int q = 0; q < KEY_ITEMS; ++q) {
+    local[q] = threadIdx.x * KEY_ITEMS + q;
+    const long long i = base + local[q];
+    int key = tiles + 1;  // past the end: sorts last, counted nowhere
+    if (i < n) {
+      const float ax = a[3 * i + 0], ay = a[3 * i + 1], az = a[3 * i + 2];
+      key = tiles;
+      for (int t = 0; t < tiles; ++t) {
+        if (box_gap2(ax, ay, az, tile_box + 6 * t) <= r2) {
+          key = t;
+          break;
+        }
+      }
+      keys[i] = key;
     }
-    if (!(gap2 <= r2)) continue;  // same value in every thread: uniform branch
+    k[q] = static_cast<unsigned>(key);
+  }
+  // stable within the block: the rows keep their order among equal keys
+  Sort(tmp.sort).Sort(k, local, 0, 32 - __clz(tiles + 1));
+  __syncthreads();
+  int head[KEY_ITEMS], tail[KEY_ITEMS];
+  Disc(tmp.disc).FlagHeadsAndTails(head, tail, k, NotEqual());
+  __syncthreads();
+  int first[KEY_ITEMS];  // the sorted place of each key's first row
+#pragma unroll
+  for (int q = 0; q < KEY_ITEMS; ++q)
+    first[q] = head[q] ? static_cast<int>(threadIdx.x) * KEY_ITEMS + q : 0;
+  Scan(tmp.scan).InclusiveScan(first, first, MaxOp());
+#pragma unroll
+  for (int q = 0; q < KEY_ITEMS; ++q) {
+    if (k[q] > static_cast<unsigned>(tiles)) continue;
+    const int r = static_cast<int>(threadIdx.x) * KEY_ITEMS + q - first[q];
+    rank[base + local[q]] = r;
+    if (tail[q]) hist[static_cast<long long>(k[q]) * nblk + blockIdx.x] = r + 1;
+  }
+}
 
-    const long long base = static_cast<long long>(t) * TS;
-    const int cnt = min(TS, static_cast<int>(m - base));
-    __syncthreads();  // the previous tile's readers are done
-    for (int k = tid; k < 3 * cnt; k += TQ) sb[k] = b[3 * base + k];
+__global__ void __launch_bounds__(1024) k1_offsets(int* __restrict__ hist, int len) {
+  using Scan = cub::BlockScan<int, 1024>;
+  __shared__ typename Scan::TempStorage tmp;
+  int carry = 0;
+  for (int base = 0; base < len; base += 1024) {
+    const int j = base + threadIdx.x;
+    int x = j < len ? hist[j] : 0, before, total;
+    Scan(tmp).ExclusiveSum(x, before, total);
+    if (j < len) hist[j] = carry + before;
+    carry += total;
     __syncthreads();
-    if (real) {
-      for (int k = 0; k < cnt; ++k) {
-        const float dx = __fsub_rn(ax, sb[3 * k + 0]);
-        const float dy = __fsub_rn(ay, sb[3 * k + 1]);
-        const float dz = __fsub_rn(az, sb[3 * k + 2]);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
-        best = fminf(best, d);
+  }
+}
+
+__global__ void k1_scatter(const int* __restrict__ keys, const int* __restrict__ rank,
+                           const int* __restrict__ offsets, int n, int nblk,
+                           int* __restrict__ perm) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  perm[offsets[static_cast<long long>(keys[i]) * nblk + i / KEY_ROWS] + rank[i]] = i;
+}
+
+__global__ void __launch_bounds__(32 * K1_WARPS)
+k1_sweep(const float* __restrict__ a, const float4* __restrict__ b4,
+         const float* __restrict__ sub_box, const float* __restrict__ tile_box,
+         const int* __restrict__ keys, const int* __restrict__ perm, int n,
+         int m, float r2, float* __restrict__ out) {
+  __shared__ float4 sb[K1_WARPS][SUB];
+  __shared__ float part[K1_WARPS][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long slot = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const bool real = slot < n;
+  const long long i = real ? perm[slot] : 0;  // the row in its original place
+  const int tiles = (m + TS - 1) / TS;
+  const int nsub = (m + SUB - 1) / SUB;
+  const int key = real ? keys[i] : tiles;
+  const bool live = key < tiles;
+  const float ax = live ? a[3 * i + 0] : 0.f;
+  const float ay = live ? a[3 * i + 1] : 0.f;
+  const float az = live ? a[3 * i + 2] : 0.f;
+
+  // no tile before the warp's smallest key is near any of its rows
+  const int first = __reduce_min_sync(kFull, key);
+  float best0 = kInit, best1 = kInit;
+  for (int t = first; t < tiles; ++t) {
+    const bool near_t = live && box_gap2(ax, ay, az, tile_box + 6 * t) <= r2;
+    if (!__ballot_sync(kFull, near_t)) continue;
+    const int s_end = min(nsub, (t + 1) * (TS / SUB));
+    for (int s = t * (TS / SUB) + w; s < s_end; s += K1_WARPS) {
+      const bool near_s = near_t && box_gap2(ax, ay, az, sub_box + 6 * s) <= r2;
+      if (!__ballot_sync(kFull, near_s)) continue;
+      __syncwarp();  // the previous sub-tile's readers are done
+      sb[w][lane] = __ldg(b4 + static_cast<long long>(s) * SUB + lane);
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < SUB; k += 2) {
+        best0 = fminf(best0, diff_sqdist(ax, ay, az, sb[w][k]));
+        best1 = fminf(best1, diff_sqdist(ax, ay, az, sb[w][k + 1]));
       }
     }
   }
-  if (real) out[i] = best;
+  part[w][lane] = fminf(best0, best1);
+  __syncthreads();
+  if (w == 0 && real) {
+    float best = part[0][lane];
+#pragma unroll
+    for (int k = 1; k < K1_WARPS; ++k) best = fminf(best, part[k][lane]);
+    out[i] = live ? best : kInit;
+  }
 }
 
 // Row-wise minimum squared distance, exact difference form, no pruning
@@ -121,14 +287,13 @@ min_sqdist_pruned_kernel(const float* __restrict__ a, const float* __restrict__ 
 // 3 mul, 2 add, 1 min) for every query-support pair, N*M pairs in all; the
 // bytes (12 per row read, 4 per query written) are negligible.
 //
-// What the design does about that: as in K1, one block owns a query tile and
-// sweeps every support tile itself (the TPU kernel carried the running
-// minimum across its sequential support axis; CUDA blocks run in no order),
-// so the minimum stays in a register. Each support tile is staged once in
-// shared memory as float4 (x, y, z, 0), so one 16-byte broadcast load feeds
-// the 9 operations of a pair. Products and sums are rounded separately (no
-// FMA), in the order of the plain PyTorch version, so the two agree bit for
-// bit.
+// What the design does about that: one block owns a query tile and sweeps
+// every support tile itself (the TPU kernel carried the running minimum
+// across its sequential support axis; CUDA blocks run in no order), so the
+// minimum stays in a register. Each support tile is staged once in shared
+// memory as float4 (x, y, z, 0), so one 16-byte broadcast load feeds the 9
+// operations of a pair. Products and sums are rounded separately (no FMA),
+// in the order of the plain PyTorch version, so the two agree bit for bit.
 __global__ void __launch_bounds__(TQ)
 min_sqdist_diff_kernel(const float* __restrict__ a, const float* __restrict__ b,
                        int n, int m, float* __restrict__ out) {
@@ -171,54 +336,102 @@ min_sqdist_diff_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // has centred both sets on the mean of the valid support rows and pushed the
 // invalid rows to 1e9, as the TPU wrapper does.
 //
-// What bounds it on an H100: FP32 CUDA-core arithmetic, 10 operations a pair
-// (3 mul and 2 add for a.b, the doubling, 1 sub, 1 add, 1 max, 1 min); bytes
-// are negligible, as for K2. The depth-3 product is done on the FP32 cores:
-// TF32 tensor cores would round the cross term to 10 bits of mantissa,
-// which the cancellation at lidar ranges does not survive, and a K = 3
-// product cannot fill them anyway.
+// What bounds it on an H100: FP32 issue slots on the CUDA cores, N*M pairs.
+// The depth-3 product stays in FP32 on the CUDA cores: TF32 tensor cores
+// would round the cross term to 10 bits of mantissa, which the cancellation
+// at lidar ranges does not survive. The bytes are negligible.
 //
-// What the design does about that: the loop of K2, with |b|^2 computed once
-// per support row while the tile is staged (float4 (x, y, z, |b|^2)) and
-// |a|^2 once per thread, so a pair costs one 16-byte broadcast load and the
-// 10 operations. Rounding is explicit, in the plain version's order, so the
-// kernel and min_sqdist_gram_plain agree bit for bit.
-__global__ void __launch_bounds__(TQ)
-min_sqdist_gram_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                       int n, int m, float* __restrict__ out) {
-  __shared__ float4 sb[TS];
+// What the design does about that: the function is rewritten as
+// max(|a|^2 + min_j e_j, 0) with e_j = |b_j|^2 - 2 a.b_j. Adding |a|^2 and
+// clamping at 0 are monotone under round-to-nearest, so they commute with
+// the min and are done once per row after the sweep. Two launches:
+//   1. k3_support_prepare writes the support as float4 (x, y, z, |b|^2),
+//      padded to whole tiles with rows at 1e9, so a tile is one contiguous
+//      16 KB copy and |b|^2 is computed once per support row, not once per
+//      block.
+//   2. min_sqdist_gram_kernel: each thread keeps (-2ax, -2ay, -2az) of
+//      K3_ROWS query rows in registers, and a pair costs 3 FFMA
+//      (e = fma(-2az, bz, fma(-2ay, by, fma(-2ax, bx, |b|^2)))) and one min,
+//      one 16-byte broadcast load from shared memory feeding K3_ROWS pairs.
+//      The next tile is copied into a second shared buffer with cp.async
+//      while this one is swept. Blocks of 64 threads (256 rows) give 586
+//      blocks at N = 150,000, which spread over the 132 SMs within 11% of
+//      even.
+// The kernel fuses the multiply-adds, so it agrees with
+// min_sqdist_gram_plain (the same e, separately rounded) to the reference's
+// Gram tolerance, not bit for bit.
+constexpr int K3_THREADS = 64;
+constexpr int K3_ROWS = 4;
+
+__global__ void k3_support_prepare(const float* __restrict__ b, int m, int m_pad,
+                                   float4* __restrict__ b4) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m_pad) return;
+  const float bx = j < m ? b[3 * j + 0] : kFar;
+  const float by = j < m ? b[3 * j + 1] : kFar;
+  const float bz = j < m ? b[3 * j + 2] : kFar;
+  const float b2 = __fadd_rn(__fadd_rn(__fmul_rn(bx, bx), __fmul_rn(by, by)),
+                             __fmul_rn(bz, bz));
+  b4[j] = make_float4(bx, by, bz, b2);
+}
+
+__device__ __forceinline__ void k3_copy_tile(float4* dst, const float4* src) {
+#pragma unroll
+  for (int k = threadIdx.x; k < TS; k += K3_THREADS) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + k));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + k));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__global__ void __launch_bounds__(K3_THREADS)
+min_sqdist_gram_kernel(const float* __restrict__ a, const float4* __restrict__ b4,
+                       int n, int tiles, float* __restrict__ out) {
+  __shared__ __align__(16) float4 sb[2][TS];
 
   const int tid = threadIdx.x;
-  const long long i = static_cast<long long>(blockIdx.x) * TQ + tid;
-  const bool real = i < n;
-  const float ax = real ? a[3 * i + 0] : 0.f;
-  const float ay = real ? a[3 * i + 1] : 0.f;
-  const float az = real ? a[3 * i + 2] : 0.f;
-  const float a2 = __fadd_rn(__fadd_rn(__fmul_rn(ax, ax), __fmul_rn(ay, ay)),
-                             __fmul_rn(az, az));
+  const long long row0 = static_cast<long long>(blockIdx.x) * K3_THREADS * K3_ROWS + tid;
+  float nx[K3_ROWS], ny[K3_ROWS], nz[K3_ROWS], best[K3_ROWS];
+#pragma unroll
+  for (int r = 0; r < K3_ROWS; ++r) {
+    const long long i = row0 + r * K3_THREADS;
+    const bool real = i < n;
+    nx[r] = real ? -2.f * a[3 * i + 0] : 0.f;  // exact: a power-of-two scale
+    ny[r] = real ? -2.f * a[3 * i + 1] : 0.f;
+    nz[r] = real ? -2.f * a[3 * i + 2] : 0.f;
+    best[r] = __int_as_float(0x7f800000);
+  }
 
-  float best = __int_as_float(0x7f800000);
-  for (long long base = 0; base < m; base += TS) {
-    const int cnt = min(TS, static_cast<int>(m - base));
-    __syncthreads();
-    for (int k = tid; k < cnt; k += TQ) {
-      const float* p = b + 3 * (base + k);
-      const float bx = p[0], by = p[1], bz = p[2];
-      const float b2 = __fadd_rn(__fadd_rn(__fmul_rn(bx, bx), __fmul_rn(by, by)),
-                                 __fmul_rn(bz, bz));
-      sb[k] = make_float4(bx, by, bz, b2);
+  k3_copy_tile(sb[0], b4);
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      // buffer (t + 1) & 1 was last read in step t - 1, which ended in a barrier
+      k3_copy_tile(sb[(t + 1) & 1], b4 + static_cast<long long>(t + 1) * TS);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
     }
-    __syncthreads();
+    __syncthreads();  // tile t has landed for every thread
+    const float4* tile = sb[t & 1];
 #pragma unroll 8
-    for (int k = 0; k < cnt; ++k) {
-      const float4 s = sb[k];
-      const float ab = __fadd_rn(__fadd_rn(__fmul_rn(ax, s.x), __fmul_rn(ay, s.y)),
-                                 __fmul_rn(az, s.z));
-      const float d = __fadd_rn(__fsub_rn(a2, __fmul_rn(2.f, ab)), s.w);
-      best = fminf(best, fmaxf(d, 0.f));
+    for (int k = 0; k < TS; ++k) {
+      const float4 s = tile[k];
+#pragma unroll
+      for (int r = 0; r < K3_ROWS; ++r)
+        best[r] = fminf(best[r], fmaf(nz[r], s.z, fmaf(ny[r], s.y, fmaf(nx[r], s.x, s.w))));
+    }
+    __syncthreads();  // every thread is done with tile t before it is overwritten
+  }
+#pragma unroll
+  for (int r = 0; r < K3_ROWS; ++r) {
+    const long long i = row0 + r * K3_THREADS;
+    if (i < n) {
+      const float ax = a[3 * i + 0], ay = a[3 * i + 1], az = a[3 * i + 2];
+      const float a2 = __fadd_rn(__fadd_rn(__fmul_rn(ax, ax), __fmul_rn(ay, ay)),
+                                 __fmul_rn(az, az));
+      out[i] = fmaxf(__fadd_rn(a2, best[r]), 0.f);
     }
   }
-  if (real) out[i] = best;
 }
 
 }  // namespace
@@ -234,23 +447,55 @@ extern "C" int min_sqdist_diff(const float* a, const float* b, int n, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3: a (n, 3), b (m, 3) with m >= 1, scratch b4 (ceil(m / 1024) * 1024, 4),
+// out (n,): contiguous f32 on the current device. Two launches on `stream`;
+// returns the first launch error.
 extern "C" int min_sqdist_gram(const float* a, const float* b, int n, int m,
-                               float* out, void* stream) {
+                               float* b4, float* out, void* stream) {
   if (n <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n + TQ - 1) / TQ);
-  min_sqdist_gram_kernel<<<blocks, TQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, n, m, out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (m + TS - 1) / TS;
+  float4* s4 = reinterpret_cast<float4*>(b4);
+  k3_support_prepare<<<(tiles * TS + 255) / 256, 256, 0, st>>>(b, m, tiles * TS, s4);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rows = K3_THREADS * K3_ROWS;
+  const unsigned blocks = static_cast<unsigned>((n + rows - 1) / rows);
+  min_sqdist_gram_kernel<<<blocks, K3_THREADS, 0, st>>>(a, s4, n, tiles, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// a (n, 3), b (m, 3), bbox (ceil(m / TS), 6) [min xyz, max xyz] per support
-// tile, out (n,): all contiguous f32 on the current device. Launches on
-// `stream`, allocates nothing, and returns cudaGetLastError() after the launch.
-extern "C" int min_sqdist_pruned(const float* a, const float* b, const float* bbox,
-                                 int n, int m, float r2, float* out, void* stream) {
+// K1: a (n, 3), b (m, 3), valid (m,) bytes or null, out (n,); scratch that
+// the wrapper lays out: b4 (ceil(m / 32) * 32, 4) and sub_box (ceil(m / 32),
+// 6), tile_box (ceil(m / 1024), 6) f32; keys, rank, perm (n,) and hist
+// ((ceil(m / 1024) + 1) * ceil(n / 1024),) int32. All contiguous on the
+// current device. Returns the first launch error.
+extern "C" int min_sqdist_pruned(const float* a, const float* b,
+                                 const unsigned char* valid, int n, int m, float r2,
+                                 float* b4, float* sub_box, float* tile_box,
+                                 int* keys, int* rank, int* hist, int* perm, float* out,
+                                 void* stream) {
   if (n <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n + TQ - 1) / TQ);
-  min_sqdist_pruned_kernel<<<blocks, TQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, bbox, n, m, r2, out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (m + TS - 1) / TS;
+  const int nblk = (n + KEY_ROWS - 1) / KEY_ROWS;
+  const int len = (tiles + 1) * nblk;
+  cudaError_t e = cudaMemsetAsync(hist, 0, sizeof(int) * static_cast<size_t>(len), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (tiles > 0) {
+    k1_support_prepare<<<tiles, TS, 0, st>>>(b, valid, m, reinterpret_cast<float4*>(b4),
+                                             sub_box, tile_box);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  }
+  k1_query_keys<<<nblk, KEY_THREADS, 0, st>>>(a, tile_box, n, tiles, r2, nblk, keys, rank,
+                                              hist);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  k1_offsets<<<1, 1024, 0, st>>>(hist, len);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  k1_scatter<<<(n + 255) / 256, 256, 0, st>>>(keys, rank, hist, n, nblk, perm);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const unsigned blocks = static_cast<unsigned>((n + 31) / 32);
+  k1_sweep<<<blocks, 32 * K1_WARPS, 0, st>>>(a, reinterpret_cast<const float4*>(b4),
+                                             sub_box, tile_box, keys, perm, n, m, r2, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,18 +28,20 @@ LAUNCHES: dict[str, int] = {"min_sqdist_pruned": 0, "min_sqdist_diff": 0,
                             "min_sqdist_gram": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# int min_sqdist_{diff,gram}(a, b, n, m, out, stream)
-_DENSE_SIG = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int)
+_P = ctypes.c_void_p
 _SIGNATURES = {
     "min_dist": {
-        # int min_sqdist_pruned(a, b, bbox, n, m, r2, out, stream)
+        # int min_sqdist_pruned(a, b, valid, n, m, r2, b4, sub_box, tile_box,
+        #     keys, rank, hist, perm, out, stream)
         "min_sqdist_pruned": (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+            [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [_P] * 9,
             ctypes.c_int),
-        "min_sqdist_diff": _DENSE_SIG,
-        "min_sqdist_gram": _DENSE_SIG,
+        # int min_sqdist_diff(a, b, n, m, out, stream)
+        "min_sqdist_diff": ([_P, _P, ctypes.c_int, ctypes.c_int, _P, _P],
+                            ctypes.c_int),
+        # int min_sqdist_gram(a, b, n, m, b4, out, stream)
+        "min_sqdist_gram": ([_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+                            ctypes.c_int),
     },
 }
 

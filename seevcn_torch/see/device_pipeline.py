@@ -272,7 +272,8 @@ def replace_with_completed(points: torch.Tensor, valid: torch.Tensor,
         cand = replacement_candidates(points, valid, completed, inst_valid, r,
                                       cand_cap)
         cok = cand >= 0
-        sub = points[cand.clamp_min(0), :3]
+        # padding rows far from every car, so no box test keeps them
+        sub = torch.where(cok[:, None], points[cand.clamp_min(0), :3], 1e9)
         near_sub = within_radius_mask(sub, flat, r, b_valid=flat_valid)
         near = torch.zeros((p + 1,), dtype=torch.bool, device=points.device)
         near[torch.where(cok, cand, p)] = near_sub & cok

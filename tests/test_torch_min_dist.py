@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from seevcn_torch.ops.cuda import min_dist as MD
 from seevcn_torch.ops.cuda.min_dist import (min_sqdist, min_sqdist_gram_plain,
-                                          min_sqdist_plain)
+                                          min_sqdist_plain, pairs_near_boxes,
+                                          pruned_sweep_plain)
 from seevcn_torch.testing import to_numpy, to_torch
 
 
@@ -54,11 +56,38 @@ def _case(name):
     if name == "single_query":
         a, b, _ = _wide_vs_clustered(7, 4, 2, 600, 0.5)
         return a[:1], b, None, 0.5
+    # K1 cases that its tiling by query rows never met
+    if name == "clusters_random_order":    # 9 cars, rows in scan order
+        a, b, _ = _wide_vs_clustered(8, 3000, 9, 700, 0.2)
+        return a[rng.permutation(len(a))], b, rng.rand(len(b)) > 0.1, 0.2
+    if name == "row_at_r_from_face":       # gap == r exactly: not pruned
+        b = rng.uniform(0, 1, (96, 3)).astype(np.float32)
+        b[40] = [0.0, 0.5, 0.5]            # on the face x = 0 of sub-tile 1
+        b[:, 0] = np.maximum(b[:, 0], 0.0)
+        a = np.array([[-0.5, 0.5, 0.5],    # exactly r from b[40]
+                      [-0.5, 0.1, 0.9],    # r from the face, farther from b
+                      [-0.5, 3.0, 0.5], [0.25, 0.25, 0.25]], np.float32)
+        return a, b, None, 0.5
+    if name == "near_two_clusters":        # rows within r of two cars
+        b = np.concatenate([rng.uniform(-1, 0, (1024, 3)),
+                            rng.uniform(0.3, 1.3, (1100, 3))]).astype(np.float32)
+        a = np.stack([rng.uniform(-0.3, 0.6, 500), rng.uniform(0, 0.3, 500),
+                      rng.uniform(-0.3, 0.3, 500)], 1).astype(np.float32)
+        return a, b, None, 0.5
+    if name == "ragged_n_m":               # N % 32 != 0, M % 32 != 0
+        a, b, _ = _wide_vs_clustered(9, 45, 3, 333, 0.5)
+        return a, b, rng.rand(len(b)) > 0.25, 0.5
+    if name == "copies_of_one_row":        # 24k rows at one place
+        b = (rng.uniform(-2, 2, (2000, 3)) + [20.0, -5.0, -1.0]).astype(np.float32)
+        a = np.repeat(b[7:8] + np.float32(0.03), 24576, axis=0)
+        return a, b, None, 0.1
     raise KeyError(name)
 
 
 CASES = ["wide_vs_clustered", "randn_scaled", "invalid_rows", "tiny_ragged",
-         "ragged_past_tiles", "all_invalid", "single_query"]
+         "ragged_past_tiles", "all_invalid", "single_query",
+         "clusters_random_order", "row_at_r_from_face", "near_two_clusters",
+         "ragged_n_m", "copies_of_one_row"]
 
 
 @pytest.fixture
@@ -95,9 +124,10 @@ def test_plain_and_dispatch_match_jax_on_contract(name):
 
     a, b, valid, r = _case(name)
     # precondition: no true distance within 1e-5 r^2 of the threshold, where
-    # the Gram and difference forms could round to different sides
+    # the Gram and difference forms could round to different sides, but for
+    # distances of exactly r, which every f32 form gets exactly
     t64 = _truth64(a, b, valid)
-    assert not (np.abs(t64 - r * r) <= 1e-5 * r * r).any()
+    assert not ((np.abs(t64 - r * r) <= 1e-5 * r * r) & (t64 != r * r)).any()
 
     jv = None if valid is None else jnp.asarray(valid)
     jax_pruned = np.asarray(jax_min_sqdist(jnp.asarray(a), jnp.asarray(b),
@@ -113,6 +143,11 @@ def test_plain_and_dispatch_match_jax_on_contract(name):
     np.testing.assert_allclose(plain, truth, atol=1e-4, rtol=1e-5)
     assert_contract(plain, truth, r)
     assert_contract(jax_pruned, truth, r)            # the reference kernel too
+    # the plain version of the card's route: its keys, order and sweep
+    route, swept = pruned_sweep_plain(to_torch(a), to_torch(b), tv, r)
+    assert_contract(to_numpy(route), truth, r)
+    assert swept >= pairs_near_boxes(to_torch(a), to_torch(b), tv, r, 32)
+    assert swept <= len(a) * -(-len(b) // 32) * 32
     r2 = np.float32(r * r)
     np.testing.assert_array_equal(plain <= r2, jax_pruned <= r2)
     inside = truth <= r2
@@ -137,17 +172,97 @@ def test_plain_is_chunk_invariant():
     torch.testing.assert_close(chunked, full, rtol=0, atol=0)
 
 
+# --- the pieces of K1's route, on the CPU --------------------------------------
+
+def test_query_keys_first_near_tile_or_none():
+    # tiles 0 and 2 overlap near the origin, tile 1 sits at x = 10, tile 2
+    # is ragged (452 rows); a row near tiles 0 and 2 takes 0, none reads 3
+    rng = np.random.RandomState(20)
+    b = np.concatenate([rng.uniform(0, 1, (1024, 3)),
+                        rng.uniform(0, 1, (1024, 3)) + [10.0, 0, 0],
+                        rng.uniform(0, 1, (452, 3))]).astype(np.float32)
+    boxes = MD.support_tile_boxes(to_torch(b))
+    assert boxes.shape == (3, 6)
+    a = np.array([[0.5, 0.5, 0.5], [10.5, 0.5, 0.5], [5.0, 0.5, 0.5],
+                  [1.05, 0.5, 0.5], [11.2, 0.5, 0.5]], np.float32)
+    hi0 = b[:1024, 0].max()
+    a[3, 0] = hi0 + 0.05                   # 0.05 past tile 0's face
+    keys = MD.query_keys(to_torch(a), boxes, 0.1)
+    assert keys.dtype == torch.int32
+    assert keys.tolist() == [0, 1, 3, 0, 3]
+    assert MD.query_keys(to_torch(a), boxes[:0], 0.1).tolist() == [0] * 5
+
+
+def test_pruned_order_and_its_inverse():
+    keys = torch.tensor([3, 0, 2, 0, 3, 1, 0, 2], dtype=torch.int32)
+    perm = MD.pruned_order(keys)
+    assert perm.tolist() == [1, 3, 6, 5, 2, 7, 0, 4]    # stable within a key
+    x = torch.arange(8.0) * 10
+    back = torch.empty_like(x)
+    back[perm] = x[perm]                   # the sweep's write to the row's place
+    torch.testing.assert_close(back, x, rtol=0, atol=0)
+    assert torch.equal(perm[torch.argsort(perm)], torch.arange(8))
+
+
+def test_group_boxes_skip_invalid_rows_and_ragged_group():
+    rng = np.random.RandomState(21)
+    b = rng.uniform(-1, 1, (70, 3)).astype(np.float32)
+    valid = np.ones(70, bool)
+    b[5] = [50.0, -50.0, 50.0]             # invalid: must not widen group 0
+    valid[5] = False
+    valid[32:64] = False                   # group 1 has no valid row
+    b[69] = [9.0, 9.0, 9.0]                # in the ragged group 2 (6 rows)
+    got = to_numpy(MD.support_tile_boxes(to_torch(b), to_torch(valid), 32))
+    assert got.shape == (3, 6)
+    for g, rows in enumerate((range(0, 32), range(32, 64), range(64, 70))):
+        ok = [j for j in rows if valid[j]]
+        if not ok:
+            assert (got[g, :3] == np.inf).all() and (got[g, 3:] == -np.inf).all()
+            continue
+        np.testing.assert_array_equal(got[g, :3], b[ok].min(0))
+        np.testing.assert_array_equal(got[g, 3:], b[ok].max(0))
+    assert got[2, 3] == 9.0 and got[0, 3] < 50.0
+
+
+def test_pairs_near_boxes_hand_made():
+    # groups of 2 rows over 5 support rows: boxes [0,1]x0x0, [10,11]x0x0,
+    # and the ragged [20]x0x0; row 3 is invalid and widens nothing
+    b = torch.tensor([[0.0, 0, 0], [1, 0, 0], [10, 0, 0], [99, 0, 0],
+                      [20, 0, 0]])
+    valid = torch.tensor([True, True, True, False, True])
+    a = torch.tensor([[0.5, 0, 0], [1.3, 0, 0], [9.8, 0, 0], [20, 0.2, 0],
+                      [50, 0, 0]])
+    # row 0: group 0 (2 rows); row 1: none at r = 0.25; row 2: group 1
+    # (2 rows, its invalid one counted); row 3: group 2 (1 row); row 4: none
+    assert pairs_near_boxes(a, b, valid, 0.25, 2) == 2 + 2 + 1
+    assert pairs_near_boxes(a, b, valid, 0.35, 2) == 2 + 2 + 2 + 1
+    # all rows valid: row 3 (x = 99) widens group 1 over rows 3 and 4 too
+    assert pairs_near_boxes(a, b, None, 0.25, 2) == 2 + 2 + (2 + 1) + 2
+    assert pairs_near_boxes(a, b[:0], None, 1.0, 2) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CASES)
 def test_kernel_matches_plain_on_card(name, cuda_device):
     a, b, valid, r = _case(name)
+    ta, tb = to_torch(a, cuda_device), to_torch(b, cuda_device)
     tv = None if valid is None else to_torch(valid, cuda_device)
-    got = min_sqdist(to_torch(a, cuda_device), to_torch(b, cuda_device), tv,
-                     prune_radius=r)
+    got = min_sqdist(ta, tb, tv, prune_radius=r)
     torch.cuda.synchronize()
-    plain = min_sqdist_plain(to_torch(a, cuda_device),
-                             to_torch(b, cuda_device), tv)
+    plain = min_sqdist_plain(ta, tb, tv)
     assert_contract(to_numpy(got), to_numpy(plain), r)
+    # bit for bit the plain version of the route; its boxes, keys and order
+    # as well
+    route, _ = pruned_sweep_plain(ta, tb, tv, r)
+    torch.testing.assert_close(got, route, rtol=0, atol=0)
+    _, parts = MD._pruned_route_parts(ta, tb, tv, r)
+    torch.testing.assert_close(parts["sub_box"],
+                               MD.support_tile_boxes(tb, tv, MD.SUB), rtol=0, atol=0)
+    torch.testing.assert_close(parts["tile_box"],
+                               MD.support_tile_boxes(tb, tv, MD.TS), rtol=0, atol=0)
+    keys = MD.query_keys(ta, parts["tile_box"], r)
+    assert torch.equal(parts["keys"], keys)
+    assert torch.equal(parts["perm"].long(), MD.pruned_order(keys))
 
 
 # --- K2 (form="diff", no radius) and K3 (form="gram") ----------------------
@@ -233,8 +348,9 @@ def test_dense_forms_cpu_route_is_plain():
 @pytest.mark.parametrize("form", ["diff", "gram"])
 @pytest.mark.parametrize("name", DENSE_CASES)
 def test_dense_kernel_matches_plain_on_card(name, form, cuda_device):
-    """K2 and K3 against their plain versions on the same card, bit for bit,
-    and K3 against the exact difference form at the reference's tolerance."""
+    """K2 against its plain version on the same card, bit for bit; K3
+    against its plain version and the exact difference form at the
+    reference's tolerance."""
     from seevcn_torch.ops.cuda.min_dist import gram_inputs, push_invalid
 
     a, b, valid = _dense_case(name)
@@ -244,11 +360,14 @@ def test_dense_kernel_matches_plain_on_card(name, form, cuda_device):
     torch.cuda.synchronize()
     if form == "diff":
         plain = min_sqdist_plain(ta, push_invalid(tb, tv))
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
     else:
+        # the kernel fuses the multiply-adds the plain version rounds one by
+        # one: both are held at the reference's Gram tolerance
         plain = min_sqdist_gram_plain(ta, tb, tv)
+        torch.testing.assert_close(got, plain, rtol=GRAM_RTOL, atol=GRAM_ATOL)
         ga, gb = gram_inputs(ta, tb, tv)
         exact = min_sqdist_plain(ga, gb)
         ok = torch.isfinite(min_sqdist_plain(ta, tb, tv))
         torch.testing.assert_close(got[ok], exact[ok],
                                    rtol=GRAM_RTOL, atol=GRAM_ATOL)
-    torch.testing.assert_close(got, plain, rtol=0, atol=0)
