@@ -51,6 +51,7 @@ from seevcn_torch.ops.sampling import partial_mesh_batch
 from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
+from seevcn_torch.testing import K2_CARD_EDGES, k2_edge_case
 
 # bench.py:165-170: KITTI P2-style camera for a 384x1280 image, and the
 # lidar -> camera axes (x -> depth, y -> -u, z -> -v)
@@ -304,6 +305,20 @@ def dense_cases(dev):
                          rng.uniform(-30, 30, (200, 3)), np.zeros(200, bool)),
         "wide_vs_clustered": next(contract_cases("cpu"))[1:3] + (None,),
     }
+    yield from _on_device(dev, cases)
+
+
+def k2_edge_cases(dev):
+    """K2 cases at the edges of its tiling, the same as the card tests'
+    (seevcn_torch.testing.K2_CARD_EDGES): N of 1, one below and one above a
+    unit's 1,024 rows; M of 1, one below and one above one and two 512-row
+    tiles; a support all at the pushed value 1e9; query rows at 1e9;
+    several blocks meeting on each row; more units than resident blocks,
+    so that runs cross row groups."""
+    yield from _on_device(dev, {name: k2_edge_case(name) for name in K2_CARD_EDGES})
+
+
+def _on_device(dev, cases):
     for name, (a, b, v) in cases.items():
         yield (name, torch.as_tensor(np.asarray(a, np.float32)).to(dev),
                torch.as_tensor(np.asarray(b, np.float32)).to(dev),
@@ -325,8 +340,9 @@ def check_dense_kernels(dev):
     its Gram kernel) of both its plain version min_sqdist_gram_plain (the
     same algebra with each product and sum rounded on its own; the kernel
     fuses them) and the exact difference form. A support with no valid row
-    reads about 3e18 on both kernels, as the reference's do. Returns the
-    worst |K3 - plain| and |K3 - exact| over valid rows."""
+    reads about 3e18 on both kernels, as the reference's do. Then K2 bit for
+    bit at the edges of its tiling. Returns the worst |K3 - plain| and |K3 -
+    exact| over valid rows."""
     worst_plain = worst_exact = 0.0
     for name, a, b, v in dense_cases(dev):
         k2 = MD.min_sqdist(a, b, v, form="diff")
@@ -344,6 +360,11 @@ def check_dense_kernels(dev):
         for k in (k2, k3):
             if not ((k[~ok] > 1e18) & torch.isfinite(k[~ok])).all():
                 raise AssertionError(f"no-valid-row support on {name}")
+    for name, a, b, v in k2_edge_cases(dev):
+        k2 = MD.min_sqdist(a, b, v, form="diff")
+        torch.cuda.synchronize()
+        if not torch.equal(k2, MD.min_sqdist_plain(a, MD.push_invalid(b, v))):
+            raise AssertionError(f"K2 differs from its plain version on {name}")
     return worst_plain, worst_exact
 
 
@@ -409,16 +430,40 @@ def device_us_by_kernel(fn, reps: int = 20):
 
 
 def kernel_entry(name, source_line, launches, max_err, k_ms, plain_ms,
-                 bound_ms, bound_by, lib_ms, steady):
+                 bound_ms, bound_by, lib_ms, steady, usage):
     """One kernel of the summary line. ``k_ms`` (ms, kernel_ms) is a median
     of a few CUDA-event calls, as the line has always given it; ``steady``
-    is (ms a call, median SM MHz) of the same call back to back for 1 s."""
+    is (ms a call, median SM MHz) of the same call back to back for 1 s;
+    ``usage`` is (registers, spilled bytes) of its main launch."""
     return {"name": name, "route": "cuda", "source": "seevcn_torch/csrc/min_dist.cu",
             "replaces": f"seevcn_tpu/ops/pallas/min_dist.py:{source_line}",
             "launches": launches, "max_abs_err": max_err, "ms": k_ms,
             "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, "steady_ms": steady[0],
-            "steady_mhz": steady[1]}
+            "steady_mhz": steady[1], "registers": usage[0], "spill_bytes": usage[1]}
+
+
+def ptxas_usage(log):
+    """{entry function: (registers, spill stores + loads in bytes)} from
+    ``nvcc -Xptxas -v``'s output."""
+    usage, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)), spill)
+    return usage
+
+
+def usage_of(usage, short):
+    """The (registers, spilled bytes) of the entry function named ``short``,
+    or (None, None) where this run did not build it."""
+    return next((v for k, v in usage.items() if short in k), (None, None))
 
 
 def seeded_detector_state_dict(seed: int, model, random_stats: bool = False) -> dict:
@@ -655,10 +700,9 @@ def main() -> int:
     t0 = time.time()
     logs = K.build(K.KERNELS)
     print(f"build: {time.time() - t0:.1f} s for {list(K.KERNELS)}")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill")):
-                print(f"  {name}: {line.strip()}")
+    usage = ptxas_usage("\n".join(logs.values()))
+    for fn, (regs, spill) in usage.items():
+        print(f"  {fn}: {regs} registers, {spill} bytes spilled")
 
     # --- 2. K1, K2, K3 against their plain versions at test sizes ---------
     worst = 0.0
@@ -758,7 +802,8 @@ def main() -> int:
           f"(torch.profiler): " + ", ".join(f"{k} {v:.2f}" for k, v in dev_us.items()))
     kernels = [kernel_entry("min_sqdist_pruned", 52,
                             frame_launches["min_sqdist_pruned"], max_err, k_ms,
-                            plain_ms, bound_ms, bound_by, lib_ms, k1_steady)]
+                            plain_ms, bound_ms, bound_by, lib_ms, k1_steady,
+                            usage_of(usage, "k1_sweep"))]
 
     # --- 5. K2 and K3 through min_sqdist at the replacement stage's scan:
     # the whole scan (N = 150,000) against the 32 x 1024 completed points
@@ -809,9 +854,10 @@ def main() -> int:
               f"({bound_by}, {ops} per pair) on {card}; back to back for 1 s: "
               f"{run_ms:.4f} ms a call at a median SM clock of {mhz:.0f} MHz and "
               f"{watts:.0f} W")
+        entry_fn = "k2_sweep" if name == "min_sqdist_diff" else "min_sqdist_gram_kernel"
         kernels.append(kernel_entry(name, line, dense_launches[name], err, k_ms,
                                     plain_ms, bound_ms, bound_by, lib_ms,
-                                    (run_ms, mhz)))
+                                    (run_ms, mhz), usage_of(usage, entry_fn)))
     print(f"K3 at N={n_q}: max |K3 - plain| {k3_err:.3g}, max |K3 - exact "
           f"difference form| {k3_vs_exact:.3g} (atol {GRAM_ATOL}, rtol {GRAM_RTOL}); "
           f"its bound at the earlier count of 10 operations a pair (each "

@@ -53,14 +53,15 @@
 // gap never exceeds the distance to any point inside it.
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include <cub/block/block_discontinuity.cuh>
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 
 namespace {
 
-constexpr int TQ = 128;    // K2: query rows per block, one per thread
-constexpr int TS = 1024;   // support rows per tile
+constexpr int TS = 1024;   // support rows per tile (K1, K3)
 constexpr int SUB = 32;    // K1: support rows per sub-tile (one box each)
 constexpr int K1_WARPS = 16;  // K1: warps per sweep block, sharing its 32 rows
 constexpr int KEY_THREADS = 256;  // K1's sort: threads per block
@@ -279,54 +280,134 @@ k1_sweep(const float* __restrict__ a, const float4* __restrict__ b4,
 //
 // Replaces seevcn_tpu/ops/pallas/min_dist.py:_kernel_diff. For each query
 // row a_i: min over all support rows b_j of ((ax-bx)^2 + (ay-by)^2) +
-// (az-bz)^2. The wrapper has already pushed invalid support rows to 1e9, so
-// they never win unless no row is valid, where the row reads about 3e18, as
-// the TPU kernel's does.
+// (az-bz)^2, each product and sum rounded on its own (no FMA), in that
+// order, so the result is min_sqdist_plain's bit for bit. The wrapper has
+// already pushed invalid support rows to 1e9, so they never win unless no
+// row is valid, where the row reads about 3e18, as the TPU kernel's does.
 //
-// What bounds it on an H100: FP32 CUDA-core arithmetic, 9 operations (3 sub,
-// 3 mul, 2 add, 1 min) for every query-support pair, N*M pairs in all; the
-// bytes (12 per row read, 4 per query written) are negligible.
+// What bounds it on an H100: instruction issue. A pair costs 8 FP32
+// instructions that may not be fused (3 sub, 3 mul, 2 add) and a share of a
+// min and of a shared-memory load; each of the 132 x 4 schedulers issues one
+// warp-instruction a clock. The bytes (12 per row read, 4 per query
+// written) are negligible.
 //
-// What the design does about that: one block owns a query tile and sweeps
-// every support tile itself (the TPU kernel carried the running minimum
-// across its sequential support axis; CUDA blocks run in no order), so the
-// minimum stays in a register. Each support tile is staged once in shared
-// memory as float4 (x, y, z, 0), so one 16-byte broadcast load feeds the 9
-// operations of a pair. Products and sums are rounded separately (no FMA),
-// in the order of the plain PyTorch version, so the two agree bit for bit.
-__global__ void __launch_bounds__(TQ)
-min_sqdist_diff_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                       int n, int m, float* __restrict__ out) {
-  __shared__ float4 sb[TS];
+// What the design does about that. Two launches from one host call:
+//   1. k2_prepare writes the support as float4 (x, y, z, 0), padded to whole
+//      K2_TILE-row tiles with copies of the last row, and sets every output
+//      to +inf's bits. A copy of a row never changes a min; a padding row at
+//      1e9, as the TPU wrapper pads, would read 0 for a query row at 1e9.
+//   2. k2_sweep. Each thread keeps K2_ROWS = 8 query rows in registers, so
+//      one 16-byte broadcast load from shared memory feeds 8 pairs. Every
+//      distance is >= +0 (or +inf), so its bits order as a signed int, and
+//      __vimin3_s32 takes the min of two pairs in one step, exactly: ptxas
+//      makes it one VIMNMX3, which issues in one slot among the FP32
+//      instructions, as an FMNMX does. The work is cut into units of
+//      (K2_GROUP query rows, one support tile); the grid holds as many
+//      blocks as the card runs at once, and each block sweeps a contiguous
+//      run of units, the runs within one unit of each other, so the SMs get
+//      even shares of the pairs in one wave. A block's minima go to the
+//      output by atomicMin on the bits when its run leaves a row group: a
+//      min is order-free, so every run gives the same bits. Each tile is one
+//      contiguous 8 KB cp.async copy, double-buffered.
+//   At N = 150,000, M = 32,768: 147 row groups x 64 tiles = 9,408 units on
+//   132 SMs x 9 blocks of 128 threads (56 registers a thread leave room for
+//   9), 7 or 8 units a block. The inner loop issues 557 instructions for 64
+//   pairs a thread (320 FADD, 192 FMUL, 32 VIMNMX3, 8 LDS.128, 5 of loop
+//   control): 8.70 slots per 32 pairs, a floor of 1.279 ms at 1980 MHz.
+//   Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+//   limit: 1.39 ms a call back to back at 1980 MHz, 92% of that floor and
+//   48% of the 9-operations-a-pair bound (0.6603 ms); the design before it
+//   took 1.90 ms on the same card. A fixed grid of (row group) x (8-tile
+//   chunk), 1,176 blocks that each flush once and need no occupancy query,
+//   measured 0.5% slower in the same call, so the one wave stays.
+constexpr int K2_THREADS = 128;
+constexpr int K2_ROWS = 8;
+constexpr int K2_GROUP = K2_THREADS * K2_ROWS;  // query rows of a unit
+constexpr int K2_TILE = 512;                    // support rows of a unit
+constexpr int kInfBits = 0x7f800000;
 
-  const int tid = threadIdx.x;
-  const long long i = static_cast<long long>(blockIdx.x) * TQ + tid;
-  const bool real = i < n;
-  const float ax = real ? a[3 * i + 0] : 0.f;
-  const float ay = real ? a[3 * i + 1] : 0.f;
-  const float az = real ? a[3 * i + 2] : 0.f;
-
-  float best = __int_as_float(0x7f800000);
-  for (long long base = 0; base < m; base += TS) {
-    const int cnt = min(TS, static_cast<int>(m - base));
-    __syncthreads();  // the previous tile's readers are done
-    for (int k = tid; k < cnt; k += TQ) {
-      const float* p = b + 3 * (base + k);
-      sb[k] = make_float4(p[0], p[1], p[2], 0.f);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < cnt; ++k) {
-      const float4 s = sb[k];
-      const float dx = __fsub_rn(ax, s.x);
-      const float dy = __fsub_rn(ay, s.y);
-      const float dz = __fsub_rn(az, s.z);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      best = fminf(best, d);
-    }
+__global__ void k2_prepare(const float* __restrict__ b, int m, int m_pad, int n,
+                           float4* __restrict__ b4, int* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < m_pad) {
+    const long long s = min(j, m - 1);
+    b4[j] = make_float4(b[3 * s + 0], b[3 * s + 1], b[3 * s + 2], 0.f);
   }
-  if (real) out[i] = best;
+  if (j < n) out[j] = kInfBits;
+}
+
+// K2, K3: one tile of ROWS float4 rows into shared memory by a block of
+// THREADS threads with cp.async, as one commit group
+template <int THREADS, int ROWS>
+__device__ __forceinline__ void copy_tile(float4* dst, const float4* src) {
+#pragma unroll
+  for (int k = threadIdx.x; k < ROWS; k += THREADS) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + k));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + k));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__global__ void __launch_bounds__(K2_THREADS)
+k2_sweep(const float* __restrict__ a, const float4* __restrict__ b4, int n, int tiles,
+         long long units, int* __restrict__ out) {
+  __shared__ __align__(16) float4 sb[2][K2_TILE];
+
+  const long long per = units / gridDim.x, extra = units % gridDim.x;
+  const long long u0 = blockIdx.x * per + min(static_cast<long long>(blockIdx.x), extra);
+  const long long u1 = u0 + per + (blockIdx.x < extra ? 1 : 0);
+  float ax[K2_ROWS], ay[K2_ROWS], az[K2_ROWS];
+  int best[K2_ROWS];
+  auto load_rows = [&](long long g) {
+#pragma unroll
+    for (int r = 0; r < K2_ROWS; ++r) {
+      const long long i = g * K2_GROUP + r * K2_THREADS + threadIdx.x;
+      const bool real = i < n;
+      ax[r] = real ? a[3 * i + 0] : 0.f;
+      ay[r] = real ? a[3 * i + 1] : 0.f;
+      az[r] = real ? a[3 * i + 2] : 0.f;
+      best[r] = kInfBits;
+    }
+  };
+  auto flush_rows = [&](long long g) {
+#pragma unroll
+    for (int r = 0; r < K2_ROWS; ++r) {
+      const long long i = g * K2_GROUP + r * K2_THREADS + threadIdx.x;
+      if (i < n) atomicMin(out + i, best[r]);
+    }
+  };
+
+  long long group = u0 / tiles;
+  load_rows(group);
+  copy_tile<K2_THREADS, K2_TILE>(sb[0], b4 + (u0 % tiles) * K2_TILE);
+  for (long long u = u0; u < u1; ++u) {
+    const int buf = static_cast<int>((u - u0) & 1);
+    if (u + 1 < u1) {
+      // buffer buf ^ 1 was last read in the previous unit, which ended in a barrier
+      copy_tile<K2_THREADS, K2_TILE>(sb[buf ^ 1], b4 + ((u + 1) % tiles) * K2_TILE);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // unit u's tile has landed for every thread
+    if (u / tiles != group) {
+      flush_rows(group);
+      group = u / tiles;
+      load_rows(group);
+    }
+    const float4* tile = sb[buf];
+#pragma unroll 4
+    for (int k = 0; k < K2_TILE; k += 2) {
+      const float4 s0 = tile[k], s1 = tile[k + 1];
+#pragma unroll
+      for (int r = 0; r < K2_ROWS; ++r)
+        best[r] = __vimin3_s32(best[r],
+                               __float_as_int(diff_sqdist(ax[r], ay[r], az[r], s0)),
+                               __float_as_int(diff_sqdist(ax[r], ay[r], az[r], s1)));
+    }
+    __syncthreads();  // every thread is done with this tile before it is overwritten
+  }
+  flush_rows(group);
 }
 
 // Row-wise minimum squared distance, Gram form (kernel K3).
@@ -375,15 +456,6 @@ __global__ void k3_support_prepare(const float* __restrict__ b, int m, int m_pad
   b4[j] = make_float4(bx, by, bz, b2);
 }
 
-__device__ __forceinline__ void k3_copy_tile(float4* dst, const float4* src) {
-#pragma unroll
-  for (int k = threadIdx.x; k < TS; k += K3_THREADS) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + k));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + k));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 __global__ void __launch_bounds__(K3_THREADS)
 min_sqdist_gram_kernel(const float* __restrict__ a, const float4* __restrict__ b4,
                        int n, int tiles, float* __restrict__ out) {
@@ -402,11 +474,11 @@ min_sqdist_gram_kernel(const float* __restrict__ a, const float4* __restrict__ b
     best[r] = __int_as_float(0x7f800000);
   }
 
-  k3_copy_tile(sb[0], b4);
+  copy_tile<K3_THREADS, TS>(sb[0], b4);
   for (int t = 0; t < tiles; ++t) {
     if (t + 1 < tiles) {
       // buffer (t + 1) & 1 was last read in step t - 1, which ended in a barrier
-      k3_copy_tile(sb[(t + 1) & 1], b4 + static_cast<long long>(t + 1) * TS);
+      copy_tile<K3_THREADS, TS>(sb[(t + 1) & 1], b4 + static_cast<long long>(t + 1) * TS);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
@@ -436,14 +508,29 @@ min_sqdist_gram_kernel(const float* __restrict__ a, const float4* __restrict__ b
 
 }  // namespace
 
-// a (n, 3), b (m, 3) with m >= 1, out (n,): contiguous f32 on the current
-// device. Launch on `stream`, allocate nothing, return cudaGetLastError().
-extern "C" int min_sqdist_diff(const float* a, const float* b, int n, int m,
+// K2: a (n, 3), b (m, 3) with m >= 1, scratch b4 (ceil(m / 512) * 512, 4),
+// out (n,): contiguous f32 on the current device. Two launches on `stream`;
+// returns the first error.
+extern "C" int min_sqdist_diff(const float* a, const float* b, int n, int m, float* b4,
                                float* out, void* stream) {
   if (n <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n + TQ - 1) / TQ);
-  min_sqdist_diff_kernel<<<blocks, TQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, n, m, out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (m + K2_TILE - 1) / K2_TILE;
+  float4* s4 = reinterpret_cast<float4*>(b4);
+  int* bits = reinterpret_cast<int*>(out);
+  const int len = std::max(n, tiles * K2_TILE);
+  k2_prepare<<<(len + 255) / 256, 256, 0, st>>>(b, m, tiles * K2_TILE, n, s4, bits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k2_sweep, K2_THREADS, 0)) !=
+          cudaSuccess)
+    return static_cast<int>(e);
+  const long long units = static_cast<long long>((n + K2_GROUP - 1) / K2_GROUP) * tiles;
+  const long long blocks = std::min(units, static_cast<long long>(sms) * std::max(per_sm, 1));
+  k2_sweep<<<static_cast<unsigned>(blocks), K2_THREADS, 0, st>>>(a, s4, n, tiles, units, bits);
   return static_cast<int>(cudaGetLastError());
 }
 

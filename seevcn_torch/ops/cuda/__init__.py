@@ -36,8 +36,8 @@ _SIGNATURES = {
         "min_sqdist_pruned": (
             [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float] + [_P] * 9,
             ctypes.c_int),
-        # int min_sqdist_diff(a, b, n, m, out, stream)
-        "min_sqdist_diff": ([_P, _P, ctypes.c_int, ctypes.c_int, _P, _P],
+        # int min_sqdist_diff(a, b, n, m, b4, out, stream)
+        "min_sqdist_diff": ([_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],
                             ctypes.c_int),
         # int min_sqdist_gram(a, b, n, m, b4, out, stream)
         "min_sqdist_gram": ([_P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P],

@@ -32,6 +32,14 @@ write each result back to its row's place. ``pruned_sweep_plain`` is the
 plain version of that route, bit for bit, and counts the pairs it
 sweeps.
 
+K2 is bound by instruction issue: 8 FP32 instructions a pair that may not
+be fused. Its call (``min_sqdist_diff``, two launches) writes the support
+as float4 padded to whole K2_TILE-row tiles with copies of its last row,
+then sweeps units of (K2_GROUP query rows, one tile), 8 rows a thread, in
+one wave of blocks that each take an even share of the units; the min is
+taken on the distances' bits (they are never negative), two pairs an
+instruction, and the blocks' minima meet by atomicMin on those bits.
+
 K3 is bound by FP32 issue slots: the kernel computes max(|a|^2 + min_j e_j,
 0) with e_j = |b_j|^2 - 2 a.b_j, 3 FFMA and a min a pair, four query rows a
 thread. ``min_sqdist_gram_plain`` computes the same e with separate
@@ -47,11 +55,12 @@ import torch
 
 from . import LAUNCHES, load_library
 
-TQ = 128    # K2's query rows per CUDA block (one thread each); keep in step with csrc
-TS = 1024   # support rows per tile; keep in step with csrc
+TS = 1024   # K1's and K3's support rows per tile; keep in step with csrc
 SUB = 32    # K1's support rows per sub-tile box; keep in step with csrc
 WARP = 32   # K1's query rows per warp of the sweep
 KEY_ROWS = 256  # K1's rows per block of its sort; keep in step with csrc
+K2_GROUP = 1024  # K2's query rows of a unit of work; keep in step with csrc
+K2_TILE = 512    # K2's support rows of a unit of work; keep in step with csrc
 FAR = 1e9   # where invalid support rows are pushed, as in the reference
 PRUNED_INIT = 1e18  # K1's value for a row that no support box is near
 CENTRE_CLIP = 1e4
@@ -337,10 +346,15 @@ def _pruned_route_parts(a: torch.Tensor, b: torch.Tensor,
 
 
 def _launch_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K2 on the wrapper's prepared inputs: one launch."""
+    """K2 on the wrapper's pushed inputs: two launches, the support as float4
+    padded to whole K2_TILE-row tiles with copies of its last row into
+    scratch, then the sweep."""
     _check(a, b)
-    out = torch.empty((a.shape[0],), dtype=torch.float32, device=a.device)
-    _call("min_sqdist_diff", a.device, a, b, a.shape[0], b.shape[0], out)
+    n, m = a.shape[0], b.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=a.device)
+    b4 = torch.empty((-(-m // K2_TILE) * K2_TILE, 4), dtype=torch.float32,
+                     device=a.device)
+    _call("min_sqdist_diff", a.device, a, b, n, m, b4, out)
     LAUNCHES["min_sqdist_diff"] += 1
     return out
 

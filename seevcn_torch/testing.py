@@ -1,9 +1,15 @@
 """Helpers for holding the port against its reference: numpy <-> torch
-conversion and an ``assert_close`` that names the worst element."""
+conversion, an ``assert_close`` that names the worst element, and the
+cases at the edges of kernel K2's tiling, which the tests and
+chip_smoke.py both run."""
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
+
+from seevcn_torch.ops.cuda.min_dist import FAR
 
 
 def to_torch(x, device: str | torch.device = "cpu") -> torch.Tensor:
@@ -50,3 +56,37 @@ def assert_close(actual, expected, atol: float = 0.0, rtol: float = 0.0,
             f"{name}: {int((excess > 0).sum())} of {a.size} elements exceed "
             f"atol={atol} rtol={rtol}; worst at {idx}: {a[idx]} vs {e[idx]} "
             f"(|diff| {err[idx]:.3g})")
+
+
+# K2's tiling (ops/cuda/min_dist.py): units of K2_GROUP = 1,024 query rows
+# (8 a thread) by K2_TILE = 512 support rows, cut into runs, one a block.
+# N of 1, one below and one above a unit's rows, not a multiple of 8; M of
+# 1, one below and one above one and two tiles; a support of rows all at
+# the pushed value 1e9; query rows at 1e9, where a padding row at 1e9 would
+# read 0; several blocks whose minima meet on each row; and, on the card,
+# more units than the card holds blocks, so that runs cross from one row
+# group into the next (the plain version of that case is too large for a
+# CPU).
+K2_EDGES = ("n1_m513", "n1023_m1", "n1025_m511_invalid", "n1030_m1025",
+            "n1024_m1023", "n2049_m512", "all_rows_far", "queries_at_far",
+            "n2100_m9000_invalid")
+K2_CARD_EDGES = K2_EDGES + ("n20000_m40000",)
+
+
+def k2_edge_case(name: str):
+    """One of K2_CARD_EDGES as numpy (a (N, 3), b (M, 3), valid (M,) or
+    None), made from a seed."""
+    rng = np.random.RandomState(40 + K2_CARD_EDGES.index(name))
+
+    def cloud(n):
+        return rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+
+    far = np.float32(FAR)
+    if name == "all_rows_far":
+        return cloud(300), np.full((600, 3), far, np.float32), None
+    if name == "queries_at_far":
+        return (np.concatenate([cloud(5), np.full((4, 3), far, np.float32)]),
+                cloud(700), None)
+    n, m = (int(x) for x in re.match(r"n(\d+)_m(\d+)", name).groups())
+    valid = rng.rand(m) > 0.3 if name.endswith("invalid") else None
+    return cloud(n), cloud(m), valid

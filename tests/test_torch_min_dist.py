@@ -17,7 +17,8 @@ from seevcn_torch.ops.cuda import min_dist as MD
 from seevcn_torch.ops.cuda.min_dist import (min_sqdist, min_sqdist_gram_plain,
                                           min_sqdist_plain, pairs_near_boxes,
                                           pruned_sweep_plain)
-from seevcn_torch.testing import to_numpy, to_torch
+from seevcn_torch.testing import (K2_CARD_EDGES, K2_EDGES, k2_edge_case, to_numpy,
+                                  to_torch)
 
 
 def _wide_vs_clustered(seed, n, k_centres, per, r):
@@ -282,11 +283,16 @@ def _dense_case(name):
         a = rng.uniform(-30, 30, (2051, 3)).astype(np.float32)
         b = rng.uniform(-30, 30, (2305, 3)).astype(np.float32)
         return a, b, rng.rand(2305) > 0.3
+    if name in K2_CARD_EDGES:
+        return k2_edge_case(name)
     a, b, valid, _ = _case(name)
     return a, b, valid
 
 
 DENSE_CASES = CASES + ["lidar_range", "gram_invalid_rows", "past_two_tiles"]
+# on the card: K2 and K3 on every dense case, and K2 at the edges of its tiling
+CARD_CASES = ([(name, form) for name in DENSE_CASES for form in ("diff", "gram")]
+              + [(name, "diff") for name in K2_CARD_EDGES])
 # K3 against the exact difference form: the reference's own tolerance for
 # its Gram kernel (test_pallas_min_dist.py:44)
 GRAM_ATOL, GRAM_RTOL = 2e-3, 1e-3
@@ -344,13 +350,101 @@ def test_dense_forms_cpu_route_is_plain():
         assert torch.isfinite(d).all() and (d > 1e18).all()
 
 
+# --- K2's tiling: the min on the distances' bits, over units of work -----------
+
+def _f32(*vals):
+    return np.array(vals, np.float32)
+
+
+MIN_VALUES = np.concatenate([
+    _f32(0.0, np.finfo(np.float32).smallest_subnormal, 1e-30, 1e18, 3e18, np.inf),
+    np.random.RandomState(30).uniform(0, 100, 26).astype(np.float32)])
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_int_bit_min_is_float_min(seed):
+    """K2 takes the min of two distances and the running min in one 3-input
+    integer min of their bits: for values >= +0 (and +inf) the int32 view
+    orders as the floats do, so the result is the float min, bit for bit."""
+    v = MIN_VALUES[np.random.RandomState(seed).permutation(len(MIN_VALUES))]
+    bits = v.view(np.int32)
+    assert bits.min().view(np.float32) == v.min()
+    assert bits.min().view(np.float32).tobytes() == v.min().tobytes()
+    best = np.int32(0x7F800000)                      # +inf, where the kernel starts
+    for d0, d1 in zip(bits[0::2], bits[1::2]):       # two pairs a step
+        best = min(best, d0, d1)
+    assert np.int32(best).view(np.float32).tobytes() == v.min().tobytes()
+    # a pair's distance is never -0: (-0) * (-0) and the sums of +0 are +0
+    z = to_torch(_f32(-0.0, 0.0))
+    d = min_sqdist_plain(z[None, :1].repeat(1, 3), z[None, 1:].repeat(1, 3))
+    assert d.view(torch.int32).item() == 0
+
+
+def _k2_units(a, b, pad_row):
+    """min_sqdist_plain over each unit of K2's work (K2_GROUP rows x K2_TILE
+    support rows, the support padded to whole tiles with ``pad_row``),
+    combined by the int min of the bits, as the kernel's atomicMin does. A
+    block sweeps a run of units and a min is associative, so every cut of
+    the units into runs gives these bits."""
+    m = b.shape[0]
+    bp = torch.cat([b, pad_row.expand((-m) % MD.K2_TILE, 3)])
+    out = torch.full((a.shape[0],), 0x7F800000, dtype=torch.int32)
+    for g in range(0, a.shape[0], MD.K2_GROUP):
+        for t in range(0, bp.shape[0], MD.K2_TILE):
+            part = min_sqdist_plain(a[g:g + MD.K2_GROUP], bp[t:t + MD.K2_TILE])
+            out[g:g + MD.K2_GROUP] = torch.minimum(out[g:g + MD.K2_GROUP],
+                                                   part.view(torch.int32))
+    return out.view(torch.float32)
+
+
+@pytest.mark.parametrize("name", K2_EDGES)
+def test_k2_units_with_int_min_equal_plain(name):
+    """The plain version over the whole support equals, bit for bit, the
+    int-bit min of the plain version over K2's units, with the invalid rows
+    pushed to 1e9 and the support padded with copies of its last row, as
+    the kernel pads it. Padding rows at 1e9, as the TPU wrapper pads, would
+    not: a query row at 1e9 would read 0."""
+    a, b, valid = k2_edge_case(name)
+    ta = to_torch(a)
+    tb = MD.push_invalid(to_torch(b), None if valid is None else to_torch(valid))
+    whole = min_sqdist_plain(ta, tb)
+    assert torch.equal(_k2_units(ta, tb, tb[-1:]).view(torch.int32),
+                       whole.view(torch.int32))
+    assert torch.equal(min_sqdist(ta, to_torch(b), None if valid is None
+                                  else to_torch(valid), form="diff"), whole)
+    far = _k2_units(ta, tb, tb.new_full((1, 3), MD.FAR))
+    if name == "queries_at_far":
+        assert (far[-4:] == 0).all() and (whole[-4:] > 1e18).all()
+    else:
+        assert torch.equal(far, whole)
+
+
+@pytest.mark.parametrize("name", K2_EDGES)
+def test_k2_edges_match_jax(name):
+    """K2's edges against the Pallas kernel in interpret mode, which pads
+    the support to 1,024-row tiles with rows at 1e9: it agrees everywhere
+    but at the query rows that sit at 1e9, where its padding reads 0."""
+    import jax.numpy as jnp
+
+    from seevcn_tpu.ops.pallas.min_dist import min_sqdist as jax_min_sqdist
+
+    a, b, valid = k2_edge_case(name)
+    jv = None if valid is None else jnp.asarray(valid)
+    jax_k = np.asarray(jax_min_sqdist(jnp.asarray(a), jnp.asarray(b), b_valid=jv,
+                                      interpret=True, form="diff"))
+    got = to_numpy(min_sqdist(to_torch(a), to_torch(b), None if valid is None
+                              else to_torch(valid), form="diff"))
+    at_far = (a == np.float32(MD.FAR)).all(1)
+    np.testing.assert_allclose(got[~at_far], jax_k[~at_far], rtol=1e-6, atol=1e-5)
+    assert (jax_k[at_far] == 0).all() and (got[at_far] > 1e18).all()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["diff", "gram"])
-@pytest.mark.parametrize("name", DENSE_CASES)
+@pytest.mark.parametrize("name,form", CARD_CASES)
 def test_dense_kernel_matches_plain_on_card(name, form, cuda_device):
-    """K2 against its plain version on the same card, bit for bit; K3
-    against its plain version and the exact difference form at the
-    reference's tolerance."""
+    """K2 against its plain version on the same card, bit for bit, also at
+    the edges of its tiling; K3 against its plain version and the exact
+    difference form at the reference's tolerance."""
     from seevcn_torch.ops.cuda.min_dist import gram_inputs, push_invalid
 
     a, b, valid = _dense_case(name)
