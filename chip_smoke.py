@@ -13,10 +13,15 @@ image, VCN_VC at full width with weights made from a seed) through
 ``seevcn_torch.see.frame.complete_frame``, runs K2 and K3 through
 ``min_sqdist`` on that frame's scan and completed points, and runs the
 SECOND-IoU detector at ``_flagship_detector_cfg`` (weights made from a seed)
-on the frame's output cloud through ``detect_stage``. It checks that each
-path went through its kernels and that its output is right (the detector
-against the port's CPU path at ``_tiny_detector_cfg``, and its first sparse
-conv against a dense conv3d at the flagship input), and prints timings.
+on the frame's output cloud through ``detect_stage``, and then bench.py's
+whole fused frame through ``run_frame``: Mask R-CNN at bench.py's
+``Seg2DConfig(image_size=(384, 1280), max_detections=32)`` (weights made
+from a seed) on a random camera image, its 32 detections into the SEE frame,
+the detector on the output. It checks that each path went through its
+kernels and that its output is right (the detector and the mask model
+against the port's CPU path at their tiny configs, and the detector's first
+sparse conv against a dense conv3d at the flagship input), and prints
+timings.
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -38,6 +43,9 @@ import torch
 
 from seevcn_torch.models.detectors import configs as DC
 from seevcn_torch.models.detectors.second import build_detector
+from seevcn_torch.models.seg2d import maskrcnn as SM
+from seevcn_torch.models.seg2d.backend import build_seg2d
+from seevcn_torch.geom.boxes import boxes_iou_normal
 from seevcn_torch.models.vcn.inference import VCNInference
 from seevcn_torch.models.vcn.nets import build_vcn
 from seevcn_torch.ops import cuda as K
@@ -51,7 +59,7 @@ from seevcn_torch.ops.sampling import partial_mesh_batch
 from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
-from seevcn_torch.testing import K2_CARD_EDGES, k2_edge_case
+from seevcn_torch.testing import K2_CARD_EDGES, k2_edge_case, tiny_seg2d_cfg
 
 # bench.py:165-170: KITTI P2-style camera for a 384x1280 image, and the
 # lidar -> camera axes (x -> depth, y -> -u, z -> -v)
@@ -466,16 +474,20 @@ def usage_of(usage, short):
     return next((v for k, v in usage.items() if short in k), (None, None))
 
 
-def seeded_detector_state_dict(seed: int, model, random_stats: bool = False) -> dict:
-    """Random SECOND-IoU weights from a torch.Generator at the scale of
-    flax's default init, as seeded_vcn_state_dict does for VCN_VC: every
-    conv / linear weight normal with std 1/sqrt(fan_in), biases zero, batch
-    norm at identity statistics. fan_in is the product of all dimensions
-    but the output one: the first for every layout but ConvTranspose2d's
-    (in, out, kh, kw). ``random_stats`` draws the biases and the batch-norm
-    affine and running statistics too, so that empty BEV cells do not all
-    score alike."""
+def seeded_state_dict(seed: int, model, random_stats: bool = False) -> dict:
+    """Random weights for ``model`` (the SECOND-IoU detector, Mask R-CNN)
+    from a torch.Generator at the scale of flax's default init, as
+    seeded_vcn_state_dict does for VCN_VC: every conv / linear weight normal
+    with std 1/sqrt(fan_in), biases zero, batch norm at identity statistics.
+    fan_in is the product of all dimensions but the output one: the first
+    for every layout but a transposed conv's (in, out, kh, kw), which the
+    model's module types tell apart. ``random_stats`` draws the biases and
+    the batch-norm affine and running statistics too, so that no norm is an
+    identity and empty BEV cells do not all score alike."""
     gen = torch.Generator().manual_seed(seed)
+    transposed = {f"{name}.weight" for name, m in model.named_modules()
+                  if isinstance(m, (torch.nn.ConvTranspose1d, torch.nn.ConvTranspose2d,
+                                    torch.nn.ConvTranspose3d))}
     sd = model.state_dict()
     out = {}
     for k, v in sd.items():
@@ -493,7 +505,7 @@ def seeded_detector_state_dict(seed: int, model, random_stats: bool = False) -> 
             out[k] = 0.1 * torch.randn(v.shape, generator=gen) if random_stats \
                 else torch.zeros_like(v)
         else:
-            fan = v.shape[0] * math.prod(v.shape[2:]) if ".deblocks." in k \
+            fan = v.shape[0] * math.prod(v.shape[2:]) if k in transposed \
                 else math.prod(v.shape[1:])
             out[k] = torch.randn(v.shape, generator=gen) / math.sqrt(fan)
     return out
@@ -523,7 +535,7 @@ def check_tiny_detector_against_cpu(dev):
     cfg = DC.tiny_detector_cfg()
     cpu = torch.device("cpu")
     model, _ = build_detector(cfg, device=cpu)
-    sd = seeded_detector_state_dict(2, model, random_stats=True)
+    sd = seeded_state_dict(2, model, random_stats=True)
     pts, valid = blob_points(3)
     res = {}
     for w in (dev, cpu):
@@ -659,6 +671,111 @@ def check_small_frame_against_cpu(dev):
         raise AssertionError("small frame: VCN differs from the CPU path")
     if nv_diff or not iv.any():
         raise AssertionError("small frame: replacement differs from the CPU path")
+
+
+def _check_close(name, got, ref, worst, tol=1e-4):
+    """Raise unless |got - ref| <= tol * (max |ref| + |ref|) everywhere;
+    record the worst |difference| under ``name``."""
+    got, ref = got.cpu(), ref.cpu()
+    err = (got - ref).abs()
+    worst[name] = err.max().item()
+    if not (err <= tol * (ref.abs().max() + ref.abs())).all():
+        raise AssertionError(f"tiny seg2d: {name} off the CPU by {worst[name]}")
+
+
+@torch.no_grad()
+def check_tiny_seg2d_against_cpu(dev):
+    """The tiny Mask R-CNN (tiny_seg2d_cfg, weights from a seed with random
+    biases and batch-norm statistics) with TF32 off, on the card against the
+    port's CPU path (which the tests hold against JAX). The RPN outputs, and
+    the box head's logits and deltas and the mask head's logits, each on
+    the card from the CPU's maps and boxes (RoIAlign included), so that a
+    difference cannot cascade: within 1e-4 of (their scale + |value|), f32
+    sums in another order. Then the whole forward: the same number of kept
+    detections, their scores within 1e-5, and in every slot whose score
+    lies more than 1e-5 from every other slot's the same class, its box
+    within 1e-3 px and its mask within 1e-4 (zero-score slots tie, and fill
+    in index order)."""
+    cfg = tiny_seg2d_cfg()
+    cpu = torch.device("cpu")
+    sd = seeded_state_dict(4, build_seg2d(cfg, device=cpu), random_stats=True)
+    m_c, m_d = build_seg2d(cfg, sd, device=cpu), build_seg2d(cfg, sd, device=dev)
+    image = torch.from_numpy(np.random.RandomState(5).rand(
+        1, *cfg.image_size, 3).astype(np.float32))
+    worst = {}
+    feats, obj, box = m_c.features(image)
+    feats_d, obj_d, box_d = m_d.features(image.to(dev))
+    for k, (fc, fd) in enumerate(zip(feats, feats_d)):
+        _check_close(f"P{k + 2}", fd, fc, worst)
+    _check_close("rpn_obj", obj_d, obj, worst)
+    _check_close("rpn_box", box_d, box, worst)
+    rois, valid, _ = SM.proposals(cfg, m_c.anchors, obj[0], box[0])
+    strides = cfg.strides[:4]
+    maps = m_c.roi_maps(feats, 0)
+    maps_d = [m.to(dev) for m in maps]
+    cls, deltas = m_c.box_head(SM.roi_align(maps, strides, rois, 7))
+    cls_d, deltas_d = m_d.box_head(SM.roi_align(maps_d, strides, rois.to(dev), 7))
+    _check_close("cls_logits", cls_d, cls, worst)
+    _check_close("box_deltas", deltas_d, deltas, worst)
+    boxes, _, _ = SM.decode_detections(cfg, rois, valid, cls, deltas)
+    logits = m_c.mask_head(SM.roi_align(maps, strides, boxes, 14))
+    logits_d = m_d.mask_head(SM.roi_align(maps_d, strides, boxes.to(dev), 14))
+    _check_close("mask_logits", logits_d, logits, worst)
+
+    out_c, out_d = m_c(image), m_d(image.to(dev))
+    sc, sd_ = out_c["det_scores"][0], out_d["det_scores"][0].cpu()
+    n_kept = int((sc > 0).sum())
+    if int((sd_ > 0).sum()) != n_kept or not torch.allclose(
+            sd_.sort().values, sc.sort().values, atol=1e-5, rtol=0):
+        raise AssertionError("tiny seg2d: detection scores differ from the CPU")
+    gap = (sc[:, None] - sc[None, :]).abs() + torch.eye(len(sc)) * 1e9
+    apart = gap.min(1).values > 1e-5
+    for k, tol in (("det_boxes", 1e-3), ("det_masks", 1e-4)):
+        err = (out_d[k][0].cpu() - out_c[k][0])[apart].abs()
+        worst[k] = err.max().item() if err.numel() else 0.0
+        if worst[k] > tol:
+            raise AssertionError(f"tiny seg2d: {k} off the CPU by {worst[k]}")
+    if not torch.equal(out_d["det_cls"][0].cpu()[apart], out_c["det_cls"][0][apart]):
+        raise AssertionError("tiny seg2d: detection classes differ from the CPU")
+    print(f"tiny seg2d, card vs CPU (TF32 off): max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; {n_kept} kept detections, {int(apart.sum())} slots apart compared")
+    if n_kept < 1:
+        raise AssertionError("tiny seg2d kept no detection")
+
+
+@torch.no_grad()
+def time_seg2d_nms(seg, image):
+    """CUDA-event ms of the mask model's two NMS passes, fed the inputs of
+    its own forward on ``image``: the proposal pass (top 1,024 of the RPN's
+    scores, decode, IoU, greedy scan, compaction) and its greedy scan
+    alone; the detection pass (softmax, decode, sort, IoU, greedy scan, top
+    32) and its greedy scan alone."""
+    cfg = seg.cfg
+    feats, obj, box = seg.features(image)
+    obj, box = obj[0], box[0]
+    rois, valid, _ = SM.proposals(cfg, seg.anchors, obj, box)
+    cls, deltas = seg.box_head(SM.roi_align(seg.roi_maps(feats, 0), cfg.strides[:4],
+                                            rois, 7))
+    top, order = torch.sort(obj, descending=True, stable=True)
+    k = cfg.pre_nms_topk
+    props = SM.decode_deltas(box[order[:k]], seg.anchors[order[:k]], cfg.image_size)
+    prop_iou = boxes_iou_normal(props, props)
+    prop_ok = torch.isfinite(top[:k])
+    score = torch.where(valid, torch.softmax(cls, -1)[:, 1], 0.0)
+    s, order = torch.sort(score, descending=True, stable=True)
+    dets = SM.decode_deltas(deltas[:, 0], rois, cfg.image_size)[order]
+    det_iou = boxes_iou_normal(dets, dets)
+    return {
+        "proposal_nms": time_cuda(lambda: SM.proposals(cfg, seg.anchors, obj, box),
+                                  reps=5),
+        "proposal_greedy_scan": time_cuda(lambda: NMS._greedy_suppress(
+            prop_iou, prop_ok, cfg.proposal_nms_thresh), reps=5),
+        "detection_nms": time_cuda(lambda: SM.decode_detections(
+            cfg, rois, valid, cls, deltas), reps=5),
+        "detection_greedy_scan": time_cuda(lambda: NMS._greedy_suppress(
+            det_iou, s > cfg.test_score_thresh, cfg.test_nms_thresh), reps=5),
+        "k": [k, int(rois.shape[0])]}
 
 
 def profile_frame(args, fn=F.complete_frame):
@@ -868,7 +985,7 @@ def main() -> int:
     check_tiny_detector_against_cpu(dev)
     det_cfg = DC.flagship_detector_cfg()
     det, dcfg = build_detector(det_cfg, device="cpu")
-    det, _ = build_detector(det_cfg, seeded_detector_state_dict(0, det), device=dev)
+    det, _ = build_detector(det_cfg, seeded_state_dict(0, det), device=dev)
     K.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     pp, out = F.detect_stage(det, det_cfg, new_pts, new_valid)
@@ -897,13 +1014,71 @@ def main() -> int:
           f"of which the greedy scan {nms_ms['proposal_greedy_scan']:.2f} ms; "
           f"final pass {nms_ms['final_nms']:.2f} ms (CUDA events, median of 5)")
 
-    # --- 7. per-stage and frame times --------------------------------------
+    # --- 7. Mask R-CNN at bench.py's config, then the whole fused frame ---
+    check_tiny_seg2d_against_cpu(dev)
+    seg_cfg = SM.Seg2DConfig(image_size=IMAGE_SIZE, max_detections=32)
+    seg = build_seg2d(seg_cfg, seeded_state_dict(0, build_seg2d(seg_cfg, device="cpu")),
+                      device=dev)
+    # bench.py:146 and :155: the camera image is RandomState(0)'s first draw
+    image = torch.from_numpy(np.random.RandomState(0).rand(
+        1, *IMAGE_SIZE, 3).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    m_boxes, m_masks, m_scores = F.mask_stage(seg, image)
+    torch.cuda.synchronize()
+    mask_peak = torch.cuda.max_memory_allocated() / 2**30
+    mask_extra = mask_peak - held / 2**30
+    if m_boxes.shape != (32, 4) or m_masks.shape != (32, 28, 28) \
+            or m_scores.shape != (32,):
+        raise AssertionError("the mask stage did not return 32 slots")
+    K.reset_launches()
+    pp_f, st_f, pts_f, valid_f = F.run_frame(image, s["points"], s["valid"], seg,
+                                             vcn, det, det_cfg, proj, l2c)
+    torch.cuda.synchronize()
+    fused_launches = dict(K.LAUNCHES)
+    print(f"fused frame launches: {fused_launches}")
+    if fused_launches["min_sqdist_pruned"] < 1:
+        raise AssertionError("kernel K1 was not launched inside run_frame")
+    if any(st_f[k].shape[0] != 32 for k in ("det_boxes", "det_masks", "det_scores")):
+        raise AssertionError("the fused frame's mask stage did not return 32 slots")
+    kept_f = pp_f["pred_mask"][0]
+    for t in (st_f["det_boxes"], st_f["det_masks"], st_f["det_scores"],
+              pp_f["pred_boxes"][0][kept_f], pp_f["pred_scores"][0][kept_f]):
+        if not torch.isfinite(t).all():
+            raise AssertionError("a detection of the fused frame is not finite")
+    fused = {"scored": int((st_f["det_scores"] > 0).sum()),
+             "isolated": int(st_f["ok"].sum()), "sane": int(st_f["sane"].sum()),
+             "spliced": int(st_f["inst_valid"].sum()), "kept": int(kept_f.sum()),
+             "dropped": int((s["valid"] & ~valid_f[:p]).sum()),
+             "launches": fused_launches}
+    print(f"fused frame (masks -> SEE frame -> detector) on a {IMAGE_SIZE[0]}x"
+          f"{IMAGE_SIZE[1]} image: {fused['scored']}/32 mask-stage slots scored "
+          f"above 0, {fused['isolated']}/32 isolated, {fused['sane']}/32 sane, "
+          f"{fused['spliced']} completions spliced, {fused['dropped']} scan points "
+          f"dropped, {fused['kept']} boxes kept by the detector; peak device "
+          f"memory {mask_peak:.2f} GiB in the mask stage's run, {mask_extra:.2f} "
+          f"GiB above what was held before it")
+    if fused["kept"] < 1:
+        raise AssertionError("the fused frame's detector returned no box")
+    # the kernels line counts K1 on the main path: the fused frame
+    kernels[0]["launches"] = fused_launches["min_sqdist_pruned"]
+    seg_nms = time_seg2d_nms(seg, image)
+    print(f"seg2d NMS: proposal pass (K={seg_nms['k'][0]}) "
+          f"{seg_nms['proposal_nms']:.2f} ms, of which the greedy scan "
+          f"{seg_nms['proposal_greedy_scan']:.2f} ms; detection pass "
+          f"(K={seg_nms['k'][1]}) {seg_nms['detection_nms']:.2f} ms, of which the "
+          f"greedy scan {seg_nms['detection_greedy_scan']:.2f} ms (CUDA events, "
+          f"median of 5)")
+
+    # --- 8. per-stage and frame times --------------------------------------
     iso, ok_ = F.isolate_stage(s["points"], s["valid"], s["det_boxes"],
                                s["det_masks"], s["det_scores"], proj, l2c,
                                IMAGE_SIZE)
     comp, sane_ = F.vcn_stage(vcn, iso)
     with torch.no_grad():
         stage_ms = {
+            "masks": time_cuda(lambda: F.mask_stage(seg, image), reps=5),
             "isolation": time_cuda(lambda: F.isolate_stage(
                 s["points"], s["valid"], s["det_boxes"], s["det_masks"],
                 s["det_scores"], proj, l2c, IMAGE_SIZE), reps=5),
@@ -927,9 +1102,13 @@ def main() -> int:
     f_ms = host_ms(lambda: F.complete_frame(*args))
     fd_ms = host_ms(lambda: F.see_and_detect(*args[:6], proj, l2c, det, det_cfg,
                                              IMAGE_SIZE))
+    ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn,
+                                        det, det_cfg, proj, l2c))
     print("stage ms: " + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items())
           + f"; SEE frame {f_ms:.2f} ms = {1e3 / f_ms:.2f} frames/s; SEE + "
-          f"detector frame {fd_ms:.2f} ms = {1e3 / fd_ms:.2f} frames/s on {card}")
+          f"detector frame {fd_ms:.2f} ms = {1e3 / fd_ms:.2f} frames/s; fused "
+          f"frame (masks + SEE + detector) {ff_ms:.2f} ms = {1e3 / ff_ms:.2f} "
+          f"frames/s on {card}")
     busy_ms, top = profile_frame(args)
     print(f"profiled SEE frame: device busy {busy_ms:.2f} ms of {f_ms:.2f} ms "
           f"({busy_ms / f_ms:.3f}); device time by op: "
@@ -939,12 +1118,21 @@ def main() -> int:
     print(f"profiled detector stage: device busy {det_busy:.2f} ms of "
           f"{stage_ms['detector']:.2f} ms; device time by op: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in det_top))
+    mask_busy, mask_top = profile_frame((seg, image), F.mask_stage)
+    print(f"profiled mask stage: device busy {mask_busy:.2f} ms of "
+          f"{stage_ms['masks']:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in mask_top))
     print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 8. summary lines ----------------------------------------------------
+    # --- 9. summary lines ----------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
-        "see_detect_frame_ms": fd_ms, "device_busy_ms": busy_ms,
+        "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
+        "fused_frames_per_s": 1e3 / ff_ms, "device_busy_ms": busy_ms,
+        "fused_frame": fused,
+        "seg2d": {"nms_ms": seg_nms, "peak_gib": mask_peak,
+                  "peak_above_held_gib": mask_extra,
+                  "device_busy_ms": mask_busy, "top_ops": mask_top},
         "detector": {"active_voxels": active, "proposals": n_props,
                      "kept": n_kept, "nms_ms": nms_ms,
                      "peak_gib": det_peak},

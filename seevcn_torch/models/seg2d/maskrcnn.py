@@ -1,0 +1,438 @@
+"""Mask R-CNN's eval path in torch (port of seevcn_tpu/models/seg2d/maskrcnn.py).
+
+The plain Mask R-CNN that bench.py's mask stage runs: ResNet-FPN (P2..P6)
+-> RPN -> proposals -> RoIAlign 7x7 -> box head -> per-class decode + NMS
+-> RoIAlign 14x14 on the final boxes -> mask head -> 28x28 instance masks.
+Every stage keeps the reference's fixed shapes: 1,024 pre-NMS proposals,
+``num_proposals`` RoIs, ``max_detections`` output slots, suppressed boxes
+left in their slots at score 0.
+
+The image enters NHWC (B, H, W, 3) as in the reference. The convolutions
+run NCHW; RoIAlign gathers from each FPN map laid out (H, W, C) and returns
+(R, S, S, C), so the box head flattens its input in the reference's HWC
+order. Module attribute names mirror the flax tree's, flax's automatic names
+included (``BatchNorm_0``, ``Conv_0``...), so ``seg2d_state_dict_from_flax``
+is a walk of that tree.
+
+Not ported yet (ROADMAP queue 1): training (item 9) and HTC's cascade,
+semantic branch, mask info flow and deformable stages (item 10); each
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...geom.boxes import boxes_iou_normal
+from ...ops.nms import _greedy_suppress
+
+# box-delta variance weights (Detectron defaults)
+BOX_W = (10.0, 10.0, 5.0, 5.0)
+NUM_ANCHORS = 3                       # aspect ratios per location
+
+
+@dataclass
+class Seg2DConfig:
+    """A copy of the reference's Seg2DConfig (maskrcnn.py:329-371)."""
+    image_size: tuple = (384, 512)            # static (H, W)
+    num_classes: int = 1                      # foreground classes
+    class_ids: tuple = (3,)                   # COCO category per class (car)
+    max_gt: int = 16
+    rpn_pos_iou: float = 0.7
+    rpn_neg_iou: float = 0.3
+    rpn_batch: int = 256
+    rpn_fg_fraction: float = 0.5
+    pre_nms_topk: int = 1024
+    proposal_nms_thresh: float = 0.7
+    num_proposals: int = 256
+    roi_batch: int = 128
+    roi_fg_fraction: float = 0.25
+    roi_fg_iou: float = 0.5
+    test_score_thresh: float = 0.05
+    test_nms_thresh: float = 0.5
+    max_detections: int = 64
+    strides: tuple = (4, 8, 16, 32, 64)
+    stage_sizes: tuple = (2, 2, 2, 2)
+    stage_channels: tuple = (64, 128, 256, 512)
+    fpn_channels: int = 256
+    dcn_stages: tuple = (False, False, False, False)
+    box_hidden: int = 1024
+    mask_channels: int = 256
+    mask_convs: int = 4
+    cascade_stages: int = 1
+    cascade_ious: tuple = (0.5, 0.6, 0.7)
+    cascade_weights: tuple = (1.0, 0.5, 0.25)
+    semantic_branch: bool = False
+    semantic_convs: int = 2
+    semantic_loss_weight: float = 0.2
+    mask_info_flow: bool = False
+    extra: dict = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
+    """flax's padding="SAME" on one axis of size ``n`` for a kernel ``k`` at
+    stride ``s``: (low, high), the low side taking the floor of half."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """Conv2d padded as flax's default padding="SAME", from the input's
+    shape. A stride-2 conv on an even size pads (0, 1) for a 3x3 kernel and
+    (2, 3) for a 7x7 one, which torch's symmetric padding cannot express."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (top, bottom), (left, right) = (
+            same_padding(n, k, s) for n, k, s in
+            zip(x.shape[-2:], self.kernel_size, self.stride))
+        if (top, left) == (bottom, right):
+            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left))
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight,
+                        self.bias, self.stride)
+
+
+def _bn(channels: int) -> nn.BatchNorm2d:
+    # flax nn.BatchNorm: eps 1e-5, momentum 0.9 (torch's 0.1)
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def _unported(what: str, item: int):
+    return NotImplementedError(f"seg2d {what} is not ported yet (ROADMAP "
+                               f"queue 1, item {item})")
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs with BN, and a 1x1 projection of the residual where the
+    shape changes (the reference's ``residual.shape != y.shape``)."""
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+        super().__init__()
+        self.Conv_0 = SameConv2d(in_channels, channels, 3, stride, bias=False)
+        self.BatchNorm_0 = _bn(channels)
+        self.Conv_1 = SameConv2d(channels, channels, 3, bias=False)
+        self.BatchNorm_1 = _bn(channels)
+        self.project = in_channels != channels or stride != 1
+        if self.project:
+            self.Conv_2 = SameConv2d(in_channels, channels, 1, stride, bias=False)
+            self.BatchNorm_2 = _bn(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_1(self.Conv_1(y))
+        residual = self.BatchNorm_2(self.Conv_2(x)) if self.project else x
+        return F.relu(y + residual)
+
+
+class ResNetFPN(nn.Module):
+    """ResNet-18-style backbone + FPN: (B, 3, H, W) -> [P2..P6], NCHW,
+    strides 4..64."""
+
+    def __init__(self, stage_sizes=(2, 2, 2, 2), stage_channels=(64, 128, 256, 512),
+                 fpn_channels: int = 256, dcn_stages=(False, False, False, False)):
+        super().__init__()
+        if any(dcn_stages):
+            raise _unported("dcn_stages (deformable convs)", 10)
+        self.stage_sizes = tuple(stage_sizes)
+        self.stem = SameConv2d(3, 64, 7, 2, bias=False)
+        self.BatchNorm_0 = _bn(64)
+        cin = 64
+        for i, (n, ch) in enumerate(zip(stage_sizes, stage_channels)):
+            for j in range(n):
+                self.add_module(f"stage{i}_block{j}", BasicBlock(
+                    cin, ch, stride=2 if (j == 0 and i > 0) else 1))
+                cin = ch
+        for i, ch in enumerate(stage_channels):
+            self.add_module(f"lat{i}", nn.Conv2d(ch, fpn_channels, 1))
+        for i in range(len(stage_channels)):
+            self.add_module(f"post{i}", SameConv2d(fpn_channels, fpn_channels, 3))
+
+    def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
+        x = F.relu(self.BatchNorm_0(self.stem(images)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        cs = []
+        for i, n in enumerate(self.stage_sizes):
+            for j in range(n):
+                x = getattr(self, f"stage{i}_block{j}")(x)
+            cs.append(x)                       # C2..C5, strides 4, 8, 16, 32
+        laterals = [getattr(self, f"lat{i}")(c) for i, c in enumerate(cs)]
+        ps = [laterals[-1]]
+        for lat in laterals[-2::-1]:
+            # jax.image.resize(..., "nearest") samples at half-pixel centres
+            up = F.interpolate(ps[0], size=lat.shape[-2:], mode="nearest-exact")
+            ps.insert(0, lat + up)
+        ps = [getattr(self, f"post{i}")(p) for i, p in enumerate(ps)]
+        return ps + [ps[-1][:, :, ::2, ::2]]  # P6: a 1x1 max-pool at stride 2
+
+
+class RPNHead(nn.Module):
+    """Shared-conv RPN head on one level: (B, C, H, W) -> objectness
+    (B, H*W*A) and deltas (B, H*W*A, 4), in the reference's (y, x, anchor)
+    order."""
+
+    def __init__(self, channels: int, num_anchors: int = NUM_ANCHORS):
+        super().__init__()
+        self.conv = SameConv2d(channels, channels, 3)
+        self.obj = nn.Conv2d(channels, num_anchors, 1)
+        self.box = nn.Conv2d(channels, num_anchors * 4, 1)
+
+    def forward(self, feat: torch.Tensor):
+        x = F.relu(self.conv(feat))
+        obj = self.obj(x).permute(0, 2, 3, 1)
+        box = self.box(x).permute(0, 2, 3, 1)
+        b = obj.shape[0]
+        return obj.reshape(b, -1), box.reshape(b, -1, 4)
+
+
+class BoxHead(nn.Module):
+    """(R, 7, 7, C) RoI features -> class logits (R, K + 1), deltas (R, K, 4)."""
+
+    def __init__(self, in_features: int, num_classes: int, hidden: int = 1024):
+        super().__init__()
+        self.num_classes = num_classes
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.fc2 = nn.Linear(hidden, hidden)
+        self.cls = nn.Linear(hidden, num_classes + 1)
+        self.box = nn.Linear(hidden, num_classes * 4)
+
+    def forward(self, roi_feats: torch.Tensor):
+        x = roi_feats.reshape(roi_feats.shape[0], -1)      # HWC order
+        x = F.relu(self.fc1(x))
+        x = F.relu(self.fc2(x))
+        return self.cls(x), self.box(x).reshape(-1, self.num_classes, 4)
+
+
+class MaskHead(nn.Module):
+    """(R, 14, 14, C) RoI features -> mask logits (R, 28, 28, K): 3x3 convs,
+    a 2x2 stride-2 transposed conv (``up``) and 1x1 logits. The reference's
+    ``prev_feat`` input serves HTC's mask info flow only, which is not
+    ported."""
+
+    def __init__(self, in_channels: int, num_classes: int, channels: int = 256,
+                 n_convs: int = 4):
+        super().__init__()
+        self.n_convs = n_convs
+        for i in range(n_convs):
+            self.add_module(f"conv{i}", SameConv2d(
+                in_channels if i == 0 else channels, channels, 3))
+        self.up = nn.ConvTranspose2d(channels, channels, 2, stride=2)
+        self.logits = nn.Conv2d(channels, num_classes, 1)
+
+    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        x = roi_feats.permute(0, 3, 1, 2)
+        for i in range(self.n_convs):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        x = F.relu(self.up(x))
+        return self.logits(x).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# anchors / box deltas
+# ---------------------------------------------------------------------------
+def generate_anchors_2d(image_size, strides=(4, 8, 16, 32, 64),
+                        scales=(32, 64, 128, 256, 512),
+                        ratios=(0.5, 1.0, 2.0)):
+    """Per-level anchors (x1, y1, x2, y2) for a static image size, numpy,
+    ceil(H/stride) x ceil(W/stride) x len(ratios) a level in (y, x, ratio)
+    order."""
+    h, w = image_size
+    per_level = []
+    for stride, scale in zip(strides, scales):
+        fh, fw = -(-h // stride), -(-w // stride)
+        ys = (np.arange(fh) + 0.5) * stride
+        xs = (np.arange(fw) + 0.5) * stride
+        cy, cx = np.meshgrid(ys, xs, indexing="ij")
+        anchors = []
+        for r in ratios:
+            aw, ah = scale * np.sqrt(1.0 / r), scale * np.sqrt(r)
+            anchors.append(np.stack([cx - aw / 2, cy - ah / 2,
+                                     cx + aw / 2, cy + ah / 2], axis=-1))
+        a = np.stack(anchors, axis=2).reshape(-1, 4)   # (fh*fw*A, 4)
+        per_level.append(a.astype(np.float32))
+    return per_level
+
+
+def decode_deltas(deltas: torch.Tensor, anchors: torch.Tensor, image_size):
+    """Weighted (dx, dy, dw, dh) on xyxy anchors -> xyxy boxes clipped to
+    the image; dw, dh are clipped to [-8, 4] before the exp."""
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    ax = anchors[..., 0] + aw / 2
+    ay = anchors[..., 1] + ah / 2
+    bx = deltas[..., 0] / BOX_W[0] * aw + ax
+    by = deltas[..., 1] / BOX_W[1] * ah + ay
+    bw = torch.exp(torch.clamp(deltas[..., 2] / BOX_W[2], -8, 4)) * aw
+    bh = torch.exp(torch.clamp(deltas[..., 3] / BOX_W[3], -8, 4)) * ah
+    h, w = image_size
+    return torch.stack([torch.clamp(bx - bw / 2, 0, w - 1),
+                        torch.clamp(by - bh / 2, 0, h - 1),
+                        torch.clamp(bx + bw / 2, 0, w - 1),
+                        torch.clamp(by + bh / 2, 0, h - 1)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# RoIAlign over FPN levels
+# ---------------------------------------------------------------------------
+def _bilinear(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """fmap (H, W, C), xy (..., 2) -> (..., C): four gathered taps; a tap
+    outside the map reads 0."""
+    h, w = fmap.shape[:2]
+    x, y = xy[..., 0], xy[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[..., None], (y - y0)[..., None]
+
+    def tap(xi, yi):
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        v = fmap[yi.clamp(0, h - 1).long(), xi.clamp(0, w - 1).long()]
+        return torch.where(inb[..., None], v, 0.0)
+
+    top = tap(x0, y0) * (1 - wx) + tap(x0 + 1, y0) * wx
+    bot = tap(x0, y0 + 1) * (1 - wx) + tap(x0 + 1, y0 + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def roi_align(feats, strides, rois: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Multi-level RoIAlign: feats, the (H_l, W_l, C) maps of one image
+    (P2..P5); rois (R, 4) xyxy in image pixels -> (R, S, S, C). One sample
+    at each cell centre, at ``grid / stride - 0.5`` on the map. The level,
+    floor(4 + log2(sqrt(wh) / 224)) clipped to 2..5, is applied as a one-hot
+    mix over the levels, as in the reference."""
+    rw = (rois[:, 2] - rois[:, 0]).clamp_min(1e-3)
+    rh = (rois[:, 3] - rois[:, 1]).clamp_min(1e-3)
+    lvl = torch.floor(4 + torch.log2(torch.sqrt(rw * rh) / 224.0))
+    lvl = lvl.clamp(2, 5).long() - 2
+    onehot = F.one_hot(lvl, len(feats)).to(rois.dtype)      # (R, L)
+
+    steps = (torch.arange(out_size, device=rois.device, dtype=rois.dtype)
+             + 0.5) / out_size
+    gx = rois[:, 0, None] + steps[None, :] * rw[:, None]   # (R, S)
+    gy = rois[:, 1, None] + steps[None, :] * rh[:, None]
+    grid = torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]),
+                       dim=-1)                             # (R, S, S, 2)
+    out = 0.0
+    for li, (fmap, stride) in enumerate(zip(feats, strides)):
+        sampled = _bilinear(fmap, grid / stride - 0.5)
+        out = out + sampled * onehot[:, li, None, None, None]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# proposals and detections (MaskRCNNLogic's inference side)
+# ---------------------------------------------------------------------------
+def _top(scores: torch.Tensor, k: int):
+    """The k largest values and their indices, lower indices first among
+    equal values (as jax.lax.top_k); torch.topk leaves ties unordered."""
+    top, idx = torch.sort(scores, descending=True, stable=True)
+    return top[:k], idx[:k]
+
+
+def proposals(cfg: Seg2DConfig, anchors: torch.Tensor, rpn_obj: torch.Tensor,
+              rpn_box: torch.Tensor):
+    """One image's RPN output (N,), (N, 4) -> (num_proposals, 4) boxes, their
+    validity and sigmoid scores: the top ``pre_nms_topk`` by objectness,
+    decoded, greedy NMS at ``proposal_nms_thresh``, the kept rows first."""
+    k = cfg.pre_nms_topk
+    scores, order = _top(rpn_obj, k)
+    boxes = decode_deltas(rpn_box[order], anchors[order], cfg.image_size)
+    keep = _greedy_suppress(boxes_iou_normal(boxes, boxes),
+                            torch.isfinite(scores), cfg.proposal_nms_thresh)
+    pos = torch.arange(k, device=rpn_obj.device)
+    sel = torch.argsort(torch.where(keep, pos, k + pos))[:cfg.num_proposals]
+    return boxes[sel], keep[sel], torch.sigmoid(scores[sel])
+
+
+def decode_detections(cfg: Seg2DConfig, rois: torch.Tensor, roi_valid: torch.Tensor,
+                      cls_logits: torch.Tensor, box_deltas: torch.Tensor):
+    """Per class: softmax, decode, a stable descending sort, greedy NMS at
+    ``test_nms_thresh`` over scores above ``test_score_thresh`` (a
+    suppressed box keeps its slot at score 0); then the top
+    ``max_detections`` over all classes -> boxes (D, 4), scores (D,),
+    classes (D,) int32."""
+    probs = torch.softmax(cls_logits, dim=-1)              # (R, K+1)
+    boxes, scores, classes = [], [], []
+    for k in range(cfg.num_classes):
+        boxes_k = decode_deltas(box_deltas[:, k], rois, cfg.image_size)
+        score_k = torch.where(roi_valid, probs[:, k + 1], 0.0)
+        s, order = _top(score_k, score_k.shape[0])
+        b = boxes_k[order]
+        keep = _greedy_suppress(boxes_iou_normal(b, b), s > cfg.test_score_thresh,
+                                cfg.test_nms_thresh)
+        boxes.append(b)
+        scores.append(torch.where(keep, s, 0.0))
+        classes.append(torch.full(order.shape, k, dtype=torch.int32,
+                                  device=order.device))
+    top, idx = _top(torch.cat(scores), cfg.max_detections)
+    return torch.cat(boxes)[idx], top, torch.cat(classes)[idx]
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+class MaskRCNN(nn.Module):
+    """Plain Mask R-CNN, eval forward only."""
+
+    def __init__(self, cfg: Seg2DConfig):
+        super().__init__()
+        if cfg.cascade_stages > 1:
+            raise _unported("cascade_stages > 1 (HTC cascade)", 10)
+        if cfg.semantic_branch:
+            raise _unported("semantic_branch (HTC semantic head)", 10)
+        if cfg.mask_info_flow:
+            raise _unported("mask_info_flow (HTC mask info flow)", 10)
+        self.cfg = cfg
+        self.backbone = ResNetFPN(cfg.stage_sizes, cfg.stage_channels,
+                                  cfg.fpn_channels, cfg.dcn_stages)
+        self.rpn = RPNHead(cfg.fpn_channels)
+        self.box_head = BoxHead(7 * 7 * cfg.fpn_channels, cfg.num_classes,
+                                cfg.box_hidden)
+        self.mask_head = MaskHead(cfg.fpn_channels, cfg.num_classes,
+                                  cfg.mask_channels, cfg.mask_convs)
+        anchors = np.concatenate(generate_anchors_2d(cfg.image_size,
+                                                     strides=cfg.strides))
+        self.register_buffer("anchors", torch.from_numpy(anchors),
+                             persistent=False)
+
+    def features(self, images: torch.Tensor):
+        """images (B, H, W, 3) -> (FPN maps P2..P6 (B, C, H_l, W_l), RPN
+        objectness (B, N), RPN deltas (B, N, 4)), N over all five levels."""
+        feats = self.backbone(images.permute(0, 3, 1, 2))
+        objs, deltas = zip(*[self.rpn(f) for f in feats])
+        return feats, torch.cat(objs, dim=1), torch.cat(deltas, dim=1)
+
+    @staticmethod
+    def roi_maps(feats, i: int) -> list[torch.Tensor]:
+        """Image i's P2..P5 laid out (H, W, C), as ``roi_align`` reads them."""
+        return [f[i].permute(1, 2, 0).contiguous() for f in feats[:4]]
+
+    def forward(self, images: torch.Tensor, train: bool = False) -> dict:
+        """images (B, H, W, 3) -> {rpn_obj (B, N), rpn_box (B, N, 4),
+        det_boxes (B, D, 4), det_scores (B, D), det_cls (B, D) int32,
+        det_masks (B, D, 28, 28): the sigmoid of each detection's class
+        logits}."""
+        if train:
+            raise _unported("training", 9)
+        cfg = self.cfg
+        feats, rpn_obj, rpn_box = self.features(images)
+        strides = cfg.strides[:4]
+        dets = []
+        for i in range(images.shape[0]):
+            maps = self.roi_maps(feats, i)
+            rois, valid, _ = proposals(cfg, self.anchors, rpn_obj[i], rpn_box[i])
+            cls_logits, box_deltas = self.box_head(roi_align(maps, strides, rois, 7))
+            boxes, scores, classes = decode_detections(cfg, rois, valid,
+                                                       cls_logits, box_deltas)
+            logits = self.mask_head(roi_align(maps, strides, boxes, 14))
+            pick = classes.long()[:, None, None, None].expand(*logits.shape[:3], 1)
+            masks = torch.sigmoid(logits.gather(-1, pick)[..., 0])
+            dets.append((boxes, scores, classes, masks))
+        out = {"rpn_obj": rpn_obj, "rpn_box": rpn_box}
+        for key, parts in zip(("det_boxes", "det_scores", "det_cls", "det_masks"),
+                              zip(*dets)):
+            out[key] = torch.stack(parts)
+        return out

@@ -1,12 +1,13 @@
-"""One SEE frame on the device: isolation -> VCN completion -> replacement,
-then the detector.
+"""One frame on the device: the 2D instance masks, then the SEE frame
+(isolation -> VCN completion -> replacement), then the detector.
 
-The port of the chain that bench.py composes from ``see_stage``,
-``vcn_stage``, ``replace_stage`` and ``det_stage`` (bench.py:172-231): the
-SEE program of the reference, which turns a scan and its 2D instance masks
-into the completed cloud, and SECOND-IoU, which reads that cloud.
-``see_and_detect`` is bench.py's ``frame_fused`` (bench.py:238-246) without
-its mask stage: the masks are an input here.
+The port of the chain that bench.py composes from ``mask_stage``,
+``see_stage``, ``vcn_stage``, ``replace_stage`` and ``det_stage``
+(bench.py:157-231): Mask R-CNN on the camera image, the SEE program of the
+reference, which turns a scan and those masks into the completed cloud, and
+SECOND-IoU, which reads that cloud. ``run_frame`` is bench.py's
+``frame_fused`` (bench.py:238-246); ``see_and_detect`` is the same frame
+with the masks given as an input.
 """
 from __future__ import annotations
 
@@ -15,6 +16,24 @@ import torch
 from .. import resolve_device
 from ..models.detectors.second import post_processing
 from . import device_pipeline as DP
+
+
+def _tf32_off():
+    # the reference runs f32 at full precision (Precision.HIGHEST)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@torch.no_grad()
+def mask_stage(seg_model, image, *, device="cuda"):
+    """bench.py's ``mask_stage``: the Mask R-CNN eval forward (``seg_model``,
+    from ``build_seg2d`` on ``device``) on image (1, H, W, 3) -> the boxes
+    (D, 4) xyxy, 28x28 masks (D, 28, 28) and scores (D,) of image 0, D =
+    ``max_detections``. TF32 off, as in ``complete_frame``."""
+    dev = resolve_device(device)
+    _tf32_off()
+    out = seg_model(image.to(dev))
+    return out["det_boxes"][0], out["det_masks"][0], out["det_scores"][0]
 
 
 def isolate_stage(points, valid, det_boxes, det_masks, det_scores, proj,
@@ -66,8 +85,7 @@ def complete_frame(points, valid, det_boxes, det_masks, det_scores, vcn, proj,
     TF32 is switched off for matrix products and cuDNN: the reference runs
     its geometry at full f32 precision (Precision.HIGHEST)."""
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _tf32_off()
     points, valid, det_boxes, det_masks, det_scores, proj, lidar_to_cam = (
         t.to(dev) for t in (points, valid, det_boxes, det_masks, det_scores,
                             proj, lidar_to_cam))
@@ -94,8 +112,7 @@ def detect_stage(model, cfg, points, valid, *, device="cuda"):
     Runs in the backbone's dtype (BACKBONE_3D.DTYPE) with f32 products and
     with TF32 off, as ``complete_frame`` leaves it."""
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _tf32_off()
     out = model(points.to(dev)[None], valid.to(dev)[None])
     pp = post_processing(out, cfg.MODEL.POST_PROCESSING,
                          len(cfg.CLASS_NAMES), has_roi_head=True)
@@ -114,4 +131,21 @@ def see_and_detect(points, valid, det_boxes, det_masks, det_scores, vcn,
         points, valid, det_boxes, det_masks, det_scores, vcn, proj,
         lidar_to_cam, image_size, device=device, **frame_kw)
     pp, _ = detect_stage(detector, det_cfg, new_pts, new_valid, device=device)
+    return pp, stats, new_pts, new_valid
+
+
+@torch.no_grad()
+def run_frame(image, points, valid, seg_model, vcn, detector, det_cfg, proj,
+              lidar_to_cam, *, device="cuda", **frame_kw):
+    """bench.py's ``frame_fused``: ``mask_stage`` on the camera image
+    (1, H, W, 3), then ``complete_frame`` on the scan (points (P, 3), valid
+    (P,)) with those detections, then ``detect_stage`` on the output cloud.
+    The image size is the mask model's. Returns (post-processed detections,
+    stats, new_pts, new_valid); stats holds the SEE frame's stats and the
+    mask stage's ``det_boxes``, ``det_masks`` and ``det_scores``."""
+    boxes, masks, scores = mask_stage(seg_model, image, device=device)
+    pp, stats, new_pts, new_valid = see_and_detect(
+        points, valid, boxes, masks, scores, vcn, proj, lidar_to_cam, detector,
+        det_cfg, seg_model.cfg.image_size, device=device, **frame_kw)
+    stats.update(det_boxes=boxes, det_masks=masks, det_scores=scores)
     return pp, stats, new_pts, new_valid

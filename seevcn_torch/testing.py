@@ -1,7 +1,7 @@
 """Helpers for holding the port against its reference: numpy <-> torch
-conversion, an ``assert_close`` that names the worst element, and the
-cases at the edges of kernel K2's tiling, which the tests and
-chip_smoke.py both run."""
+conversion, an ``assert_close`` that names the worst element, the cases at
+the edges of kernel K2's tiling, and the tiny Mask R-CNN config, which the
+tests and chip_smoke.py both use."""
 from __future__ import annotations
 
 import re
@@ -9,6 +9,7 @@ import re
 import numpy as np
 import torch
 
+from seevcn_torch.models.seg2d.maskrcnn import Seg2DConfig
 from seevcn_torch.ops.cuda.min_dist import FAR
 
 
@@ -90,3 +91,14 @@ def k2_edge_case(name: str):
     n, m = (int(x) for x in re.match(r"n(\d+)_m(\d+)", name).groups())
     valid = rng.rand(m) > 0.3 if name.endswith("invalid") else None
     return cloud(n), cloud(m), valid
+
+
+def tiny_seg2d_cfg() -> Seg2DConfig:
+    """The reference's tiny Mask R-CNN test config (tests/test_seg2d.py's
+    ``_tiny_cfg``): a 96x128 image, one block a stage at widths (16, 32, 64,
+    64), FPN width 32, 128 pre-NMS proposals, 32 RoIs, 4 detections."""
+    return Seg2DConfig(image_size=(96, 128), max_gt=4, pre_nms_topk=128,
+                       num_proposals=32, roi_batch=16, rpn_batch=64,
+                       max_detections=4, stage_sizes=(1, 1, 1, 1),
+                       stage_channels=(16, 32, 64, 64), fpn_channels=32,
+                       box_hidden=128, mask_channels=32, mask_convs=2)

@@ -5,10 +5,12 @@ Copies of the VCN and detector exports of seevcn_tpu/utils/ckpt_compat.py
 kept here because the port imports nothing of the JAX package. Each takes
 the flax variable tree as numpy arrays (``{"params": ..., "batch_stats":
 ...}``) and returns a state dict in the reference's key names, which the
-port's modules load with ``strict=True``. A flax Dense kernel is (in, out);
-Conv1d's weight is (out, in, 1) and Linear's (out, in); a flax Conv kernel
-is (kh, kw, in, out), Conv2d's (out, in, kh, kw); a rulebook sparse-conv
-kernel is (K, in, out), spconv 2.x's (out, kz, ky, kx, in).
+port's modules load with ``strict=True``. The reference has no seg2d
+mapping; ``seg2d_state_dict_from_flax`` keeps the flax tree's own names. A
+flax Dense kernel is (in, out); Conv1d's weight is (out, in, 1) and
+Linear's (out, in); a flax Conv kernel is (kh, kw, in, out), Conv2d's (out,
+in, kh, kw); a rulebook sparse-conv kernel is (K, in, out), spconv 2.x's
+(out, kz, ky, kx, in).
 """
 from __future__ import annotations
 
@@ -77,7 +79,10 @@ def _convtranspose_to_deconv2d(leaf: dict) -> dict:
     # flax places a transposed conv's taps mirrored with respect to torch's
     # ConvTranspose2d: flip spatially, then (in, out, kh, kw)
     w = np.flip(np.asarray(leaf["kernel"]), axis=(0, 1))
-    return {"weight": np.transpose(w, (2, 3, 0, 1)).copy()}
+    out = {"weight": np.transpose(w, (2, 3, 0, 1)).copy()}
+    if "bias" in leaf:
+        out["bias"] = np.asarray(leaf["bias"])
+    return out
 
 
 def _spconv_export(kernel, kz, ky, kx) -> np.ndarray:
@@ -147,4 +152,34 @@ def detector_state_dict_from_flax(variables: dict) -> dict:
         put(f"roi_head.iou_layers.{4 * i}", _dense_to_conv1d(r[f"iou_fc{i}"]))
         put(f"roi_head.iou_layers.{4 * i + 1}", _bn_join(r[f"iou_bn{i}"], rs[f"iou_bn{i}"]))
     put(f"roi_head.iou_layers.{4 * n_iou - 1}", _dense_to_conv1d(r["iou_out"]))
+    return sd
+
+
+def seg2d_state_dict_from_flax(variables: dict) -> dict:
+    """Flax MaskRCNN variables (numpy leaves) -> state dict of the port's
+    MaskRCNN, whose module names mirror the flax tree's: a walk of that
+    tree. A Dense becomes a Linear, a Conv a Conv2d, the mask head's
+    ConvTranspose ``up`` a flipped ConvTranspose2d, and a BatchNorm's scale
+    and bias join its batch statistics."""
+    sd = {}
+
+    def walk(prefix, params, stats):
+        for name, leaf in params.items():
+            key = f"{prefix}{name}"
+            if "kernel" in leaf:
+                if np.ndim(leaf["kernel"]) == 2:
+                    tensors = _dense_to_linear(leaf)
+                elif name == "up":             # MaskHead's ConvTranspose
+                    tensors = _convtranspose_to_deconv2d(leaf)
+                else:
+                    tensors = _conv_to_conv2d(leaf)
+            elif "scale" in leaf:
+                tensors = _bn_join(leaf, stats[name])
+            else:
+                walk(f"{key}.", leaf, stats.get(name, {}))
+                continue
+            for k, v in tensors.items():
+                sd[f"{key}.{k}"] = torch.tensor(np.array(v))
+
+    walk("", variables["params"], variables.get("batch_stats", {}))
     return sd

@@ -2,7 +2,7 @@
 JAX package on the CPU, at ``_tiny_detector_cfg``.
 
 Weights: a state dict in the reference's layout with random values
-(chip_smoke.seeded_detector_state_dict with random_stats: conv weights at
+(chip_smoke.seeded_state_dict with random_stats: conv weights at
 fan-in scale, not symmetric; biases and BN affine and running statistics
 random, so a wrong BN eps or a transposed layout shows), carried into flax
 by the JAX package's importer and back by the port's exporter. Inputs: two
@@ -26,7 +26,7 @@ import torch
 from __graft_entry__ import (_flagship_detector_cfg, _mini_detector_cfg,
                              _tiny_detector_cfg)
 from chip_smoke import (LIDAR_TO_CAM, blob_points, make_scene,
-                        seeded_detector_state_dict, seeded_vcn_state_dict)
+                        seeded_state_dict, seeded_vcn_state_dict)
 from seevcn_tpu.models.detectors.second import build_detector as jax_build
 from seevcn_tpu.models.detectors.second import post_processing as jax_post
 from seevcn_tpu.utils.ckpt_compat import detector_variables_from_torch
@@ -44,7 +44,7 @@ PRE_NMS = ("batch_cls_preds", "batch_box_preds", "spatial_features_2d")
 @pytest.fixture(scope="module")
 def weights():
     model, _ = build_detector(C.tiny_detector_cfg(), device="cpu")
-    ref_sd = seeded_detector_state_dict(0, model, random_stats=True)
+    ref_sd = seeded_state_dict(0, model, random_stats=True)
     variables = jax.tree.map(np.asarray,
                              detector_variables_from_torch(ref_sd, "SECONDNetIoU"))
     frames = [blob_points(seed, P) for seed in (1, 2)]

@@ -6,8 +6,9 @@ replacement takes its compacted branch. VCN weights are flax's, carried
 across. The JAX replacement runs the TPU's path, the pruned Pallas kernel in
 interpret mode; on the CPU it would take the Gram-form XLA sweep instead.
 
-Also: the package imports nothing of JAX, and its entry points refuse to
-run on the CPU unless asked to."""
+Also: the package imports nothing of JAX, and its entry points (the SEE
+frame, the detector, the mask model and the fused frame) refuse to run on
+the CPU unless asked to."""
 import subprocess
 import sys
 
@@ -27,8 +28,10 @@ from seevcn_torch import resolve_device
 from seevcn_torch.models.detectors.configs import tiny_detector_cfg
 from seevcn_torch.models.detectors.second import build_detector
 from seevcn_torch.models.vcn.inference import VCNInference
-from seevcn_torch.see.frame import complete_frame, detect_stage, see_and_detect
-from seevcn_torch.testing import assert_close, to_numpy, to_torch
+from seevcn_torch.models.seg2d.backend import build_seg2d
+from seevcn_torch.see.frame import (complete_frame, detect_stage, mask_stage,
+                                    run_frame, see_and_detect)
+from seevcn_torch.testing import assert_close, tiny_seg2d_cfg, to_numpy, to_torch
 from seevcn_torch.utils.weights import vcn_state_dict_from_flax
 
 P, D, IMG, M, OUT, CAP = 4096, 4, (96, 128), 256, 128, 512
@@ -113,7 +116,8 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    # ... and models.seg2d (the package, maskrcnn, backend) among them
+    assert int(out.stdout.strip()) >= 40
 
 
 def test_default_device_raises_without_cuda():
@@ -138,4 +142,13 @@ def test_default_device_raises_without_cuda():
         see_and_detect(z, torch.ones(8, dtype=torch.bool), torch.zeros((1, 4)),
                        torch.zeros((1, 28, 28)), torch.ones(1), None,
                        to_torch(PROJ), to_torch(LIDAR_TO_CAM), det, cfg, IMG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_seg2d(tiny_seg2d_cfg())
+    seg = build_seg2d(tiny_seg2d_cfg(), device="cpu")
+    image = torch.zeros((1, *IMG, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mask_stage(seg, image)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_frame(image, z, torch.ones(8, dtype=torch.bool), seg, None, det, cfg,
+                  to_torch(PROJ), to_torch(LIDAR_TO_CAM))
     assert resolve_device("cpu") == torch.device("cpu")
