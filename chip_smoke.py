@@ -43,6 +43,7 @@ import torch
 
 from seevcn_torch.models.detectors import configs as DC
 from seevcn_torch.models.detectors.second import build_detector
+from seevcn_torch.models.modules import roi_heads as RH
 from seevcn_torch.models.seg2d import maskrcnn as SM
 from seevcn_torch.models.seg2d.backend import build_seg2d
 from seevcn_torch.geom.boxes import boxes_iou_normal
@@ -59,7 +60,12 @@ from seevcn_torch.ops.sampling import partial_mesh_batch
 from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
-from seevcn_torch.testing import K2_CARD_EDGES, k2_edge_case, tiny_seg2d_cfg
+from seevcn_torch.see.gt_completion import complete_gt_frames
+from seevcn_torch.train.optim import build_lr_schedule
+from seevcn_torch.train.train import (apply_gradients, create_train_state,
+                                      train_forward, train_step)
+from seevcn_torch.testing import (K2_CARD_EDGES, k2_edge_case, plain_sparse_backward,
+                                  tiny_seg2d_cfg)
 
 # bench.py:165-170: KITTI P2-style camera for a 384x1280 image, and the
 # lidar -> camera axes (x -> depth, y -> -u, z -> -v)
@@ -119,7 +125,8 @@ def make_scene(seed: int, n_points: int, n_cars: int,
     """A lidar scan in bench.py's layout (x 1..69, y -39..39, z -2.9..0.9 m)
     holding ``n_cars`` box-surface cars in the camera's view, and one
     detection per car: its projected 2D box, a 28x28 mask patch that covers
-    the car's projection, and a score. Returns numpy arrays."""
+    the car's projection, and a score; and each car's ground-truth box
+    (n_cars, 8): centre, CAR_DIMS, heading, label 1. Returns numpy arrays."""
     rng = np.random.RandomState(seed)
     h, w = image_size
     cars, det_boxes, det_masks = [], [], []
@@ -175,7 +182,9 @@ def make_scene(seed: int, n_points: int, n_cars: int,
             "valid": np.ones(n_points, bool),
             "det_boxes": np.stack(det_boxes).astype(np.float32),
             "det_masks": np.stack(det_masks).astype(np.float32),
-            "det_scores": rng.uniform(0.6, 1.0, n_cars).astype(np.float32)}
+            "det_scores": rng.uniform(0.6, 1.0, n_cars).astype(np.float32),
+            "gt_boxes": np.array([[*c, *CAR_DIMS, h, 1.0] for c, h, _ in cars],
+                                 np.float32).reshape(-1, 8)}
 
 
 def seeded_vcn_state_dict(seed: int, model_name: str = "VCN_VC",
@@ -796,6 +805,328 @@ def profile_frame(args, fn=F.complete_frame):
     return busy, sorted(per_op.items(), key=lambda kv: -kv[1])[:6]
 
 
+def tiny_train_inputs(dev):
+    """Two blob frames for _tiny_detector_cfg, ground-truth cars on them,
+    and fixed RoI-sampler priorities u, as tensors on ``dev``."""
+    frames = [blob_points(seed, 600) for seed in (1, 2)]
+    gt = np.zeros((2, 4, 8), np.float32)
+    gt[:, 0] = [8.0, 0.0, -0.5, 4.0, 1.8, 1.5, 0.3, 1.0]
+    gt[0, 1] = [5.0, 3.0, -0.5, 4.0, 1.8, 1.5, 1.3, 1.0]
+    gt[1, 1] = [11.0, -4.0, -0.3, 3.9, 1.7, 1.5, -0.4, 1.0]
+    u = np.random.RandomState(8).rand(2, 32).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in
+            (np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames]),
+             gt, u)]
+
+
+def check_tiny_train_step_against_cpu(dev):
+    """One train step at _tiny_detector_cfg (DP_RATIO 0, fixed RoI
+    priorities, TF32 off) on the card and on the CPU from the same weights
+    (which the tests hold against JAX's make_train_step). Tolerances, as the
+    tests hold the CPU to JAX: loss terms 1e-5 (absolute and relative);
+    gradients (after the clip) 5e-4 of their tensor's largest; updated
+    parameters 1e-5 where the gradient is sure (at least 5% of its tensor's
+    largest and 1e-6 after the clip), 2 lr elsewhere (Adam's first step is
+    lr g / (|g| + 1e-8): a gradient that is rounding noise may take either
+    sign); running statistics 1e-5 (absolute and relative). Returns the
+    worst |diff| of each group."""
+    cfg = DC.tiny_detector_cfg()
+    cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    cpu = torch.device("cpu")
+    sd = seeded_state_dict(5, build_detector(cfg, device=cpu)[0], random_stats=True)
+    res = {}
+    for w in (dev, cpu):
+        model, _ = build_detector(cfg, sd, max_voxels=512, device=w)
+        state = create_train_state(model, cfg.OPTIMIZATION, 100)
+        pts, valid, gt, u = tiny_train_inputs(w)
+        loss, tb, _ = train_forward(state, pts, valid, gt, roi_u=u)
+        apply_gradients(state, loss)
+        res[w] = ({"loss": loss.detach().cpu(), **{k: v.detach().cpu() for k, v in tb.items()}},
+                  {n: p.grad.cpu() for n, p in model.named_parameters()},
+                  {n: p.detach().cpu() for n, p in model.named_parameters()},
+                  {n: b.cpu() for n, b in model.named_buffers()
+                   if not n.endswith("num_batches_tracked")})
+    (terms_d, grads_d, params_d, stats_d), (terms_c, grads_c, params_c, stats_c) = \
+        res[dev], res[cpu]
+    lr = build_lr_schedule(cfg.OPTIMIZATION, 100)(0)
+    worst = {}
+
+    def group(name, pairs, tol_fn):
+        worst[name] = 0.0
+        for key, (got, ref) in pairs.items():
+            err = (got - ref).abs()
+            worst[name] = max(worst[name], err.max().item())
+            if not (err <= tol_fn(key, ref)).all():
+                raise AssertionError(f"tiny train step: {name} {key} off the CPU by "
+                                     f"{err.max().item()}")
+
+    group("loss terms", {k: (terms_d[k], terms_c[k]) for k in terms_c},
+          lambda k, ref: 1e-5 + 1e-5 * ref.abs())
+    group("gradients", {k: (grads_d[k], grads_c[k]) for k in grads_c},
+          lambda k, ref: 5e-4 * ref.abs().max() + 1e-9)
+
+    def param_tol(k, ref):
+        g = grads_c[k].abs()
+        sure = (g >= 0.05 * g.max()) & (g >= 1e-6)
+        return torch.where(sure, 1e-5, 2 * lr)
+
+    group("updated parameters", {k: (params_d[k], params_c[k]) for k in params_c},
+          param_tol)
+    group("running statistics", {k: (stats_d[k], stats_c[k]) for k in stats_c},
+          lambda k, ref: 1e-5 + 1e-5 * ref.abs())
+    print("tiny train step, card vs CPU (TF32 off, DP_RATIO 0, fixed RoI priorities): "
+          "max |diff| " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; loss {terms_c['loss'].item():.5f}")
+    return worst
+
+
+def check_gt_completion(vcn, scenes, dev):
+    """GT-box SEE completion of the frames on the card, K1 counted: it must
+    launch at least once a frame, and each frame's new_valid must equal the
+    plain full-cloud recomputation of the replacement (points within 1e-5
+    r^2 of r^2 excepted). Returns (new_pts, new_valid, gt_boxes, stats,
+    launches, ms a frame)."""
+    pts, valid, gt = (torch.from_numpy(np.stack([sc[k] for sc in scenes])).to(dev)
+                      for k in ("points", "valid", "gt_boxes"))
+    gt_mask = torch.ones(gt.shape[:2], dtype=torch.bool, device=dev)
+    K.reset_launches()
+    new_pts, new_valid, stats = complete_gt_frames(vcn, pts, valid, gt, gt_mask)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["min_sqdist_pruned"]
+    f, p = pts.shape[:2]
+    if launches < f:
+        raise AssertionError(f"K1 launched {launches} times for {f} GT frames")
+    inst_valid = stats["inst_valid"]
+    mismatches = ties = 0
+    for i in range(f):
+        flat = stats["completed"][i].reshape(-1, 3)
+        flat_valid = inst_valid[i].repeat_interleave(stats["completed"].shape[2])
+        d = MD.min_sqdist_plain(pts[i], flat, flat_valid)
+        expect = valid[i] & ~(d <= RADIUS * RADIUS)
+        tie = (d - RADIUS * RADIUS).abs() <= 1e-5 * RADIUS * RADIUS
+        mismatches += int(((expect != new_valid[i, :p]) & ~tie).sum())
+        ties += int(tie.sum())
+        if not torch.equal(new_valid[i, p:], flat_valid):
+            raise AssertionError("GT completion: spliced points' validity is wrong")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        complete_gt_frames(vcn, pts, valid, gt, gt_mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / f)
+    ms = statistics.median(times)
+    dropped = int((valid & ~new_valid[:, :p]).sum())
+    print(f"GT completion of {f} frames ({p} points, {gt.shape[1]} GT boxes each): "
+          f"isolated {int(stats['ok'].sum())}, sane {int(stats['sane'].sum())}, "
+          f"spliced {int(inst_valid.sum())} of {f * gt.shape[1]}; {dropped} scan "
+          f"points dropped; K1 launches {launches}; new_valid vs the plain "
+          f"full-cloud sweep: {mismatches} mismatches ({ties} points within 1e-5 "
+          f"r^2 of r^2); {ms:.2f} ms a frame (host clock, median of 3 batches)")
+    if mismatches:
+        raise AssertionError("GT completion's replacement disagrees with the plain sweep")
+    if int(inst_valid.sum()) < f or dropped < 1:
+        raise AssertionError("GT completion did no real work")
+    return new_pts, new_valid, gt, stats, launches, ms
+
+
+def check_conv_backward_bf16(dcfg, pts, valid, cap, dev):
+    """The rulebook conv's backward in bf16 at the flagship's training
+    shapes: a 16 -> 16 submanifold conv (conv1's width) on the voxels of the
+    train frames at the train cap, more rows than one matrix product's
+    GEMM_ROWS, held against its plain version (autograd of
+    gather_matmul_plain) run in f32 on the same bf16 values. Tolerances: dW
+    1e-4 of max |dW| (f32 products and sums, in another order); dx 2^-7 of
+    each element plus 1e-4 of max |dx| (a bf16 result). Returns the summary
+    dict: rows, each error over its max, and forward + backward ms of both."""
+    _, coords, mask = voxelize_batch(
+        pts, valid, point_cloud_range=dcfg.point_cloud_range,
+        voxel_size=dcfg.voxel_size, max_voxels=cap,
+        max_points_per_voxel=dcfg.max_points_per_voxel)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = coords.shape[0]
+    x = torch.randn((n, 16), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((27, 16, 16), generator=gen, device=dev) * 0.1).bfloat16().float()
+    r = torch.randn((n, 16), generator=gen, device=dev).bfloat16().float()
+
+    def grads(feats):
+        xg, wg = feats.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        st = SP.make_sparse_tensor(xg, coords, mask, dcfg.sparse_shape, pts.shape[0])
+        (SP.subm_conv3d(st, wg).features.float() * r).sum().backward()
+        return xg.grad.float(), wg.grad
+
+    dx, dw = grads(x)
+    ms = time_cuda(lambda: grads(x), reps=3, warmup=1)
+    with plain_sparse_backward():
+        dx_p, dw_p = grads(x.float())
+        plain_ms = time_cuda(lambda: grads(x.float()), reps=3, warmup=1)
+    dw_scale, dx_scale = dw_p.abs().max().item(), dx_p.abs().max().item()
+    dw_err = (dw - dw_p).abs().max().item()
+    dx_bad = int(((dx - dx_p).abs() > 2 ** -7 * dx_p.abs() + 1e-4 * dx_scale).sum())
+    res = {"rows": int(mask.sum()), "dw_err_over_max": dw_err / dw_scale,
+           "dx_err_over_max": (dx - dx_p).abs().max().item() / dx_scale,
+           "ms": ms, "plain_f32_ms": plain_ms}
+    print(f"bf16 sparse conv backward at the flagship's train shapes ({res['rows']} "
+          f"active rows, {SP.GEMM_ROWS} a matrix product, 16 -> 16 subm) vs its plain "
+          f"version in f32: max |dW diff| {res['dw_err_over_max']:.3g} of max |dW|, "
+          f"max |dx diff| {res['dx_err_over_max']:.3g} of max |dx| ({dx_bad} elements "
+          f"past 2^-7 relative + 1e-4 of max); forward + backward {ms:.2f} ms, plain "
+          f"f32 {plain_ms:.2f} ms (CUDA events, median of 3)")
+    if not res["rows"] > SP.GEMM_ROWS:
+        raise AssertionError("the bf16 conv check did not span two matrix products")
+    if dw_err > 1e-4 * dw_scale or dx_bad:
+        raise AssertionError("the bf16 sparse conv backward disagrees with its plain version")
+    return res
+
+
+def check_roi_sampler_against_cpu(det_cfg, gt, dev):
+    """The RoI sampler and the IoU loss at the flagship's training shapes
+    (NMS_CONFIG.TRAIN's NMS_POST_MAXSIZE RoIs a frame, ROI_PER_IMAGE sampled,
+    the frames' GT boxes), on the card against the CPU, for RoIs jittered
+    around the GT boxes (foreground, hard and easy background, an invalid
+    tail) with fixed priorities. Sampled RoIs, labels, masks and assigned GT
+    boxes equal; IoUs and IoU labels within 1e-5; the loss within 1e-5
+    (relative). Returns the sampled foreground, hard and easy background
+    counts and the loss's |diff|."""
+    rcfg = det_cfg.MODEL.ROI_HEAD
+    r = int(rcfg.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
+    rng = np.random.RandomState(21)
+    gt_np = gt.cpu().numpy()
+    rois, u = [], rng.rand(gt_np.shape[0], r).astype(np.float32)
+    for g in gt_np:
+        src = g[rng.randint(0, len(g), r), :7]
+        jitter = rng.randn(r, 7).astype(np.float32) * [0.4, 0.4, 0.1, 0.3, 0.2, 0.1, 0.2]
+        scale = rng.uniform(0, 2, (r, 1))
+        scale[r // 5: r // 5 + r // 4] *= 0.1            # near copies: foreground
+        b = (src + jitter * scale).astype(np.float32)
+        b[: r // 5, :2] += 20.0
+        b[:, 3:6] = np.maximum(np.abs(b[:, 3:6]), 0.5)
+        rois.append(b)
+    roi_mask = np.broadcast_to(np.arange(r) < 7 * r // 8, u.shape)
+    rois = np.where(roi_mask[..., None], np.stack(rois), 0.0).astype(np.float32)
+    inputs = (u, rois, roi_mask.astype(np.int32), rng.randn(*u.shape).astype(np.float32),
+              roi_mask, gt_np)
+    logits = rng.randn(gt_np.shape[0], int(rcfg.TARGET_CONFIG.ROI_PER_IMAGE)).astype(
+        np.float32)
+    lcfg = rcfg.LOSS_CONFIG
+    res = []
+    for w in (dev, torch.device("cpu")):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(w) for a in inputs]
+        per = [RH.sample_rois_for_rcnn(*a, rcfg.TARGET_CONFIG) for a in zip(*t)]
+        tg = {k: torch.stack([p[k] for p in per]).cpu() for k in per[0]}
+        loss = RH.rcnn_iou_loss(torch.from_numpy(logits).to(w), tg["rcnn_cls_labels"].to(w),
+                                loss_type=lcfg.IOU_LOSS,
+                                weight=float(lcfg.LOSS_WEIGHTS["rcnn_iou_weight"]))
+        res.append((tg, loss.cpu()))
+    (got, loss_d), (ref, loss_c) = res
+    for k in ("rois", "roi_labels", "reg_valid_mask", "gt_of_rois", "roi_sample_mask"):
+        if not torch.equal(got[k], ref[k]):
+            raise AssertionError(f"RoI sampler on the card: {k} differs from the CPU")
+    iou_err = max((got[k] - ref[k]).abs().max().item()
+                  for k in ("gt_iou_of_rois", "rcnn_cls_labels"))
+    loss_err = (loss_d - loss_c).abs().item()
+    tcfg = rcfg.TARGET_CONFIG
+    sel, iou = ref["roi_sample_mask"], ref["gt_iou_of_rois"]
+    fg = (sel & (iou >= float(tcfg.REG_FG_THRESH))).sum(1).tolist()
+    hard = (sel & (iou >= float(tcfg.CLS_BG_THRESH_LO))
+            & (iou < float(tcfg.REG_FG_THRESH))).sum(1).tolist()
+    easy = (sel & (iou < float(tcfg.CLS_BG_THRESH_LO))).sum(1).tolist()
+    print(f"RoI sampler and IoU loss at the flagship's shapes ({r} RoIs a frame around "
+          f"{gt_np.shape[1]} GT boxes), card vs CPU: sampled RoIs, labels, masks and GT "
+          f"equal; max |IoU diff| {iou_err:.3g}; loss {loss_c.item():.5f}, |diff| "
+          f"{loss_err:.3g}; sampled fg {fg}, hard bg {hard}, easy bg {easy}")
+    if iou_err > 1e-5 or loss_err > 1e-5 * max(1.0, abs(loss_c.item())):
+        raise AssertionError("RoI sampler or IoU loss on the card off the CPU")
+    if min(fg) < 1 or min(hard) < 1 or min(easy) < 1:
+        raise AssertionError("the RoI sampler check did not fill every stratum")
+    return {"fg": fg, "hard_bg": hard, "easy_bg": easy, "iou_err": iou_err,
+            "loss_err": loss_err}
+
+
+def train_flagship(det_cfg, pts, valid, gt, dev, steps: int = 10):
+    """SECOND-IoU train steps at _flagship_detector_cfg (bf16 3D backbone,
+    MAX_NUMBER_OF_VOXELS' train cap, weights from a seed) on the completed
+    frames: a warm-up step and ``steps`` timed ones (host clock ending in a
+    synchronize), one split by CUDA events into forward, loss and
+    backward+update, one under torch.profiler. Raises unless every loss is
+    finite, every parameter's gradient finite and non-zero somewhere, and
+    every parameter moved. Returns the summary dict."""
+    cap = int(det_cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    cpu_model, _ = build_detector(det_cfg, max_voxels=cap, device="cpu")
+    model, dcfg = build_detector(det_cfg, seeded_state_dict(0, cpu_model),
+                                 max_voxels=cap, device=dev)
+    state = create_train_state(model, det_cfg.OPTIMIZATION, total_steps=1000)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, tb, out = train_forward(state, pts, valid, gt, gen)
+    apply_gradients(state, loss)
+    losses = [{"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}]
+    for n, p in model.named_parameters():
+        if not torch.isfinite(p.grad).all() or not p.grad.any():
+            raise AssertionError(f"gradient of {n} is not finite or all zero")
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(state, pts, valid, gt, gen))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fwd = model(pts, valid, gt_boxes=gt, generator=gen)
+    ev[1].record()
+    loss, _ = model.loss(fwd, gt)
+    ev[2].record()
+    apply_gradients(state, loss)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1])
+             for i, k in enumerate(("forward", "loss", "backward_update"))}
+    busy, top = profile_frame((state, pts, valid, gt, gen), train_step)
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError("a training loss is not finite")
+    still = [n for n, p in model.named_parameters() if torch.equal(p, start[n])]
+    if still:
+        raise AssertionError(f"parameters did not move: {still[:5]}")
+    _, coords, mask = voxelize_batch(
+        pts, valid, point_cloud_range=dcfg.point_cloud_range,
+        voxel_size=dcfg.voxel_size, max_voxels=cap,
+        max_points_per_voxel=dcfg.max_points_per_voxel)
+    per_frame = torch.bincount(coords[mask][:, 0].long(), minlength=pts.shape[0])
+    tg = out["rcnn_targets"]
+    fg_thresh = float(det_cfg.MODEL.ROI_HEAD.TARGET_CONFIG.REG_FG_THRESH)
+    fg = (tg["roi_sample_mask"] & (tg["gt_iou_of_rois"] >= fg_thresh)).sum(1)
+    bg = tg["roi_sample_mask"].sum(1) - fg
+    step_ms = statistics.median(times)
+    summary = {
+        "step_ms": step_ms, "frames_per_s": pts.shape[0] * 1e3 / step_ms,
+        "step_ms_all": times, "split_ms": split, "peak_gib": peak,
+        "device_busy_ms": busy, "top_ops": top,
+        "losses": [m["loss"] for m in values], "last_terms": values[-1],
+        "active_voxels": per_frame.tolist(), "voxel_cap": cap,
+        "cap_bound": [int(v) >= cap for v in per_frame],
+        "proposals": out["roi_mask"].sum(1).tolist(),
+        "sampled_fg": fg.tolist(), "sampled_bg": bg.tolist()}
+    print(f"flagship train steps on {pts.shape[0]} completed frames "
+          f"({pts.shape[1]} points each): losses "
+          + ", ".join(f"{v:.4f}" for v in summary["losses"])
+          + f"; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items())
+          + f"; active voxels per frame {summary['active_voxels']} (cap {cap}, "
+          f"bound {summary['cap_bound']}); proposals {summary['proposals']}; "
+          f"sampled RoIs fg {summary['sampled_fg']} bg {summary['sampled_bg']}")
+    print(f"train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+          f"{steps}) = {summary['frames_per_s']:.2f} frames/s; CUDA events: forward "
+          f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
+          f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; "
+          f"profiled step: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1122,9 +1453,25 @@ def main() -> int:
     print(f"profiled mask stage: device busy {mask_busy:.2f} ms of "
           f"{stage_ms['masks']:.2f} ms; device time by op: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in mask_top))
+
+    # --- 9. source-domain training: GT completion, then train steps --------
+    tiny_train = check_tiny_train_step_against_cpu(dev)
+    gt_scenes = [make_scene(seed, 150_000, 32) for seed in range(4)]
+    g_pts, g_valid, g_gt, g_stats, gt_launches, gt_ms = check_gt_completion(
+        vcn, gt_scenes, dev)
+    kernels[0]["gt_completion_launches"] = gt_launches
+    train_cap = int(det_cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    conv_bwd = check_conv_backward_bf16(dcfg, g_pts, g_valid, train_cap, dev)
+    sampler = check_roi_sampler_against_cpu(det_cfg, g_gt, dev)
+    train = train_flagship(det_cfg, g_pts, g_valid, g_gt, dev)
+    train.update(tiny_vs_cpu=tiny_train, conv_backward_bf16=conv_bwd,
+                 roi_sampler_vs_cpu=sampler, gt_completion={
+        "ms_per_frame": gt_ms, "launches": gt_launches,
+        "isolated": int(g_stats["ok"].sum()), "sane": int(g_stats["sane"].sum()),
+        "spliced": int(g_stats["inst_valid"].sum())})
     print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 9. summary lines ----------------------------------------------------
+    # --- 10. summary lines ---------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
         "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
@@ -1136,7 +1483,7 @@ def main() -> int:
         "detector": {"active_voxels": active, "proposals": n_props,
                      "kept": n_kept, "nms_ms": nms_ms,
                      "peak_gib": det_peak},
-        "see_frame_peak_gib": see_peak,
+        "see_frame_peak_gib": see_peak, "train": train,
         "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,31 @@ def corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     return pts @ rot + boxes[..., None, 0:2]
 
 
+def enlarge_box3d(boxes3d: torch.Tensor, extra_width=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """(N, 7+) boxes with (dx, dy, dz) grown by ``extra_width``."""
+    extra = boxes3d.new_tensor(extra_width)
+    return torch.cat([boxes3d[:, :3], boxes3d[:, 3:6] + extra[None],
+                      boxes3d[:, 6:]], dim=1)
+
+
+def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Rotated-box containment, (N, 3+) points x (M, 7) boxes -> (M, N) bool:
+    each point rotated by the box's -heading into its frame, inside where
+    |local| <= half the size on every axis (z from zc - dz/2 to zc + dz/2)."""
+    rel = points[None, :, :3] - boxes[:, None, :3]               # (M, N, 3)
+    local = rotate_points_along_z(rel, -boxes[:, 6])
+    return (local.abs() <= boxes[:, None, 3:6] / 2).all(-1)
+
+
+def points_in_boxes_count(points: torch.Tensor, boxes: torch.Tensor,
+                          point_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(M,) number of (valid) points inside each box."""
+    inside = points_in_boxes(points, boxes)
+    if point_mask is not None:
+        inside = inside & point_mask[None, :]
+    return inside.sum(1)
+
+
 def boxes3d_to_aligned_bev(boxes3d: torch.Tensor) -> torch.Tensor:
     """Snap each rotated box to its nearest axis-aligned BEV box (N, 4)."""
     rot = limit_period(boxes3d[:, 6], offset=0.5, period=math.pi).abs()
@@ -61,3 +86,10 @@ def boxes_iou_normal(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tens
     area_a = (boxes_a[:, 2] - boxes_a[:, 0]) * (boxes_a[:, 3] - boxes_a[:, 1])
     area_b = (boxes_b[:, 2] - boxes_b[:, 0]) * (boxes_b[:, 3] - boxes_b[:, 1])
     return inter / (area_a[:, None] + area_b[None, :] - inter).clamp_min(1e-6)
+
+
+def boxes3d_nearest_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(N, 7) x (M, 7) -> (N, M) IoU of the nearest axis-aligned BEV boxes,
+    the anchor assigner's measure when MATCH_HEIGHT is off."""
+    return boxes_iou_normal(boxes3d_to_aligned_bev(boxes_a),
+                            boxes3d_to_aligned_bev(boxes_b))

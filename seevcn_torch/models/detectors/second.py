@@ -1,12 +1,15 @@
-"""SECOND-IoU, eval forward and post-processing (port of SECONDNetIoU,
-post_processing and build_detector of seevcn_tpu/models/detectors/second.py;
-reference second_net_iou.py).
+"""SECOND-IoU: forward, training loss and post-processing (port of
+SECONDNetIoU, post_processing and build_detector of
+seevcn_tpu/models/detectors/second.py; reference second_net_iou.py).
 
 MeanVFE (the voxeliser's mean) -> VoxelBackBone8x -> HeightCompression ->
 BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS -> rotated BEV RoI-grid
-pool -> SECONDHead IoU; then ``post_processing``, the final NMS. Inputs are
-fixed-capacity padded points (B, P, 3) with a validity mask, outputs the
-reference's fixed-shape dicts. State-dict keys are OpenPCDet's.
+pool -> SECONDHead IoU; then ``post_processing``, the final NMS. In training
+(``model.train()``) the proposals come from NMS_CONFIG.TRAIN, the RoI
+sampler picks ROI_PER_IMAGE of them against the ground truth, the pooled
+features are detached, and ``loss`` adds the RPN's losses to the IoU head's.
+Inputs are fixed-capacity padded points (B, P, 3) with a validity mask,
+outputs the reference's fixed-shape dicts. State-dict keys are OpenPCDet's.
 """
 from __future__ import annotations
 
@@ -22,14 +25,16 @@ from ..modules.backbone2d import BaseBEVBackbone
 from ..modules.backbone3d import VoxelBackBone8x
 from ..modules.dense_heads import AnchorHeadLogic, AnchorHeadSingle
 from ..modules.map_to_bev import height_compression
-from ..modules.roi_heads import SECONDHead, proposal_layer, roi_grid_pool_bev
+from ..modules.roi_heads import (SECONDHead, proposal_layer, rcnn_iou_loss,
+                                 roi_grid_pool_bev, sample_rois_for_rcnn, uniform)
 
 
 class DetectorConfig:
     """Static detector configuration derived from a reference pcdet config
-    (MODEL + DATA_CONFIG blocks)."""
+    (MODEL + DATA_CONFIG blocks). The voxel cap is MAX_NUMBER_OF_VOXELS'
+    test value unless ``max_voxels`` is given (its train value, to train)."""
 
-    def __init__(self, model_cfg, data_cfg, class_names):
+    def __init__(self, model_cfg, data_cfg, class_names, max_voxels=None):
         self.model_cfg = model_cfg
         self.class_names = list(class_names)
         self.num_class = len(self.class_names)
@@ -38,7 +43,7 @@ class DetectorConfig:
                if p.NAME == "transform_points_to_voxels"][0]
         self.voxel_size = [float(v) for v in vox.VOXEL_SIZE]
         mv = vox.get("MAX_NUMBER_OF_VOXELS", 60000)
-        self.max_voxels = int(mv["test"] if isinstance(mv, dict) else mv)
+        self.max_voxels = int(max_voxels or (mv["test"] if isinstance(mv, dict) else mv))
         self.max_points_per_voxel = int(vox.get("MAX_POINTS_PER_VOXEL", 5))
         self.grid_size = compute_grid_size(self.point_cloud_range, self.voxel_size)
         feat_cfg = data_cfg.get("POINT_FEATURE_ENCODING", None)
@@ -56,7 +61,7 @@ class DetectorConfig:
 
 
 class SECONDNetIoU(nn.Module):
-    """SECOND + IoU rcnn head, eval forward."""
+    """SECOND + IoU rcnn head."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
@@ -88,14 +93,19 @@ class SECONDNetIoU(nn.Module):
             self.backbone_2d.num_bev_features, int(r.ROI_GRID_POOL.GRID_SIZE),
             tuple(r.SHARED_FC), tuple(r.IOU_FC), float(r.DP_RATIO))
 
-    def forward(self, points: torch.Tensor, points_valid: torch.Tensor) -> dict:
-        """points (B, P, 3+C), points_valid (B, P) -> the reference's eval
-        dict: head_out, batch_cls_preds (B, A, ncls), batch_box_preds
-        (B, A, 7), spatial_features_2d, rois (B, R, 7), roi_scores,
-        roi_labels, roi_mask, rcnn_iou (B, R). Also ``active_voxels``, the
-        active count of the backbone's input and of each stage's output."""
-        if self.training:
-            raise NotImplementedError("SECONDNetIoU is ported for eval only")
+    def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
+                gt_boxes: torch.Tensor | None = None, generator=None,
+                roi_u: torch.Tensor | None = None) -> dict:
+        """points (B, P, 3+C), points_valid (B, P) -> the reference's dict:
+        head_out, batch_cls_preds (B, A, ncls), batch_box_preds (B, A, 7),
+        spatial_features_2d, roi_mask (B, R) of the proposals, rcnn_iou; and
+        ``active_voxels``, the active count of the backbone's input and of
+        each stage's output. In eval also rois (B, R, 7), roi_scores,
+        roi_labels. In training, ``gt_boxes`` (B, M, 8) (zero rows padding)
+        is required and the output holds ``rcnn_targets``, the RoI sample
+        that rcnn_iou scores. The sample's random priorities are ``roi_u``
+        (B, R) where given, else drawn from ``generator``, which also draws
+        the dropout masks."""
         cfg = self.cfg
         feats, coords, mask = voxelize_batch(
             points, points_valid, point_cloud_range=cfg.point_cloud_range,
@@ -111,17 +121,52 @@ class SECONDNetIoU(nn.Module):
         head_out = self.dense_head(bev2d)
         cls_preds, box_preds = cfg.head_logic.predict_boxes(head_out)
         rcfg = cfg.model_cfg.ROI_HEAD
-        props = proposal_layer(cls_preds, box_preds, rcfg.NMS_CONFIG["TEST"])
-        pooled = roi_grid_pool_bev(
-            bev2d, props["rois"][..., :7], int(rcfg.ROI_GRID_POOL.GRID_SIZE),
-            cfg.point_cloud_range, cfg.voxel_size,
-            int(rcfg.ROI_GRID_POOL.DOWNSAMPLE_RATIO))
+        props = proposal_layer(cls_preds, box_preds,
+                               rcfg.NMS_CONFIG["TRAIN" if self.training else "TEST"])
         stages = [st] + [bb["multi_scale_3d_features"][f"x_conv{i}"]
                          for i in range(1, 5)] + [enc]
-        return {"head_out": head_out, "batch_cls_preds": cls_preds,
-                "batch_box_preds": box_preds, "spatial_features_2d": bev2d,
-                **props, "rcnn_iou": self.roi_head(pooled),
-                "active_voxels": torch.stack([s.mask.sum() for s in stages])}
+        out = {"head_out": head_out, "batch_cls_preds": cls_preds,
+               "batch_box_preds": box_preds, "spatial_features_2d": bev2d,
+               "roi_mask": props["roi_mask"],
+               "active_voxels": torch.stack([s.mask.sum() for s in stages])}
+        if self.training:
+            if gt_boxes is None:
+                raise ValueError("training needs gt_boxes")
+            if roi_u is None:
+                roi_u = uniform(props["rois"].shape[:2], generator, points.device)
+            roi_u = roi_u.to(points.device)
+            per = [sample_rois_for_rcnn(*a, rcfg.TARGET_CONFIG) for a in zip(
+                roi_u, props["rois"], props["roi_labels"], props["roi_scores"],
+                props["roi_mask"], gt_boxes)]
+            targets = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+            out["rcnn_targets"] = targets
+            rois = targets["rois"]
+        else:
+            out.update(props)
+            rois = props["rois"]
+        pooled = roi_grid_pool_bev(
+            bev2d, rois[..., :7], int(rcfg.ROI_GRID_POOL.GRID_SIZE),
+            cfg.point_cloud_range, cfg.voxel_size,
+            int(rcfg.ROI_GRID_POOL.DOWNSAMPLE_RATIO))
+        if self.training:
+            # the reference detaches the BEV features for the rcnn head
+            pooled = pooled.detach()
+        out["rcnn_iou"] = self.roi_head(pooled, generator)
+        return out
+
+    def loss(self, out: dict, gt_boxes: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The training loss of a training forward's output: the RPN's
+        (assignment against gt_boxes) plus the IoU head's. -> (total, the
+        terms: rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss,
+        rcnn_loss_iou)."""
+        logic = self.cfg.head_logic
+        rpn_loss, tb = logic.loss(out["head_out"], logic.assign_targets(gt_boxes))
+        lcfg = self.cfg.model_cfg.ROI_HEAD.LOSS_CONFIG
+        rcnn = rcnn_iou_loss(out["rcnn_iou"], out["rcnn_targets"]["rcnn_cls_labels"],
+                             loss_type=lcfg.IOU_LOSS,
+                             weight=float(lcfg.LOSS_WEIGHTS["rcnn_iou_weight"]))
+        tb["rcnn_loss_iou"] = rcnn
+        return rpn_loss + rcnn, tb
 
 
 def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool) -> dict:
@@ -151,14 +196,17 @@ def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool) -> 
     return {k: torch.stack(v) for k, v in res.items()}
 
 
-def build_detector(cfg, state_dict: dict | None = None, *, device="cuda"):
+def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
+                   device="cuda"):
     """cfg: a full pcdet config (MODEL / DATA_CONFIG / CLASS_NAMES) naming
     SECONDNetIoU -> (model in eval mode on ``device``, DetectorConfig). A
-    given state dict (reference key names) is loaded with strict=True."""
+    given state dict (reference key names) is loaded with strict=True;
+    ``max_voxels`` overrides the voxel cap (DetectorConfig)."""
     dev = resolve_device(device)
     if cfg.MODEL.NAME != "SECONDNetIoU":
         raise NotImplementedError(f"detector {cfg.MODEL.NAME}")
-    dcfg = DetectorConfig(cfg.MODEL, cfg.DATA_CONFIG, cfg.CLASS_NAMES)
+    dcfg = DetectorConfig(cfg.MODEL, cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                          max_voxels=max_voxels)
     model = SECONDNetIoU(dcfg)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)

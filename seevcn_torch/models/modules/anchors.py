@@ -1,12 +1,27 @@
-"""Anchor generation (port of ``generate_anchors`` of
-seevcn_tpu/models/modules/anchors.py; reference anchor_generator.py:17-60):
-grid anchors at every feature-map cell, per class sizes, rotations and
-bottom heights, flattened (z, y, x, size, rot) as the conv head's channels
-are. Host-side numpy, as in the reference.
+"""Anchors and their targets (port of ``generate_anchors``,
+``AxisAlignedTargetAssigner`` and ``get_direction_targets`` of
+seevcn_tpu/models/modules/anchors.py; reference anchor_generator.py:17-60 and
+axis_aligned_target_assigner.py:36-210).
+
+Anchors: grid anchors at every feature-map cell, per class sizes, rotations
+and bottom heights, flattened (z, y, x, size, rot) as the conv head's
+channels are; host-side numpy, as in the reference. Targets: per anchor
+class, the IoU of every anchor with every ground-truth box of that class,
+matched / unmatched thresholds, and each ground truth's best anchors forced
+to match; residual targets for the positives. Fixed shapes over padded
+ground truth (all-zero rows), as in the reference: a padding row has zero
+IoU everywhere and is neutralised by ``g2a_max == 0 -> -1``.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+
+from ...geom.boxes import boxes3d_nearest_bev_iou
+from ...geom.transforms import limit_period
+from ...ops.iou3d import boxes_iou3d
 
 
 def generate_anchors(anchor_generator_cfg, grid_size, point_cloud_range,
@@ -55,3 +70,85 @@ def generate_anchors(anchor_generator_cfg, grid_size, point_cloud_range,
         flat = np.concatenate(
             [flat, np.zeros((len(flat), anchor_ndim - 7), np.float32)], axis=1)
     return flat, num_per_loc
+
+
+class AxisAlignedTargetAssigner:
+    """Anchor-to-ground-truth assignment per anchor class, thresholds from
+    the anchor generator config."""
+
+    def __init__(self, anchor_generator_cfg, class_names, box_coder,
+                 match_height: bool = False):
+        self.box_coder = box_coder
+        self.match_height = match_height
+        names = [c["class_name"] for c in anchor_generator_cfg]
+        # 1-based class id (the last column of gt_boxes) of each anchor class
+        self.class_ids = [list(class_names).index(n) + 1 for n in names]
+        self.matched = [float(c["matched_threshold"]) for c in anchor_generator_cfg]
+        self.unmatched = [float(c["unmatched_threshold"]) for c in anchor_generator_cfg]
+
+    def assign(self, anchors_per_class, gt_boxes: torch.Tensor) -> dict:
+        """anchors_per_class: one (locations, per-location, ndim) tensor a
+        class; gt_boxes (B, M, 8) [box, class id], zero rows padding. ->
+        box_cls_labels (B, A) int32, box_reg_targets (B, A, code),
+        reg_weights (B, A), with the classes interleaved per location as the
+        reference's cat(dim=-2) lays them out."""
+        labels, targets, weights = [], [], []
+        for gt in gt_boxes:
+            gt_cls = gt[:, -1].to(torch.int32)
+            per = [_assign_single(a, gt[:, :7], gt_cls, cid, mt, ut,
+                                  self.box_coder, self.match_height)
+                   for a, cid, mt, ut in zip(anchors_per_class, self.class_ids,
+                                             self.matched, self.unmatched)]
+            loc = per[0][0].shape[0]
+            labels.append(torch.cat([p[0].reshape(loc, -1) for p in per], -1).reshape(-1))
+            targets.append(torch.cat([p[1].reshape(loc, -1, p[1].shape[-1])
+                                      for p in per], -2).reshape(-1, per[0][1].shape[-1]))
+            weights.append(torch.cat([p[2].reshape(loc, -1) for p in per], -1).reshape(-1))
+        return {"box_cls_labels": torch.stack(labels),
+                "box_reg_targets": torch.stack(targets),
+                "reg_weights": torch.stack(weights)}
+
+
+def _assign_single(anchors, gt, gt_cls, class_id, matched_thr, unmatched_thr,
+                   coder, match_height):
+    """One frame, one anchor class: anchors (..., ndim) -> labels, targets,
+    weights with the anchors' leading shape. ``argmax`` takes the first
+    maximum, as ``jnp.argmax`` does, over the IoUs and over the boolean
+    force-match rows alike."""
+    a_shape = anchors.shape[:-1]
+    a = anchors.reshape(-1, anchors.shape[-1])[:, :7]
+    cls_mask = (gt_cls == class_id) & (gt.abs().sum(1) > 0)
+    iou = boxes_iou3d(a, gt, row_chunk=8192) if match_height \
+        else boxes3d_nearest_bev_iou(a, gt)
+    iou = torch.where(cls_mask[None, :], iou, 0.0)
+
+    a2g_max, a2g_arg = iou.amax(1), iou.argmax(1)
+    g2a_max = iou.amax(0)
+    g2a_max = torch.where(g2a_max == 0, -1.0, g2a_max)
+    # force-match: every anchor that reaches a ground truth's best IoU
+    force = (iou == g2a_max[None, :]) & cls_mask[None, :]
+    force_any = force.any(1)
+    force_gt = force.to(torch.uint8).argmax(1)
+
+    pos = a2g_max >= matched_thr
+    neg = a2g_max < unmatched_thr
+    labels = torch.full(a2g_max.shape, -1, dtype=torch.int32, device=a.device)
+    labels = torch.where(neg, 0, labels)
+    labels = torch.where(pos, gt_cls[a2g_arg], labels)
+    labels = torch.where(force_any, gt_cls[force_gt], labels)
+
+    assigned = torch.where(force_any & ~pos, force_gt, a2g_arg)
+    fg = labels > 0
+    targets = torch.where(fg[:, None], coder.encode(gt[assigned], a), 0.0)
+    return (labels.reshape(a_shape), targets.reshape(*a_shape, -1),
+            fg.to(torch.float32).reshape(a_shape))
+
+
+def get_direction_targets(anchors: torch.Tensor, reg_targets: torch.Tensor,
+                          dir_offset: float, num_bins: int) -> torch.Tensor:
+    """(B, A, 7) anchors + residual targets -> (B, A) direction bins
+    (anchor_head_template.py:146-160)."""
+    rot_gt = reg_targets[..., 6] + anchors[..., 6]
+    offset_rot = limit_period(rot_gt - dir_offset, 0, 2 * math.pi)
+    bins = torch.floor(offset_rot / (2 * math.pi / num_bins)).to(torch.int64)
+    return bins.clamp(0, num_bins - 1)

@@ -8,7 +8,8 @@ Channel plan: in -> 16 -> 16 | s2 32 (x3) | s2 64 (x3) | s2 (z pad 0) 64 (x3)
 ``dtype="bfloat16"`` stores the activations in bf16 between layers, as the
 reference's dense modes do: each conv multiplies bf16 inputs and weights
 with f32 accumulation and rounds its result to bf16 once; batch norm runs
-in f32 and its result is rounded to bf16. The strided convs keep every
+in f32 and its result is rounded to bf16. In training each masked batch
+norm takes its statistics over the valid rows. The strided convs keep every
 active output (the reference's dense modes never truncate; its rulebook
 mode keeps the lowest keys up to the input's row count, the same set
 whenever nothing overflows).
@@ -31,10 +32,11 @@ class SparseConvWeight(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, *self.kernel_size, cin))
         nn.init.normal_(self.weight, std=(cin * self.weight[0, ..., 0].numel()) ** -0.5)
 
-    def rulebook(self, dtype) -> torch.Tensor:
-        """(K, cin, cout) with K in the rulebook's z-major offset order."""
+    def rulebook(self, dtype=None) -> torch.Tensor:
+        """(K, cin, cout) with K in the rulebook's z-major offset order, in
+        ``dtype`` (the parameter's by default)."""
         w = self.weight.permute(1, 2, 3, 4, 0)
-        return w.reshape(-1, w.shape[3], w.shape[4]).to(dtype)
+        return w.reshape(-1, w.shape[3], w.shape[4]).to(dtype or w.dtype)
 
 
 class SpConvLayer(nn.Module):
@@ -51,7 +53,9 @@ class SpConvLayer(nn.Module):
     def forward(self, st: SP.SparseTensor) -> SP.SparseTensor:
         conv, bn = self._modules["0"], self._modules["1"]
         dtype = st.features.dtype
-        w = conv.rulebook(dtype)
+        # the f32 parameter goes in; the conv casts it to the features' dtype,
+        # so its weight gradient reaches the parameter without a bf16 rounding
+        w = conv.rulebook()
         if self.subm:
             out = SP.subm_conv3d(st, w, conv.kernel_size, self.padding)
         else:

@@ -1,15 +1,25 @@
-"""RoI head of SECOND-IoU, eval side (port of proposal_layer,
-bilinear_sample, roi_grid_pool_bev and SECONDHead of
-seevcn_tpu/models/modules/roi_heads.py; reference roi_head_template.py:45-102
-and second_head.py:10-188)."""
+"""RoI head of SECOND-IoU (port of seevcn_tpu/models/modules/roi_heads.py;
+reference roi_head_template.py:45-102, second_head.py:10-188 and
+proposal_target_layer.py): the proposal layer, the rotated BEV grid pool,
+SECONDHead, and for training the stratified RoI sampler and the IoU loss.
+
+The sampler keeps the reference's fixed-shape form: a random priority
+ranks the RoIs within each stratum (foreground, hard and easy background),
+and the zero-foreground / zero-background corners fall back to the nearest
+stratum instead of oversampling.
+"""
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from ...ops.iou3d import boxes_iou3d
 from ...ops.nms import nms_bev
+from ..losses import binary_cross_entropy_with_logits
+from .common import BatchNorm1d
 
 
 @torch.no_grad()
@@ -81,15 +91,28 @@ def _fc_layers(cin: int, widths: Sequence[int], dp_ratio: float) -> list[nn.Modu
     layers = []
     for k, f in enumerate(widths):
         layers += [nn.Conv1d(cin, f, 1, bias=False),
-                   nn.BatchNorm1d(f, eps=1e-3, momentum=0.01), nn.ReLU()]
+                   BatchNorm1d(f, eps=1e-3, momentum=0.01), nn.ReLU()]
         if k != len(widths) - 1 and dp_ratio > 0:
             layers.append(nn.Dropout(dp_ratio))
         cin = f
     return layers
 
 
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) draws on ``device`` from ``generator``, a generator of that
+    device (None: its default one)."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def dropout(x: torch.Tensor, p: float, generator=None) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from ``generator``."""
+    keep = uniform(x.shape, generator, x.device) >= p
+    return torch.where(keep, x / (1 - p), 0.0)
+
+
 class SECONDHead(nn.Module):
-    """IoU-scoring rcnn head: shared FC stack + IoU regressor (eval)."""
+    """IoU-scoring rcnn head: shared FC stack + IoU regressor; dropout
+    (DP_RATIO) between the shared layers in training."""
 
     def __init__(self, input_channels: int, grid_size: int,
                  shared_fc: Sequence[int] = (256, 256),
@@ -101,9 +124,108 @@ class SECONDHead(nn.Module):
             *_fc_layers(shared_fc[-1], iou_fc, dp_ratio),
             nn.Conv1d(iou_fc[-1], 1, 1, bias=True))
 
-    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+    def forward(self, pooled: torch.Tensor, generator=None) -> torch.Tensor:
         """pooled (B, R, g, g, C) -> rcnn_iou (B, R), flattened in the
-        reference's (C, g, g) order."""
+        reference's (C, g, g) order. In training, dropout masks come from
+        ``generator``."""
         b, r, g, _, c = pooled.shape
         x = pooled.permute(0, 1, 4, 2, 3).reshape(b * r, c * g * g, 1)
-        return self.iou_layers(self.shared_fc_layer(x)).reshape(b, r)
+        for layer in (*self.shared_fc_layer, *self.iou_layers):
+            if isinstance(layer, nn.Dropout):
+                if self.training:
+                    x = dropout(x, layer.p, generator)
+            else:
+                x = layer(x)
+        return x.reshape(b, r)
+
+
+def get_max_iou_with_same_class(rois, roi_labels, gt_boxes, gt_labels, gt_valid):
+    """(R, 7), (R,), (M, 7), (M,), (M,) -> each roi's max 3D IoU over the
+    valid ground truth of its class, and that box's index (the first on a
+    tie) (proposal_target_layer.py:197-232)."""
+    iou = boxes_iou3d(rois, gt_boxes)
+    same = roi_labels[:, None] == gt_labels[None, :]
+    iou = torch.where(same & gt_valid[None, :], iou, 0.0)
+    return iou.amax(1), iou.argmax(1)
+
+
+def _stratum_rank(m: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Rank of each row among the rows of mask ``m`` by priority u (rows
+    outside m rank after them), stable as jnp.argsort is."""
+    order = torch.argsort(torch.where(m, u, 2.0), stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=order.device)
+    return rank
+
+
+def sample_rois_for_rcnn(u, rois, roi_labels, roi_scores, roi_mask, gt_boxes,
+                         cfg) -> dict:
+    """One frame's stratified, fixed-shape RoI sample: u (R,) the random
+    priorities in [0, 1), rois (R, 7+), gt_boxes (M, 8) padded. Takes up to
+    FG_RATIO * ROI_PER_IMAGE foreground RoIs, HARD_BG_RATIO of the rest from
+    hard background, easy background after that. -> rois (S, 7+),
+    roi_labels, rcnn_cls_labels (S,) (-1 where ignored), reg_valid_mask,
+    gt_of_rois (S, 8), gt_iou_of_rois, roi_sample_mask."""
+    s = int(cfg.ROI_PER_IMAGE)
+    fg_per_image = int(np.round(cfg.FG_RATIO * s))
+    fg_thresh = min(float(cfg.REG_FG_THRESH), float(cfg.CLS_FG_THRESH))
+
+    gt_labels = gt_boxes[:, -1].to(torch.int32)
+    gt_valid = gt_boxes.abs().sum(1) > 0
+    max_iou, gt_assign = get_max_iou_with_same_class(
+        rois[:, :7], roi_labels, gt_boxes[:, :7], gt_labels, gt_valid)
+    max_iou = torch.where(roi_mask, max_iou, -1.0)
+
+    fg = max_iou >= fg_thresh
+    easy_bg = roi_mask & (max_iou < float(cfg.CLS_BG_THRESH_LO)) & (max_iou >= 0)
+    hard_bg = roi_mask & (max_iou >= float(cfg.CLS_BG_THRESH_LO)) \
+        & (max_iou < float(cfg.REG_FG_THRESH))
+
+    take_fg = fg.sum().clamp_max(fg_per_image)
+    want_hard = torch.floor((s - take_fg) * float(cfg.HARD_BG_RATIO)).to(torch.int64)
+    take_hard = torch.minimum(want_hard, hard_bg.sum())
+    sel_fg = fg & (_stratum_rank(fg, u) < take_fg)
+    sel_hard = hard_bg & (_stratum_rank(hard_bg, u) < take_hard)
+    # easy background fills the rest
+    remaining = s - take_fg - sel_hard.sum()
+    sel_easy = easy_bg & (_stratum_rank(easy_bg, u) < remaining)
+    selected = sel_fg | sel_hard | sel_easy
+
+    # compact: foreground first, then background, then the unselected
+    prio = torch.where(sel_fg, 0, torch.where(sel_hard | sel_easy, 1, 2))
+    sel_idx = torch.argsort(prio * 10.0 + u, stable=True)[:s]
+    sel_valid = selected[sel_idx]
+    out_iou = max_iou[sel_idx]
+    reg_valid = (out_iou >= float(cfg.REG_FG_THRESH)) & sel_valid
+
+    score_type = cfg.get("CLS_SCORE_TYPE", "raw_roi_iou")
+    if score_type == "cls":
+        cls_labels = (out_iou > float(cfg.CLS_FG_THRESH)).float()
+        ignore = (out_iou > float(cfg.CLS_BG_THRESH)) & (out_iou < float(cfg.CLS_FG_THRESH))
+        cls_labels = torch.where(ignore, -1.0, cls_labels)
+    elif score_type == "roi_iou":
+        bg_t, fg_t = float(cfg.CLS_BG_THRESH), float(cfg.CLS_FG_THRESH)
+        cls_labels = ((out_iou - bg_t) / (fg_t - bg_t)).clamp(0.0, 1.0)
+    else:                                                       # raw_roi_iou
+        cls_labels = out_iou.clamp(0.0, 1.0)
+    cls_labels = torch.where(sel_valid, cls_labels, -1.0)
+    return {"rois": rois[sel_idx], "roi_labels": roi_labels[sel_idx],
+            "rcnn_cls_labels": cls_labels, "reg_valid_mask": reg_valid,
+            "gt_of_rois": gt_boxes[gt_assign[sel_idx]], "gt_iou_of_rois": out_iou,
+            "roi_sample_mask": sel_valid}
+
+
+def rcnn_iou_loss(rcnn_iou: torch.Tensor, rcnn_cls_labels: torch.Tensor,
+                  loss_type: str = "BinaryCrossEntropy",
+                  weight: float = 1.0) -> torch.Tensor:
+    """second_head.py:163-188: BCE (or L2) of the IoU logits against the
+    sampled labels, averaged over the labels that are not ignored (-1)."""
+    pred, lab = rcnn_iou.reshape(-1), rcnn_cls_labels.reshape(-1)
+    if loss_type == "BinaryCrossEntropy":
+        per = binary_cross_entropy_with_logits(pred, lab.clamp(0, 1))
+    elif loss_type == "L2":
+        per = (pred - lab) ** 2
+    else:
+        raise NotImplementedError(loss_type)
+    valid = (lab >= 0).float()
+    return (per * valid).sum() / valid.sum().clamp_min(1.0) * weight

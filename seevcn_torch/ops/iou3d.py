@@ -70,3 +70,19 @@ def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
     area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
     return inter / (area_a + area_b - inter).clamp_min(1e-7)
+
+
+def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
+                row_chunk: int | None = None) -> torch.Tensor:
+    """(N, M) 3D IoU: the rotated BEV overlap times the z-extent overlap,
+    over the union of the volumes."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b, row_chunk=row_chunk)
+    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    inter_h = (torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min)).clamp_min(0)
+    inter_3d = inter_bev * inter_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter_3d / (vol_a + vol_b - inter_3d).clamp_min(1e-6)

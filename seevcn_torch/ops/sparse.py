@@ -9,6 +9,13 @@ candidate. The reference's other lowerings of the same math (zfold, dense,
 hybrid) are TPU layouts and are not ported: the port runs this one whatever
 ``BACKBONE_3D.MODE`` says.
 
+The backward is the reference's (``_conv_core``'s custom VJP): the weight
+gradient re-gathers the forward's rows, and the input gradient is the
+transposed conv as a second gather-GEMM through the inverse queries, with
+no scatter-add, so it is deterministic. ``gather_matmul_plain``, the same
+forward with autograd's own backward of the gather (an index_put_
+accumulate), is the plain version the tests hold it against.
+
 Key invariant, as in the reference: rows are sorted ascending by the
 linear key ((b*nz + z)*ny + y)*nx + x, invalid rows last (key = BIG).
 Keys are int64 here (int32 in the reference; the values are the same).
@@ -113,37 +120,130 @@ def _conv_queries(coords, valid, offs, stride, pad, src_shape) -> torch.Tensor:
     return torch.where(inb & valid[:, None], q, _BIG)
 
 
-def _gather_matmul(features, weight, q, keys, out_mask, key_space=None,
-                   rows: int = GEMM_ROWS):
-    """Gather the input rows that ``q`` names (a miss reads a zero row) and
-    multiply by weight (K, Cin, Cout) in one product per block of output
-    rows; returns (V, Cout) in the features' dtype, zero on invalid rows.
-    The product accumulates in f32 (bf16 inputs give a bf16 result rounded
-    once, as the reference's convs do)."""
-    k, cin, cout = weight.shape
-    v = q.shape[0]
+def _invconv_queries(coords, valid, offs, stride, pad, out_shape) -> torch.Tensor:
+    """Query keys for the transposed gather dx(j) = sum_k W[k]^T dy(p) with
+    p = (j + pad - off_k) / stride where that divides: (N, K) keys into the
+    output key space, BIG where out of range, not divisible or invalid."""
+    stride = torch.as_tensor(_as3(stride), device=coords.device)
+    pad = torch.as_tensor(_as3(pad), device=coords.device)
+    c = coords.long()
+    num = c[:, None, 1:4] + pad - offs[None]                   # (N, K, 3)
+    divisible = (num % stride == 0).all(-1)
+    t = torch.div(num, stride, rounding_mode="floor")
+    nz, ny, nx = out_shape
+    dims = torch.as_tensor([nz, ny, nx], device=coords.device)
+    inb = ((t >= 0) & (t < dims)).all(-1) & divisible
+    q = ((c[:, 0:1] * nz + t[..., 0]) * ny + t[..., 1]) * nx + t[..., 2]
+    return torch.where(inb & valid[:, None], q, _BIG)
+
+
+def _lookup_rows(keys, q, key_space) -> torch.Tensor:
+    """(V, K) query keys -> (V, K) rows of ``keys``; a miss names the zero
+    row appended after the last one (row keys.shape[0])."""
     idx, found = _lookup(keys, q.reshape(-1), key_space)
-    n = features.shape[0]
-    padded = torch.cat([features, features.new_zeros((1, cin))])
-    idx = torch.where(found, idx, n).view(v, k)
-    w2 = weight.reshape(k * cin, cout).to(features.dtype)
-    y = features.new_empty((v, cout))
-    for s in range(0, v, rows):
-        y[s:s + rows] = padded[idx[s:s + rows]].reshape(-1, k * cin) @ w2
-    return torch.where(out_mask[:, None], y, torch.zeros((), dtype=y.dtype,
-                                                         device=y.device))
+    return torch.where(found, idx, keys.shape[0]).view(q.shape)
+
+
+def _with_zero_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+def _gather_product(x, w2, rows, block: int = GEMM_ROWS) -> torch.Tensor:
+    """y[v] = concat_k x[rows[v, k]] @ w2 for (V, K) rows into x with its
+    zero row appended; one matrix product per block of rows, in x's dtype
+    with f32 accumulation."""
+    padded = _with_zero_row(x)
+    kc = rows.shape[1] * x.shape[1]
+    y = x.new_empty((rows.shape[0], w2.shape[1]))
+    for s in range(0, rows.shape[0], block):
+        y[s:s + block] = padded[rows[s:s + block]].reshape(-1, kc) @ w2
+    return y
+
+
+def _zero_where_not(mask, y):
+    return torch.where(mask[:, None], y, torch.zeros((), dtype=y.dtype,
+                                                     device=y.device))
+
+
+class _BwdPlan(NamedTuple):
+    """What the transposed gather needs: the input's coords and mask, the
+    conv's geometry, the output's keys and key space."""
+    in_coords: torch.Tensor
+    in_mask: torch.Tensor
+    offs: torch.Tensor
+    stride: tuple
+    pad: tuple
+    out_shape: tuple
+    out_keys: torch.Tensor
+    out_space: int
+
+
+class _RulebookConv(torch.autograd.Function):
+    """The gather-GEMM with the reference's backward (seevcn_tpu/ops/
+    sparse.py:_conv_core): dW = (re-gathered inputs)^T dy, the gathered
+    matrix re-gathered from the forward's rows rather than kept; dx the
+    transposed conv as a second gather-GEMM through the inverse queries, so
+    no scatter-add and no atomics: deterministic."""
+
+    @staticmethod
+    def forward(ctx, features, weight, rows, out_mask, plan):
+        k, cin, cout = weight.shape
+        y = _gather_product(features, weight.reshape(k * cin, cout).to(features.dtype),
+                            rows)
+        ctx.save_for_backward(features, weight, rows, out_mask)
+        ctx.plan = plan
+        return _zero_where_not(out_mask, y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        features, weight, rows, out_mask = ctx.saved_tensors
+        plan = ctx.plan
+        k, cin, cout = weight.shape
+        dy = _zero_where_not(out_mask, dy.to(features.dtype))
+        dw = dx = None
+        if ctx.needs_input_grad[1]:
+            # f32 products and sums, as the reference's f32 matmul: a bf16
+            # product is exact in f32, and no block's sum is rounded to bf16.
+            # The rows are gathered from an f32 copy of the features, so the
+            # gathered block needs no second pass to widen it.
+            padded = _with_zero_row(features).float()
+            dw = torch.zeros((k * cin, cout), dtype=torch.float32, device=dy.device)
+            for s in range(0, rows.shape[0], GEMM_ROWS):
+                g = padded[rows[s:s + GEMM_ROWS]].reshape(-1, k * cin)
+                dw.addmm_(g.T, dy[s:s + GEMM_ROWS].float())
+            dw = dw.view(k, cin, cout).to(weight.dtype)
+        if ctx.needs_input_grad[0]:
+            q = _invconv_queries(plan.in_coords, plan.in_mask, plan.offs,
+                                 plan.stride, plan.pad, plan.out_shape)
+            rows_t = _lookup_rows(plan.out_keys, q, plan.out_space)
+            wt = weight.permute(0, 2, 1).reshape(k * cout, cin).to(features.dtype)
+            dx = _zero_where_not(plan.in_mask, _gather_product(dy, wt, rows_t))
+        return dx, dw, None, None, None
+
+
+def gather_matmul_plain(features, weight, rows, out_mask):
+    """The plain version of ``_RulebookConv``: the same forward, with
+    autograd's own backward (the gather's gradient an index_put_
+    accumulate)."""
+    k, cin, cout = weight.shape
+    padded = _with_zero_row(features)
+    y = padded[rows].reshape(-1, k * cin) @ weight.reshape(k * cin, cout).to(
+        features.dtype)
+    return _zero_where_not(out_mask, y)
 
 
 def _gather_gemm(st: SparseTensor, out_coords, out_mask, weight, kernel_size,
-                 stride, padding, in_keys) -> torch.Tensor:
-    """y(p) = sum_k W[k] x(p*stride - pad + off_k) for the active outputs."""
-    k = weight.shape[0]
+                 stride, padding, in_keys, out_keys, out_shape) -> torch.Tensor:
+    """y(p) = sum_k W[k] x(p*stride - pad + off_k) for the active outputs;
+    weight (K, cin, cout) in any dtype, cast to the features' inside."""
     offs = _offsets(kernel_size, st.features.device)
     q = _conv_queries(out_coords, out_mask, offs, stride, padding,
                       st.spatial_shape)
-    return _gather_matmul(st.features, weight.reshape(k, st.features.shape[1], -1),
-                          q, in_keys, out_mask,
-                          _key_space(st.spatial_shape, st.batch_size))
+    rows = _lookup_rows(in_keys, q, _key_space(st.spatial_shape, st.batch_size))
+    w3 = weight.reshape(offs.shape[0], st.features.shape[1], -1)
+    plan = _BwdPlan(st.coords, st.mask, offs, _as3(stride), _as3(padding),
+                    tuple(out_shape), out_keys, _key_space(out_shape, st.batch_size))
+    return _RulebookConv.apply(st.features, w3, rows, out_mask, plan)
 
 
 def subm_conv3d(st: SparseTensor, weight: torch.Tensor, kernel_size=3,
@@ -154,7 +254,8 @@ def subm_conv3d(st: SparseTensor, weight: torch.Tensor, kernel_size=3,
     if weight.shape[0] != ks[0] * ks[1] * ks[2]:
         raise ValueError(f"weight {tuple(weight.shape)} for kernel {ks}")
     in_keys = linear_key(st.coords, st.spatial_shape, st.mask)
-    feats = _gather_gemm(st, st.coords, st.mask, weight, ks, 1, padding, in_keys)
+    feats = _gather_gemm(st, st.coords, st.mask, weight, ks, 1, padding, in_keys,
+                         in_keys, st.spatial_shape)
     return st._replace(features=feats)
 
 
@@ -223,7 +324,7 @@ def sparse_conv3d(st: SparseTensor, weight: torch.Tensor, kernel_size=3,
                               okey // ox % oy, okey % ox], 1).to(torch.int32)
     in_keys = linear_key(st.coords, st.spatial_shape, st.mask)
     feats = _gather_gemm(st, out_coords, out_mask, weight, ks, stride, pad,
-                         in_keys)
+                         in_keys, out_keys, out_shape)
     return SparseTensor(feats, out_coords, out_mask, out_shape, st.batch_size)
 
 

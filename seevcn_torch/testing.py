@@ -1,15 +1,18 @@
 """Helpers for holding the port against its reference: numpy <-> torch
 conversion, an ``assert_close`` that names the worst element, the cases at
-the edges of kernel K2's tiling, and the tiny Mask R-CNN config, which the
-tests and chip_smoke.py both use."""
+the edges of kernel K2's tiling, the tiny Mask R-CNN config, and a switch to
+the sparse conv's plain backward, which the tests and chip_smoke.py all
+use."""
 from __future__ import annotations
 
+import contextlib
 import re
 
 import numpy as np
 import torch
 
 from seevcn_torch.models.seg2d.maskrcnn import Seg2DConfig
+from seevcn_torch.ops import sparse as SP
 from seevcn_torch.ops.cuda.min_dist import FAR
 
 
@@ -102,3 +105,21 @@ def tiny_seg2d_cfg() -> Seg2DConfig:
                        max_detections=4, stage_sizes=(1, 1, 1, 1),
                        stage_channels=(16, 32, 64, 64), fpn_channels=32,
                        box_hidden=128, mask_channels=32, mask_convs=2)
+
+
+@contextlib.contextmanager
+def plain_sparse_backward():
+    """Within the block, every sparse conv runs ``gather_matmul_plain`` (the
+    same forward, autograd's own backward of the gather) in place of the
+    rulebook conv's reference backward."""
+    conv = SP._RulebookConv
+    saved = conv.__dict__.get("apply")
+    conv.apply = staticmethod(lambda features, weight, rows, out_mask, plan:
+                              SP.gather_matmul_plain(features, weight, rows, out_mask))
+    try:
+        yield
+    finally:
+        if saved is None:
+            del conv.apply
+        else:
+            conv.apply = saved
