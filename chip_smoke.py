@@ -21,7 +21,11 @@ the detector on the output. It checks that each path went through its
 kernels and that its output is right (the detector and the mask model
 against the port's CPU path at their tiny configs, and the detector's first
 sparse conv against a dense conv3d at the flagship input), and prints
-timings.
+timings. The training phases follow: the GT completion and SECOND-IoU train
+steps at the flagship's widths (phase 9), then VCN training (phase 10):
+VCN_VC at full width and batch 32 on VC data that the port's vc_shapenet
+generates, checked against the CPU, timed, validated, its checkpoint
+reloaded into VCNInference.
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -30,12 +34,15 @@ It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,8 +54,12 @@ from seevcn_torch.models.modules import roi_heads as RH
 from seevcn_torch.models.seg2d import maskrcnn as SM
 from seevcn_torch.models.seg2d.backend import build_seg2d
 from seevcn_torch.geom.boxes import boxes_iou_normal
+from seevcn_torch.models.vcn import vc_shapenet as VS
+from seevcn_torch.models.vcn.dataset import VCDataset
 from seevcn_torch.models.vcn.inference import VCNInference
+from seevcn_torch.models.vcn.metrics import MetricAccumulator
 from seevcn_torch.models.vcn.nets import build_vcn
+from seevcn_torch.models.vcn.runner import VCNTrainer
 from seevcn_torch.ops import cuda as K
 from seevcn_torch.ops import nms as NMS
 from seevcn_torch.ops import sparse as SP
@@ -56,7 +67,7 @@ from seevcn_torch.ops.clustering import largest_cluster_batch
 from seevcn_torch.ops.cuda import min_dist as MD
 from seevcn_torch.ops.iou3d import boxes_iou_bev
 from seevcn_torch.ops.nms import nms_bev
-from seevcn_torch.ops.sampling import partial_mesh_batch
+from seevcn_torch.ops.sampling import farthest_point_sample, fps, partial_mesh_batch
 from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
@@ -64,8 +75,13 @@ from seevcn_torch.see.gt_completion import complete_gt_frames
 from seevcn_torch.train.optim import build_lr_schedule
 from seevcn_torch.train.train import (apply_gradients, create_train_state,
                                       train_forward, train_step)
-from seevcn_torch.testing import (K2_CARD_EDGES, k2_edge_case, plain_sparse_backward,
-                                  tiny_seg2d_cfg)
+from seevcn_torch.testing import (K2_CARD_EDGES, VCN_BIASES_BEFORE_BN,
+                                  assert_vcn_grads_close, k2_edge_case,
+                                  plain_sparse_backward, tiny_seg2d_cfg,
+                                  vcn_loss_selections, vcn_pool_points,
+                                  vcn_selection_flips)
+from seevcn_torch.utils.ckpt import load_vcn_checkpoint
+from seevcn_torch.utils.config import Cfg
 
 # bench.py:165-170: KITTI P2-style camera for a 384x1280 image, and the
 # lidar -> camera axes (x -> depth, y -> -u, z -> -v)
@@ -1127,6 +1143,345 @@ def train_flagship(det_cfg, pts, valid, gt, dev, steps: int = 10):
     return summary
 
 
+# scripts/train_vcn_synthetic.py:78-84: the repo's VCN_VC training recipe
+VCN_RECIPE = {"model": {"NAME": "VCN_VC"},
+              "losses": ["coarse", "partial", "translation", "rotation", "dims"],
+              "loss_weights": [1.0, 1.0, 10.0, 1.0, 1.0],
+              "optimizer": {"type": "Adam", "kwargs": {"lr": 1e-3}},
+              "scheduler": {"type": "StepLR", "kwargs": {"step_size": 40, "gamma": 0.7}}}
+
+
+def make_vc_data(out_dir: str, n_meshes: int = 6, n_poses: int = 12) -> str:
+    """The VCN recipe's training data (scripts/train_vcn_synthetic.py:22-34,
+    :56-73), made by the port's vc_shapenet: procedural car meshes written
+    as .obj in ShapeNet's frame (y up, -z forward), poses drawn from the same
+    RandomState(0) after them, generate_vc_dataset(n_complete=4096,
+    rng=default_rng(1)). -> the VC-ShapeNet directory."""
+    rng = np.random.RandomState(0)
+    os.makedirs(os.path.join(out_dir, "meshes"))
+    meshes = []
+    for i in range(n_meshes):
+        verts, faces = VS.procedural_car_mesh(rng)
+        meshes.append(os.path.join(out_dir, "meshes", f"car{i}.obj"))
+        with open(meshes[-1], "w") as f:
+            for x, y, z in verts:
+                f.write(f"v {y:.4f} {z:.4f} {-x:.4f}\n")
+            for a, b, c in faces:
+                f.write(f"f {a + 1} {b + 1} {c + 1}\n")
+    poses = []
+    for _ in range(n_poses):
+        d, ang = rng.uniform(6, 35), rng.uniform(-0.5, 0.5)
+        poses.append(np.array([d * np.cos(ang), d * np.sin(ang), 0.0,
+                               rng.uniform(3.8, 4.6), 0, 0, rng.uniform(-np.pi, np.pi)]))
+    data_dir = os.path.join(out_dir, "vc_data")
+    VS.generate_vc_dataset(meshes, poses, data_dir, n_complete=4096,
+                           rng=np.random.default_rng(1), logger=lambda s: None)
+    return data_dir
+
+
+@contextlib.contextmanager
+def relu_signs(net, pinned=None):
+    """Within the block, record where the input of each of the net's ReLUs
+    and LeakyReLUs is positive, into the list yielded (bool, on the CPU).
+    Given ``pinned``, such a list from another run, each takes its slope
+    from there in place of its own input's sign. Only forwards that record
+    gradients count: vcn_pool_points re-runs the pose encoder under
+    no_grad."""
+    signs, queue = [], None if pinned is None else list(pinned)
+
+    def record(mod, inputs, out):
+        if not torch.is_grad_enabled():
+            return None
+        x = inputs[0]
+        signs.append((x > 0).cpu())
+        if queue is None:
+            return None
+        slope = getattr(mod, "negative_slope", 0.0)
+        return torch.where(queue.pop(0).to(x.device), x, slope * x)
+
+    hooks = [m.register_forward_hook(record) for m in net.modules()
+             if isinstance(m, (torch.nn.ReLU, torch.nn.LeakyReLU))]
+    try:
+        yield signs
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def tiny_vcn_step(name, tiny, work, device, pinned=(None, None)):
+    """One SGD step of a tiny ``name`` (num_coarse 128, the recipe's losses,
+    weights from init_vcn_weights seed 1) on ``device``, its loss's choices
+    and its ReLUs' signs recorded or, given ``pinned``, taken from another
+    run (vcn_loss_selections, relu_signs): -> (loss terms, gradients,
+    running statistics, the loss's choices, the max-pools' picks, the ReLUs'
+    signs), on the CPU."""
+    cfg = Cfg({**VCN_RECIPE, "model": {"NAME": name},
+               "optimizer": {"type": "SGD", "kwargs": {"lr": 1e-3}}})
+    tr = VCNTrainer(cfg, work_dir=work, device=device)
+    tr.model = build_vcn(name, num_coarse=128)
+    state = tr.init_state(10, seed=1)
+    with vcn_pool_points(state.model) as pools, \
+            relu_signs(state.model, pinned[1]) as signs, \
+            vcn_loss_selections(pinned[0]) as choices:
+        terms = tr.train_step(state, tr.to_device(tiny))
+    return ({k: v.cpu() for k, v in terms.items()},
+            {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+            {n: b.cpu() for n, b in state.model.named_buffers() if "running" in n},
+            choices, pools, signs)
+
+
+def worst_rel(got, ref):
+    """(max |got - ref| / max |ref|, name) over the tensors of two gradient
+    dicts, but VCN_BIASES_BEFORE_BN (rounding noise on both sides)."""
+    return max((float((got[k] - ref[k]).abs().max() / ref[k].abs().max()), k)
+               for k in ref if k not in VCN_BIASES_BEFORE_BN)
+
+
+def check_tiny_vcn_steps_against_cpu(batch, work, dev):
+    """One SGD train step of a tiny VCN_VC and VCN_CN on the first 4 samples
+    of a data batch cut to 128 input and 256 complete points, on the card
+    and on the CPU (which the tests hold against JAX), f32 with TF32 off:
+    loss terms and running statistics within 1e-5 (absolute and relative).
+    Both record the step's discrete choices: the loss's (FPS, the partial
+    meshes' top-30 masks, the chamfers' nearest neighbours, the rotation's
+    target and clamp: vcn_loss_selections), the max-pools' picks and the
+    ReLUs' signs. One that sits within rounding of its switch can go the
+    other way on the card and move the gradients by design: the choices
+    that differ are printed, with the gradient difference they make and the
+    tensor it is largest in. Then the card's step runs again with its
+    loss's choices and its ReLUs' signs pinned to the CPU's (relu_signs),
+    and its gradients are held within
+    5e-4 of each tensor's largest (assert_vcn_grads_close); the max-pools'
+    picks and the rotation's target and clamp must agree already
+    (precondition). The pinned step with TF32 on is printed beside, the
+    size of error that the bound is there to catch. Returns the worst
+    |diff| of each group and model, and the choices that differed."""
+    tiny = {k: batch[k][:4, :n] for k, n in (("input", 128), ("complete", 256))}
+    tiny["gt_boxes"] = batch["gt_boxes"][:4]
+    worst = {}
+    for name in ("VCN_VC", "VCN_CN"):
+        t_c, g_c, s_c, ch_c, pool_c, relu_c = tiny_vcn_step(name, tiny, work,
+                                                            torch.device("cpu"))
+        t_d, g_d, s_d, ch_d, pool_d, relu_d = tiny_vcn_step(name, tiny, work, dev)
+        w_terms = max(abs(float(t_d[k] - t_c[k])) for k in t_c)
+        w_stats = max(float((s_d[k] - s_c[k]).abs().max()) for k in s_c)
+        for k in t_c:
+            if abs(float(t_d[k] - t_c[k])) > 1e-5 + 1e-5 * abs(float(t_c[k])):
+                raise AssertionError(f"tiny {name} step: {k} off the CPU")
+        for k in s_c:
+            if not ((s_d[k] - s_c[k]).abs() <= 1e-5 + 1e-5 * s_c[k].abs()).all():
+                raise AssertionError(f"tiny {name} step: {k} off the CPU")
+        flips = {w: n for w, (n, _) in vcn_selection_flips(ch_d, ch_c).items() if n}
+        flips["max-pool picks"] = sum(int((a != b).sum()) for a, b in zip(pool_d, pool_c))
+        flips["ReLU signs"] = sum(int((a != b).sum()) for a, b in zip(relu_d, relu_c))
+        unpinned = worst_rel(g_d, g_c)
+        g_pin = tiny_vcn_step(name, tiny, work, dev, pinned=(ch_c, relu_c))[1]
+        pinned = worst_rel(g_pin, g_c)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = worst_rel(tiny_vcn_step(name, tiny, work, dev, pinned=(ch_c, relu_c))[1],
+                             g_c)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"tiny {name} step, card vs CPU (f32, TF32 off): max |diff| loss terms "
+              f"{w_terms:.3g}, running statistics {w_stats:.3g}; choices that differ "
+              f"{flips}: gradients {unpinned[0]:.3g} of a tensor's largest (worst in "
+              f"{unpinned[1]}); with the loss's choices and the ReLUs' signs pinned to "
+              f"the CPU's {pinned[0]:.3g} ({pinned[1]}; bound 5e-4), and with TF32 on "
+              f"as well {tf32[0]:.3g} ({tf32[1]}); loss {float(t_c['loss']):.5f}")
+        if flips["max-pool picks"] or flips.get("rotation target") or \
+                flips.get("geodesic clamp"):
+            raise AssertionError(f"precondition: tiny {name} step: a max-pool pick or "
+                                 f"the rotation's target or clamp differs on the card")
+        w_grads = assert_vcn_grads_close(g_pin, g_c)
+        worst[name] = {"loss_terms": w_terms, "running_stats": w_stats, "grads": w_grads,
+                       "choices_differing": flips, "grads_over_max_unpinned": unpinned,
+                       "grads_over_max_pinned": pinned, "grads_over_max_pinned_tf32": tf32}
+    return worst
+
+
+def check_fps_against_cpu(complete):
+    """farthest_point_sample of (B, N, 3) points -> 1024 on the card and on
+    the CPU: the same indices, or where a row first differs, a near-tie:
+    both candidates' running min distances (recomputed on the CPU from the
+    shared prefix) within 2 ulp. Returns [(row, step, card's, CPU's)]."""
+    got = farthest_point_sample(complete, 1024).cpu()
+    pts = complete.cpu()
+    ref = farthest_point_sample(pts, 1024)
+    flips = []
+    for b in torch.nonzero((got != ref).any(1)).flatten().tolist():
+        step = int(torch.nonzero(got[b] != ref[b])[0])
+        diff = pts[b][:, None] - pts[b][ref[b, :step]][None]
+        dx, dy, dz = diff.unbind(-1)
+        min_d = (dx * dx + dy * dy + dz * dz).amin(1)
+        a, c = float(min_d[got[b, step]]), float(min_d[ref[b, step]])
+        flips.append((b, step, a, c))
+        print(f"  fps flip: row {b} step {step}: card's pick at {a!r}, CPU's at {c!r}")
+        if abs(a - c) > 2 * float(np.spacing(np.float32(max(a, c)))):
+            raise AssertionError("fps on the card picks another point than the CPU")
+    return flips
+
+
+def check_metrics_against_cpu(out, batch, num_pts, dev):
+    """MetricAccumulator.summary of one batch's predictions on the card and
+    on the CPU. The F-scores count distances under a threshold and the
+    partial-mesh chamfers take a top-30 selection, so where a distance sits
+    within f32 rounding of its switch the two devices' f32 summaries differ
+    by design: every key is held within 1e-5 (absolute and relative) in
+    f64, where no switch sits that close, and the f32 keys off by more are
+    printed. -> (worst f64 |diff|, worst f32 |diff|, the f32 keys off)."""
+    worst, off = [], []
+    for dtype in (torch.float64, torch.float32):
+        sums = []
+        for w in (dev, torch.device("cpu")):
+            acc = MetricAccumulator()
+            acc.update(*(t.to(w, dtype) for t in (out["coarse"], batch["complete"],
+                                                 batch["gt_boxes"])), num_pts,
+                       *(t.to(w, dtype) for t in (out["reg_rot"], out["reg_centre"])),
+                       input_pts=batch["input"].to(w, dtype))
+            sums.append(acc.summary())
+        got, ref = sums
+        if set(got) != set(ref):
+            raise AssertionError("metrics on the card have other keys than the CPU's")
+        off.append([k for k in ref if abs(got[k] - ref[k]) > 1e-5 + 1e-5 * abs(ref[k])])
+        worst.append(max(abs(got[k] - ref[k]) for k in ref))
+    print(f"MetricAccumulator.summary, card vs CPU on one batch ({len(ref)} keys): f64 "
+          f"max |diff| {worst[0]:.3g}; f32 max |diff| {worst[1]:.3g}, past 1e-5 in "
+          f"{off[1]} (thresholds and top-30 selections at a near-tie, not held)")
+    if off[0]:
+        raise AssertionError(f"metrics on the card off the CPU in f64: {off[0]}")
+    return worst[0], worst[1], off[1]
+
+
+def train_vcn(dev, card, steps: int = 10):
+    """VCN training at the recipe's full width (VCN_VC, num_coarse 1024,
+    batch 32 of 1024 input and 2048 complete points, Adam lr 1e-3, StepLR) on
+    data the port generates: the checks against the CPU, a warm-up step and
+    ``steps`` timed ones (host clock to a synchronize), one split by CUDA
+    events into forward, loss and backward + update with FPS timed alone,
+    one under torch.profiler; then a validation pass, and the checkpoint
+    saved and reloaded into VCNInference. Raises unless every loss term is
+    finite, every parameter and batch-norm statistic moved, the last timed
+    step's loss is below the warm-up step's, the metrics are finite and the reloaded net is the
+    trained one bit for bit. Returns the summary dict."""
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        data_dir = make_vc_data(work)
+        gen_s = time.perf_counter() - t0
+        ds = VCDataset(data_dir, transforms_cfg=[{"callback": "LidarSimulation"}],
+                       n_points=1024, n_complete=2048)
+        t0 = time.perf_counter()
+        batches = []
+        while len(batches) < steps + 2:
+            batches += list(ds.batches(32))
+        batches = batches[:steps + 2]
+        load_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        print(f"VC data: {len(ds)} views of 6 procedural cars generated in {gen_s:.2f} s "
+              f"(host); {load_ms:.1f} ms a batch of 32 to load, simulate and resample")
+
+        tiny = check_tiny_vcn_steps_against_cpu(batches[0], work, dev)
+        tr = VCNTrainer(Cfg(VCN_RECIPE), work_dir=work, device=dev)
+        state = tr.init_state(total_steps=steps + 1)
+        dev_batches = [tr.to_device(b) for b in batches]
+        flips = check_fps_against_cpu(dev_batches[0]["complete"])
+        print(f"fps (32, 2048) -> 1024, card vs CPU: {len(flips)} rows differ, each at a "
+              f"near-tie within 2 ulp")
+        metrics_err = check_metrics_against_cpu(
+            tr.eval_step(state, dev_batches[0]), dev_batches[0], batches[0]["num_pts"], dev)
+
+        start = {k: v.clone() for k, v in state.model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [tr.train_step(state, dev_batches[0])]
+        times = []
+        for b in dev_batches[1:steps + 1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(state, b))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        b = dev_batches[steps + 1]
+        in_dict = {k: b[k] for k in ("input", "complete", "gt_boxes")}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        out = state.model(in_dict)
+        ev[1].record()
+        terms = state.model.loss(out, in_dict)
+        total = sum(w * terms[n] for n, w in zip(tr.loss_names, tr.loss_weights))
+        ev[2].record()
+        apply_gradients(state, total)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split = {k: ev[i].elapsed_time(ev[i + 1])
+                 for i, k in enumerate(("forward", "loss", "backward_update"))}
+        fps_ms = time_cuda(lambda: fps(b["complete"], 1024), reps=5, warmup=1)
+        fps_host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fps(b["complete"], 1024)
+            torch.cuda.synchronize()
+            fps_host.append((time.perf_counter() - t0) * 1e3)
+        busy, top = profile_frame((state, b), tr.train_step)
+        values = [{k: float(v) for k, v in m.items()} for m in losses]
+        if not all(math.isfinite(v) for m in values for v in m.values()):
+            raise AssertionError("a VCN loss term is not finite")
+        sd = state.model.state_dict()
+        still = [k for k in sd if not k.endswith("num_batches_tracked")
+                 and torch.equal(sd[k], start[k])]
+        if still:
+            raise AssertionError(f"VCN parameters or statistics did not move: {still[:5]}")
+        if not values[-1]["loss"] < values[0]["loss"]:
+            raise AssertionError("the VCN loss did not fall below the warm-up step's")
+        step_ms = statistics.median(times)
+
+        val_ds = VCDataset(data_dir, n_points=1024, n_complete=2048)
+        t0 = time.perf_counter()
+        val = tr.validate(state, val_ds, 32)
+        val_s = time.perf_counter() - t0
+        shown = {k: val[k] for k in ("CDL1", "CDL2", "F1_010", "IOU_3D", "ROT_ERR",
+                                     "TRANS_ERR")}
+        if not all(math.isfinite(v) for v in shown.values()):
+            raise AssertionError(f"a validation metric is not finite: {shown}")
+        path = tr.save_checkpoint(state, "ckpt-last", epoch=0)
+        vcn = VCNInference("VCN_VC", load_vcn_checkpoint(path, "VCN_VC"), device=dev)
+        trained = state.model.state_dict()
+        loaded = vcn.model.state_dict()
+        if set(loaded) != set(trained) or not all(torch.equal(loaded[k], trained[k])
+                                                  for k in trained):
+            raise AssertionError("the reloaded VCN differs from the trained one")
+        chain = vcn(dev_batches[0]["input"])
+        if not torch.equal(chain[1], tr.eval_step(state, dev_batches[0])["coarse"]):
+            raise AssertionError("VCNInference's completion differs from the trained net's")
+
+    summary = {
+        "views": len(ds), "data_gen_s": gen_s, "batch_load_ms": load_ms,
+        "step_ms": step_ms, "samples_per_s": 32e3 / step_ms, "step_ms_all": times,
+        "split_ms": split, "fps_ms": fps_ms, "fps_host_ms": statistics.median(fps_host),
+        "device_busy_ms": busy, "top_ops": top, "peak_gib": peak,
+        "losses": [m["loss"] for m in values], "last_terms": values[-1],
+        "val": shown, "val_s": val_s, "tiny_vs_cpu": tiny, "fps_flips": flips,
+        "metrics_vs_cpu": dict(zip(("f64_max_diff", "f32_max_diff", "f32_keys_off"),
+                                   metrics_err))}
+    print(f"VCN_VC train steps (num_coarse 1024, batch 32, 1024 + 2048 points, the "
+          f"recipe's losses and Adam): losses "
+          + ", ".join(f"{v:.4f}" for v in summary["losses"]) + "; last terms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items()))
+    print(f"VCN train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+          f"{steps}) = {summary['samples_per_s']:.1f} samples/s; CUDA events: forward "
+          f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms (fps alone "
+          f"{fps_ms:.2f} ms in CUDA events, {summary['fps_host_ms']:.2f} ms host clock), "
+          f"backward + update {split['backward_update']:.2f} ms; peak device memory "
+          f"{peak:.2f} GiB; profiled step: device busy {busy:.2f} ms; device time by "
+          f"op: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    print(f"VCN validation over {len(val_ds)} views in {val_s:.2f} s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in shown.items())
+          + "; ckpt-last.pth reloaded into VCNInference bit for bit, its completion "
+          "equal to the trained net's")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1469,9 +1824,12 @@ def main() -> int:
         "ms_per_frame": gt_ms, "launches": gt_launches,
         "isolated": int(g_stats["ok"].sum()), "sane": int(g_stats["sane"].sum()),
         "spliced": int(g_stats["inst_valid"].sum())})
+
+    # --- 10. VCN training at full width on generated data ----------------
+    vcn_train = train_vcn(dev, card)
     print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 10. summary lines ---------------------------------------------------
+    # --- 11. summary lines ---------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
         "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
@@ -1483,7 +1841,7 @@ def main() -> int:
         "detector": {"active_voxels": active, "proposals": n_props,
                      "kept": n_kept, "nms_ms": nms_ms,
                      "peak_gib": det_peak},
-        "see_frame_peak_gib": see_peak, "train": train,
+        "see_frame_peak_gib": see_peak, "train": train, "vcn_train": vcn_train,
         "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

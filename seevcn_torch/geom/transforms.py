@@ -7,6 +7,7 @@ vectors: ``p_rot = p @ rot_z(a)``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -61,3 +62,46 @@ def limit_period(val: torch.Tensor, offset: float = 0.5,
                  period: float = torch.pi) -> torch.Tensor:
     """Wrap val into [-offset*period, (1-offset)*period)."""
     return val - torch.floor(val / period + offset) * period
+
+
+def rotate_points_along_z_np(points: np.ndarray, angle: np.ndarray) -> np.ndarray:
+    """numpy form of rotate_points_along_z for the host-side data
+    transforms: points (B, N, 3), angle (B,)."""
+    c, s = np.cos(angle), np.sin(angle)
+    out = points.copy()
+    x, y = points[..., 0], points[..., 1]
+    out[..., 0] = x * c[:, None] - y * s[:, None]
+    out[..., 1] = x * s[:, None] + y * c[:, None]
+    return out
+
+
+def vc_to_cn_rt(points: torch.Tensor, rot: torch.Tensor,
+                trans: torch.Tensor) -> torch.Tensor:
+    """VC -> CN with an explicit (B, 3, 3) rotation and (B, [1,] 3)
+    translation."""
+    if trans.dim() == 2:
+        trans = trans[:, None, :]
+    return (points - trans) @ rot.transpose(-1, -2)
+
+
+def cn_to_vc_rt(points: torch.Tensor, rot: torch.Tensor,
+                trans: torch.Tensor) -> torch.Tensor:
+    if trans.dim() == 2:
+        trans = trans[:, None, :]
+    return points @ rot + trans
+
+
+def heading_from_rotm(rot: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 3) rotation -> heading about z in [-pi, pi]: the angle of
+    e_x @ R."""
+    v = rot[:, 0, :]
+    return torch.atan2(v[:, 1], v[:, 0])
+
+
+def geodesic_distance(r1: torch.Tensor, r2: torch.Tensor,
+                      eps: float = 1e-7) -> torch.Tensor:
+    """Angle of the relative rotation between two (B, 3, 3) matrices, the
+    cosine clipped to [-1 + eps, 1 - eps]."""
+    m = r1 @ r2.transpose(-1, -2)
+    cos = (m.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0 + eps, 1.0 - eps))

@@ -1,4 +1,4 @@
-"""VCN completion networks in torch, inference only (port of
+"""VCN completion networks in torch, with their losses (port of
 seevcn_tpu/models/vcn/nets.py).
 
 Module and parameter names follow the reference torch models
@@ -6,8 +6,10 @@ Module and parameter names follow the reference torch models
 MLPs are ``Conv1d(k=1)`` stacks, so a reference state dict
 (``encoder.mlp_conv1.0.weight`` ...) loads with ``strict=True``. The forward
 keeps the JAX package's channel-last layout and runs each pointwise layer as
-one (B*N, C) x (C, C') product. BatchNorm always uses its running statistics
-(eps 1e-5); the pose encoder's leaky slope is 0.01.
+one (B*N, C) x (C, C') product. BatchNorm (eps 1e-5) uses its running
+statistics in eval mode; in training it normalises with the batch's and
+moves the running ones by flax's rule (``models/modules/common.py``). The
+pose encoder's leaky slope is 0.01.
 """
 from __future__ import annotations
 
@@ -18,20 +20,53 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...geom import transforms as T
+from ...ops.chamfer import chamfer_l2
+from ...ops.sampling import fps, partial_mesh_batch
+from ..modules.common import BatchNorm1d
+
+SEL_K = 30   # nearest predicted points kept per input point in the partial mesh
+
+
+def smooth_l1(pred, target, beta: float = 1.0):
+    d = (pred - target).abs()
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def get_dims(pts: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) -> (B, 3) axis-aligned extents (bbox_utils.get_dims).
+    amax/amin split the gradient evenly over tied points, as the
+    reference's reductions do."""
+    return pts.amax(1) - pts.amin(1)
+
+
+def get_bbox_from_keypoints(pts: torch.Tensor, gt_box: torch.Tensor) -> torch.Tensor:
+    """Box from predicted points: mean-bounds centre, extents in the frame of
+    the GT heading, GT heading (bbox_utils.get_bbox_from_keypoints)."""
+    heading = gt_box[:, -1]
+    centre = (pts.amax(1, keepdim=True) + pts.amin(1, keepdim=True)) / 2
+    dims = get_dims(T.rotate_points_along_z(pts - centre, -heading))
+    return torch.cat([centre[:, 0], dims, heading[:, None]], dim=1)
+
+
+def _completion_losses(ret, in_dict) -> dict:
+    """The coarse chamfer against the FPS-downsampled complete cloud, and the
+    chamfer between the partial-mesh selections of both near the input."""
+    coarse = ret["coarse"]
+    ds_complete = fps(in_dict["complete"], coarse.shape[1])
+    pred_surface = partial_mesh_batch(in_dict["input"], coarse, k=SEL_K)
+    gt_surface = partial_mesh_batch(in_dict["input"], ds_complete, k=SEL_K)
+    return {"coarse": chamfer_l2(coarse, ds_complete),
+            "partial": chamfer_l2(pred_surface, gt_surface)}
 
 
 def _pointwise(layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     """Run a Conv1d(k=1)/BatchNorm1d/activation stack on channel-last
-    (..., C) input as (B*N, C) products; BatchNorm in eval form."""
+    (..., C) input as (B*N, C) products."""
     shape = x.shape
     x = x.reshape(-1, shape[-1])
     for layer in layers:
         if isinstance(layer, nn.Conv1d):
             x = F.linear(x, layer.weight[:, :, 0], layer.bias)
-        elif isinstance(layer, nn.BatchNorm1d):
-            x = F.batch_norm(x, layer.running_mean, layer.running_var,
-                             layer.weight, layer.bias, training=False,
-                             eps=layer.eps)
         else:
             x = layer(x)
     return x.reshape(*shape[:-1], x.shape[-1])
@@ -46,7 +81,7 @@ class PointMLP(nn.Sequential):
         for i, f in enumerate(features):
             layers.append(nn.Conv1d(in_ch, f, 1))
             if i != len(features) - 1:
-                layers += [nn.BatchNorm1d(f), nn.ReLU()]
+                layers += [BatchNorm1d(f), nn.ReLU()]
             in_ch = f
         super().__init__(*layers)
 
@@ -112,6 +147,9 @@ class VCNCN(nn.Module):
         coarse = coarse.reshape(-1, self.num_coarse, 3)
         return {"coarse": T.cn_to_vc(T.restore_scale(coarse, gt), gt)}
 
+    def loss(self, ret, in_dict) -> dict:
+        return _completion_losses(ret, in_dict)
+
 
 class VCNVC(nn.Module):
     """Viewer-centred completion with self-regressed pose (target-domain)."""
@@ -145,6 +183,20 @@ class VCNVC(nn.Module):
             "reg_rot": torch.matmul(rot_mat, T.rot_z(frustum_angle)),
             "reg_centre": T.rotate_points_along_z(centre, frustum_angle)[:, 0],
         }
+
+    def loss(self, ret, in_dict) -> dict:
+        """dims, translation, rotation, coarse and partial. The rotation
+        target is folded by the car's pi symmetry: min of the geodesic
+        distances to Rz(h) and Rz(h + pi) (torch.minimum splits the gradient
+        of a tie in half, as the reference's minimum does)."""
+        gt = in_dict["gt_boxes"]
+        pred_box = get_bbox_from_keypoints(ret["coarse"], gt)
+        g0 = T.geodesic_distance(ret["reg_rot"], T.rot_z(gt[:, -1]))
+        g1 = T.geodesic_distance(ret["reg_rot"], T.rot_z(gt[:, -1] + torch.pi))
+        return {"dims": smooth_l1(gt[:, 3:6], pred_box[:, 3:6]).mean(),
+                "translation": smooth_l1(gt[:, :3], ret["reg_centre"]).mean(),
+                "rotation": torch.minimum(g0, g1).mean(),
+                **_completion_losses(ret, in_dict)}
 
 
 MODELS = {"VCN_CN": VCNCN, "VCN_VC": VCNVC, "PartialSC_CN": VCNCN,

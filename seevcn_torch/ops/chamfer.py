@@ -44,6 +44,12 @@ def chamfer_l2(xyz1, xyz2, valid1=None, valid2=None):
     return _masked_mean(d1, valid1) + _masked_mean(d2, valid2)
 
 
+def chamfer_l2_split(xyz1, xyz2, valid1=None, valid2=None):
+    """The two directions of chamfer_l2: (mean sq-NN 1->2, mean sq-NN 2->1)."""
+    d1, d2 = chamfer_sq(xyz1, xyz2, valid1, valid2)
+    return _masked_mean(d1, valid1), _masked_mean(d2, valid2)
+
+
 def chamfer_l1(xyz1, xyz2, valid1=None, valid2=None):
     """(mean(NN-dist 1->2) + mean(NN-dist 2->1)) / 2   (ChamferDistanceL1)."""
     d1, d2 = chamfer_sq(xyz1, xyz2, valid1, valid2)

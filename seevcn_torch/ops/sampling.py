@@ -1,6 +1,7 @@
 """Point-set sampling ops in torch (port of seevcn_tpu/ops/sampling.py):
-pairwise distances, fixed-size tiling, partial-mesh kNN selection and the
-within-radius test of the replacement stage.
+pairwise distances, fixed-size tiling, farthest point sampling,
+partial-mesh kNN selection and the within-radius test of the replacement
+stage.
 
 Fixed shapes and boolean validity masks, as in the reference; every
 function takes an optional leading batch dimension where the reference
@@ -38,14 +39,55 @@ def tile_to_n(points: torch.Tensor, valid: torch.Tensor, n: int):
     return out, valid.any(-1)
 
 
+@torch.no_grad()
+def farthest_point_sample(points: torch.Tensor, n_samples: int,
+                          valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Iterative FPS: (..., N, 3) -> (..., n_samples) int64 indices.
+
+    Starts at the first valid point with every distance at +inf; each step
+    takes the argmax of the running min squared distance over the valid
+    points (ties to the lower index; invalid points are never picked, and
+    with fewer valid points than ``n_samples`` the picks repeat among them).
+    One loop of ``n_samples`` steps serves the whole batch. The squared
+    distance is summed x, y, z in that order, as the reference's reduction
+    over the last axis does, and each step is elementwise, so every device
+    picks the same points."""
+    *lead, n, _ = points.shape
+    p = points.reshape(-1, n, 3)
+    b = p.shape[0]
+    v = None if valid is None else valid.reshape(b, n)
+    rows = torch.arange(b, device=p.device)
+    min_d = torch.full((b, n), float("inf"), dtype=p.dtype, device=p.device)
+    last = (torch.zeros(b, dtype=torch.long, device=p.device) if v is None
+            else torch.argmax(v.to(torch.uint8), dim=1))
+    picks = []
+    for _ in range(n_samples):
+        picks.append(last)
+        diff = p - p[rows, last][:, None]
+        dx, dy, dz = diff.unbind(-1)
+        torch.minimum(min_d, dx * dx + dy * dy + dz * dz, out=min_d)
+        last = torch.argmax(min_d if v is None else torch.where(v, min_d, -1.0),
+                            dim=1)
+    return torch.stack(picks, -1).reshape(*lead, n_samples)
+
+
+def fps(points: torch.Tensor, n_samples: int,
+        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """FPS gather: (..., N, 3) -> (..., n_samples, 3) (VCN misc.fps)."""
+    idx = farthest_point_sample(points, n_samples, valid)
+    return torch.gather(points, -2,
+                        idx[..., None].expand(*idx.shape, points.shape[-1]))
+
+
 def knn_union_mask(partial_pc: torch.Tensor, complete_pc: torch.Tensor, k: int,
                    partial_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Union of the k nearest ``complete`` points over every valid
     ``partial`` point: (..., N, 3), (..., M, 3) -> (..., M) bool.
 
     The reference's ``approx_max_k`` is exact off the TPU; ``topk`` is the
-    exact selection it lowers to there."""
-    d = pairwise_sqdist(partial_pc, complete_pc)                   # (..., N, M)
+    exact selection it lowers to there. The selection carries no gradient,
+    so the distances are taken from detached inputs."""
+    d = pairwise_sqdist(partial_pc.detach(), complete_pc.detach())  # (..., N, M)
     m = complete_pc.shape[-2]
     _, idx = torch.topk(d, k, dim=-1, largest=False)               # (..., N, k)
     if partial_valid is not None:

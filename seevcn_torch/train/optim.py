@@ -18,6 +18,11 @@ One deliberate departure: the reference builds b1 as a one-cycle with
 crosses 0 and the update spikes. The port follows the intent stated
 there, high -> low -> high: b1 runs 0.95 -> 0.85 -> 0.95, the same as the
 reference over the first phase.
+
+``build_vcn_optimizer`` is VCN's (port of seevcn_tpu/models/vcn/runner.py:
+build_vcn_optimizer): Adam, AdamW or SGD with StepLR or OneCycleLR, and
+``MultiSteps`` its gradient accumulation (the reference's
+``step_per_update``, optax.MultiSteps in the JAX package).
 """
 from __future__ import annotations
 
@@ -182,3 +187,69 @@ def build_optimizer(opt_cfg, total_steps: int, params) -> Optimizer:
     else:
         raise NotImplementedError(name)
     return Optimizer(inner, lr, b1, float(opt_cfg.get("GRAD_NORM_CLIP", 0.0)))
+
+
+class MultiSteps:
+    """optax.MultiSteps over an ``Optimizer``: ``step(count)`` folds the
+    gradients into their running mean (acc + (g - acc) / (n + 1), n the
+    calls since the last update) and updates only on every ``every_k``-th
+    call, with the mean and the schedules at count // every_k; in between
+    the parameters do not move."""
+
+    def __init__(self, inner: Optimizer, every_k: int):
+        self.inner = inner
+        self.every_k = every_k
+        self.params = inner.params
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    def step(self, count: int) -> None:
+        n = count % self.every_k
+        for p, a in zip(self.params, self.acc):
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            a.add_((g - a) / (n + 1))
+        if n == self.every_k - 1:
+            for p, a in zip(self.params, self.acc):
+                p.grad = a.clone()
+                a.zero_()
+            self.inner.step(count // self.every_k)
+
+
+def build_vcn_optimizer(opt_cfg, sched_cfg, total_steps: int, params,
+                        every_k: int = 1):
+    """VCN's optimizer, as the reference's VCN tools build it, from the
+    ``optimizer`` and ``scheduler`` config blocks, over ``params``: Adam,
+    AdamW or SGD (momentum 0.9 unless given); StepLR as optax's staircase
+    ``exponential_decay`` with the reference's step_size scaled by
+    max(total_steps // 100, 1), OneCycleLR as optax's one-cycle over
+    ``total_steps``; an unknown scheduler keeps lr constant. Only AdamW
+    reads ``weight_decay``: Adam and SGD drop it, as the JAX package does.
+    With ``every_k`` > 1 the gradients of every_k calls are averaged into
+    one update (``MultiSteps``)."""
+    name = (opt_cfg or {}).get("type", "Adam").lower()
+    kw = dict((opt_cfg or {}).get("kwargs", {"lr": 1e-4}))
+    lr = float(kw.pop("lr", 1e-4))
+    sched = lambda count: lr  # noqa: E731
+    if sched_cfg:
+        st = sched_cfg.get("type", "StepLR")
+        skw = sched_cfg.get("kwargs", {})
+        if st == "StepLR":
+            every = int(skw.get("step_size", 40)) * max(total_steps // 100, 1)
+            gamma = float(skw.get("gamma", 0.7))
+            sched = lambda count: lr * gamma ** (count // every)  # noqa: E731
+        elif st == "OneCycleLR":
+            sched = cosine_onecycle_schedule(total_steps, lr)
+    wd = float(kw.pop("weight_decay", 0.0))
+    params = list(params)
+    if name == "adamw":
+        inner = torch.optim.AdamW(params, lr=sched(0), betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=wd)
+    elif name == "sgd":
+        inner = torch.optim.SGD(params, lr=sched(0),
+                                momentum=float(kw.pop("momentum", 0.9)))
+    else:
+        inner = torch.optim.Adam(params, lr=sched(0), betas=(0.9, 0.999), eps=1e-8)
+    opt = Optimizer(inner, sched)
+    return opt if every_k == 1 else MultiSteps(opt, every_k)
