@@ -25,7 +25,11 @@ timings. The training phases follow: the GT completion and SECOND-IoU train
 steps at the flagship's widths (phase 9), then VCN training (phase 10):
 VCN_VC at full width and batch 32 on VC data that the port's vc_shapenet
 generates, checked against the CPU, timed, validated, its checkpoint
-reloaded into VCNInference.
+reloaded into VCNInference; then Mask R-CNN training (phase 11) at the
+seg2d CLI's defaults (base widths, 384x512, batch 8, synthetic scenes):
+a tiny step against the CPU, 11 steps through ``make_seg2d_train_step``
+timed, split and profiled, ``evaluate`` on held-out scenes, its
+checkpoint reloaded bit for bit, and the CLI's ``main`` cut to 3 steps.
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -51,8 +55,14 @@ import torch
 from seevcn_torch.models.detectors import configs as DC
 from seevcn_torch.models.detectors.second import build_detector
 from seevcn_torch.models.modules import roi_heads as RH
+from seevcn_torch.cli import train_seg2d as SEG_CLI
 from seevcn_torch.models.seg2d import maskrcnn as SM
-from seevcn_torch.models.seg2d.backend import build_seg2d
+from seevcn_torch.models.seg2d import synthetic as SEG_SYN
+from seevcn_torch.models.seg2d.backend import (build_seg2d, decode_wire, init_seg2d,
+                                               load_seg2d_checkpoint,
+                                               make_seg2d_train_step,
+                                               save_seg2d_checkpoint, seg2d_train_forward,
+                                               step_generator)
 from seevcn_torch.geom.boxes import boxes_iou_normal
 from seevcn_torch.models.vcn import vc_shapenet as VS
 from seevcn_torch.models.vcn.dataset import VCDataset
@@ -72,8 +82,8 @@ from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
 from seevcn_torch.see.gt_completion import complete_gt_frames
-from seevcn_torch.train.optim import build_lr_schedule
-from seevcn_torch.train.train import (apply_gradients, create_train_state,
+from seevcn_torch.train.optim import build_lr_schedule, build_seg2d_optimizer
+from seevcn_torch.train.train import (TrainState, apply_gradients, create_train_state,
                                       train_forward, train_step)
 from seevcn_torch.testing import (K2_CARD_EDGES, VCN_BIASES_BEFORE_BN,
                                   assert_vcn_grads_close, k2_edge_case,
@@ -1230,11 +1240,11 @@ def tiny_vcn_step(name, tiny, work, device, pinned=(None, None)):
             choices, pools, signs)
 
 
-def worst_rel(got, ref):
-    """(max |got - ref| / max |ref|, name) over the tensors of two gradient
-    dicts, but VCN_BIASES_BEFORE_BN (rounding noise on both sides)."""
-    return max((float((got[k] - ref[k]).abs().max() / ref[k].abs().max()), k)
-               for k in ref if k not in VCN_BIASES_BEFORE_BN)
+def worst_rel(got, ref, skip=()):
+    """(max |got - ref| / max |ref| in f64 (rel_diff), name) over the
+    tensors of two gradient dicts, but those named in ``skip``."""
+    return max((rel_diff(got[k].double(), ref[k].double()), k)
+               for k in ref if k not in skip)
 
 
 def check_tiny_vcn_steps_against_cpu(batch, work, dev):
@@ -1274,13 +1284,13 @@ def check_tiny_vcn_steps_against_cpu(batch, work, dev):
         flips = {w: n for w, (n, _) in vcn_selection_flips(ch_d, ch_c).items() if n}
         flips["max-pool picks"] = sum(int((a != b).sum()) for a, b in zip(pool_d, pool_c))
         flips["ReLU signs"] = sum(int((a != b).sum()) for a, b in zip(relu_d, relu_c))
-        unpinned = worst_rel(g_d, g_c)
+        unpinned = worst_rel(g_d, g_c, VCN_BIASES_BEFORE_BN)
         g_pin = tiny_vcn_step(name, tiny, work, dev, pinned=(ch_c, relu_c))[1]
-        pinned = worst_rel(g_pin, g_c)
+        pinned = worst_rel(g_pin, g_c, VCN_BIASES_BEFORE_BN)
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
             tf32 = worst_rel(tiny_vcn_step(name, tiny, work, dev, pinned=(ch_c, relu_c))[1],
-                             g_c)
+                             g_c, VCN_BIASES_BEFORE_BN)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         print(f"tiny {name} step, card vs CPU (f32, TF32 off): max |diff| loss terms "
@@ -1478,6 +1488,430 @@ def train_vcn(dev, card, steps: int = 10):
     print(f"VCN validation over {len(val_ds)} views in {val_s:.2f} s: "
           + ", ".join(f"{k} {v:.4f}" for k, v in shown.items())
           + "; ckpt-last.pth reloaded into VCNInference bit for bit, its completion "
+          "equal to the trained net's")
+    return summary
+
+
+def rel_diff(got, ref) -> float:
+    """max |got - ref| / max |ref|. A reference of zeros gives 0 where
+    ``got`` equals it and inf elsewhere, and a ``got`` that is not finite
+    gives inf, so no nan can pass a bound."""
+    if not torch.isfinite(got).all():
+        return math.inf
+    d, s = float((got - ref).abs().max()), float(ref.abs().max())
+    if s == 0:
+        return 0.0 if d == 0 else math.inf
+    return d / s
+
+
+class _PinnedReluF:
+    """torch.nn.functional, but with ``relu`` replaced: maskrcnn.py calls
+    ``F.relu`` for every ReLU of the Mask R-CNN."""
+
+    def __init__(self, relu):
+        self.relu = relu
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+
+@contextlib.contextmanager
+def seg2d_relu_signs(pinned=None):
+    """Within the block, record where the input of each ReLU of the Mask
+    R-CNN is positive, in call order, into the list yielded (bool, on the
+    CPU). Given ``pinned``, such a list from another run, each ReLU takes
+    its mask from there in place of its own input's sign."""
+    signs, queue = [], None if pinned is None else list(pinned)
+
+    def relu(x, inplace=False):
+        signs.append((x > 0).cpu())
+        if queue is None:
+            return torch.nn.functional.relu(x)
+        return torch.where(queue.pop(0).to(x.device), x, torch.zeros_like(x))
+
+    plain = SM.F
+    SM.F = _PinnedReluF(relu)
+    try:
+        yield signs
+    finally:
+        SM.F = plain
+
+
+def tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, device, dtype=torch.float32,
+                    pinned=None) -> dict:
+    """The training forward, loss and backward of the Mask R-CNN at ``cfg``
+    from the state dict ``sd`` on ``device`` in ``dtype``, with the draws
+    ``roi_u`` / ``rpn_u`` and the ReLUs' signs recorded or, given
+    ``pinned``, taken from another run (seg2d_relu_signs). -> {terms,
+    sample, grads, stats, targets, feats (the mask head's RoI features),
+    signs}, on the CPU."""
+    state = TrainState(build_seg2d(cfg, sd, device=device).train().to(dtype), None)
+    images, boxes, labels, valid, masks = (torch.from_numpy(x).to(device)
+                                           for x in SEG_CLI.pack(batch))
+    images, masks = decode_wire(images, masks, packed_masks=True)
+    feats = []
+    hook = state.model.mask_head.register_forward_pre_hook(
+        lambda mod, inputs: feats.append(inputs[0].detach().cpu()))
+    try:
+        with seg2d_relu_signs(pinned) as signs:
+            loss, tb, out = seg2d_train_forward(
+                state, images.to(dtype), boxes.to(dtype), labels, valid, masks.to(dtype),
+                roi_u=roi_u.to(device, dtype), rpn_u=rpn_u.to(device, dtype))
+            loss.backward()
+    finally:
+        hook.remove()
+    n = images.shape[0]
+    targets = torch.stack([SM.mask_targets(masks[i].to(dtype), out["rois"][i],
+                                           out["roi_matched"][i]) for i in range(n)])
+    return {"terms": {"loss": loss.detach().cpu(),
+                      **{k: v.detach().cpu() for k, v in tb.items()}},
+            "sample": {k: out[k].detach().cpu() for k in
+                       ("rois", "roi_cls_tgt", "roi_fg", "roi_matched")},
+            "grads": {k: p.grad.cpu() for k, p in state.model.named_parameters()},
+            "stats": {k: b.cpu() for k, b in state.model.named_buffers() if "running" in k},
+            "targets": targets.cpu(), "feats": feats[0], "signs": signs}
+
+
+def check_tiny_seg2d_step_against_cpu(dev):
+    """One Mask R-CNN train step at tiny_seg2d_cfg (batch 2 of synthetic
+    scenes, weights from init_seg2d seed 0, f32, TF32 off) on the card and
+    on the CPU, with the same draws (made on the CPU). The RoI sample must
+    be the same (classes, fg, matched equal; the RoIs, proposals decoded
+    from the RPN's f32 outputs, within 1e-4 px); loss terms within 1e-5
+    (relative); batch-norm running statistics within 1e-6 (absolute and
+    relative). Both runs record the step's discrete choices that the RoI
+    sample does not fix: the ReLUs' signs and the mask targets' pixels (a
+    bilinear sample thresholded at 0.5). One within rounding of its switch
+    can go the other way on the card and move the gradients by design, as
+    in phase 10. So the card's step runs again with its ReLUs' signs pinned
+    to the CPU's, and those gradients are held within 5e-4 of each tensor's
+    largest; where no choice differs, the unpinned gradients are held to
+    the same bound. Printed beside: the unpinned gradients, each device's
+    f32 gradients against the CPU's f64 ones (which device strays), the
+    mask head's RoI features, and the pinned step with TF32 on, the size of
+    error that the bound is there to catch. Returns the readings."""
+    cfg = tiny_seg2d_cfg()
+    sd = init_seg2d(SM.MaskRCNN(cfg), torch.Generator().manual_seed(0)).state_dict()
+    batch = SEG_SYN.synth_batch(np.random.RandomState(0), cfg.image_size, 2,
+                                max_gt=cfg.max_gt)
+    gen = torch.Generator().manual_seed(1)
+    n_anchor = SM.MaskRCNN(cfg).anchors.shape[0]
+    roi_u = torch.rand((2, 2, cfg.num_proposals + cfg.max_gt), generator=gen)
+    rpn_u = torch.rand((2, 2, n_anchor), generator=gen)
+    cpu = torch.device("cpu")
+    c = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, cpu)
+    d = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, dev)
+    for k in ("roi_cls_tgt", "roi_fg", "roi_matched"):
+        if not torch.equal(d["sample"][k], c["sample"][k]):
+            raise AssertionError(f"tiny seg2d step: the RoI sample's {k} differs from the CPU")
+    worst = {"rois": float((d["sample"]["rois"] - c["sample"]["rois"]).abs().max())}
+    if not worst["rois"] <= 1e-4:
+        raise AssertionError(f"tiny seg2d step: RoIs off the CPU by {worst['rois']}")
+    worst["loss terms"] = max(rel_diff(d["terms"][k], c["terms"][k]) for k in c["terms"])
+    if not worst["loss terms"] <= 1e-5:
+        raise AssertionError(f"tiny seg2d step: loss terms off by {worst['loss terms']}")
+    worst["running statistics"] = max(float((d["stats"][k] - c["stats"][k]).abs().max())
+                                      for k in c["stats"])
+    for k in c["stats"]:
+        if not ((d["stats"][k] - c["stats"][k]).abs() <= 1e-6 + 1e-6 * c["stats"][k].abs()).all():
+            raise AssertionError(f"tiny seg2d step: running statistic {k} off the CPU")
+    n_fg = int(c["sample"]["roi_fg"].sum())
+    if n_fg < 1:
+        raise AssertionError("tiny seg2d step: the RoI sample holds no foreground")
+    # the ReLUs in call order: stem, two a residual block, the RPN's conv on
+    # each level, the box head's two, the mask head's convs and its ``up``
+    flips = {i: int((a != b).sum()) for i, (a, b) in enumerate(zip(d["signs"], c["signs"]))
+             if not torch.equal(a, b)}
+    worst["relu_sign_flips"] = flips
+    worst["relu_sites"] = len(c["signs"])
+    worst["mask_target_flips"] = int((d["targets"] != c["targets"]).sum())
+    worst["mask_head_features"] = rel_diff(d["feats"], c["feats"])
+    worst["gradients_unpinned"] = worst_rel(d["grads"], c["grads"])
+    pinned = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, dev, pinned=c["signs"])
+    worst["gradients_pinned"] = worst_rel(pinned["grads"], c["grads"])
+    x = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, cpu, dtype=torch.float64)
+    worst["card_f32_vs_cpu_f64"] = worst_rel(d["grads"], x["grads"])
+    worst["cpu_f32_vs_cpu_f64"] = worst_rel(c["grads"], x["grads"])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, dev, pinned=c["signs"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    worst["gradients_pinned_tf32"] = worst_rel(tf32["grads"], c["grads"])
+    print(f"tiny seg2d train step, card vs CPU (f32, TF32 off, the same draws): the same "
+          f"RoI sample ({n_fg} foreground of {c['sample']['roi_fg'].numel()}), max |diff| "
+          f"rois {worst['rois']:.3g} px, loss terms {worst['loss terms']:.3g} (relative), "
+          f"running statistics {worst['running statistics']:.3g}, the mask head's RoI "
+          f"features {worst['mask_head_features']:.3g} of their largest; choices that "
+          f"differ: ReLU signs {flips} (site: count, of {len(c['signs'])} sites), "
+          f"{worst['mask_target_flips']} of {c['targets'].numel()} mask-target pixels; "
+          f"gradients {worst['gradients_unpinned'][0]:.3g} of a tensor's largest "
+          f"({worst['gradients_unpinned'][1]}); with the ReLUs' signs pinned to the "
+          f"CPU's {worst['gradients_pinned'][0]:.3g} ({worst['gradients_pinned'][1]}; "
+          f"bound 5e-4), and with TF32 on as well {worst['gradients_pinned_tf32'][0]:.3g} "
+          f"({worst['gradients_pinned_tf32'][1]}); against the CPU's f64 gradients: the "
+          f"card's f32 {worst['card_f32_vs_cpu_f64'][0]:.3g} "
+          f"({worst['card_f32_vs_cpu_f64'][1]}), the CPU's f32 "
+          f"{worst['cpu_f32_vs_cpu_f64'][0]:.3g} ({worst['cpu_f32_vs_cpu_f64'][1]}); "
+          f"loss {float(c['terms']['loss']):.5f}")
+    if not worst["gradients_pinned"][0] <= 5e-4:
+        raise AssertionError(f"tiny seg2d step: with the ReLUs pinned, gradient "
+                             f"{worst['gradients_pinned'][1]} off by "
+                             f"{worst['gradients_pinned'][0]} of its largest")
+    if not flips and not worst["mask_target_flips"] \
+            and not worst["gradients_unpinned"][0] <= 5e-4:
+        raise AssertionError(f"tiny seg2d step: no choice differs and gradient "
+                             f"{worst['gradients_unpinned'][1]} is off by "
+                             f"{worst['gradients_unpinned'][0]} of its largest")
+    return {**worst, "foreground": n_fg}
+
+
+def seg2d_step_flops(cfg, batch: int) -> dict:
+    """Forward FLOPs of one Mask R-CNN train step at ``cfg`` and ``batch``,
+    by part (backbone + FPN, RPN head on every level, box head and mask
+    head on the sampled RoIs), counted by torch.utils.flop_counter on the
+    meta device: shapes only, nothing computed. A multiply-add is 2."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    h, w = cfg.image_size
+    with torch.device("meta"):
+        model = SM.MaskRCNN(cfg)
+        parts = {}
+        with FlopCounterMode(display=False) as fc:
+            feats = model.backbone(torch.zeros(batch, 3, h, w))
+        parts["backbone_fpn"] = fc.get_total_flops()
+        with FlopCounterMode(display=False) as fc:
+            for f in feats:
+                model.rpn(f)
+        parts["rpn_head"] = fc.get_total_flops()
+        r = batch * cfg.roi_batch
+        with FlopCounterMode(display=False) as fc:
+            model.box_head(torch.zeros(r, 7, 7, cfg.fpn_channels))
+        parts["box_head"] = fc.get_total_flops()
+        with FlopCounterMode(display=False) as fc:
+            model.mask_head(torch.zeros(r, 14, 14, cfg.fpn_channels))
+        parts["mask_head"] = fc.get_total_flops()
+    return parts
+
+
+def time_train_scan(state, images, dev):
+    """The train step's proposal pass on image 0 of ``images`` (its RPN
+    outputs at the trained weights): host clock to a synchronize of the whole
+    pass and of its greedy scan alone (median of 5), and CUDA events of the
+    scan."""
+    cfg, model = state.model.cfg, state.model
+    with torch.no_grad():
+        _, obj, box = model.features(images[:1])
+    obj, box = obj[0], box[0]
+    top, order = torch.sort(obj, descending=True, stable=True)
+    k = cfg.pre_nms_topk
+    props = SM.decode_deltas(box[order[:k]], model.anchors[order[:k]], cfg.image_size)
+    iou = boxes_iou_normal(props, props)
+    ok = torch.isfinite(top[:k])
+
+    def host(fn):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    scan = lambda: NMS._greedy_suppress(iou, ok, cfg.proposal_nms_thresh)  # noqa: E731
+    return {"k": k, "pass_host_ms": host(lambda: SM.proposals(cfg, model.anchors, obj, box)),
+            "scan_host_ms": host(scan), "scan_cuda_ms": time_cuda(scan, reps=5)}
+
+
+def train_seg2d(dev, card, steps: int = 10):
+    """Mask R-CNN training at the CLI's defaults (``--size base``, 384x512,
+    batch 8, AdamW lr 1e-3 with the warm-up of 200 over 2,000 steps,
+    synthetic scenes from seed 0, the packed wire format): the tiny step
+    against the CPU; a warm-up step (lr 0: no weight moves) and ``steps``
+    timed ones through ``make_seg2d_train_step`` (host clock to a
+    synchronize), then one split by CUDA events into forward, loss and
+    backward + update, one under torch.profiler, the proposal pass's greedy
+    scan timed alone; then ``evaluate`` on 8 held-out scenes, the
+    checkpoint saved and reloaded, its eval forward equal bit for bit, and
+    the CLI's ``main`` at its defaults cut to 3 steps.
+    Raises unless every loss is finite and every parameter has moved after
+    the second step. Returns the summary dict."""
+    tiny = check_tiny_seg2d_step_against_cpu(dev)
+    args = SEG_CLI.parse_args([])
+    cfg = SEG_CLI.build_cfg(args)
+    stream = SEG_CLI.synthetic_stream(cfg, args.batch_size, args.seed)
+    t0 = time.perf_counter()
+    host_batches = [next(stream) for _ in range(steps + 3)]
+    gen_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+    t0 = time.perf_counter()
+    wires = [SEG_CLI.pack(b) for b in host_batches]
+    pack_ms = (time.perf_counter() - t0) * 1e3 / len(wires)
+    model = init_seg2d(SM.MaskRCNN(cfg), torch.Generator().manual_seed(0)).to(dev).train()
+    state = TrainState(model, build_seg2d_optimizer(
+        model.parameters(), args.lr, args.weight_decay, args.warmup_steps,
+        max(args.steps, args.warmup_steps + 1)))
+    step = make_seg2d_train_step(packed_masks=True)
+    n_gt = int(sum(b[3].sum() for b in host_batches[:steps + 1]))
+    flops = seg2d_step_flops(cfg, args.batch_size)
+    # forward and backward: the backward of a conv or a product is two
+    # products of the forward's size (the input's and the weight's gradient)
+    fwd = sum(flops.values())
+    flop_ms = 3 * fwd / FP32_FLOPS * 1e3
+
+    def upload(w):
+        return [torch.from_numpy(x).to(dev) for x in w]
+
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(state, *upload(wires[0]), args.seed)]
+    torch.cuda.synchronize()
+    moved0 = [n for n, p in model.named_parameters() if not torch.equal(p, start[n])]
+    if moved0:
+        raise AssertionError(f"step 0 (lr 0) moved {moved0[:3]}")
+    times = []
+    for k in range(1, steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, *upload(wires[k]), args.seed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if k == 1:
+            still = [n for n, p in model.named_parameters() if torch.equal(p, start[n])]
+            if still:
+                raise AssertionError(f"parameters did not move after the second step: "
+                                     f"{still[:5]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"a seg2d loss term is not finite: {values}")
+    step_ms = statistics.median(times)
+
+    # one step split by CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    images, boxes, labels, valid, masks = upload(wires[steps + 1])
+    torch.cuda.synchronize()
+    ev[0].record()
+    images, masks = decode_wire(images, masks, packed_masks=True)
+    gen = step_generator(args.seed, state.step, dev)
+    out = model(images, boxes, labels, valid, masks, train=True, generator=gen)
+    ev[1].record()
+    loss, _ = model.loss(out, boxes, labels, valid, masks, gen)
+    ev[2].record()
+    apply_gradients(state, loss)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1])
+             for i, k in enumerate(("forward", "loss", "backward_update"))}
+    scan = time_train_scan(state, images, dev)
+
+    # the wire format against the batch as the generator makes it (f32
+    # images and masks): pack on the host, upload and unpack on the card,
+    # against the plain upload, alternating over the same batches
+    def timed(fn, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def wire(b):
+        w = upload(SEG_CLI.pack(b))
+        return decode_wire(w[0], w[4], packed_masks=True)
+
+    wire_ms = {"plain_upload": [], "pack_upload_decode": []}
+    for b in host_batches[:steps]:
+        wire_ms["plain_upload"].append(timed(upload, b))
+        wire_ms["pack_upload_decode"].append(timed(wire, b))
+    wire_ms = {k: statistics.median(v) for k, v in wire_ms.items()}
+    plain_mib = sum(x.nbytes for x in host_batches[0]) / 2**20
+    wire_mib = sum(x.nbytes for x in wires[0]) / 2**20
+    busy, top = profile_frame((state, *upload(wires[steps + 2]), args.seed), step)
+    n_fg = int(out["roi_fg"].sum())
+
+    # held-out evaluation, then the checkpoint saved, reloaded and run
+    t0 = time.perf_counter()
+    ev_keys = SEG_CLI.evaluate(model, cfg, 8, args.seed)
+    eval_s = time.perf_counter() - t0
+    if set(ev_keys) != {"mask_AP50", "mask_AP", "box_AP50", "box_AP", "mask_AP50_far",
+                        "mask_AP50_near"} or not all(math.isfinite(v) for v in ev_keys.values()):
+        raise AssertionError(f"bad seg2d evaluation: {ev_keys}")
+    image = torch.from_numpy(SEG_SYN.synth_scene(*cfg.image_size, np.random.RandomState(1),
+                                                 max_gt=cfg.max_gt)[0][None]).to(dev)
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "seg2d.ckpt")
+        save_seg2d_checkpoint(path, model, cfg)
+        ckpt_mb = os.path.getsize(path) / 2**20
+        loaded_cfg, sd = load_seg2d_checkpoint(path)
+    reloaded = build_seg2d(loaded_cfg, sd, device=dev)
+    trained = model.state_dict()
+    if any(not torch.equal(sd[k].to(dev), v) for k, v in trained.items()
+           if not k.endswith("num_batches_tracked")):
+        raise AssertionError("the reloaded Mask R-CNN's weights differ from the trained ones")
+    model.eval()
+    with torch.no_grad():
+        a, b = model(image), reloaded(image)
+    model.train()
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the reloaded Mask R-CNN's eval forward differs")
+
+    # the CLI itself at its defaults, cut to 3 steps and 2 eval scenes: an
+    # eval point and its checkpoint after step 2, the last checkpoint, and
+    # main's JSON line
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "cli.ckpt")
+        t0 = time.perf_counter()
+        cli_eval = SEG_CLI.main(["--steps", "3", "--eval_every", "2", "--eval_scenes", "2",
+                                 "--out", path, "--log_every", "1"])
+        cli_s = time.perf_counter() - t0
+        cli_cfg, cli_sd = load_seg2d_checkpoint(path)
+    if cli_cfg != cfg or set(cli_sd) != set(trained) or set(cli_eval) != set(ev_keys):
+        raise AssertionError("the seg2d CLI's checkpoint or evaluation is not the recipe's")
+    print(f"python -m seevcn_torch.cli.train_seg2d --steps 3 --eval_every 2 --eval_scenes 2 "
+          f"(the other flags at their defaults) ran in {cli_s:.1f} s on {card}")
+    summary = {
+        "step_ms": step_ms, "images_per_s": args.batch_size * 1e3 / step_ms,
+        "step_ms_all": times, "split_ms": split, "scan": scan,
+        "scan_share": args.batch_size * scan["scan_host_ms"] / step_ms,
+        "device_busy_ms": busy, "top_ops": top, "peak_gib": peak,
+        "losses": [m["loss"] for m in values], "last_terms": values[-1],
+        "eval": ev_keys, "eval_s": eval_s, "batch_gen_ms": gen_ms, "pack_ms": pack_ms,
+        "wire_ms": wire_ms, "plain_batch_mib": plain_mib, "wire_batch_mib": wire_mib,
+        "gt_per_image": n_gt / ((steps + 1) * args.batch_size), "split_step_fg": n_fg,
+        "ckpt_mib": ckpt_mb, "forward_gflop": {k: v / 1e9 for k, v in flops.items()},
+        "step_flop_bound_ms": flop_ms, "cli_s": cli_s, "tiny_vs_cpu": tiny}
+    h, w = cfg.image_size
+    print(f"seg2d train steps ({args.size}, {h}x{w}, batch {args.batch_size}, synthetic "
+          f"scenes, AdamW warm-up {args.warmup_steps} of {args.steps}): losses "
+          + ", ".join(f"{v['loss']:.4f}" for v in values)
+          + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items()))
+    print(f"seg2d train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+          f"{steps}) = {summary['images_per_s']:.2f} images/s; CUDA events: forward "
+          f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
+          f"{split['backward_update']:.2f} ms; proposal pass (K={scan['k']}) "
+          f"{scan['pass_host_ms']:.2f} ms host clock, its greedy scan "
+          f"{scan['scan_host_ms']:.2f} ms host clock ({scan['scan_cuda_ms']:.2f} ms CUDA "
+          f"events), {args.batch_size} a step = {summary['scan_share']:.3f} of the step; "
+          f"peak device "
+          f"memory {peak:.2f} GiB; profiled step: device busy {busy:.2f} ms; device time "
+          f"by op: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    print(f"seg2d step FLOPs (flop_counter, meta device): forward "
+          + ", ".join(f"{k} {v / 1e9:.1f}" for k, v in flops.items())
+          + f" GFLOP = {fwd / 1e9:.1f}; forward + backward {3 * fwd / 1e12:.2f} TFLOP, "
+          f"{flop_ms:.1f} ms at the f32 peak of {FP32_FLOPS / 1e12:.0f} TFLOP/s")
+    print(f"seg2d data: {gen_ms:.1f} ms a batch of {args.batch_size} scenes to generate "
+          f"(host), {pack_ms:.1f} ms to pack; {summary['gt_per_image']:.2f} cars an image; "
+          f"{n_fg} foreground RoIs of {out['roi_fg'].numel()} in the split step")
+    print(f"seg2d wire format (median of {steps} batches, host clock to a synchronize): "
+          f"the plain f32 batch ({plain_mib:.1f} MiB) uploads in "
+          f"{wire_ms['plain_upload']:.2f} ms; packed ({wire_mib:.1f} MiB), pack + upload "
+          f"+ unpack take {wire_ms['pack_upload_decode']:.2f} ms on {card}")
+    print(f"seg2d evaluation over 8 held-out scenes in {eval_s:.2f} s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ev_keys.items())
+          + f"; checkpoint ({ckpt_mb:.1f} MiB) reloaded bit for bit, its eval forward "
           "equal to the trained net's")
     return summary
 
@@ -1827,9 +2261,12 @@ def main() -> int:
 
     # --- 10. VCN training at full width on generated data ----------------
     vcn_train = train_vcn(dev, card)
+
+    # --- 11. Mask R-CNN training at the CLI's defaults ----------------------
+    seg2d_train = train_seg2d(dev, card)
     print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 11. summary lines ---------------------------------------------------
+    # --- 12. summary lines ---------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
         "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
@@ -1842,7 +2279,7 @@ def main() -> int:
                      "kept": n_kept, "nms_ms": nms_ms,
                      "peak_gib": det_peak},
         "see_frame_peak_gib": see_peak, "train": train, "vcn_train": vcn_train,
-        "card": smi}))
+        "seg2d_train": seg2d_train, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,3 +19,11 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
                            "device is available; pass device='cpu' to run "
                            "the plain versions on the CPU")
     return dev
+
+
+def tf32_off():
+    """Matrix products and cuDNN convolutions at full f32 precision: the
+    reference runs f32 at Precision.HIGHEST, and PyTorch lets cuDNN use TF32
+    by default."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

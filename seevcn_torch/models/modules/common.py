@@ -8,9 +8,26 @@ gradients are the same either way, only the running variance would differ.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# flax's truncated_normal draws a standard normal cut at +-2; this is its
+# standard deviation, by which lecun_normal divides to keep 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init (variance_scaling(1, "fan_in",
+    "truncated_normal")): a normal truncated at two standard deviations,
+    variance 1 / fan_in, drawn by inverting its CDF from ``generator``."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator) * (1.0 - 2.0 * lo) + lo
+    z = (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp(-2.0, 2.0)
+    return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Mask R-CNN's eval path in torch (port of seevcn_tpu/models/seg2d/maskrcnn.py).
+"""Mask R-CNN in torch (port of seevcn_tpu/models/seg2d/maskrcnn.py).
 
 The plain Mask R-CNN that bench.py's mask stage runs: ResNet-FPN (P2..P6)
 -> RPN -> proposals -> RoIAlign 7x7 -> box head -> per-class decode + NMS
@@ -7,6 +7,17 @@ Every stage keeps the reference's fixed shapes: 1,024 pre-NMS proposals,
 ``num_proposals`` RoIs, ``max_detections`` output slots, suppressed boxes
 left in their slots at score 0.
 
+Training (``forward(..., train=True)`` and ``loss``) is the reference's
+MaskRCNNLogic as plain functions: RPN targets over all anchors, proposals
+on the detached RPN outputs, a fixed-size RoI sample (the ground truth
+appended to the proposals), RoIAlign 7x7 into the box head and 14x14 on
+the sampled RoIs into the mask head, and the RPN, box and mask losses. The
+random priorities of the two samples are arguments (U[0, 1) of the anchors'
+or the candidates' length, fg and bg), drawn from a ``torch.Generator`` of
+the model's device unless given; the tests pass JAX's own draws. Every
+top-k is a stable descending sort, lower indices first among equal keys,
+as ``jax.lax.top_k``.
+
 The image enters NHWC (B, H, W, 3) as in the reference. The convolutions
 run NCHW; RoIAlign gathers from each FPN map laid out (H, W, C) and returns
 (R, S, S, C), so the box head flattens its input in the reference's HWC
@@ -14,9 +25,8 @@ order. Module attribute names mirror the flax tree's, flax's automatic names
 included (``BatchNorm_0``, ``Conv_0``...), so ``seg2d_state_dict_from_flax``
 is a walk of that tree.
 
-Not ported yet (ROADMAP queue 1): training (item 9) and HTC's cascade,
-semantic branch, mask info flow and deformable stages (item 10); each
-raises ``NotImplementedError``.
+Not ported yet (ROADMAP queue 1, item 3): HTC's cascade, semantic branch,
+mask info flow and deformable stages; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ from torch import nn
 
 from ...geom.boxes import boxes_iou_normal
 from ...ops.nms import _greedy_suppress
+from ..losses import binary_cross_entropy_with_logits, weighted_smooth_l1
+from ..modules.common import BatchNorm2d
 
 # box-delta variance weights (Detectron defaults)
 BOX_W = (10.0, 10.0, 5.0, 5.0)
@@ -98,14 +110,15 @@ class SameConv2d(nn.Conv2d):
                         self.bias, self.stride)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    # flax nn.BatchNorm: eps 1e-5, momentum 0.9 (torch's 0.1)
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+def _bn(channels: int) -> BatchNorm2d:
+    # flax nn.BatchNorm: eps 1e-5, momentum 0.9 (torch's 0.1), the running
+    # variance moved by the biased batch variance
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
-def _unported(what: str, item: int):
+def _unported(what: str):
     return NotImplementedError(f"seg2d {what} is not ported yet (ROADMAP "
-                               f"queue 1, item {item})")
+                               f"queue 1, item 3)")
 
 
 class BasicBlock(nn.Module):
@@ -138,7 +151,7 @@ class ResNetFPN(nn.Module):
                  fpn_channels: int = 256, dcn_stages=(False, False, False, False)):
         super().__init__()
         if any(dcn_stages):
-            raise _unported("dcn_stages (deformable convs)", 10)
+            raise _unported("dcn_stages (deformable convs)")
         self.stage_sizes = tuple(stage_sizes)
         self.stem = SameConv2d(3, 64, 7, 2, bias=False)
         self.BatchNorm_0 = _bn(64)
@@ -258,6 +271,24 @@ def generate_anchors_2d(image_size, strides=(4, 8, 16, 32, 64),
     return per_level
 
 
+def encode_deltas(boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """xyxy boxes on xyxy anchors (..., 4) -> weighted (dx, dy, dw, dh); the
+    widths and heights of both are floored at 1e-3, so a zero-width box
+    encodes finite."""
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    ax = anchors[..., 0] + aw / 2
+    ay = anchors[..., 1] + ah / 2
+    bw = (boxes[..., 2] - boxes[..., 0]).clamp_min(1e-3)
+    bh = (boxes[..., 3] - boxes[..., 1]).clamp_min(1e-3)
+    bx = boxes[..., 0] + bw / 2
+    by = boxes[..., 1] + bh / 2
+    aw, ah = aw.clamp_min(1e-3), ah.clamp_min(1e-3)
+    return torch.stack([BOX_W[0] * (bx - ax) / aw, BOX_W[1] * (by - ay) / ah,
+                        BOX_W[2] * torch.log(bw / aw),
+                        BOX_W[3] * torch.log(bh / ah)], dim=-1)
+
+
 def decode_deltas(deltas: torch.Tensor, anchors: torch.Tensor, image_size):
     """Weighted (dx, dy, dw, dh) on xyxy anchors -> xyxy boxes clipped to
     the image; dw, dh are clipped to [-8, 4] before the exp."""
@@ -372,19 +403,160 @@ def decode_detections(cfg: Seg2DConfig, rois: torch.Tensor, roi_valid: torch.Ten
 
 
 # ---------------------------------------------------------------------------
+# training targets and losses (MaskRCNNLogic's training side)
+# ---------------------------------------------------------------------------
+def _one_hot(idx: torch.Tensor, k: int) -> torch.Tensor:
+    """f32 one-hot of ``idx`` over k classes; an index outside [0, k) (the
+    background's class - 1 = -1) reads all zeros, as jax.nn.one_hot."""
+    return (idx[..., None] == torch.arange(k, device=idx.device)).to(torch.float32)
+
+
+def rpn_targets(cfg: Seg2DConfig, anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                gt_valid: torch.Tensor, u_fg: torch.Tensor, u_bg: torch.Tensor):
+    """One image's RPN targets: gt_boxes (G, 4), gt_valid (G,), u_fg and
+    u_bg (N,) U[0, 1) priorities -> (labels (N,) f32, deltas (N, 4), weights
+    (N,) f32, fg (N,) bool). An anchor is positive at IoU >= rpn_pos_iou or
+    as its ground truth's best anchor, negative below rpn_neg_iou; up to
+    rpn_batch * rpn_fg_fraction positives and the rest of rpn_batch
+    negatives are kept, the highest priorities first.
+
+    The best-anchor marks are the reference's scatter with duplicate
+    indices, ``zeros.at[best_anchor].set(gt_valid)``: a padding row's IoU is
+    -1 everywhere, so it marks anchor 0 False, and where rows share an
+    anchor the last row's value stands, as XLA's scatter on the CPU leaves
+    it."""
+    n, g = anchors.shape[0], gt_boxes.shape[0]
+    iou = torch.where(gt_valid[None, :], boxes_iou_normal(anchors, gt_boxes), -1.0)
+    best_gt = iou.argmax(1)
+    best_iou = iou.amax(1)
+    last = torch.full((n,), -1, dtype=torch.int64, device=anchors.device)
+    last.scatter_reduce_(0, iou.argmax(0), torch.arange(g, device=anchors.device),
+                         reduce="amax")
+    force = (last >= 0) & gt_valid[last.clamp_min(0)]
+    pos = (best_iou >= cfg.rpn_pos_iou) | force
+    neg = (best_iou < cfg.rpn_neg_iou) & ~pos
+
+    n_fg = int(cfg.rpn_batch * cfg.rpn_fg_fraction)
+    fg = torch.zeros_like(pos)
+    fg[_top(torch.where(pos, u_fg, -1.0), n_fg)[1]] = True
+    fg &= pos
+    bg = torch.zeros_like(neg)
+    bg[_top(torch.where(neg, u_bg, -1.0), cfg.rpn_batch - n_fg)[1]] = True
+    bg &= neg
+    deltas = encode_deltas(gt_boxes[best_gt], anchors)
+    return fg.to(torch.float32), deltas, (fg | bg).to(torch.float32), fg
+
+
+def sample_rois(cfg: Seg2DConfig, props: torch.Tensor, prop_valid: torch.Tensor,
+                gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                gt_valid: torch.Tensor, u_fg: torch.Tensor, u_bg: torch.Tensor):
+    """One image's RoI sample of roi_batch rows from the proposals with the
+    ground truth appended (P + G candidates; u_fg, u_bg their U[0, 1)
+    priorities) -> (rois (S, 4), classes (S,) int32 (0 background),
+    deltas (S, 4), is_fg (S,), matched (S,) the ground-truth row of each).
+
+    The first roi_batch * roi_fg_fraction rows are the foreground picks
+    (IoU >= roi_fg_iou), the rest the background picks (IoU in [0,
+    roi_fg_iou)), each by priority. Where a stratum runs short its keys
+    read -1 and the picks go on in index order: those rows still enter the
+    sample, as background (class 0), and the box loss's cross-entropy
+    averages over them, as in the reference."""
+    boxes = torch.cat([props, gt_boxes])
+    valid = torch.cat([prop_valid, gt_valid])
+    iou = torch.where(gt_valid[None, :], boxes_iou_normal(boxes, gt_boxes), -1.0)
+    best_gt = iou.argmax(1)
+    best_iou = torch.where(valid, iou.amax(1), -1.0)
+    fg = best_iou >= cfg.roi_fg_iou
+    bg = (best_iou >= 0.0) & ~fg
+
+    n_fg = int(cfg.roi_batch * cfg.roi_fg_fraction)
+    fg_idx = _top(torch.where(fg, u_fg, -1.0), n_fg)[1]
+    bg_idx = _top(torch.where(bg, u_bg, -1.0), cfg.roi_batch - n_fg)[1]
+    idx = torch.cat([fg_idx, bg_idx])
+    is_fg = torch.cat([fg[fg_idx], torch.zeros_like(fg[bg_idx])])
+    rois, matched = boxes[idx], best_gt[idx]
+    cls = torch.where(is_fg, gt_labels[matched] + 1, 0).to(torch.int32)
+    return rois, cls, encode_deltas(gt_boxes[matched], rois), is_fg, matched
+
+
+def rpn_loss(rpn_obj, rpn_box, labels, deltas, weights, fg):
+    """Binary cross-entropy over the sampled anchors (mean by their count)
+    plus smooth-L1 (beta 1/9) over the positives (mean by their count)."""
+    cls = binary_cross_entropy_with_logits(rpn_obj, labels)
+    cls = (cls * weights).sum() / weights.sum().clamp_min(1.0)
+    reg = weighted_smooth_l1(rpn_box, deltas, fg.to(torch.float32), beta=1.0 / 9)
+    reg = reg.sum() / fg.sum().clamp_min(1)
+    return cls + reg, {"rpn_cls": cls, "rpn_reg": reg}
+
+
+def box_loss(cfg: Seg2DConfig, cls_logits, box_deltas, cls_tgt, delta_tgt, is_fg):
+    """Softmax cross-entropy over all sampled RoIs (mean) plus smooth-L1
+    (beta 1) of the target class's deltas over the foreground RoIs."""
+    onehot = _one_hot(cls_tgt, cfg.num_classes + 1)
+    cls_loss = -(F.log_softmax(cls_logits, dim=-1) * onehot).sum(-1).mean()
+    sel = _one_hot(cls_tgt - 1, cfg.num_classes)
+    pred = (box_deltas * sel[..., None]).sum(1)
+    fg_w = is_fg.to(torch.float32)
+    reg = weighted_smooth_l1(pred, delta_tgt, fg_w, beta=1.0)
+    reg_loss = reg.sum() / fg_w.sum().clamp_min(1.0)
+    return cls_loss + reg_loss, {"box_cls": cls_loss, "box_reg": reg_loss}
+
+
+def mask_targets(gt_masks: torch.Tensor, rois: torch.Tensor, matched: torch.Tensor,
+                 mask_size: int = 28) -> torch.Tensor:
+    """Each RoI's matched ground-truth mask (gt_masks (G, H, W)) sampled
+    bilinearly at the mask_size x mask_size cell centres of the RoI, in
+    image pixels (no half-pixel shift, unlike RoIAlign's), thresholded at
+    0.5 -> (R, S, S) f32. The taps are gathered from the mask by index, and
+    the four are mixed in ``_bilinear``'s order, so a value on 0.5 falls as
+    the reference's does."""
+    h, w = gt_masks.shape[1:]
+    rw = (rois[:, 2] - rois[:, 0]).clamp_min(1e-3)
+    rh = (rois[:, 3] - rois[:, 1]).clamp_min(1e-3)
+    steps = (torch.arange(mask_size, device=rois.device, dtype=rois.dtype)
+             + 0.5) / mask_size
+    gx = rois[:, 0, None] + steps[None, :] * rw[:, None]   # (R, S)
+    gy = rois[:, 1, None] + steps[None, :] * rh[:, None]
+    x, y = torch.broadcast_tensors(gx[:, None, :], gy[:, :, None])   # (R, S, S)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    m = matched[:, None, None]
+
+    def tap(xi, yi):
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        v = gt_masks[m, yi.clamp(0, h - 1).long(), xi.clamp(0, w - 1).long()]
+        return torch.where(inb, v, 0.0)
+
+    top = tap(x0, y0) * (1 - wx) + tap(x0 + 1, y0) * wx
+    bot = tap(x0, y0 + 1) * (1 - wx) + tap(x0 + 1, y0 + 1) * wx
+    return (top * (1 - wy) + bot * wy >= 0.5).to(torch.float32)
+
+
+def mask_loss(cfg: Seg2DConfig, mask_logits, mask_tgt, cls_tgt, is_fg):
+    """Binary cross-entropy of the target class's 28x28 logits, averaged
+    over the foreground RoIs' pixels."""
+    sel = _one_hot(cls_tgt - 1, cfg.num_classes)                 # (R, K)
+    logit = (mask_logits * sel[:, None, None, :]).sum(-1)        # (R, S, S)
+    bce = binary_cross_entropy_with_logits(logit, mask_tgt)
+    fg_w = is_fg.to(torch.float32)[:, None, None]
+    return (bce * fg_w).sum() / (fg_w.sum() * bce.shape[1] * bce.shape[2]).clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
 # model
 # ---------------------------------------------------------------------------
 class MaskRCNN(nn.Module):
-    """Plain Mask R-CNN, eval forward only."""
+    """Plain Mask R-CNN: the eval forward, and the training forward and
+    loss."""
 
     def __init__(self, cfg: Seg2DConfig):
         super().__init__()
         if cfg.cascade_stages > 1:
-            raise _unported("cascade_stages > 1 (HTC cascade)", 10)
+            raise _unported("cascade_stages > 1 (HTC cascade)")
         if cfg.semantic_branch:
-            raise _unported("semantic_branch (HTC semantic head)", 10)
+            raise _unported("semantic_branch (HTC semantic head)")
         if cfg.mask_info_flow:
-            raise _unported("mask_info_flow (HTC mask info flow)", 10)
+            raise _unported("mask_info_flow (HTC mask info flow)")
         self.cfg = cfg
         self.backbone = ResNetFPN(cfg.stage_sizes, cfg.stage_channels,
                                   cfg.fpn_channels, cfg.dcn_stages)
@@ -410,15 +582,33 @@ class MaskRCNN(nn.Module):
         """Image i's P2..P5 laid out (H, W, C), as ``roi_align`` reads them."""
         return [f[i].permute(1, 2, 0).contiguous() for f in feats[:4]]
 
-    def forward(self, images: torch.Tensor, train: bool = False) -> dict:
-        """images (B, H, W, 3) -> {rpn_obj (B, N), rpn_box (B, N, 4),
-        det_boxes (B, D, 4), det_scores (B, D), det_cls (B, D) int32,
-        det_masks (B, D, 28, 28): the sigmoid of each detection's class
-        logits}."""
-        if train:
-            raise _unported("training", 9)
-        cfg = self.cfg
+    def forward(self, images: torch.Tensor, gt_boxes=None, gt_labels=None,
+                gt_valid=None, gt_masks=None, train: bool = False,
+                generator: torch.Generator | None = None,
+                roi_u: torch.Tensor | None = None) -> dict:
+        """images (B, H, W, 3) -> {rpn_obj (B, N), rpn_box (B, N, 4), ...}.
+
+        Eval (``train`` False): det_boxes (B, D, 4), det_scores (B, D),
+        det_cls (B, D) int32, det_masks (B, D, 28, 28), the sigmoid of each
+        detection's class logits.
+
+        Training (the module in training mode): gt_boxes (B, G, 4) xyxy,
+        gt_labels (B, G) int, gt_valid (B, G) bool; gt_masks is taken for
+        the reference's signature and read by ``loss``. -> rois (B, S, 4),
+        roi_cls_tgt (B, S) int32, roi_delta_tgt (B, S, 4), roi_fg (B, S),
+        roi_matched (B, S), cls_logits (B, S, K + 1), box_deltas (B, S, K,
+        4), mask_logits (B, S, 28, 28, K). ``roi_u`` (B, 2, P + G), the fg
+        and bg priorities of each image's candidates, is drawn from
+        ``generator`` unless given."""
         feats, rpn_obj, rpn_box = self.features(images)
+        out = {"rpn_obj": rpn_obj, "rpn_box": rpn_box}
+        if train:
+            if not self.training:
+                raise ValueError("train=True needs the module in training mode "
+                                 "(batch norm on the batch's statistics)")
+            return {**out, **self._train_heads(feats, rpn_obj, rpn_box, gt_boxes,
+                                               gt_labels, gt_valid, generator, roi_u)}
+        cfg = self.cfg
         strides = cfg.strides[:4]
         dets = []
         for i in range(images.shape[0]):
@@ -431,8 +621,68 @@ class MaskRCNN(nn.Module):
             pick = classes.long()[:, None, None, None].expand(*logits.shape[:3], 1)
             masks = torch.sigmoid(logits.gather(-1, pick)[..., 0])
             dets.append((boxes, scores, classes, masks))
-        out = {"rpn_obj": rpn_obj, "rpn_box": rpn_box}
         for key, parts in zip(("det_boxes", "det_scores", "det_cls", "det_masks"),
                               zip(*dets)):
             out[key] = torch.stack(parts)
         return out
+
+    def _train_heads(self, feats, rpn_obj, rpn_box, gt_boxes, gt_labels, gt_valid,
+                     generator, roi_u) -> dict:
+        cfg = self.cfg
+        b = rpn_obj.shape[0]
+        if roi_u is None:
+            roi_u = torch.rand((b, 2, cfg.num_proposals + gt_boxes.shape[1]),
+                               generator=generator, device=rpn_obj.device)
+        strides = cfg.strides[:4]
+        samples, f7, f14 = [], [], []
+        for i in range(b):
+            props, valid, _ = proposals(cfg, self.anchors, rpn_obj[i].detach(),
+                                        rpn_box[i].detach())
+            sample = sample_rois(cfg, props, valid, gt_boxes[i], gt_labels[i],
+                                 gt_valid[i], roi_u[i, 0], roi_u[i, 1])
+            maps = self.roi_maps(feats, i)
+            f7.append(roi_align(maps, strides, sample[0], 7))
+            f14.append(roi_align(maps, strides, sample[0], 14))
+            samples.append(sample)
+        out = {k: torch.stack(v) for k, v in zip(
+            ("rois", "roi_cls_tgt", "roi_delta_tgt", "roi_fg", "roi_matched"),
+            zip(*samples))}
+        s = cfg.roi_batch
+        cls_logits, box_deltas = self.box_head(torch.cat(f7))
+        out["cls_logits"] = cls_logits.reshape(b, s, -1)
+        out["box_deltas"] = box_deltas.reshape(b, s, *box_deltas.shape[1:])
+        mask_logits = self.mask_head(torch.cat(f14))
+        out["mask_logits"] = mask_logits.reshape(b, s, *mask_logits.shape[1:])
+        return out
+
+    def loss(self, out: dict, gt_boxes, gt_labels, gt_valid, gt_masks,
+             generator: torch.Generator | None = None,
+             rpn_u: torch.Tensor | None = None):
+        """The training forward's output and the ground truth (gt_masks (B,
+        G, H, W) f32) -> (total, {rpn_cls, rpn_reg, box_cls, box_reg,
+        mask}), each term averaged over the batch. ``rpn_u`` (B, 2, N), the
+        anchors' fg and bg priorities, is drawn from ``generator`` unless
+        given."""
+        cfg = self.cfg
+        b = out["rpn_obj"].shape[0]
+        if rpn_u is None:
+            rpn_u = torch.rand((b, 2, self.anchors.shape[0]), generator=generator,
+                               device=out["rpn_obj"].device)
+        total, tb = 0.0, {}
+        for i in range(b):
+            labels, deltas, w, fg = rpn_targets(cfg, self.anchors, gt_boxes[i],
+                                                gt_valid[i], rpn_u[i, 0], rpn_u[i, 1])
+            li, tbi = rpn_loss(out["rpn_obj"][i], out["rpn_box"][i], labels, deltas,
+                               w, fg)
+            total = total + li / b
+            bi, tbb = box_loss(cfg, out["cls_logits"][i], out["box_deltas"][i],
+                               out["roi_cls_tgt"][i], out["roi_delta_tgt"][i],
+                               out["roi_fg"][i])
+            total = total + bi / b
+            mt = mask_targets(gt_masks[i], out["rois"][i], out["roi_matched"][i])
+            ml = mask_loss(cfg, out["mask_logits"][i], mt, out["roi_cls_tgt"][i],
+                           out["roi_fg"][i])
+            total = total + ml / b
+            for k, v in {**tbi, **tbb, "mask": ml}.items():
+                tb[k] = tb.get(k, 0.0) + v / b
+        return total, tb

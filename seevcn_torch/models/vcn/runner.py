@@ -13,7 +13,6 @@ no plotting library is needed.
 """
 from __future__ import annotations
 
-import math
 import os
 import struct
 import zlib
@@ -26,24 +25,10 @@ from ... import resolve_device
 from ...train.optim import build_vcn_optimizer
 from ...train.train import TrainState, apply_gradients
 from ...utils.viz3d import save_scene_html
+from ..modules.common import lecun_normal
 from .dataset import VCDataset
 from .metrics import MetricAccumulator
 from .nets import build_vcn
-
-# flax's truncated_normal draws a standard normal cut at +-2; this is its
-# standard deviation, by which lecun_normal divides to keep 1 / fan_in
-_TRUNC_STD = 0.87962566103423978
-
-
-def _lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
-    """flax's default kernel init (variance_scaling(1, "fan_in",
-    "truncated_normal")): a normal truncated at two standard deviations,
-    variance 1 / fan_in, drawn by inverting its CDF from ``generator``."""
-    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=generator) * (1.0 - 2.0 * lo) + lo
-    z = (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp(-2.0, 2.0)
-    return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
-
 
 @torch.no_grad()
 def init_vcn_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -52,7 +37,7 @@ def init_vcn_weights(model: nn.Module, generator: torch.Generator) -> None:
     running mean 0 and variance 1)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Linear)):
-            m.weight.copy_(_lecun_normal(m.weight.shape, m.weight[0].numel(), generator))
+            m.weight.copy_(lecun_normal(m.weight.shape, m.weight[0].numel(), generator))
             m.bias.zero_()
         elif isinstance(m, nn.BatchNorm1d):
             m.reset_parameters()

@@ -13,15 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tf32_off
 from ..models.detectors.second import post_processing
 from . import device_pipeline as DP
-
-
-def _tf32_off():
-    # the reference runs f32 at full precision (Precision.HIGHEST)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 @torch.no_grad()
@@ -31,7 +25,7 @@ def mask_stage(seg_model, image, *, device="cuda"):
     (D, 4) xyxy, 28x28 masks (D, 28, 28) and scores (D,) of image 0, D =
     ``max_detections``. TF32 off, as in ``complete_frame``."""
     dev = resolve_device(device)
-    _tf32_off()
+    tf32_off()
     out = seg_model(image.to(dev))
     return out["det_boxes"][0], out["det_masks"][0], out["det_scores"][0]
 
@@ -85,7 +79,7 @@ def complete_frame(points, valid, det_boxes, det_masks, det_scores, vcn, proj,
     TF32 is switched off for matrix products and cuDNN: the reference runs
     its geometry at full f32 precision (Precision.HIGHEST)."""
     dev = resolve_device(device)
-    _tf32_off()
+    tf32_off()
     points, valid, det_boxes, det_masks, det_scores, proj, lidar_to_cam = (
         t.to(dev) for t in (points, valid, det_boxes, det_masks, det_scores,
                             proj, lidar_to_cam))
@@ -112,7 +106,7 @@ def detect_stage(model, cfg, points, valid, *, device="cuda"):
     Runs in the backbone's dtype (BACKBONE_3D.DTYPE) with f32 products and
     with TF32 off, as ``complete_frame`` leaves it."""
     dev = resolve_device(device)
-    _tf32_off()
+    tf32_off()
     out = model(points.to(dev)[None], valid.to(dev)[None])
     pp = post_processing(out, cfg.MODEL.POST_PROCESSING,
                          len(cfg.CLASS_NAMES), has_roi_head=True)

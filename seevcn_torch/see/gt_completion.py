@@ -19,10 +19,10 @@ from __future__ import annotations
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tf32_off
 from ..geom.boxes import points_in_boxes
 from . import device_pipeline as DP
-from .frame import _tf32_off, replace_stage, vcn_stage
+from .frame import replace_stage, vcn_stage
 
 
 def gt_membership(points: torch.Tensor, valid: torch.Tensor, gt_boxes: torch.Tensor,
@@ -50,7 +50,7 @@ def complete_gt_frames(vcn, points: torch.Tensor, valid: torch.Tensor,
     ``inst_valid = ok & sane``, the reference's returned ``ok``). TF32 is
     off, as in ``complete_frame``."""
     dev = resolve_device(device)
-    _tf32_off()
+    tf32_off()
     points, valid, gt_boxes, gt_mask = (t.to(dev) for t in (points, valid,
                                                             gt_boxes, gt_mask))
     f, d = gt_mask.shape

@@ -23,6 +23,10 @@ reference over the first phase.
 build_vcn_optimizer): Adam, AdamW or SGD with StepLR or OneCycleLR, and
 ``MultiSteps`` its gradient accumulation (the reference's
 ``step_per_update``, optax.MultiSteps in the JAX package).
+
+``build_seg2d_optimizer`` is the Mask R-CNN recipe's
+(seevcn_tpu/cli/train_seg2d.py: ``clip_by_global_norm(10)`` then
+``adamw(warmup_cosine_decay_schedule(0, lr, warmup, decay_steps))``).
 """
 from __future__ import annotations
 
@@ -66,6 +70,29 @@ def piecewise_constant_schedule(init_value: float, boundaries_and_scales=None):
             if count >= threshold:
                 v = v * scale
         return float(v)
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0):
+    """optax's: linear from init_value to peak_value over warmup_steps, then
+    a cosine from peak_value to end_value reached at decay_steps, which
+    counts the warm-up; end_value after. Read at the count before the
+    update, so step 0 runs at init_value."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = decay_steps - warmup_steps
+    if cosine_steps <= 0:
+        raise ValueError("a warmup-cosine schedule needs decay_steps > warmup_steps")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - count / warmup_steps
+            return float((init_value - peak_value) * frac + peak_value)
+        t = min(count - warmup_steps, cosine_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / cosine_steps))
+        return float(peak_value * ((1.0 - alpha) * cosine + alpha))
 
     return schedule
 
@@ -253,3 +280,17 @@ def build_vcn_optimizer(opt_cfg, sched_cfg, total_steps: int, params,
         inner = torch.optim.Adam(params, lr=sched(0), betas=(0.9, 0.999), eps=1e-8)
     opt = Optimizer(inner, sched)
     return opt if every_k == 1 else MultiSteps(opt, every_k)
+
+
+def build_seg2d_optimizer(params, lr: float = 1e-3, weight_decay: float = 1e-4,
+                          warmup_steps: int = 200, decay_steps: int = 2000) -> Optimizer:
+    """The Mask R-CNN recipe's optimizer over ``params``: gradients clipped
+    to 10 by their global norm (fixed, as the reference's
+    ``optax.clip_by_global_norm(10.0)`` in cli/train_seg2d.py:210), then
+    AdamW (b1 0.9, b2 0.999, eps 1e-8; decoupled decay on every parameter,
+    biases and batch norm too, as optax.adamw without a mask) at
+    warmup_cosine_decay_schedule(0, lr, warmup_steps, decay_steps)."""
+    sched = warmup_cosine_decay_schedule(0.0, lr, warmup_steps, decay_steps)
+    inner = torch.optim.AdamW(list(params), lr=sched(0), betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=weight_decay)
+    return Optimizer(inner, sched, grad_clip=10.0)

@@ -183,3 +183,39 @@ def seg2d_state_dict_from_flax(variables: dict) -> dict:
 
     walk("", variables["params"], variables.get("batch_stats", {}))
     return sd
+
+
+def seg2d_flax_from_state_dict(state_dict: dict) -> dict:
+    """The inverse of ``seg2d_state_dict_from_flax``: a state dict of the
+    port's MaskRCNN -> {"params", "batch_stats"}, nested dicts of numpy
+    arrays in the flax tree's layout (a Linear's weight becomes a Dense
+    kernel (in, out), a Conv2d's a Conv kernel (kh, kw, in, out), the mask
+    head's ``up`` a flax ConvTranspose kernel (flipped back), and a batch
+    norm's weight, bias and running statistics its scale, bias, mean and
+    var); ``num_batches_tracked`` has no flax counterpart and is dropped."""
+    params, stats = {}, {}
+
+    def put(tree, path, leaf, value):
+        for name in path:
+            tree = tree.setdefault(name, {})
+        tree[leaf] = value
+
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        prefix = ".".join(path)
+        v = t.detach().cpu().numpy()
+        if f"{prefix}.running_var" in state_dict:          # batch norm
+            if leaf in ("weight", "bias"):
+                put(params, path, "scale" if leaf == "weight" else "bias", v)
+            elif leaf in ("running_mean", "running_var"):
+                put(stats, path, "mean" if leaf == "running_mean" else "var", v)
+        elif leaf == "bias":
+            put(params, path, "bias", v)
+        elif v.ndim == 2:                                 # Linear -> Dense
+            put(params, path, "kernel", np.ascontiguousarray(v.T))
+        elif path[-1] == "up":                            # ConvTranspose2d
+            w = np.transpose(v, (2, 3, 0, 1))
+            put(params, path, "kernel", np.ascontiguousarray(np.flip(w, axis=(0, 1))))
+        else:                                             # Conv2d -> Conv
+            put(params, path, "kernel", np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0))))
+    return {"params": params, "batch_stats": stats}

@@ -324,13 +324,12 @@ def test_eval_forward_matches_jax(seg):
 
 
 @pytest.mark.parametrize("option", ["cascade_stages", "semantic_branch",
-                                    "mask_info_flow", "dcn_stages", "train"])
+                                    "mask_info_flow", "dcn_stages"])
 def test_unported_options_raise(option):
     kw = {"cascade_stages": {"cascade_stages": 3},
           "semantic_branch": {"semantic_branch": True},
           "mask_info_flow": {"mask_info_flow": True},
-          "dcn_stages": {"dcn_stages": (False, True, True, True)},
-          "train": {}}[option]
+          "dcn_stages": {"dcn_stages": (False, True, True, True)}}[option]
     cfg = TM.Seg2DConfig(**{**asdict(tiny_seg2d_cfg()), **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         model = TM.MaskRCNN(cfg)
