@@ -30,6 +30,12 @@ seg2d CLI's defaults (base widths, 384x512, batch 8, synthetic scenes):
 a tiny step against the CPU, 11 steps through ``make_seg2d_train_step``
 timed, split and profiled, ``evaluate`` on held-out scenes, its
 checkpoint reloaded bit for bit, and the CLI's ``main`` cut to 3 steps.
+Then HTC, the reference's mask network: serving (phase 12: the tiny full
+HTC against the CPU, full HTC at bench.py's config through ``mask_stage``,
+``run_frame`` with it, ``MaskRCNNBackend`` on a KITTI-sized BGR image, and
+each deformable conv timed beside its bound) and training (phase 13: the
+tiny full-HTC step against the CPU, the seg2d CLI's HTC flags at the base
+config, the CLI's ``main`` with them, one HTC + DCN step through the API).
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -39,6 +45,7 @@ It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -58,8 +65,9 @@ from seevcn_torch.models.modules import roi_heads as RH
 from seevcn_torch.cli import train_seg2d as SEG_CLI
 from seevcn_torch.models.seg2d import maskrcnn as SM
 from seevcn_torch.models.seg2d import synthetic as SEG_SYN
-from seevcn_torch.models.seg2d.backend import (build_seg2d, decode_wire, init_seg2d,
-                                               load_seg2d_checkpoint,
+from seevcn_torch.models.modules.common import DeformConv2d
+from seevcn_torch.models.seg2d.backend import (MaskRCNNBackend, build_seg2d, decode_wire,
+                                               init_seg2d, load_seg2d_checkpoint,
                                                make_seg2d_train_step,
                                                save_seg2d_checkpoint, seg2d_train_forward,
                                                step_generator)
@@ -86,8 +94,9 @@ from seevcn_torch.train.optim import build_lr_schedule, build_seg2d_optimizer
 from seevcn_torch.train.train import (TrainState, apply_gradients, create_train_state,
                                       train_forward, train_step)
 from seevcn_torch.testing import (K2_CARD_EDGES, VCN_BIASES_BEFORE_BN,
-                                  assert_vcn_grads_close, k2_edge_case,
-                                  plain_sparse_backward, tiny_seg2d_cfg,
+                                  assert_vcn_grads_close, k2_edge_case, one_cpu_thread,
+                                  plain_sparse_backward, seeded_seg2d_weights,
+                                  seg2d_relu_signs, tiny_htc_cfg, tiny_seg2d_cfg,
                                   vcn_loss_selections, vcn_pool_points,
                                   vcn_selection_flips)
 from seevcn_torch.utils.ckpt import load_vcn_checkpoint
@@ -235,6 +244,18 @@ def seeded_vcn_state_dict(seed: int, model_name: str = "VCN_VC",
 
 def _to(dev, scene):
     return {k: torch.from_numpy(v).to(dev) for k, v in scene.items()}
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn()``, each run between synchronizes."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def time_cuda(fn, reps: int = 11, warmup: int = 2) -> float:
@@ -719,19 +740,22 @@ def _check_close(name, got, ref, worst, tol=1e-4):
 
 
 @torch.no_grad()
-def check_tiny_seg2d_against_cpu(dev):
-    """The tiny Mask R-CNN (tiny_seg2d_cfg, weights from a seed with random
-    biases and batch-norm statistics) with TF32 off, on the card against the
-    port's CPU path (which the tests hold against JAX). The RPN outputs, and
-    the box head's logits and deltas and the mask head's logits, each on
-    the card from the CPU's maps and boxes (RoIAlign included), so that a
-    difference cannot cascade: within 1e-4 of (their scale + |value|), f32
-    sums in another order. Then the whole forward: the same number of kept
+def check_tiny_seg2d_against_cpu(dev, cfg=None):
+    """The tiny Mask R-CNN (``cfg``, by default tiny_seg2d_cfg; weights from
+    a seed with random biases and batch-norm statistics, and, where the
+    config has deformable convs, offset convs drawn like every other conv)
+    with TF32 off, on the card against the port's CPU path (which the tests
+    hold against JAX). The RPN outputs, the semantic head's outputs where
+    there is one, and the (first) box head's logits and deltas and the mask
+    head's logits, each on the card from the CPU's maps and boxes (RoIAlign
+    included), so that a difference cannot cascade: within 1e-4 of (their
+    scale + |value|), f32 sums in another order. Then the whole forward
+    (every cascade stage and mask head): the same number of kept
     detections, their scores within 1e-5, and in every slot whose score
     lies more than 1e-5 from every other slot's the same class, its box
     within 1e-3 px and its mask within 1e-4 (zero-score slots tie, and fill
-    in index order)."""
-    cfg = tiny_seg2d_cfg()
+    in index order). Returns the readings."""
+    cfg = cfg or tiny_seg2d_cfg()
     cpu = torch.device("cpu")
     sd = seeded_state_dict(4, build_seg2d(cfg, device=cpu), random_stats=True)
     m_c, m_d = build_seg2d(cfg, sd, device=cpu), build_seg2d(cfg, sd, device=dev)
@@ -744,6 +768,10 @@ def check_tiny_seg2d_against_cpu(dev):
         _check_close(f"P{k + 2}", fd, fc, worst)
     _check_close("rpn_obj", obj_d, obj, worst)
     _check_close("rpn_box", box_d, box, worst)
+    if cfg.semantic_branch:
+        for k, (c, d) in enumerate(zip(m_c.semantic_head(feats),
+                                       m_d.semantic_head([f.to(dev) for f in feats]))):
+            _check_close(("semantic_logits", "semantic_feature")[k], d, c, worst)
     rois, valid, _ = SM.proposals(cfg, m_c.anchors, obj[0], box[0])
     strides = cfg.strides[:4]
     maps = m_c.roi_maps(feats, 0)
@@ -753,8 +781,8 @@ def check_tiny_seg2d_against_cpu(dev):
     _check_close("cls_logits", cls_d, cls, worst)
     _check_close("box_deltas", deltas_d, deltas, worst)
     boxes, _, _ = SM.decode_detections(cfg, rois, valid, cls, deltas)
-    logits = m_c.mask_head(SM.roi_align(maps, strides, boxes, 14))
-    logits_d = m_d.mask_head(SM.roi_align(maps_d, strides, boxes.to(dev), 14))
+    logits = m_c.mask_head(SM.roi_align(maps, strides, boxes, 14))[0]
+    logits_d = m_d.mask_head(SM.roi_align(maps_d, strides, boxes.to(dev), 14))[0]
     _check_close("mask_logits", logits_d, logits, worst)
 
     out_c, out_d = m_c(image), m_d(image.to(dev))
@@ -772,11 +800,22 @@ def check_tiny_seg2d_against_cpu(dev):
             raise AssertionError(f"tiny seg2d: {k} off the CPU by {worst[k]}")
     if not torch.equal(out_d["det_cls"][0].cpu()[apart], out_c["det_cls"][0][apart]):
         raise AssertionError("tiny seg2d: detection classes differ from the CPU")
-    print(f"tiny seg2d, card vs CPU (TF32 off): max |diff| "
+    print(f"tiny seg2d ({describe_seg2d(cfg)}), card vs CPU (TF32 off): max |diff| "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
           + f"; {n_kept} kept detections, {int(apart.sum())} slots apart compared")
     if n_kept < 1:
         raise AssertionError("tiny seg2d kept no detection")
+    return {**worst, "kept": n_kept}
+
+
+def describe_seg2d(cfg) -> str:
+    """The HTC parts a Seg2DConfig turns on, in words."""
+    parts = [f"cascade {cfg.cascade_stages}"] if cfg.cascade_stages > 1 else []
+    parts += ["semantic branch"] * bool(cfg.semantic_branch)
+    parts += ["mask info flow"] * bool(cfg.mask_info_flow and cfg.cascade_stages > 1)
+    parts += ["DCN in stages " + ",".join(str(i) for i, d in enumerate(cfg.dcn_stages)
+                                          if d)] * any(cfg.dcn_stages)
+    return ", ".join(parts) or "plain Mask R-CNN"
 
 
 @torch.no_grad()
@@ -817,6 +856,13 @@ def profile_frame(args, fn=F.complete_frame):
     """One call of ``fn`` (a SEE frame by default) under torch.profiler:
     (device ms summed over its kernels, the six PyTorch ops and kernels
     whose own launches took most device time, as (name, ms))."""
+    busy, per_op = profile_ops(args, fn)
+    return busy, sorted(per_op.items(), key=lambda kv: -kv[1])[:6]
+
+
+def profile_ops(args, fn):
+    """One call of ``fn(*args)`` under torch.profiler: (device ms summed over
+    its kernels, {PyTorch op or kernel: device ms of its own launches})."""
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         fn(*args)
@@ -828,7 +874,7 @@ def profile_frame(args, fn=F.complete_frame):
             busy += ms
         elif ms:
             per_op[e.key] = per_op.get(e.key, 0.0) + ms
-    return busy, sorted(per_op.items(), key=lambda kv: -kv[1])[:6]
+    return busy, per_op
 
 
 def tiny_train_inputs(dev):
@@ -1504,47 +1550,24 @@ def rel_diff(got, ref) -> float:
     return d / s
 
 
-class _PinnedReluF:
-    """torch.nn.functional, but with ``relu`` replaced: maskrcnn.py calls
-    ``F.relu`` for every ReLU of the Mask R-CNN."""
-
-    def __init__(self, relu):
-        self.relu = relu
-
-    def __getattr__(self, name):
-        return getattr(torch.nn.functional, name)
-
-
-@contextlib.contextmanager
-def seg2d_relu_signs(pinned=None):
-    """Within the block, record where the input of each ReLU of the Mask
-    R-CNN is positive, in call order, into the list yielded (bool, on the
-    CPU). Given ``pinned``, such a list from another run, each ReLU takes
-    its mask from there in place of its own input's sign."""
-    signs, queue = [], None if pinned is None else list(pinned)
-
-    def relu(x, inplace=False):
-        signs.append((x > 0).cpu())
-        if queue is None:
-            return torch.nn.functional.relu(x)
-        return torch.where(queue.pop(0).to(x.device), x, torch.zeros_like(x))
-
-    plain = SM.F
-    SM.F = _PinnedReluF(relu)
-    try:
-        yield signs
-    finally:
-        SM.F = plain
-
-
 def tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, device, dtype=torch.float32,
                     pinned=None) -> dict:
     """The training forward, loss and backward of the Mask R-CNN at ``cfg``
     from the state dict ``sd`` on ``device`` in ``dtype``, with the draws
     ``roi_u`` / ``rpn_u`` and the ReLUs' signs recorded or, given
-    ``pinned``, taken from another run (seg2d_relu_signs). -> {terms,
-    sample, grads, stats, targets, feats (the mask head's RoI features),
-    signs}, on the CPU."""
+    ``pinned``, taken from another run (seg2d_relu_signs). On the CPU a
+    config with 8-channel layers (tiny_htc_cfg) runs on one thread
+    (``one_cpu_thread``: there oneDNN's multi-threaded convolution backward
+    corrupts the heap now and then; ROADMAP §3). -> {terms, sample (each
+    cascade stage's too), grads, stats, targets, feats (the first mask
+    head's RoI features), signs}, on the CPU."""
+    narrow = min(*cfg.stage_channels, cfg.fpn_channels, cfg.mask_channels) <= 8
+    with one_cpu_thread() if narrow and torch.device(device).type == "cpu" \
+            else contextlib.nullcontext():
+        return _tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, device, dtype, pinned)
+
+
+def _tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, device, dtype, pinned) -> dict:
     state = TrainState(build_seg2d(cfg, sd, device=device).train().to(dtype), None)
     images, boxes, labels, valid, masks = (torch.from_numpy(x).to(device)
                                            for x in SEG_CLI.pack(batch))
@@ -1563,21 +1586,36 @@ def tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, device, dtype=torch.float32,
     n = images.shape[0]
     targets = torch.stack([SM.mask_targets(masks[i].to(dtype), out["rois"][i],
                                            out["roi_matched"][i]) for i in range(n)])
+    sample = {k: out[k].detach().cpu() for k in ("rois", "roi_cls_tgt", "roi_fg",
+                                                  "roi_matched")}
+    for s in range(1, cfg.cascade_stages):
+        for k, name in (("rois", "rois"), ("cls_tgt", "roi_cls_tgt"), ("fg", "roi_fg"),
+                        ("matched", "roi_matched")):
+            sample[f"{name}_s{s}"] = out[f"cascade_s{s}"][k].detach().cpu()
     return {"terms": {"loss": loss.detach().cpu(),
                       **{k: v.detach().cpu() for k, v in tb.items()}},
-            "sample": {k: out[k].detach().cpu() for k in
-                       ("rois", "roi_cls_tgt", "roi_fg", "roi_matched")},
+            "sample": sample,
             "grads": {k: p.grad.cpu() for k, p in state.model.named_parameters()},
             "stats": {k: b.cpu() for k, b in state.model.named_buffers() if "running" in k},
             "targets": targets.cpu(), "feats": feats[0], "signs": signs}
 
 
-def check_tiny_seg2d_step_against_cpu(dev):
-    """One Mask R-CNN train step at tiny_seg2d_cfg (batch 2 of synthetic
-    scenes, weights from init_seg2d seed 0, f32, TF32 off) on the card and
-    on the CPU, with the same draws (made on the CPU). The RoI sample must
-    be the same (classes, fg, matched equal; the RoIs, proposals decoded
-    from the RPN's f32 outputs, within 1e-4 px); loss terms within 1e-5
+def check_tiny_seg2d_step_against_cpu(dev, cfg=None, roi_px=(1e-4,)):
+    """One Mask R-CNN train step at ``cfg`` (tiny_seg2d_cfg by default;
+    batch 2 of synthetic scenes, f32, TF32 off) on the card against the
+    CPU's step in f64, with the same draws (made on the CPU). Weights: a
+    plain model's from init_seg2d seed 0; a cascade's from
+    ``seeded_seg2d_weights`` (seed HTC_TINY_SEED: random biases and
+    statistics, offset convs drawn), under which every stage's relabelled
+    boxes hold foreground, so that each stage's regression and the chain of
+    mask heads have a gradient to compare; the CPU's sample must show it.
+    The reference is f64 because a cascade carries the CPU's own f32
+    rounding of the RPN into every stage's boxes (its f32 loss terms stray
+    from its f64 ones by 2.8e-5 where the card's stay within 2.4e-6 of
+    them, on an H100 and its host). The RoI sample must be the same, and
+    each cascade stage's relabelled boxes (classes, fg, matched equal; the RoIs, proposals
+    decoded from the RPN's f32 outputs, and each stage's refinement of the
+    last, within ``roi_px[s]`` px at stage s); loss terms within 1e-5
     (relative); batch-norm running statistics within 1e-6 (absolute and
     relative). Both runs record the step's discrete choices that the RoI
     sample does not fix: the ReLUs' signs and the mask targets' pixels (a
@@ -1586,12 +1624,15 @@ def check_tiny_seg2d_step_against_cpu(dev):
     in phase 10. So the card's step runs again with its ReLUs' signs pinned
     to the CPU's, and those gradients are held within 5e-4 of each tensor's
     largest; where no choice differs, the unpinned gradients are held to
-    the same bound. Printed beside: the unpinned gradients, each device's
-    f32 gradients against the CPU's f64 ones (which device strays), the
-    mask head's RoI features, and the pinned step with TF32 on, the size of
-    error that the bound is there to catch. Returns the readings."""
-    cfg = tiny_seg2d_cfg()
-    sd = init_seg2d(SM.MaskRCNN(cfg), torch.Generator().manual_seed(0)).state_dict()
+    the same bound. Printed beside: the unpinned gradients, the CPU's own
+    f32 gradients against its f64 ones, the mask head's RoI features, and
+    the pinned step with TF32 on, the size of error that the bound is there
+    to catch. Returns the readings."""
+    cfg = cfg or tiny_seg2d_cfg()
+    if cfg.cascade_stages > 1:
+        sd = seeded_seg2d_weights(cfg, seed=HTC_TINY_SEED)
+    else:
+        sd = init_seg2d(SM.MaskRCNN(cfg), torch.Generator().manual_seed(0)).state_dict()
     batch = SEG_SYN.synth_batch(np.random.RandomState(0), cfg.image_size, 2,
                                 max_gt=cfg.max_gt)
     gen = torch.Generator().manual_seed(1)
@@ -1599,14 +1640,16 @@ def check_tiny_seg2d_step_against_cpu(dev):
     roi_u = torch.rand((2, 2, cfg.num_proposals + cfg.max_gt), generator=gen)
     rpn_u = torch.rand((2, 2, n_anchor), generator=gen)
     cpu = torch.device("cpu")
-    c = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, cpu)
+    c = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, cpu, dtype=torch.float64)
     d = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, dev)
-    for k in ("roi_cls_tgt", "roi_fg", "roi_matched"):
-        if not torch.equal(d["sample"][k], c["sample"][k]):
+    for k in c["sample"]:
+        if not k.startswith("rois") and not torch.equal(d["sample"][k], c["sample"][k]):
             raise AssertionError(f"tiny seg2d step: the RoI sample's {k} differs from the CPU")
-    worst = {"rois": float((d["sample"]["rois"] - c["sample"]["rois"]).abs().max())}
-    if not worst["rois"] <= 1e-4:
-        raise AssertionError(f"tiny seg2d step: RoIs off the CPU by {worst['rois']}")
+    worst = {k: float((d["sample"][k] - c["sample"][k]).abs().max())
+             for k in c["sample"] if k.startswith("rois")}
+    for k, v in worst.items():
+        if not v <= roi_px[0 if k == "rois" else int(k[-1])]:
+            raise AssertionError(f"tiny seg2d step: {k} off the CPU by {v}")
     worst["loss terms"] = max(rel_diff(d["terms"][k], c["terms"][k]) for k in c["terms"])
     if not worst["loss terms"] <= 1e-5:
         raise AssertionError(f"tiny seg2d step: loss terms off by {worst['loss terms']}")
@@ -1615,9 +1658,10 @@ def check_tiny_seg2d_step_against_cpu(dev):
     for k in c["stats"]:
         if not ((d["stats"][k] - c["stats"][k]).abs() <= 1e-6 + 1e-6 * c["stats"][k].abs()).all():
             raise AssertionError(f"tiny seg2d step: running statistic {k} off the CPU")
-    n_fg = int(c["sample"]["roi_fg"].sum())
-    if n_fg < 1:
-        raise AssertionError("tiny seg2d step: the RoI sample holds no foreground")
+    n_fg = [int(c["sample"]["roi_fg"].sum())] + [
+        int(c["sample"][f"roi_fg_s{s}"].sum()) for s in range(1, cfg.cascade_stages)]
+    if min(n_fg) < 1:
+        raise AssertionError(f"tiny seg2d step: a stage's RoIs hold no foreground: {n_fg}")
     # the ReLUs in call order: stem, two a residual block, the RPN's conv on
     # each level, the box head's two, the mask head's convs and its ``up``
     flips = {i: int((a != b).sum()) for i, (a, b) in enumerate(zip(d["signs"], c["signs"]))
@@ -1629,9 +1673,8 @@ def check_tiny_seg2d_step_against_cpu(dev):
     worst["gradients_unpinned"] = worst_rel(d["grads"], c["grads"])
     pinned = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, dev, pinned=c["signs"])
     worst["gradients_pinned"] = worst_rel(pinned["grads"], c["grads"])
-    x = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, cpu, dtype=torch.float64)
-    worst["card_f32_vs_cpu_f64"] = worst_rel(d["grads"], x["grads"])
-    worst["cpu_f32_vs_cpu_f64"] = worst_rel(c["grads"], x["grads"])
+    c32 = tiny_seg2d_step(cfg, sd, batch, roi_u, rpn_u, cpu)
+    worst["cpu_f32_vs_cpu_f64"] = worst_rel(c32["grads"], c["grads"])
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -1640,9 +1683,12 @@ def check_tiny_seg2d_step_against_cpu(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     worst["gradients_pinned_tf32"] = worst_rel(tf32["grads"], c["grads"])
-    print(f"tiny seg2d train step, card vs CPU (f32, TF32 off, the same draws): the same "
-          f"RoI sample ({n_fg} foreground of {c['sample']['roi_fg'].numel()}), max |diff| "
-          f"rois {worst['rois']:.3g} px, loss terms {worst['loss terms']:.3g} (relative), "
+    print(f"tiny seg2d train step ({describe_seg2d(cfg)}), card (f32, TF32 off) vs CPU "
+          f"(f64), the same draws: the same RoI sample and stage labels ("
+          + ", ".join(map(str, n_fg)) + f" foreground of {c['sample']['roi_fg'].numel()}"
+          + (f" at stages 0-{len(n_fg) - 1}" if len(n_fg) > 1 else "") + "), max |diff| rois "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items() if k.startswith("rois"))
+          + f" px, loss terms {worst['loss terms']:.3g} (relative), "
           f"running statistics {worst['running statistics']:.3g}, the mask head's RoI "
           f"features {worst['mask_head_features']:.3g} of their largest; choices that "
           f"differ: ReLU signs {flips} (site: count, of {len(c['signs'])} sites), "
@@ -1651,9 +1697,7 @@ def check_tiny_seg2d_step_against_cpu(dev):
           f"({worst['gradients_unpinned'][1]}); with the ReLUs' signs pinned to the "
           f"CPU's {worst['gradients_pinned'][0]:.3g} ({worst['gradients_pinned'][1]}; "
           f"bound 5e-4), and with TF32 on as well {worst['gradients_pinned_tf32'][0]:.3g} "
-          f"({worst['gradients_pinned_tf32'][1]}); against the CPU's f64 gradients: the "
-          f"card's f32 {worst['card_f32_vs_cpu_f64'][0]:.3g} "
-          f"({worst['card_f32_vs_cpu_f64'][1]}), the CPU's f32 "
+          f"({worst['gradients_pinned_tf32'][1]}); the CPU's own f32 gradients, unpinned, "
           f"{worst['cpu_f32_vs_cpu_f64'][0]:.3g} ({worst['cpu_f32_vs_cpu_f64'][1]}); "
           f"loss {float(c['terms']['loss']):.5f}")
     if not worst["gradients_pinned"][0] <= 5e-4:
@@ -1670,9 +1714,11 @@ def check_tiny_seg2d_step_against_cpu(dev):
 
 def seg2d_step_flops(cfg, batch: int) -> dict:
     """Forward FLOPs of one Mask R-CNN train step at ``cfg`` and ``batch``,
-    by part (backbone + FPN, RPN head on every level, box head and mask
-    head on the sampled RoIs), counted by torch.utils.flop_counter on the
-    meta device: shapes only, nothing computed. A multiply-add is 2."""
+    by part (backbone + FPN, RPN head on every level, the box heads and the
+    mask heads on the sampled RoIs: every cascade stage's box head, and
+    under info flow stage s's chain of s + 1 mask heads; the semantic head),
+    counted by torch.utils.flop_counter on the meta device: shapes only,
+    nothing computed. A multiply-add is 2."""
     from torch.utils.flop_counter import FlopCounterMode
 
     h, w = cfg.image_size
@@ -1688,11 +1734,17 @@ def seg2d_step_flops(cfg, batch: int) -> dict:
         parts["rpn_head"] = fc.get_total_flops()
         r = batch * cfg.roi_batch
         with FlopCounterMode(display=False) as fc:
-            model.box_head(torch.zeros(r, 7, 7, cfg.fpn_channels))
+            for head in model.box_heads:
+                head(torch.zeros(r, 7, 7, cfg.fpn_channels))
         parts["box_head"] = fc.get_total_flops()
         with FlopCounterMode(display=False) as fc:
-            model.mask_head(torch.zeros(r, 14, 14, cfg.fpn_channels))
+            for s in range(model.n_mask):
+                model._mask_chain(torch.zeros(r, 14, 14, cfg.fpn_channels), s)
         parts["mask_head"] = fc.get_total_flops()
+        if cfg.semantic_branch:
+            with FlopCounterMode(display=False) as fc:
+                model.semantic_head(feats)
+            parts["semantic_head"] = fc.get_total_flops()
     return parts
 
 
@@ -1726,21 +1778,51 @@ def time_train_scan(state, images, dev):
             "scan_host_ms": host(scan), "scan_cuda_ms": time_cuda(scan, reps=5)}
 
 
-def train_seg2d(dev, card, steps: int = 10):
+def heads_without_foreground(cfg, terms: dict) -> tuple:
+    """The parameter-name prefixes that a train step with the loss terms
+    ``terms`` leaves without a gradient by design: for each cascade stage s
+    >= 1 whose regression and mask losses read exactly 0 (no RoI reached
+    its IoU, 0.7 at stage 2, from random weights), its regression layer
+    and its mask head. Empty for a model without a cascade."""
+    out = ()
+    for s in range(1, cfg.cascade_stages):
+        if float(terms[f"box_reg_s{s}"]) == 0 and float(terms.get(f"mask_s{s}", 0)) == 0:
+            out += (f"box_head_s{s}.box.", f"mask_head_s{s}.")
+    return out
+
+
+def check_moved(model, start: dict, excused: tuple, what: str) -> list:
+    """Raise unless every parameter of ``model`` differs from ``start``, but
+    those named under an ``excused`` prefix whose gradient is all zero.
+    -> the names of those."""
+    still = [n for n, p in model.named_parameters() if torch.equal(p, start[n])]
+    idle = [n for n in still
+            if n.startswith(excused) and not model.get_parameter(n).grad.any()]
+    if set(still) - set(idle):
+        raise AssertionError(f"{what}: parameters did not move: "
+                             f"{sorted(set(still) - set(idle))[:5]}")
+    return idle
+
+
+def train_seg2d(dev, card, steps: int = 10, flags=(), tiny_cfg=None, cli_steps: int = 3,
+                roi_px=(1e-4,), eval_scenes: int = 8):
     """Mask R-CNN training at the CLI's defaults (``--size base``, 384x512,
     batch 8, AdamW lr 1e-3 with the warm-up of 200 over 2,000 steps,
-    synthetic scenes from seed 0, the packed wire format): the tiny step
-    against the CPU; a warm-up step (lr 0: no weight moves) and ``steps``
-    timed ones through ``make_seg2d_train_step`` (host clock to a
-    synchronize), then one split by CUDA events into forward, loss and
-    backward + update, one under torch.profiler, the proposal pass's greedy
-    scan timed alone; then ``evaluate`` on 8 held-out scenes, the
-    checkpoint saved and reloaded, its eval forward equal bit for bit, and
-    the CLI's ``main`` at its defaults cut to 3 steps.
-    Raises unless every loss is finite and every parameter has moved after
-    the second step. Returns the summary dict."""
-    tiny = check_tiny_seg2d_step_against_cpu(dev)
-    args = SEG_CLI.parse_args([])
+    synthetic scenes from seed 0, the packed wire format) and the CLI
+    ``flags`` (HTC's, for phase 13): the tiny step at ``tiny_cfg`` against
+    the CPU's f64 step (its RoIs within ``roi_px``); a warm-up
+    step (lr 0: no weight moves) and ``steps`` timed ones through
+    ``make_seg2d_train_step`` (host clock to a synchronize), then one split
+    by CUDA events into forward, loss and backward + update, one under
+    torch.profiler, the proposal pass's greedy scan timed alone; then
+    ``evaluate`` on ``eval_scenes`` held-out scenes, the checkpoint saved
+    and reloaded, its eval forward equal bit for bit, and the CLI's
+    ``main`` with the flags cut to ``cli_steps`` steps. Raises unless every
+    loss is finite and every parameter has moved after the second step, but
+    the heads of a cascade stage that had no foreground in it
+    (``heads_without_foreground``). Returns the summary dict."""
+    tiny = check_tiny_seg2d_step_against_cpu(dev, tiny_cfg, roi_px)
+    args = SEG_CLI.parse_args(list(flags))
     cfg = SEG_CLI.build_cfg(args)
     stream = SEG_CLI.synthetic_stream(cfg, args.batch_size, args.seed)
     t0 = time.perf_counter()
@@ -1780,10 +1862,8 @@ def train_seg2d(dev, card, steps: int = 10):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if k == 1:
-            still = [n for n, p in model.named_parameters() if torch.equal(p, start[n])]
-            if still:
-                raise AssertionError(f"parameters did not move after the second step: "
-                                     f"{still[:5]}")
+            idle = check_moved(model, start, heads_without_foreground(cfg, losses[k]),
+                               "seg2d train step 1")
     peak = torch.cuda.max_memory_allocated() / 2**30
     values = [{k: float(v) for k, v in m.items()} for m in losses]
     if not all(math.isfinite(v) for m in values for v in m.values()):
@@ -1834,7 +1914,7 @@ def train_seg2d(dev, card, steps: int = 10):
 
     # held-out evaluation, then the checkpoint saved, reloaded and run
     t0 = time.perf_counter()
-    ev_keys = SEG_CLI.evaluate(model, cfg, 8, args.seed)
+    ev_keys = SEG_CLI.evaluate(model, cfg, eval_scenes, args.seed)
     eval_s = time.perf_counter() - t0
     if set(ev_keys) != {"mask_AP50", "mask_AP", "box_AP50", "box_AP", "mask_AP50_far",
                         "mask_AP50_near"} or not all(math.isfinite(v) for v in ev_keys.values()):
@@ -1864,13 +1944,14 @@ def train_seg2d(dev, card, steps: int = 10):
     with tempfile.TemporaryDirectory() as work:
         path = os.path.join(work, "cli.ckpt")
         t0 = time.perf_counter()
-        cli_eval = SEG_CLI.main(["--steps", "3", "--eval_every", "2", "--eval_scenes", "2",
-                                 "--out", path, "--log_every", "1"])
+        cli_args = ["--steps", str(cli_steps), "--eval_every", "2", "--eval_scenes", "2",
+                    "--out", path, "--log_every", "1", *flags]
+        cli_eval = SEG_CLI.main(cli_args)
         cli_s = time.perf_counter() - t0
         cli_cfg, cli_sd = load_seg2d_checkpoint(path)
     if cli_cfg != cfg or set(cli_sd) != set(trained) or set(cli_eval) != set(ev_keys):
         raise AssertionError("the seg2d CLI's checkpoint or evaluation is not the recipe's")
-    print(f"python -m seevcn_torch.cli.train_seg2d --steps 3 --eval_every 2 --eval_scenes 2 "
+    print(f"python -m seevcn_torch.cli.train_seg2d {' '.join(cli_args).replace(path, '<ckpt>')} "
           f"(the other flags at their defaults) ran in {cli_s:.1f} s on {card}")
     summary = {
         "step_ms": step_ms, "images_per_s": args.batch_size * 1e3 / step_ms,
@@ -1882,12 +1963,16 @@ def train_seg2d(dev, card, steps: int = 10):
         "wire_ms": wire_ms, "plain_batch_mib": plain_mib, "wire_batch_mib": wire_mib,
         "gt_per_image": n_gt / ((steps + 1) * args.batch_size), "split_step_fg": n_fg,
         "ckpt_mib": ckpt_mb, "forward_gflop": {k: v / 1e9 for k, v in flops.items()},
-        "step_flop_bound_ms": flop_ms, "cli_s": cli_s, "tiny_vs_cpu": tiny}
+        "step_flop_bound_ms": flop_ms, "cli_s": cli_s, "tiny_vs_cpu": tiny,
+        "config": describe_seg2d(cfg), "no_gradient_after_step_1": idle}
     h, w = cfg.image_size
-    print(f"seg2d train steps ({args.size}, {h}x{w}, batch {args.batch_size}, synthetic "
+    print(f"seg2d train steps ({args.size}, {describe_seg2d(cfg)}, {h}x{w}, batch "
+          f"{args.batch_size}, synthetic "
           f"scenes, AdamW warm-up {args.warmup_steps} of {args.steps}): losses "
           + ", ".join(f"{v['loss']:.4f}" for v in values)
-          + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items()))
+          + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items())
+          + f"; every parameter moved after step 1 but {len(idle)} of heads whose stage "
+          f"had no foreground yet {idle}")
     print(f"seg2d train step {step_ms:.2f} ms (host clock to a synchronize, median of "
           f"{steps}) = {summary['images_per_s']:.2f} images/s; CUDA events: forward "
           f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
@@ -1909,11 +1994,251 @@ def train_seg2d(dev, card, steps: int = 10):
           f"the plain f32 batch ({plain_mib:.1f} MiB) uploads in "
           f"{wire_ms['plain_upload']:.2f} ms; packed ({wire_mib:.1f} MiB), pack + upload "
           f"+ unpack take {wire_ms['pack_upload_decode']:.2f} ms on {card}")
-    print(f"seg2d evaluation over 8 held-out scenes in {eval_s:.2f} s: "
+    print(f"seg2d evaluation over {eval_scenes} held-out scenes in {eval_s:.2f} s: "
           + ", ".join(f"{k} {v:.4f}" for k, v in ev_keys.items())
           + f"; checkpoint ({ckpt_mb:.1f} MiB) reloaded bit for bit, its eval forward "
           "equal to the trained net's")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# HTC: serving (phase 12) and training (phase 13)
+# ---------------------------------------------------------------------------
+HTC_FLAGS = ("--cascade", "3", "--semantic", "--mask_info_flow")
+# the tiny HTC step's RoIs, card vs the CPU's f64 step, px at stages 0-2:
+# the RPN's f32 deltas at 8 channels put the proposals 2.1e-4 px off and
+# each refinement widens the gap (2.9e-4, 4.3e-4 px on an H100)
+HTC_ROI_PX = (1e-3, 3e-3, 1e-2)
+# seeded_seg2d_weights' seed for the tiny HTC step: foreground at every stage
+HTC_TINY_SEED = 2
+DCN_STAGES = (False, True, True, True)          # the reference HTC's dconv_c3-c5
+
+
+def htc_bench_cfg():
+    """Full HTC at bench.py's mask config (Seg2DConfig(image_size=(384,
+    1280), max_detections=32) at the base widths): the 3-stage cascade, the
+    semantic branch, mask info flow and deformable stages 1-3."""
+    return SM.Seg2DConfig(image_size=IMAGE_SIZE, max_detections=32, cascade_stages=3,
+                          semantic_branch=True, mask_info_flow=True, dcn_stages=DCN_STAGES)
+
+
+def gather_scatter_ops(per_op: dict) -> dict:
+    """The gathers and scatters of a profile: the ops whose name holds
+    ``index``, ``gather`` or ``scatter``. On the card DCN's corner reads
+    (``index_select``) show as ``aten::gather`` and their backward as
+    ``aten::index_add_``, as one DCN layer profiled alone shows
+    (``time_dcn_layers``); RoIAlign's gathers are ``aten::index`` and
+    their backward ``aten::_index_put_impl_``."""
+    return {k: v for k, v in per_op.items()
+            if any(w in k for w in ("index", "gather", "scatter"))}
+
+
+def time_dcn_layers(model, batch: int, image_size, dev) -> list:
+    """Each deformable conv of ``model`` (its weights and offset convs) on a
+    random input of the shape the model gives it at ``image_size`` and
+    ``batch``: CUDA-event ms (median of 5) of the layer's forward and of
+    its forward + backward (the input's and every parameter's gradient),
+    beside two floors: the bytes of its im2col tensor (B Ho Wo K Cin f32)
+    written and read once plus the four corner gathers that fill it, over
+    3.35 TB/s; and its GEMM (2 B Ho Wo K Cin Cout) at the f32 peak. The
+    first layer's forward + backward is profiled alone as well: its device
+    time by op, which names the ops of DCN's gathers and scatter."""
+    h, w = image_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for name, m in model.named_modules():
+        if not isinstance(m, DeformConv2d):
+            continue
+        stride = 4 * 2 ** int(name.split("stage")[1].split("_")[0])
+        cout, cin, kh, kw = m.weight.shape
+        ho, wo = -(-h // stride), -(-w // stride)
+        x = torch.randn(batch, cin, ho, wo, device=dev, generator=gen)
+        g = torch.randn(batch, cout, ho, wo, device=dev, generator=gen)
+        with torch.no_grad():
+            fwd = time_cuda(lambda: m(x), reps=5)
+        x.requires_grad_()
+        params = [x, *m.parameters()]
+        both = time_cuda(lambda: torch.autograd.grad(m(x), params, g), reps=5)
+        im2col = batch * ho * wo * kh * kw * cin * 4
+        rows.append({"layer": name.split(".", 1)[-1], "shape": [batch, cin, ho, wo],
+                     "forward_ms": fwd, "forward_backward_ms": both,
+                     "bytes_bound_ms": 6 * im2col / HBM_BYTES_PER_S * 1e3,
+                     "gemm_ms_at_peak": 2 * im2col / 4 * cout / FP32_FLOPS * 1e3})
+        if len(rows) == 1:
+            _, ops = profile_ops((), lambda: torch.autograd.grad(m(x), params, g))
+            rows[0]["ops_forward_backward_ms"] = dict(sorted(ops.items(),
+                                                             key=lambda kv: -kv[1]))
+    return rows
+
+
+def print_dcn_rows(label, rows, card):
+    print(f"DCN layers at {label} (CUDA events, median of 5; bound: the im2col tensor "
+          f"written and read plus its four corner reads at 3.35 TB/s; the GEMM at 67 "
+          f"TFLOP/s) on {card}: " + "; ".join(
+              f"{r['layer']} {tuple(r['shape'])}: forward {r['forward_ms']:.3f} ms, forward "
+              f"+ backward {r['forward_backward_ms']:.3f} ms, bound {r['bytes_bound_ms']:.3f} "
+              f"ms, GEMM {r['gemm_ms_at_peak']:.3f} ms" for r in rows))
+    print(f"DCN layer {rows[0]['layer']} {tuple(rows[0]['shape'])} alone, forward + "
+          f"backward profiled, device time by op: " + "; ".join(
+              f"{n} {t:.3f} ms" for n, t in rows[0]["ops_forward_backward_ms"].items()))
+
+
+def serve_htc(dev, card, s, vcn, det, det_cfg, proj, l2c, image) -> dict:
+    """Phase 12: the tiny full HTC (deformable stages, offset convs drawn
+    from the seed) on the card against the CPU; full HTC at bench.py's
+    config (384x1280, 32 detections, weights from seed 0, offset convs
+    drawn like every other conv) through ``mask_stage``: its outputs
+    checked, CUDA-event ms (median of 5), peak memory, one profiled stage
+    (device busy, top ops, DCN's gathers); ``run_frame`` with it on the
+    SEE scene (K1 counted in its replace stage; host clock, median of 5);
+    ``MaskRCNNBackend`` on its checkpoint and a 375x1242 BGR image (KITTI's
+    size); each DCN layer timed at 384x1280 and at 384x512 batch 8."""
+    tiny = check_tiny_seg2d_against_cpu(dev, tiny_htc_cfg(dcn=True))
+    cfg = htc_bench_cfg()
+    htc = build_seg2d(cfg, seeded_state_dict(0, build_seg2d(cfg, device="cpu")), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    boxes, masks, scores = F.mask_stage(htc, image)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if boxes.shape != (32, 4) or masks.shape != (32, 28, 28) or scores.shape != (32,):
+        raise AssertionError("the HTC mask stage did not return 32 slots")
+    if not all(torch.isfinite(t).all() for t in (boxes, masks, scores)) or \
+            masks.min() < 0 or masks.max() > 1 or not (scores > 0).any():
+        raise AssertionError("the HTC mask stage's outputs are not finite probabilities")
+    stage_ms = time_cuda(lambda: F.mask_stage(htc, image), reps=5)
+    busy, per_op = profile_ops((htc, image), F.mask_stage)
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:6]
+
+    K.reset_launches()
+    pp, st, pts, valid = F.run_frame(image, s["points"], s["valid"], htc, vcn, det, det_cfg,
+                                     proj, l2c)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if launches["min_sqdist_pruned"] < 1:
+        raise AssertionError("kernel K1 was not launched inside run_frame with HTC masks")
+    kept = pp["pred_mask"][0]
+    for t in (st["det_boxes"], st["det_masks"], st["det_scores"], pts,
+              pp["pred_boxes"][0][kept], pp["pred_scores"][0][kept]):
+        if not torch.isfinite(t).all():
+            raise AssertionError("the fused frame with HTC masks gave a value not finite")
+    frame = {"ms": host_ms(lambda: F.run_frame(image, s["points"], s["valid"], htc, vcn, det,
+                                                det_cfg, proj, l2c)),
+             "launches": launches, "scored": int((st["det_scores"] > 0).sum()),
+             "isolated": int(st["ok"].sum()), "spliced": int(st["inst_valid"].sum()),
+             "kept": int(kept.sum())}
+
+    bgr = (np.random.RandomState(2).rand(375, 1242, 3) * 255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "htc.ckpt")
+        save_seg2d_checkpoint(path, htc, cfg)
+        backend = MaskRCNNBackend(path, score_thresh=0.05, device=dev)
+    dets = backend(bgr)
+    if not dets or any(d["mask"].shape != (375, 1242) or d["mask"].dtype != bool
+                       or not np.isfinite(d["bbox"]).all() for d in dets):
+        raise AssertionError("MaskRCNNBackend gave no detection or a malformed one")
+    backend_ms = host_ms(lambda: backend(bgr))
+
+    dcn_serve = time_dcn_layers(htc, 1, IMAGE_SIZE, dev)
+    dcn_train = time_dcn_layers(htc, 8, (384, 512), dev)
+    print(f"HTC mask stage ({describe_seg2d(cfg)}, {IMAGE_SIZE[0]}x{IMAGE_SIZE[1]}, 32 "
+          f"detections): {stage_ms:.2f} ms (CUDA events, median of 5), peak device memory "
+          f"{peak:.2f} GiB ({peak - held / 2**30:.2f} GiB above what was held); profiled: "
+          f"device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + "; gathers and scatters: "
+          + ", ".join(f"{n} {t:.2f} ms" for n, t in gather_scatter_ops(per_op).items())
+          + f" on {card}")
+    print(f"fused frame with HTC masks: {frame['ms']:.2f} ms (host clock, median of 5), "
+          f"launches {launches}, {frame['scored']}/32 slots scored, {frame['isolated']} "
+          f"isolated, {frame['spliced']} spliced, {frame['kept']} boxes kept")
+    print(f"MaskRCNNBackend (HTC checkpoint, score >= 0.05) on a 375x1242 BGR image: "
+          f"{backend_ms:.2f} ms (host clock, median of 5), {len(dets)} detections")
+    print_dcn_rows("384x1280, batch 1", dcn_serve, card)
+    print_dcn_rows("384x512, batch 8", dcn_train, card)
+    return {"config": describe_seg2d(cfg), "tiny_vs_cpu": tiny, "mask_stage_ms": stage_ms,
+            "peak_gib": peak, "device_busy_ms": busy, "top_ops": top,
+            "gather_scatter_ms": gather_scatter_ops(per_op), "fused_frame": frame,
+            "backend_ms": backend_ms,
+            "backend_detections": len(dets), "dcn_layers_serve": dcn_serve,
+            "dcn_layers_train": dcn_train}
+
+
+def train_dcn_step(dev, card) -> dict:
+    """Phase 13's DCN step: full HTC with deformable stages 1-3 at the CLI's
+    base widths (384x512, batch 8, init_seg2d seed 0: the offset convs at
+    zero) through ``make_seg2d_train_step``, as the CLI has no DCN flag:
+    step 0 (lr 0: nothing moves), step 1 timed (host clock) after which
+    every parameter, the offset convs included, must have moved, but the
+    heads of a cascade stage with no foreground yet
+    (``heads_without_foreground``), step 2 profiled (device busy, DCN's
+    gathers and their scatter-add); losses finite; the checkpoint saved,
+    reloaded bit for bit, its eval forward equal."""
+    args = SEG_CLI.parse_args(list(HTC_FLAGS))
+    cfg = dataclasses.replace(SEG_CLI.build_cfg(args), dcn_stages=DCN_STAGES)
+    model = init_seg2d(SM.MaskRCNN(cfg), torch.Generator().manual_seed(0)).to(dev).train()
+    state = TrainState(model, build_seg2d_optimizer(
+        model.parameters(), args.lr, args.weight_decay, args.warmup_steps,
+        max(args.steps, args.warmup_steps + 1)))
+    step = make_seg2d_train_step(packed_masks=True)
+    stream = SEG_CLI.synthetic_stream(cfg, args.batch_size, args.seed + 1)
+    wires = [SEG_CLI.pack(next(stream)) for _ in range(3)]
+
+    def upload(w):
+        return [torch.from_numpy(x).to(dev) for x in w]
+
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = [step(state, *upload(wires[0]), args.seed)]
+    batch1 = upload(wires[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics.append(step(state, *batch1, args.seed))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    idle = check_moved(model, start, heads_without_foreground(cfg, metrics[1]),
+                       "DCN step 1")
+    offsets = [n for n in start if "offset_conv" in n]
+    busy, per_op = profile_ops((state, *upload(wires[2]), args.seed), step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"a DCN step's loss term is not finite: {values}")
+    image = torch.from_numpy(SEG_SYN.synth_scene(*cfg.image_size, np.random.RandomState(1),
+                                                 max_gt=cfg.max_gt)[0][None]).to(dev)
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "dcn.ckpt")
+        save_seg2d_checkpoint(path, model, cfg)
+        loaded_cfg, sd = load_seg2d_checkpoint(path)
+    if loaded_cfg != cfg or any(not torch.equal(sd[k].to(dev), v) for k, v in
+                                model.state_dict().items()
+                                if not k.endswith("num_batches_tracked")):
+        raise AssertionError("the reloaded HTC + DCN checkpoint differs from the trained net")
+    reloaded = build_seg2d(loaded_cfg, sd, device=dev)
+    model.eval()
+    with torch.no_grad():
+        a, b = model(image), reloaded(image)
+    model.train()
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the reloaded HTC + DCN net's eval forward differs")
+    h, w = cfg.image_size
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:6]
+    print(f"HTC + DCN train step ({describe_seg2d(cfg)}, {args.size}, {h}x{w}, batch "
+          f"{args.batch_size}, through make_seg2d_train_step): step 1 {step_ms:.2f} ms "
+          f"(host clock); every parameter moved, the {len(offsets)} offset-conv tensors "
+          f"among them, but {len(idle)} of heads whose stage had no foreground yet; "
+          f"losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in values)
+          + f"; peak device memory {peak:.2f} GiB; profiled step: device busy {busy:.2f} "
+          f"ms; device time by op: " + "; ".join(f"{n} {t:.2f} ms" for n, t in top)
+          + "; gathers and scatters: "
+          + ", ".join(f"{n} {t:.2f} ms" for n, t in gather_scatter_ops(per_op).items())
+          + f"; checkpoint reloaded bit for bit, its eval forward equal, on {card}")
+    return {"step_ms": step_ms, "device_busy_ms": busy,
+            "gather_scatter_ms": gather_scatter_ops(per_op),
+            "top_ops": top, "peak_gib": peak, "losses": [m["loss"] for m in values],
+            "last_terms": values[-1], "no_gradient_after_step_1": idle}
 
 
 def main() -> int:
@@ -2209,16 +2534,6 @@ def main() -> int:
                 det, det_cfg, new_pts, new_valid), reps=5),
         }
 
-    def host_ms(fn):
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     f_ms = host_ms(lambda: F.complete_frame(*args))
     fd_ms = host_ms(lambda: F.see_and_detect(*args[:6], proj, l2c, det, det_cfg,
                                              IMAGE_SIZE))
@@ -2264,9 +2579,18 @@ def main() -> int:
 
     # --- 11. Mask R-CNN training at the CLI's defaults ----------------------
     seg2d_train = train_seg2d(dev, card)
+
+    # --- 12. HTC serving: the mask stage, the fused frame, the backend -------
+    htc = serve_htc(dev, card, s, vcn, det, det_cfg, proj, l2c, image)
+
+    # --- 13. HTC training: the CLI's HTC flags, then DCN through the API ----
+    htc_train = train_seg2d(dev, card, steps=3, flags=HTC_FLAGS,
+                            tiny_cfg=tiny_htc_cfg(dcn=True), cli_steps=2,
+                            roi_px=HTC_ROI_PX, eval_scenes=2)
+    htc_train["dcn_step"] = train_dcn_step(dev, card)
     print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 12. summary lines ---------------------------------------------------
+    # --- 14. summary lines ---------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
         "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
@@ -2279,7 +2603,7 @@ def main() -> int:
                      "kept": n_kept, "nms_ms": nms_ms,
                      "peak_gib": det_peak},
         "see_frame_peak_gib": see_peak, "train": train, "vcn_train": vcn_train,
-        "seg2d_train": seg2d_train, "card": smi}))
+        "seg2d_train": seg2d_train, "htc": htc, "htc_train": htc_train, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,11 +38,14 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--cascade", type=int, default=1, choices=[1, 3],
-                   help="cascade box-head stages (3 = HTC's, not ported yet)")
+                   help="cascade box-head stages (3 = HTC's cascade at IoU "
+                        "0.5/0.6/0.7)")
     p.add_argument("--semantic", action="store_true",
-                   help="HTC's fused semantic branch (not ported yet)")
+                   help="HTC's fused semantic branch (stride-8 segmentation "
+                        "loss and RoI feature fusion)")
     p.add_argument("--mask_info_flow", action="store_true",
-                   help="HTC's per-stage mask heads (not ported yet)")
+                   help="HTC's per-stage mask heads chained by their "
+                        "features (needs --cascade 3)")
     p.add_argument("--hard", action="store_true",
                    help="far-instance/occlusion scene regime (train and eval); "
                         "eval always reports far/near AP buckets")

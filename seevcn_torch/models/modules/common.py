@@ -1,4 +1,5 @@
-"""Shared layers of the detector (port of seevcn_tpu/models/modules/common.py).
+"""Shared layers of the detector and the mask network (port of
+seevcn_tpu/models/modules/common.py).
 
 Batch norm in training keeps the reference's statistics: it normalises with
 the batch's mean and biased variance, as torch does, and moves the running
@@ -13,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...ops.dcn import modulated_deform_conv2d
 
 
 # flax's truncated_normal draws a standard normal cut at +-2; this is its
@@ -95,3 +98,39 @@ def deconv_block2d(cin: int, cout: int, stride: int = 1) -> list[nn.Module]:
     """DeconvBlock2d: ConvTranspose2d (kernel = stride, no bias) + BN + ReLU."""
     return [nn.ConvTranspose2d(cin, cout, stride, stride=stride, bias=False),
             BatchNorm2d(cout, eps=1e-3, momentum=0.01), nn.ReLU()]
+
+
+class DeformConv2d(nn.Module):
+    """A deformable conv that predicts its own offsets (and, when
+    ``modulated``, its modulation), as the reference's ``DeformConv2d``
+    (mmcv's DeformConvPack / ModulatedDeformConvPack): NCHW in and out, the
+    sampling in ``ops/dcn.py``. ``offset_conv`` is a k x k conv at the
+    layer's stride, padded k // 2, with a bias; it starts at zero, so the
+    layer starts as a plain convolution (v2's modulation at sigmoid(0) =
+    0.5). ``weight`` is the flax ``kernel``, held as a Conv2d's (Cout, Cin,
+    k, k); v2's mask is the sigmoid of the last DG * K offset channels."""
+
+    def __init__(self, in_channels: int, channels: int, kernel_size: int = 3,
+                 stride: int = 1, deform_groups: int = 1, modulated: bool = False,
+                 use_bias: bool = False):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.deform_groups, self.modulated = stride, deform_groups, modulated
+        n_off = deform_groups * k * k * (3 if modulated else 2)
+        self.offset_conv = nn.Conv2d(in_channels, n_off, k, stride, padding=k // 2)
+        nn.init.zeros_(self.offset_conv.weight)
+        nn.init.zeros_(self.offset_conv.bias)
+        self.weight = nn.Parameter(torch.empty(channels, in_channels, k, k))
+        self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        n = self.deform_groups * k * k * 2
+        om = self.offset_conv(x).permute(0, 2, 3, 1)
+        mask = torch.sigmoid(om[..., n:]) if self.modulated else None
+        out = modulated_deform_conv2d(
+            x.permute(0, 2, 3, 1), om[..., :n], mask, self.weight.permute(2, 3, 1, 0),
+            self.bias, stride=self.stride, padding=k // 2,
+            deform_groups=self.deform_groups)
+        return out.permute(0, 3, 1, 2)

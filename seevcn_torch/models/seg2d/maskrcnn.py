@@ -1,4 +1,4 @@
-"""Mask R-CNN in torch (port of seevcn_tpu/models/seg2d/maskrcnn.py).
+"""Mask R-CNN and HTC in torch (port of seevcn_tpu/models/seg2d/maskrcnn.py).
 
 The plain Mask R-CNN that bench.py's mask stage runs: ResNet-FPN (P2..P6)
 -> RPN -> proposals -> RoIAlign 7x7 -> box head -> per-class decode + NMS
@@ -6,6 +6,15 @@ The plain Mask R-CNN that bench.py's mask stage runs: ResNet-FPN (P2..P6)
 Every stage keeps the reference's fixed shapes: 1,024 pre-NMS proposals,
 ``num_proposals`` RoIs, ``max_detections`` output slots, suppressed boxes
 left in their slots at score 0.
+
+HTC's four parts, each a field of ``Seg2DConfig``: ``cascade_stages`` box
+heads at increasing IoU thresholds (``box_head``, ``box_head_s1``, ...),
+each stage relabelling the previous stage's refined boxes, the eval forward
+averaging the stages' class probabilities on the final boxes;
+``semantic_branch``, the fused stride-8 semantic head whose feature map is
+RoI-aligned and added to every head's RoI features; ``mask_info_flow``, a
+mask head a stage, each fed the previous one's pre-upsample feature;
+``dcn_stages``, deformable second convs in the marked backbone stages.
 
 Training (``forward(..., train=True)`` and ``loss``) is the reference's
 MaskRCNNLogic as plain functions: RPN targets over all anchors, proposals
@@ -24,9 +33,6 @@ run NCHW; RoIAlign gathers from each FPN map laid out (H, W, C) and returns
 order. Module attribute names mirror the flax tree's, flax's automatic names
 included (``BatchNorm_0``, ``Conv_0``...), so ``seg2d_state_dict_from_flax``
 is a walk of that tree.
-
-Not ported yet (ROADMAP queue 1, item 3): HTC's cascade, semantic branch,
-mask info flow and deformable stages; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from torch import nn
 from ...geom.boxes import boxes_iou_normal
 from ...ops.nms import _greedy_suppress
 from ..losses import binary_cross_entropy_with_logits, weighted_smooth_l1
-from ..modules.common import BatchNorm2d
+from ..modules.common import BatchNorm2d, DeformConv2d
 
 # box-delta variance weights (Detectron defaults)
 BOX_W = (10.0, 10.0, 5.0, 5.0)
@@ -116,42 +122,44 @@ def _bn(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
-def _unported(what: str):
-    return NotImplementedError(f"seg2d {what} is not ported yet (ROADMAP "
-                               f"queue 1, item 3)")
-
-
 class BasicBlock(nn.Module):
     """Two 3x3 convs with BN, and a 1x1 projection of the residual where the
-    shape changes (the reference's ``residual.shape != y.shape``)."""
+    shape changes (the reference's ``residual.shape != y.shape``). With
+    ``dcn`` the second conv is deformable (mmdet's with_dcn), and the
+    children take the names flax's tree gives them: ``DeformConv2d_0``,
+    and the projection becomes ``Conv_1``, not ``Conv_2``."""
 
-    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, channels: int, stride: int = 1,
+                 dcn: bool = False):
         super().__init__()
         self.Conv_0 = SameConv2d(in_channels, channels, 3, stride, bias=False)
         self.BatchNorm_0 = _bn(channels)
-        self.Conv_1 = SameConv2d(channels, channels, 3, bias=False)
+        self.second, self.proj = ("DeformConv2d_0", "Conv_1") if dcn else ("Conv_1", "Conv_2")
+        self.add_module(self.second, DeformConv2d(channels, channels, 3) if dcn
+                        else SameConv2d(channels, channels, 3, bias=False))
         self.BatchNorm_1 = _bn(channels)
         self.project = in_channels != channels or stride != 1
         if self.project:
-            self.Conv_2 = SameConv2d(in_channels, channels, 1, stride, bias=False)
+            self.add_module(self.proj, SameConv2d(in_channels, channels, 1, stride,
+                                                  bias=False))
             self.BatchNorm_2 = _bn(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
-        residual = self.BatchNorm_2(self.Conv_2(x)) if self.project else x
+        y = self.BatchNorm_1(getattr(self, self.second)(y))
+        residual = self.BatchNorm_2(getattr(self, self.proj)(x)) if self.project else x
         return F.relu(y + residual)
 
 
 class ResNetFPN(nn.Module):
     """ResNet-18-style backbone + FPN: (B, 3, H, W) -> [P2..P6], NCHW,
-    strides 4..64."""
+    strides 4..64. The blocks of a stage marked in ``dcn_stages`` take a
+    deformable second conv ((False, True, True, True) is the reference HTC's
+    dconv_c3-c5)."""
 
     def __init__(self, stage_sizes=(2, 2, 2, 2), stage_channels=(64, 128, 256, 512),
                  fpn_channels: int = 256, dcn_stages=(False, False, False, False)):
         super().__init__()
-        if any(dcn_stages):
-            raise _unported("dcn_stages (deformable convs)")
         self.stage_sizes = tuple(stage_sizes)
         self.stem = SameConv2d(3, 64, 7, 2, bias=False)
         self.BatchNorm_0 = _bn(64)
@@ -159,7 +167,8 @@ class ResNetFPN(nn.Module):
         for i, (n, ch) in enumerate(zip(stage_sizes, stage_channels)):
             for j in range(n):
                 self.add_module(f"stage{i}_block{j}", BasicBlock(
-                    cin, ch, stride=2 if (j == 0 and i > 0) else 1))
+                    cin, ch, stride=2 if (j == 0 and i > 0) else 1,
+                    dcn=bool(dcn_stages[i])))
                 cin = ch
         for i, ch in enumerate(stage_channels):
             self.add_module(f"lat{i}", nn.Conv2d(ch, fpn_channels, 1))
@@ -222,27 +231,67 @@ class BoxHead(nn.Module):
 
 
 class MaskHead(nn.Module):
-    """(R, 14, 14, C) RoI features -> mask logits (R, 28, 28, K): 3x3 convs,
-    a 2x2 stride-2 transposed conv (``up``) and 1x1 logits. The reference's
-    ``prev_feat`` input serves HTC's mask info flow only, which is not
-    ported."""
+    """(R, 14, 14, C) RoI features -> (mask logits (R, 28, 28, K), the
+    pre-upsample feature (R, 14, 14, channels)): 3x3 convs, a 2x2 stride-2
+    transposed conv (``up``) and 1x1 logits. A head with ``res_conv``
+    (HTC's info flow, the heads after the first) adds relu(res_conv(
+    prev_feat)), the previous stage's feature through a 1x1 conv, to its
+    input first (mmdet HTCMaskHead's conv_res)."""
 
     def __init__(self, in_channels: int, num_classes: int, channels: int = 256,
-                 n_convs: int = 4):
+                 n_convs: int = 4, res_conv: bool = False):
         super().__init__()
         self.n_convs = n_convs
+        if res_conv:
+            self.res_conv = nn.Conv2d(channels, channels, 1)
         for i in range(n_convs):
             self.add_module(f"conv{i}", SameConv2d(
                 in_channels if i == 0 else channels, channels, 3))
         self.up = nn.ConvTranspose2d(channels, channels, 2, stride=2)
         self.logits = nn.Conv2d(channels, num_classes, 1)
 
-    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
+    def forward(self, roi_feats: torch.Tensor, prev_feat: torch.Tensor | None = None):
         x = roi_feats.permute(0, 3, 1, 2)
+        if prev_feat is not None:
+            x = x + F.relu(self.res_conv(prev_feat.permute(0, 3, 1, 2)))
         for i in range(self.n_convs):
             x = F.relu(getattr(self, f"conv{i}")(x))
+        feat = x
         x = F.relu(self.up(x))
-        return self.logits(x).permute(0, 2, 3, 1)
+        return self.logits(x).permute(0, 2, 3, 1), feat.permute(0, 2, 3, 1)
+
+
+class SemanticHead(nn.Module):
+    """HTC's fused semantic branch (mmdet FusedSemanticHead): each FPN level
+    (B, C, H_l, W_l) through a 1x1 lateral, resized to P3's grid (stride 8)
+    and summed; 3x3 convs with ReLU; 1x1 logits over K + 1 classes. ->
+    (logits (B, K + 1, H_3, W_3), the fused feature (B, channels, H_3,
+    W_3)). The resizes are the reference's ``jax.image.resize(...,
+    "bilinear")``: half-pixel, and a shrink (P2's) antialiased as JAX's is."""
+
+    def __init__(self, in_channels: int, num_classes: int, channels: int = 256,
+                 n_convs: int = 2, n_levels: int = 5):
+        super().__init__()
+        self.n_convs = n_convs
+        for i in range(n_levels):
+            self.add_module(f"lat{i}", nn.Conv2d(in_channels, channels, 1))
+        for i in range(n_convs):
+            self.add_module(f"conv{i}", SameConv2d(channels, channels, 3))
+        self.logits = nn.Conv2d(channels, num_classes + 1, 1)
+
+    def forward(self, feats):
+        size = feats[1].shape[-2:]
+        x = 0.0
+        for i, f in enumerate(feats):
+            lat = getattr(self, f"lat{i}")(f)
+            if lat.shape[-2:] != size:
+                shrink = lat.shape[-2] > size[0] or lat.shape[-1] > size[1]
+                lat = F.interpolate(lat, size=size, mode="bilinear", align_corners=False,
+                                    antialias=shrink)
+            x = x + lat
+        for i in range(self.n_convs):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        return self.logits(x), x
 
 
 # ---------------------------------------------------------------------------
@@ -328,29 +377,43 @@ def _bilinear(fmap: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return top * (1 - wy) + bot * wy
 
 
-def roi_align(feats, strides, rois: torch.Tensor, out_size: int) -> torch.Tensor:
-    """Multi-level RoIAlign: feats, the (H_l, W_l, C) maps of one image
-    (P2..P5); rois (R, 4) xyxy in image pixels -> (R, S, S, C). One sample
-    at each cell centre, at ``grid / stride - 0.5`` on the map. The level,
-    floor(4 + log2(sqrt(wh) / 224)) clipped to 2..5, is applied as a one-hot
-    mix over the levels, as in the reference."""
+def _roi_grid(rois: torch.Tensor, out_size: int):
+    """The out_size x out_size cell centres of each RoI (R, 4) in image
+    pixels -> ((R, S, S, 2) xy, width, height), the sides floored at 1e-3."""
     rw = (rois[:, 2] - rois[:, 0]).clamp_min(1e-3)
     rh = (rois[:, 3] - rois[:, 1]).clamp_min(1e-3)
-    lvl = torch.floor(4 + torch.log2(torch.sqrt(rw * rh) / 224.0))
-    lvl = lvl.clamp(2, 5).long() - 2
-    onehot = F.one_hot(lvl, len(feats)).to(rois.dtype)      # (R, L)
-
     steps = (torch.arange(out_size, device=rois.device, dtype=rois.dtype)
              + 0.5) / out_size
     gx = rois[:, 0, None] + steps[None, :] * rw[:, None]   # (R, S)
     gy = rois[:, 1, None] + steps[None, :] * rh[:, None]
     grid = torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]),
                        dim=-1)                             # (R, S, S, 2)
+    return grid, rw, rh
+
+
+def roi_align(feats, strides, rois: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Multi-level RoIAlign: feats, the (H_l, W_l, C) maps of one image
+    (P2..P5); rois (R, 4) xyxy in image pixels -> (R, S, S, C). One sample
+    at each cell centre, at ``grid / stride - 0.5`` on the map. The level,
+    floor(4 + log2(sqrt(wh) / 224)) clipped to 2..5, is applied as a one-hot
+    mix over the levels, as in the reference."""
+    grid, rw, rh = _roi_grid(rois, out_size)
+    lvl = torch.floor(4 + torch.log2(torch.sqrt(rw * rh) / 224.0))
+    lvl = lvl.clamp(2, 5).long() - 2
+    onehot = F.one_hot(lvl, len(feats)).to(rois.dtype)      # (R, L)
     out = 0.0
     for li, (fmap, stride) in enumerate(zip(feats, strides)):
         sampled = _bilinear(fmap, grid / stride - 0.5)
         out = out + sampled * onehot[:, li, None, None, None]
     return out
+
+
+def roi_align_single(fmap: torch.Tensor, stride: int, rois: torch.Tensor,
+                     out_size: int) -> torch.Tensor:
+    """Single-level RoIAlign (no level assignment) of one (H, W, C) map ->
+    (R, S, S, C): how the semantic branch's stride-8 feature enters the RoI
+    features."""
+    return _bilinear(fmap, _roi_grid(rois, out_size)[0] / stride - 0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +595,46 @@ def mask_targets(gt_masks: torch.Tensor, rois: torch.Tensor, matched: torch.Tens
     return (top * (1 - wy) + bot * wy >= 0.5).to(torch.float32)
 
 
+def assign_rois(rois: torch.Tensor, roi_valid: torch.Tensor, gt_boxes: torch.Tensor,
+                gt_labels: torch.Tensor, gt_valid: torch.Tensor, fg_iou: float):
+    """Targets of the given RoIs (R, 4) at a cascade stage's IoU threshold,
+    with no new sample (Cascade R-CNN relabels the refined boxes) ->
+    (classes (R,) int32 (0 background), deltas (R, 4), is_fg (R,), matched
+    (R,) the best ground-truth row). A padding ground-truth row reads IoU
+    -1; among equal IoUs the lowest row wins."""
+    iou = torch.where(gt_valid[None, :], boxes_iou_normal(rois, gt_boxes), -1.0)
+    best_gt = iou.argmax(1)
+    best_iou = torch.where(roi_valid, iou.amax(1), -1.0)
+    is_fg = best_iou >= fg_iou
+    cls = torch.where(is_fg, gt_labels[best_gt] + 1, 0).to(torch.int32)
+    return cls, encode_deltas(gt_boxes[best_gt], rois), is_fg, best_gt
+
+
+def refine_rois(cfg: Seg2DConfig, rois: torch.Tensor, cls_logits: torch.Tensor,
+                box_deltas: torch.Tensor) -> torch.Tensor:
+    """Each RoI decoded with the deltas of its most probable foreground
+    class (the first among equal probabilities) -> the next cascade stage's
+    boxes (R, 4), detached, as proposals are."""
+    k = torch.softmax(cls_logits, dim=-1)[:, 1:].argmax(-1)
+    deltas = (box_deltas * _one_hot(k, cfg.num_classes)[..., None]).sum(1)
+    return decode_deltas(deltas, rois, cfg.image_size).detach()
+
+
+def semantic_loss(cfg: Seg2DConfig, sem_logits, gt_labels, gt_valid, gt_masks):
+    """HTC's semantic cross-entropy: sem_logits (B, h, w, K + 1) against the
+    union of the valid instance masks (gt_masks (B, G, H, W) >= 0.5, each
+    pixel the largest label + 1 over the instances covering it, else 0),
+    resized to (h, w) as ``jax.image.resize(..., "nearest")`` does
+    (half-pixel centres: ``nearest-exact``); mean over the pixels."""
+    lab = torch.where(gt_valid[:, :, None, None],
+                      (gt_masks >= 0.5).to(torch.int32) * (gt_labels[:, :, None, None] + 1),
+                      0)
+    tgt = lab.amax(1).to(torch.float32)[:, None]            # (B, 1, H, W)
+    tgt = F.interpolate(tgt, size=sem_logits.shape[1:3], mode="nearest-exact")[:, 0]
+    onehot = _one_hot(tgt.to(torch.int64), cfg.num_classes + 1)
+    return -(F.log_softmax(sem_logits, dim=-1) * onehot).sum(-1).mean()
+
+
 def mask_loss(cfg: Seg2DConfig, mask_logits, mask_tgt, cls_tgt, is_fg):
     """Binary cross-entropy of the target class's 28x28 logits, averaged
     over the foreground RoIs' pixels."""
@@ -546,29 +649,41 @@ def mask_loss(cfg: Seg2DConfig, mask_logits, mask_tgt, cls_tgt, is_fg):
 # model
 # ---------------------------------------------------------------------------
 class MaskRCNN(nn.Module):
-    """Plain Mask R-CNN: the eval forward, and the training forward and
-    loss."""
+    """Mask R-CNN, with HTC's parts where the config asks for them: the eval
+    forward, and the training forward and loss."""
 
     def __init__(self, cfg: Seg2DConfig):
         super().__init__()
-        if cfg.cascade_stages > 1:
-            raise _unported("cascade_stages > 1 (HTC cascade)")
-        if cfg.semantic_branch:
-            raise _unported("semantic_branch (HTC semantic head)")
-        if cfg.mask_info_flow:
-            raise _unported("mask_info_flow (HTC mask info flow)")
         self.cfg = cfg
+        self.n_stage = max(int(cfg.cascade_stages), 1)
+        # info flow: one mask head a cascade stage, chained
+        self.n_mask = self.n_stage if cfg.mask_info_flow and self.n_stage > 1 else 1
         self.backbone = ResNetFPN(cfg.stage_sizes, cfg.stage_channels,
                                   cfg.fpn_channels, cfg.dcn_stages)
         self.rpn = RPNHead(cfg.fpn_channels)
-        self.box_head = BoxHead(7 * 7 * cfg.fpn_channels, cfg.num_classes,
-                                cfg.box_hidden)
-        self.mask_head = MaskHead(cfg.fpn_channels, cfg.num_classes,
-                                  cfg.mask_channels, cfg.mask_convs)
+        # stage 0 keeps the plain model's names, so its checkpoints load
+        for s in range(self.n_stage):
+            self.add_module(_stage_name("box_head", s), BoxHead(
+                7 * 7 * cfg.fpn_channels, cfg.num_classes, cfg.box_hidden))
+        for s in range(self.n_mask):
+            self.add_module(_stage_name("mask_head", s), MaskHead(
+                cfg.fpn_channels, cfg.num_classes, cfg.mask_channels, cfg.mask_convs,
+                res_conv=s > 0))
+        if cfg.semantic_branch:
+            self.semantic_head = SemanticHead(cfg.fpn_channels, cfg.num_classes,
+                                              cfg.fpn_channels, cfg.semantic_convs)
         anchors = np.concatenate(generate_anchors_2d(cfg.image_size,
                                                      strides=cfg.strides))
         self.register_buffer("anchors", torch.from_numpy(anchors),
                              persistent=False)
+
+    @property
+    def box_heads(self) -> list:
+        return [getattr(self, _stage_name("box_head", s)) for s in range(self.n_stage)]
+
+    @property
+    def mask_heads(self) -> list:
+        return [getattr(self, _stage_name("mask_head", s)) for s in range(self.n_mask)]
 
     def features(self, images: torch.Tensor):
         """images (B, H, W, 3) -> (FPN maps P2..P6 (B, C, H_l, W_l), RPN
@@ -582,93 +697,168 @@ class MaskRCNN(nn.Module):
         """Image i's P2..P5 laid out (H, W, C), as ``roi_align`` reads them."""
         return [f[i].permute(1, 2, 0).contiguous() for f in feats[:4]]
 
+    def _aligner(self, feats, sem_feat, i: int):
+        """-> align(rois, size): RoIAlign on image i's P2..P5, plus, with the
+        semantic branch, the stride-8 semantic feature's single-level
+        RoIAlign."""
+        maps, strides = self.roi_maps(feats, i), self.cfg.strides[:4]
+        sem = None if sem_feat is None else sem_feat[i].permute(1, 2, 0).contiguous()
+
+        def align(rois, size):
+            f = roi_align(maps, strides, rois, size)
+            return f if sem is None else f + roi_align_single(sem, 8, rois, size)
+
+        return align
+
+    def _mask_chain(self, f14: torch.Tensor, upto: int) -> torch.Tensor:
+        """Mask heads 0..upto on the same RoI features, each fed the previous
+        one's pre-upsample feature -> head ``upto``'s logits."""
+        last = None
+        for head in self.mask_heads[:upto]:
+            last = head(f14, last)[1]
+        return self.mask_heads[upto](f14, last)[0]
+
     def forward(self, images: torch.Tensor, gt_boxes=None, gt_labels=None,
                 gt_valid=None, gt_masks=None, train: bool = False,
                 generator: torch.Generator | None = None,
                 roi_u: torch.Tensor | None = None) -> dict:
-        """images (B, H, W, 3) -> {rpn_obj (B, N), rpn_box (B, N, 4), ...}.
+        """images (B, H, W, 3) -> {rpn_obj (B, N), rpn_box (B, N, 4), ...},
+        and with the semantic branch semantic_logits (B, H/8, W/8, K + 1).
 
         Eval (``train`` False): det_boxes (B, D, 4), det_scores (B, D),
         det_cls (B, D) int32, det_masks (B, D, 28, 28), the sigmoid of each
-        detection's class logits.
+        detection's class logits (averaged over the stages' mask heads
+        under info flow). A cascade refines the proposals through its
+        stages, scores the final boxes with every stage's head and decodes
+        with the log of their mean probabilities.
 
         Training (the module in training mode): gt_boxes (B, G, 4) xyxy,
         gt_labels (B, G) int, gt_valid (B, G) bool; gt_masks is taken for
         the reference's signature and read by ``loss``. -> rois (B, S, 4),
         roi_cls_tgt (B, S) int32, roi_delta_tgt (B, S, 4), roi_fg (B, S),
         roi_matched (B, S), cls_logits (B, S, K + 1), box_deltas (B, S, K,
-        4), mask_logits (B, S, 28, 28, K). ``roi_u`` (B, 2, P + G), the fg
-        and bg priorities of each image's candidates, is drawn from
-        ``generator`` unless given."""
+        4), mask_logits (B, S, 28, 28, K), and for each cascade stage s > 0
+        ``cascade_s{s}``: {cls_logits, box_deltas, cls_tgt, delta_tgt, fg,
+        rois, matched} on that stage's refined and relabelled boxes, and its
+        mask_logits under info flow. ``roi_u`` (B, 2, P + G), the fg and bg
+        priorities of each image's candidates, is drawn from ``generator``
+        unless given."""
         feats, rpn_obj, rpn_box = self.features(images)
         out = {"rpn_obj": rpn_obj, "rpn_box": rpn_box}
+        sem_feat = None
+        if self.cfg.semantic_branch:
+            sem_logits, sem_feat = self.semantic_head(feats)
+            out["semantic_logits"] = sem_logits.permute(0, 2, 3, 1)
         if train:
             if not self.training:
                 raise ValueError("train=True needs the module in training mode "
                                  "(batch norm on the batch's statistics)")
-            return {**out, **self._train_heads(feats, rpn_obj, rpn_box, gt_boxes,
+            return {**out, **self._train_heads(feats, sem_feat, rpn_obj, rpn_box, gt_boxes,
                                                gt_labels, gt_valid, generator, roi_u)}
         cfg = self.cfg
-        strides = cfg.strides[:4]
         dets = []
         for i in range(images.shape[0]):
-            maps = self.roi_maps(feats, i)
+            align = self._aligner(feats, sem_feat, i)
             rois, valid, _ = proposals(cfg, self.anchors, rpn_obj[i], rpn_box[i])
-            cls_logits, box_deltas = self.box_head(roi_align(maps, strides, rois, 7))
+            f7 = align(rois, 7)
+            cls_logits, box_deltas = self.box_head(f7)
+            if self.n_stage > 1:
+                for head in self.box_heads[1:]:
+                    rois = refine_rois(cfg, rois, cls_logits, box_deltas)
+                    f7 = align(rois, 7)
+                    cls_logits, box_deltas = head(f7)
+                probs = [torch.softmax(cls_logits, dim=-1)] + [
+                    torch.softmax(head(f7)[0], dim=-1) for head in self.box_heads[:-1]]
+                # softmax(log p) is p: the plain decode on the mean probabilities
+                cls_logits = torch.log(sum(probs) / len(probs) + 1e-9)
             boxes, scores, classes = decode_detections(cfg, rois, valid,
                                                        cls_logits, box_deltas)
-            logits = self.mask_head(roi_align(maps, strides, boxes, 14))
-            pick = classes.long()[:, None, None, None].expand(*logits.shape[:3], 1)
-            masks = torch.sigmoid(logits.gather(-1, pick)[..., 0])
-            dets.append((boxes, scores, classes, masks))
+            f14 = align(boxes, 14)
+            pick = classes.long()[:, None, None, None]
+            last, probs = None, []
+            for head in self.mask_heads:
+                logits, last = head(f14, last)
+                probs.append(torch.sigmoid(
+                    logits.gather(-1, pick.expand(*logits.shape[:3], 1))[..., 0]))
+            dets.append((boxes, scores, classes, sum(probs) / len(probs)))
         for key, parts in zip(("det_boxes", "det_scores", "det_cls", "det_masks"),
                               zip(*dets)):
             out[key] = torch.stack(parts)
         return out
 
-    def _train_heads(self, feats, rpn_obj, rpn_box, gt_boxes, gt_labels, gt_valid,
-                     generator, roi_u) -> dict:
+    def _train_heads(self, feats, sem_feat, rpn_obj, rpn_box, gt_boxes, gt_labels,
+                     gt_valid, generator, roi_u) -> dict:
         cfg = self.cfg
         b = rpn_obj.shape[0]
         if roi_u is None:
             roi_u = torch.rand((b, 2, cfg.num_proposals + gt_boxes.shape[1]),
                                generator=generator, device=rpn_obj.device)
-        strides = cfg.strides[:4]
-        samples, f7, f14 = [], [], []
+        aligners, samples = [], []
         for i in range(b):
             props, valid, _ = proposals(cfg, self.anchors, rpn_obj[i].detach(),
                                         rpn_box[i].detach())
-            sample = sample_rois(cfg, props, valid, gt_boxes[i], gt_labels[i],
-                                 gt_valid[i], roi_u[i, 0], roi_u[i, 1])
-            maps = self.roi_maps(feats, i)
-            f7.append(roi_align(maps, strides, sample[0], 7))
-            f14.append(roi_align(maps, strides, sample[0], 14))
-            samples.append(sample)
+            samples.append(sample_rois(cfg, props, valid, gt_boxes[i], gt_labels[i],
+                                       gt_valid[i], roi_u[i, 0], roi_u[i, 1]))
+            aligners.append(self._aligner(feats, sem_feat, i))
         out = {k: torch.stack(v) for k, v in zip(
             ("rois", "roi_cls_tgt", "roi_delta_tgt", "roi_fg", "roi_matched"),
             zip(*samples))}
-        s = cfg.roi_batch
-        cls_logits, box_deltas = self.box_head(torch.cat(f7))
-        out["cls_logits"] = cls_logits.reshape(b, s, -1)
-        out["box_deltas"] = box_deltas.reshape(b, s, *box_deltas.shape[1:])
-        mask_logits = self.mask_head(torch.cat(f14))
-        out["mask_logits"] = mask_logits.reshape(b, s, *mask_logits.shape[1:])
+
+        def heads(head, rois, size):
+            """``head`` on the RoIs (B, S, 4), each aligned in its image."""
+            res = head(torch.cat([aligners[i](rois[i], size) for i in range(b)]))
+            if isinstance(res, tuple):
+                return tuple(r.reshape(b, -1, *r.shape[1:]) for r in res)
+            return res.reshape(b, -1, *res.shape[1:])
+
+        out["cls_logits"], out["box_deltas"] = heads(self.box_head, out["rois"], 7)
+        # each cascade stage refines the previous stage's boxes, relabels
+        # them at its own IoU threshold, every RoI valid, and runs its head
+        stage = out
+        for s in range(1, self.n_stage):
+            prev = (stage["rois"], stage["cls_logits"], stage["box_deltas"])
+            rois = torch.stack([refine_rois(cfg, *(t[i] for t in prev)) for i in range(b)])
+            targets = [assign_rois(rois[i], torch.ones_like(rois[i, :, 0], dtype=torch.bool),
+                                   gt_boxes[i], gt_labels[i], gt_valid[i], cfg.cascade_ious[s])
+                       for i in range(b)]
+            stage = {k: torch.stack(v) for k, v in zip(
+                ("cls_tgt", "delta_tgt", "fg", "matched"), zip(*targets))}
+            stage["rois"] = rois
+            stage["cls_logits"], stage["box_deltas"] = heads(self.box_heads[s], rois, 7)
+            out[f"cascade_s{s}"] = stage
+        # mask stage s on stage s's RoIs; under info flow heads 0..s-1 run
+        # first on the same RoIs, feature only, and the gradient flows
+        # through the chain (mmdet HTCRoIHead._mask_forward_train)
+        for s in range(self.n_mask):
+            where = out if s == 0 else out[f"cascade_s{s}"]
+            where["mask_logits"] = heads(lambda f14: self._mask_chain(f14, s),
+                                         where["rois"], 14)
         return out
 
     def loss(self, out: dict, gt_boxes, gt_labels, gt_valid, gt_masks,
              generator: torch.Generator | None = None,
              rpn_u: torch.Tensor | None = None):
         """The training forward's output and the ground truth (gt_masks (B,
-        G, H, W) f32) -> (total, {rpn_cls, rpn_reg, box_cls, box_reg,
-        mask}), each term averaged over the batch. ``rpn_u`` (B, 2, N), the
-        anchors' fg and bg priorities, is drawn from ``generator`` unless
-        given."""
+        G, H, W) f32) -> (total, {rpn_cls, rpn_reg, box_cls, box_reg, mask,
+        ...}), each term averaged over the batch. A cascade weighs stage s's
+        box loss by ``cascade_weights[s]`` (stage 0's too) and reports it
+        as box_cls_s{s} and box_reg_s{s}; under info flow the mask losses
+        take the same weights, mask_s{s} on each stage's own RoIs; the
+        semantic branch adds its cross-entropy at ``semantic_loss_weight``
+        as ``semantic``. ``rpn_u`` (B, 2, N), the anchors' fg and bg
+        priorities, is drawn from ``generator`` unless given."""
         cfg = self.cfg
         b = out["rpn_obj"].shape[0]
         if rpn_u is None:
             rpn_u = torch.rand((b, 2, self.anchors.shape[0]), generator=generator,
                                device=out["rpn_obj"].device)
+        c_w = cfg.cascade_weights
+        w0 = c_w[0] if self.n_stage > 1 else 1.0
         total, tb = 0.0, {}
+
+        def add(key, v):
+            tb[key] = tb.get(key, 0.0) + v / b
+
         for i in range(b):
             labels, deltas, w, fg = rpn_targets(cfg, self.anchors, gt_boxes[i],
                                                 gt_valid[i], rpn_u[i, 0], rpn_u[i, 1])
@@ -678,11 +868,33 @@ class MaskRCNN(nn.Module):
             bi, tbb = box_loss(cfg, out["cls_logits"][i], out["box_deltas"][i],
                                out["roi_cls_tgt"][i], out["roi_delta_tgt"][i],
                                out["roi_fg"][i])
-            total = total + bi / b
+            total = total + w0 * bi / b
+            for s in range(1, self.n_stage):
+                cs = out[f"cascade_s{s}"]
+                bs, tbs = box_loss(cfg, cs["cls_logits"][i], cs["box_deltas"][i],
+                                   cs["cls_tgt"][i], cs["delta_tgt"][i], cs["fg"][i])
+                total = total + c_w[s] * bs / b
+                for k, v in tbs.items():
+                    add(f"{k}_s{s}", v)
             mt = mask_targets(gt_masks[i], out["rois"][i], out["roi_matched"][i])
             ml = mask_loss(cfg, out["mask_logits"][i], mt, out["roi_cls_tgt"][i],
                            out["roi_fg"][i])
-            total = total + ml / b
+            total = total + (w0 if self.n_mask > 1 else 1.0) * ml / b
+            for s in range(1, self.n_mask):
+                cs = out[f"cascade_s{s}"]
+                mt_s = mask_targets(gt_masks[i], cs["rois"][i], cs["matched"][i])
+                ml_s = mask_loss(cfg, cs["mask_logits"][i], mt_s, cs["cls_tgt"][i],
+                                 cs["fg"][i])
+                total = total + c_w[s] * ml_s / b
+                add(f"mask_s{s}", ml_s)
             for k, v in {**tbi, **tbb, "mask": ml}.items():
-                tb[k] = tb.get(k, 0.0) + v / b
+                add(k, v)
+        if "semantic_logits" in out:
+            ce = semantic_loss(cfg, out["semantic_logits"], gt_labels, gt_valid, gt_masks)
+            total = total + cfg.semantic_loss_weight * ce
+            tb["semantic"] = ce
         return total, tb
+
+
+def _stage_name(head: str, s: int) -> str:
+    return head if s == 0 else f"{head}_s{s}"

@@ -1,9 +1,10 @@
 """Helpers for holding the port against its reference: numpy <-> torch
 conversion, an ``assert_close`` that names the worst element, the cases at
-the edges of kernel K2's tiling, the tiny Mask R-CNN config, a switch to
-the sparse conv's plain backward, and the VCN gradient comparison with the
-recorders of the VCN's discrete choices, which the tests and chip_smoke.py
-all use."""
+the edges of kernel K2's tiling, the tiny Mask R-CNN and HTC configs, a
+single-thread switch for the CPU, a switch to the sparse conv's plain
+backward, seeded Mask R-CNN weights with a recorder of its ReLUs' signs,
+and the VCN gradient comparison with the recorders of the VCN's discrete
+choices, which the tests and chip_smoke.py all use."""
 from __future__ import annotations
 
 import contextlib
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from seevcn_torch.geom import transforms as T
+from seevcn_torch.models.seg2d import maskrcnn as SM
+from seevcn_torch.models.seg2d.backend import init_seg2d
 from seevcn_torch.models.seg2d.maskrcnn import Seg2DConfig
 from seevcn_torch.models.vcn import nets as VN
 from seevcn_torch.ops import sparse as SP
@@ -110,6 +113,90 @@ def tiny_seg2d_cfg() -> Seg2DConfig:
                        max_detections=4, stage_sizes=(1, 1, 1, 1),
                        stage_channels=(16, 32, 64, 64), fpn_channels=32,
                        box_hidden=128, mask_channels=32, mask_convs=2)
+
+
+def tiny_htc_cfg(dcn: bool = False) -> Seg2DConfig:
+    """The reference's tiny HTC test config (tests/test_seg2d_htc.py's
+    ``_htc_cfg``): a 96x128 image, one block a stage at width 8, FPN width
+    8, one mask conv, the 3-stage cascade, the semantic branch and mask info
+    flow; with ``dcn`` also deformable convs in stages 1-3 (dconv_c3-c5),
+    which makes it full HTC."""
+    return Seg2DConfig(image_size=(96, 128), max_gt=4, num_proposals=32, roi_batch=16,
+                       pre_nms_topk=64, max_detections=8, stage_sizes=(1, 1, 1, 1),
+                       stage_channels=(8, 8, 8, 8), fpn_channels=8, box_hidden=32,
+                       mask_channels=8, mask_convs=1, cascade_stages=3,
+                       semantic_branch=True, mask_info_flow=True,
+                       dcn_stages=(False, True, True, True) if dcn else
+                       (False, False, False, False))
+
+
+def seeded_seg2d_weights(cfg: Seg2DConfig, seed: int = 0) -> dict:
+    """A Mask R-CNN state dict at ``cfg``: init_seg2d from ``seed``, then
+    biases and running means N(0, 0.1), batch-norm scales and running
+    variances U[0.5, 1.5), offset convs N(0, 0.15) (offsets of about a
+    pixel), drawn from ``seed + 1``."""
+    model = init_seg2d(SM.MaskRCNN(cfg), torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    sd = {}
+    for name, t in model.state_dict().items():
+        t = t.clone()
+        if "offset_conv" in name:
+            t = 0.15 * torch.randn(t.shape, generator=gen)
+        elif name.endswith(("bias", "running_mean")):
+            t = 0.1 * torch.randn(t.shape, generator=gen)
+        elif name.endswith("running_var") or (name.endswith("weight") and t.dim() == 1):
+            t = 0.5 + torch.rand(t.shape, generator=gen)
+        sd[name] = t
+    return sd
+
+
+class _PinnedReluF:
+    """torch.nn.functional, but with ``relu`` replaced: maskrcnn.py calls
+    ``F.relu`` for every ReLU of the Mask R-CNN."""
+
+    def __init__(self, relu):
+        self.relu = relu
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+
+@contextlib.contextmanager
+def seg2d_relu_signs(pinned: list | None = None):
+    """Within the block, record where the input of each ReLU of the Mask
+    R-CNN is positive, in call order, into the list yielded (bool, on the
+    CPU). Given ``pinned``, such a list from another run, each ReLU takes
+    its mask from there in place of its own input's sign."""
+    signs, queue = [], None if pinned is None else list(pinned)
+
+    def relu(x, inplace=False):
+        signs.append((x > 0).cpu())
+        if queue is None:
+            return torch.nn.functional.relu(x)
+        return torch.where(queue.pop(0).to(x.device), x, torch.zeros_like(x))
+
+    plain = SM.F
+    SM.F = _PinnedReluF(relu)
+    try:
+        yield signs
+    finally:
+        SM.F = plain
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """Within the block, PyTorch's CPU ops on one thread. Multi-threaded, the
+    CPU build's oneDNN convolution backward corrupts the heap now and then
+    at 8 channels (tiny_htc_cfg's width): a crash, or garbage read later.
+    On one thread it runs clean, and keeps oneDNN's f32 accuracy, which the
+    native convolution (oneDNN off) does not: its f32 bias gradients stray
+    by several percent there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @contextlib.contextmanager

@@ -160,12 +160,16 @@ def seg2d_state_dict_from_flax(variables: dict) -> dict:
     MaskRCNN, whose module names mirror the flax tree's: a walk of that
     tree. A Dense becomes a Linear, a Conv a Conv2d, the mask head's
     ConvTranspose ``up`` a flipped ConvTranspose2d, and a BatchNorm's scale
-    and bias join its batch statistics."""
+    and bias join its batch statistics. A module that holds arrays and
+    modules both, as a DeformConv2d holds its ``kernel`` (a Conv2d's
+    weight here) and its ``offset_conv``, gives both."""
     sd = {}
 
     def walk(prefix, params, stats):
-        for name, leaf in params.items():
+        for name, node in params.items():
             key = f"{prefix}{name}"
+            leaf = {k: v for k, v in node.items() if not isinstance(v, dict)}
+            tensors = {}
             if "kernel" in leaf:
                 if np.ndim(leaf["kernel"]) == 2:
                     tensors = _dense_to_linear(leaf)
@@ -175,11 +179,11 @@ def seg2d_state_dict_from_flax(variables: dict) -> dict:
                     tensors = _conv_to_conv2d(leaf)
             elif "scale" in leaf:
                 tensors = _bn_join(leaf, stats[name])
-            else:
-                walk(f"{key}.", leaf, stats.get(name, {}))
-                continue
             for k, v in tensors.items():
                 sd[f"{key}.{k}"] = torch.tensor(np.array(v))
+            children = {k: v for k, v in node.items() if isinstance(v, dict)}
+            if children:
+                walk(f"{key}.", children, stats.get(name, {}))
 
     walk("", variables["params"], variables.get("batch_stats", {}))
     return sd

@@ -41,8 +41,10 @@ from seevcn_torch.models.seg2d import backend as TB
 from seevcn_torch.models.seg2d import maskrcnn as TM
 from seevcn_torch.models.vcn.inference import VCNInference
 from seevcn_torch.see.frame import mask_stage, run_frame
-from seevcn_torch.testing import assert_close, tiny_seg2d_cfg, to_numpy, to_torch
-from seevcn_torch.utils.weights import (seg2d_state_dict_from_flax,
+from seevcn_torch.testing import (assert_close, seeded_seg2d_weights, tiny_seg2d_cfg, to_numpy,
+                                  to_torch)
+from seevcn_torch.utils.weights import (seg2d_flax_from_state_dict,
+                                        seg2d_state_dict_from_flax,
                                         vcn_state_dict_from_flax)
 from test_seg2d import _tiny_cfg
 from test_torch_frame import CAP, IMG, OUT, PROJ, M, _pallas_within_radius, jax_frame
@@ -220,13 +222,14 @@ def test_mask_head(seg):
     """The transposed conv ``up``: flax does not flip its kernel, torch does."""
     cfg, _, variables, _, port = seg
     feats = np.random.RandomState(6).randn(5, 14, 14, cfg.fpn_channels).astype(np.float32)
-    logits, _ = JM.MaskHead(cfg.num_classes, channels=cfg.mask_channels,
-                            n_convs=cfg.mask_convs).apply(_sub(variables, "mask_head"),
-                                                          feats)
+    logits, feat = JM.MaskHead(cfg.num_classes, channels=cfg.mask_channels,
+                               n_convs=cfg.mask_convs).apply(_sub(variables, "mask_head"),
+                                                             feats)
     with torch.no_grad():
-        got = port.mask_head(to_torch(feats))
+        got, got_feat = port.mask_head(to_torch(feats))
     assert got.shape == (5, 28, 28, cfg.num_classes)
     _close_features(got, logits, "mask logits")
+    _close_features(got_feat, feat, "pre-upsample feature")
 
 
 def test_weight_export_keys(seg):
@@ -325,15 +328,32 @@ def test_eval_forward_matches_jax(seg):
 
 @pytest.mark.parametrize("option", ["cascade_stages", "semantic_branch",
                                     "mask_info_flow", "dcn_stages"])
-def test_unported_options_raise(option):
+def test_htc_option_matches_jax(option):
+    """Each HTC option alone on the tiny model, the eval forward against
+    JAX's (tests/test_torch_htc.py's weights: random biases and statistics,
+    offset convs seeded non-zero). ``mask_info_flow`` without a cascade
+    leaves the plain model, as in the reference."""
     kw = {"cascade_stages": {"cascade_stages": 3},
           "semantic_branch": {"semantic_branch": True},
           "mask_info_flow": {"mask_info_flow": True},
           "dcn_stages": {"dcn_stages": (False, True, True, True)}}[option]
     cfg = TM.Seg2DConfig(**{**asdict(tiny_seg2d_cfg()), **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        model = TM.MaskRCNN(cfg)
-        model(torch.zeros((1, 96, 128, 3)), train=True)
+    model, _ = jax_build_seg2d(JM.Seg2DConfig(**asdict(cfg)))
+    sd = seeded_seg2d_weights(cfg, seed=5)
+    img = np.random.RandomState(9).rand(1, 96, 128, 3).astype(np.float32)
+    ref = {k: np.asarray(v) for k, v in jax.jit(lambda v, x: model.apply(
+        v, x, train=False))(seg2d_flax_from_state_dict(sd), img).items()}
+    with torch.no_grad():
+        got = TB.build_seg2d(cfg, sd, device="cpu")(to_torch(img))
+    assert set(got) == set(ref)
+    kept = np.sort(ref["det_scores"][ref["det_scores"] > 0])
+    assert len(kept) > 1 and np.diff(kept).min() > 1e-5
+    assert_close(got["det_cls"], ref["det_cls"], name="det_cls")
+    assert_close(got["det_scores"], ref["det_scores"], atol=1e-5, name="det_scores")
+    assert_close(got["det_boxes"], ref["det_boxes"], atol=BOX_ATOL, name="det_boxes")
+    assert_close(got["det_masks"], ref["det_masks"], atol=1e-5, name="det_masks")
+    plain = set(TM.MaskRCNN(tiny_seg2d_cfg()).state_dict())
+    assert (set(sd) == plain) == (option == "mask_info_flow")
 
 
 # ---------------------------------------------------------------------------

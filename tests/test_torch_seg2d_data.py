@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from seevcn_tpu.cli import train_seg2d as JCLI
 from seevcn_tpu.models.seg2d import coco_eval as JE
 from seevcn_tpu.models.seg2d import synthetic as JS
 from seevcn_tpu.models.seg2d.backend import build_seg2d as jax_build_seg2d
@@ -41,7 +42,7 @@ from seevcn_torch.models.seg2d import coco_eval as TE
 from seevcn_torch.models.seg2d import synthetic as TS
 from seevcn_torch.models.seg2d.backend import (build_seg2d, init_seg2d,
                                                load_seg2d_checkpoint, paste_mask,
-                                               save_seg2d_checkpoint)
+                                               save_seg2d_checkpoint, seg2d_train_forward)
 from seevcn_torch.models.seg2d.maskrcnn import MaskRCNN
 from seevcn_torch.ops.resize import resize_linear
 from seevcn_torch.testing import assert_close, tiny_seg2d_cfg, to_torch
@@ -356,11 +357,30 @@ def test_cli_defaults_are_the_references():
 
 @pytest.mark.parametrize("flags,match", [
     (["--coco_dir", "data/coco"], "ROADMAP queue 1, item 6"),
-    (["--cascade", "3"], "ROADMAP queue 1, item 3"),
-    (["--semantic"], "ROADMAP queue 1, item 3"),
-    (["--mask_info_flow"], "ROADMAP queue 1, item 3"),
 ])
 def test_cli_unported_options_raise(flags, match):
     args = CLI.parse_args(["--device", "cpu", "--size", "tiny", "--steps", "1"] + flags)
     with pytest.raises(NotImplementedError, match=match):
         CLI.train(args, quiet=True)
+
+
+@pytest.mark.parametrize("flags", [["--cascade", "3"], ["--semantic"], ["--mask_info_flow"]],
+                         ids=["cascade", "semantic", "mask_info_flow"])
+def test_cli_htc_flag_trains(flags):
+    """Each HTC flag: the config equals JAX's ``build_cfg`` of the same
+    flags, and the recipe trains one tiny step on the CPU, whose training
+    forward then gives the flag's loss terms, finite."""
+    common = ["--size", "tiny", "--image_size", "96", "128", "--steps", "1",
+              "--batch_size", "2", "--eval_every", "0", "--out", ""]
+    args = CLI.parse_args(["--device", "cpu"] + common + flags)
+    assert asdict(CLI.build_cfg(args)) == asdict(JCLI.build_cfg(JCLI.parse_args(common + flags)))
+    state, model, cfg = CLI.train(args, quiet=True)
+    assert state.step == 1
+    batch = [to_torch(x) for x in TS.synth_batch(np.random.RandomState(1), (96, 128), 2,
+                                                 max_gt=cfg.max_gt)]
+    loss, tb, _ = seg2d_train_forward(state, *batch, torch.Generator().manual_seed(0))
+    extra = {"--cascade": {f"box_{k}_s{s}" for k in ("cls", "reg") for s in (1, 2)},
+             "--semantic": {"semantic"},
+             "--mask_info_flow": set()}[flags[0]]
+    assert set(tb) == {"rpn_cls", "rpn_reg", "box_cls", "box_reg", "mask"} | extra
+    assert torch.isfinite(loss) and all(torch.isfinite(v) for v in tb.values())
