@@ -36,6 +36,10 @@ HTC against the CPU, full HTC at bench.py's config through ``mask_stage``,
 each deformable conv timed beside its bound) and training (phase 13: the
 tiny full-HTC step against the CPU, the seg2d CLI's HTC flags at the base
 config, the CLI's ``main`` with them, one HTC + DCN step through the API).
+Then PV-RCNN (phase 14): the tiny model's eval and train step against the
+CPU, PV-RCNN at OpenPCDet's pv_rcnn.yaml widths on the SEE frame's
+completed cloud (``see_and_detect``, K1 counted) and through ``run_frame``,
+its stages timed, and 1 + 10 train steps at batch 2.
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -60,7 +64,9 @@ import numpy as np
 import torch
 
 from seevcn_torch.models.detectors import configs as DC
-from seevcn_torch.models.detectors.second import build_detector
+from seevcn_torch.models.detectors import pvrcnn as PV
+from seevcn_torch.models.detectors.second import build_detector, post_processing
+from seevcn_torch.models.modules import pvrcnn_head as PVH
 from seevcn_torch.models.modules import roi_heads as RH
 from seevcn_torch.cli import train_seg2d as SEG_CLI
 from seevcn_torch.models.seg2d import maskrcnn as SM
@@ -80,12 +86,14 @@ from seevcn_torch.models.vcn.nets import build_vcn
 from seevcn_torch.models.vcn.runner import VCNTrainer
 from seevcn_torch.ops import cuda as K
 from seevcn_torch.ops import nms as NMS
+from seevcn_torch.ops import pointnet2 as PN2
 from seevcn_torch.ops import sparse as SP
 from seevcn_torch.ops.clustering import largest_cluster_batch
 from seevcn_torch.ops.cuda import min_dist as MD
 from seevcn_torch.ops.iou3d import boxes_iou_bev
 from seevcn_torch.ops.nms import nms_bev
-from seevcn_torch.ops.sampling import farthest_point_sample, fps, partial_mesh_batch
+from seevcn_torch.ops.sampling import (cell_hash, farthest_point_sample, fps,
+                                      grid_subsample, partial_mesh_batch)
 from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
@@ -2241,6 +2249,437 @@ def train_dcn_step(dev, card) -> dict:
             "last_terms": values[-1], "no_gradient_after_step_1": idle}
 
 
+# --------------------------------------------------------------------------
+# PV-RCNN: serving and training (phase 14)
+
+def pvrcnn_train_inputs(cfg, sd):
+    """tiny_train_inputs' two blob frames and ground truth, plus in each
+    frame a car near two of the training proposals of the PV-RCNN at
+    ``cfg`` with state dict ``sd`` (shifted 0.25 m and 0.15 m, turned 0.08
+    rad: an IoU well above REG_FG_THRESH, clear of the rotated IoU's
+    degenerate case of coincident edges), so that its RoI sample has
+    foreground. -> numpy (points, valid, gt_boxes)."""
+    pts, valid, gt, _ = (t.numpy() for t in tiny_train_inputs("cpu"))
+    model, _ = build_detector(cfg, sd, device="cpu")
+    model.train()
+    with torch.no_grad():
+        rois = model.rpn(torch.from_numpy(pts), torch.from_numpy(valid))["props"]["rois"]
+    gt[:, 2:4, :7] = rois[:, :2, :7].numpy() + np.float32([0.25, 0.15, 0, 0, 0, 0, 0.08])
+    gt[:, 2:4, 7] = 1.0
+    return pts, valid, gt
+
+
+def _worst(got: dict, ref: dict, scale) -> tuple:
+    """(max over tensors of |got - ref| / scale(ref), its name)."""
+    return max(((got[k].double() - ref[k].double()).abs().max().item()
+                / scale(ref[k].double()), k) for k in ref)
+
+
+@torch.no_grad()
+def check_tiny_pvrcnn_against_cpu(dev) -> dict:
+    """tiny_pvrcnn_cfg (DP_RATIO 0) with TF32 off, weights from seed 7 with
+    random statistics: the eval forward on the card against the port's CPU
+    path (which the tests hold against JAX): keypoints bit for bit, logits,
+    heads and boxes within atol 1e-4, rtol 1e-4 (f32 sums in another order),
+    proposals and kept boxes equal. Returns the worst differences."""
+    cfg = DC.tiny_pvrcnn_cfg()
+    cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    cpu = torch.device("cpu")
+    sd = seeded_state_dict(7, build_detector(cfg, device=cpu)[0], random_stats=True)
+    pts, valid = blob_points(4)
+    res = {}
+    for w in (dev, cpu):
+        m, _ = build_detector(cfg, sd, device=w)
+        res[w] = F.detect_stage(m, cfg, torch.from_numpy(pts), torch.from_numpy(valid),
+                                device=w)
+    (pp_d, out_d), (pp_c, out_c) = res[dev], res[cpu]
+    if not torch.equal(out_d["keypoints"].cpu(), out_c["keypoints"]):
+        raise AssertionError("tiny PV-RCNN: keypoints differ from the CPU's")
+    worst = {}
+    for k in ("batch_cls_preds", "point_logits", "rcnn_cls", "rcnn_reg", "rois"):
+        got, ref = out_d[k].cpu(), out_c[k]
+        worst[k] = (got - ref).abs().max().item()
+        if not ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all():
+            raise AssertionError(f"tiny PV-RCNN: {k} off the CPU by {worst[k]}")
+    for k in ("roi_mask", "roi_labels"):
+        if not torch.equal(out_d[k].cpu(), out_c[k]):
+            raise AssertionError(f"tiny PV-RCNN: proposal NMS differs ({k})")
+    if not torch.equal(pp_d["pred_mask"].cpu().sum(-1), pp_c["pred_mask"].sum(-1)):
+        raise AssertionError("tiny PV-RCNN: final NMS differs")
+    kept = int(pp_c["pred_mask"].sum())
+    print("tiny PV-RCNN eval, card vs CPU (TF32 off): keypoints bit-equal; max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; proposals {int(out_c['roi_mask'].sum())} and kept boxes {kept} equal")
+    if kept < 1:
+        raise AssertionError("tiny PV-RCNN kept no box")
+    return worst
+
+
+def tiny_pvrcnn_step(cfg, sd, inputs, device, dtype, pinned=None):
+    """One train step of the tiny PV-RCNN on ``device`` in ``dtype`` with
+    fixed RoI priorities, its ReLUs' signs recorded or, given ``pinned``,
+    taken from another run (relu_signs): -> (loss terms, gradients, updated
+    parameters, running statistics, the ReLUs' signs), f64 on the CPU."""
+    model, _ = build_detector(cfg, sd, device=device)
+    model.to(dtype)
+    state = create_train_state(model, cfg.OPTIMIZATION, 100)
+    pts, valid, gt, u = (torch.from_numpy(np.asarray(a)).to(device) for a in inputs)
+    cast = lambda t: t.to(dtype)              # noqa: E731
+    with torch.enable_grad(), relu_signs(model, pinned) as signs:
+        loss, tb, _ = train_forward(state, cast(pts), valid, cast(gt), roi_u=cast(u))
+        apply_gradients(state, loss)
+    grab = lambda d: {k: v.detach().double().cpu() for k, v in d}   # noqa: E731
+    return (grab([("loss", loss), *tb.items()]),
+            grab((n, p.grad) for n, p in model.named_parameters()),
+            grab(model.named_parameters()),
+            grab((n, b) for n, b in model.named_buffers()
+                 if not n.endswith("num_batches_tracked")), signs)
+
+
+def check_tiny_pvrcnn_step_against_cpu(dev) -> dict:
+    """One train step of tiny_pvrcnn_cfg (DP_RATIO 0, fixed RoI priorities,
+    TF32 off) on the card in f32 against the CPU's step in f64, with the
+    ReLUs' signs pinned to the CPU's (a sign tie moves a gradient): loss
+    terms within 5e-5 (relative) and gradients within 1e-3 of their
+    tensor's largest, the f32 error of this model's training forward
+    (tests/test_torch_pvrcnn_train.py); updated parameters within 1e-5
+    where the gradient is sure (5% of its tensor's largest and 1e-6), 2 lr
+    elsewhere; running statistics 1e-5. The unpinned card step and the
+    CPU's own f32 step are printed beside."""
+    cfg = DC.tiny_pvrcnn_cfg()
+    cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    cpu = torch.device("cpu")
+    sd = seeded_state_dict(8, build_detector(cfg, device=cpu)[0], random_stats=True)
+    pts, valid, gt = pvrcnn_train_inputs(cfg, sd)
+    u = np.random.RandomState(9).rand(2, int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN
+                                             .NMS_POST_MAXSIZE)).astype(np.float32)
+    inputs = (pts, valid, gt, u)
+    ref = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float64)
+    card = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32, pinned=ref[4])
+    free = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32)
+    cpu32 = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float32)
+    lr = build_lr_schedule(cfg.OPTIMIZATION, 100)(0)
+    rel = lambda r: r.abs().max().item() + 1e-30          # noqa: E731
+    worst = {"loss_terms": _worst(card[0], ref[0], lambda r: abs(r.item()) + 1e-30),
+             "gradients": _worst(card[1], ref[1], rel),
+             "gradients_unpinned": _worst(free[1], ref[1], rel),
+             "gradients_cpu_f32": _worst(cpu32[1], ref[1], rel),
+             "running_stats": _worst(card[3], ref[3], lambda r: 1.0 + r.abs().max().item())}
+    for n, p in card[2].items():
+        g = ref[1][n].abs()
+        sure = (g >= 0.05 * g.max()) & (g >= 1e-6)
+        err = (p - ref[2][n]).abs()
+        if not (err <= torch.where(sure, 1e-5, 2 * lr)).all():
+            raise AssertionError(f"tiny PV-RCNN step: updated {n} off the CPU by "
+                                 f"{err.max().item()}")
+    print("tiny PV-RCNN train step, card f32 vs CPU f64 (ReLU signs pinned, TF32 "
+          "off, DP_RATIO 0, fixed RoI priorities): worst "
+          + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
+          + f"; loss {ref[0]['loss'].item():.5f}; {sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))} "
+          f"ReLU inputs of the unpinned card step on the other side of 0")
+    if worst["loss_terms"][0] > 5e-5 or worst["gradients"][0] > 1e-3 \
+            or worst["running_stats"][0] > 1e-5:
+        raise AssertionError("tiny PV-RCNN step on the card off the CPU's f64 step")
+    if ref[0]["rcnn_loss_reg"].item() <= 0 or ref[0]["point_loss_cls"].item() <= 0:
+        raise AssertionError("tiny PV-RCNN step: no foreground RoI or keypoint")
+    return {k: v[0] for k, v in worst.items()}
+
+
+def jax_grid_buckets(sup, cell: float, n_rows: int, cap: int) -> tuple:
+    """The largest bucket of the hash-grid table that JAX's SALayer would
+    build over ``sup`` (one frame's valid supports, cell the layer's largest
+    radius, ``n_rows`` its support rows) and the buckets above ``cap``, JAX's
+    capacity; (0, 0) where JAX would run its dense query (fewer than
+    GRID_BQ_MIN_SUPPORT rows)."""
+    if n_rows < PN2.GRID_BQ_MIN_SUPPORT:
+        return 0, 0
+    c = torch.floor((sup - sup.amin(0)) / sup.new_tensor(max(cell, 1e-3)))
+    t = PN2.table_size_for(n_rows, cap)
+    counts = torch.bincount(cell_hash(c.to(torch.int32), t).long(), minlength=t)
+    return int(counts.max()), int((counts > cap).sum())
+
+
+def pvrcnn_stages(model, cfg, points, valid) -> dict:
+    """PVRCNN.forward's stages in eval, one after another, each between
+    synchronizes: {stage: (CUDA-event ms, host ms)}, and the output's parts
+    the callers read."""
+    rcfg = cfg.MODEL.ROI_HEAD
+    times, state = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times[name] = (ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3)
+        return out
+
+    pfe = model.pfe
+    with torch.no_grad():
+        st, bb = stage("voxelize_backbone", lambda: model.voxel_backbone(points, valid))
+        bev2d, _, cls_p, box_p = stage(
+            "bev_rpn", lambda: model.bev_rpn(bb["encoded_spconv_tensor"]))
+        props = stage("proposals", lambda: RH.proposal_layer(cls_p, box_p,
+                                                             rcfg.NMS_CONFIG.TEST))
+        kp = stage("keypoints", lambda: pfe.sample_keypoints(points, valid))
+        feats = [stage("vsa_bev", lambda: pfe.bev_features(kp, bev2d, PV.BEV_STRIDE)),
+                 stage("vsa_raw_points", lambda: pfe.raw_point_features(kp, points, valid))]
+        ms3d = bb["multi_scale_3d_features"]
+        for name in pfe.layer_names:
+            feats.append(stage(f"vsa_{name}", lambda n=name: pfe.stage_features(
+                n, kp, ms3d[n])))
+        before = torch.cat(feats, -1)
+        b, k, c = before.shape
+        fused = stage("vsa_fusion", lambda: pfe.vsa_point_feature_fusion(
+            before.reshape(b * k, c)).reshape(b, k, -1))
+        logits = stage("point_head", lambda: model.point_head(before))
+        rois = props["rois"][..., :7]
+        pooled = stage("roi_grid_pool", lambda: model.roi_head.pool(
+            rois, kp, fused, torch.sigmoid(logits)))
+        rcnn_cls, rcnn_reg = stage("rcnn_head", lambda: model.roi_head.head(pooled))
+
+        def post():
+            out = {**props, "rois": PVH.decode_rcnn_boxes(rois, rcnn_reg),
+                   "rcnn_iou": rcnn_cls}
+            return post_processing(out, cfg.MODEL.POST_PROCESSING, 1, True)
+
+        stage("post_processing", post)
+    state.update(ms3d=ms3d, kp=kp)
+    return times, state
+
+
+def time_pvrcnn_stages(model, cfg, points, valid, reps: int = 3) -> tuple:
+    """Median over ``reps`` runs (after one warm-up) of each stage's
+    (CUDA-event ms, host ms), and the last run's state."""
+    pvrcnn_stages(model, cfg, points, valid)
+    runs = [pvrcnn_stages(model, cfg, points, valid) for _ in range(reps)]
+    med = {k: (statistics.median(r[0][k][0] for r in runs),
+               statistics.median(r[0][k][1] for r in runs)) for k in runs[0][0]}
+    return med, runs[-1][1]
+
+
+def ball_query_call(model, cfg, state, points, valid) -> dict:
+    """The largest ball-query call of the frame (the raw-point SA: 2,048
+    keypoints against the frame's valid points, both radii over one
+    distance pass), timed alone (CUDA events, median of 5), beside its bound:
+    the (queries x supports) f32 distance pass written once at 3.35 TB/s;
+    and the keypoint FPS alone (2,048 steps over the grid dedupe's <= 32,768
+    representatives) beside its bound, the 9 operations a point a step at
+    67 TFLOP/s."""
+    sa = cfg.MODEL.PFE.SA_LAYER.raw_points
+    kp = state["kp"][0]
+    sup = points[0][valid[0], :3].contiguous()
+    q, n = kp.shape[0], sup.shape[0]
+    bq_ms = time_cuda(lambda: PN2.ball_query_multi(kp, sup, sa.POOL_RADIUS, sa.NSAMPLE),
+                      reps=5, warmup=1)
+    bq_bound = q * n * 4 / HBM_BYTES_PER_S * 1e3
+    idx, ok = grid_subsample(points[0], valid[0], 0.35, 1 << 15)
+    sub = points[0][idx, :3].contiguous()
+    k = model.pfe.num_keypoints
+    fps_ms = time_cuda(lambda: farthest_point_sample(sub, k, ok), reps=3, warmup=1)
+    m = int(ok.sum())
+    fps_bound = 9 * k * m / FP32_FLOPS * 1e3
+    return {"ball_query_ms": bq_ms, "ball_query_bound_ms": bq_bound,
+            "ball_query_shape": [q, n], "fps_ms": fps_ms, "fps_bound_ms": fps_bound,
+            "fps_points": m, "fps_steps": k}
+
+
+def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
+    """Phase 14 serving: the tiny PV-RCNN's eval on the card against the
+    CPU; PV-RCNN at pvrcnn_detector_cfg (weights from seed 0) on the SEE
+    frame's completed cloud through ``see_and_detect`` (K1 counted in its
+    replace stage) and through ``run_frame`` with the Mask R-CNN masks (K1
+    counted again); its stages timed, profiled, the active voxels, the
+    largest hash bucket JAX's grid ball query would build, and the largest
+    ball query and the keypoint FPS alone beside their bounds."""
+    tiny = check_tiny_pvrcnn_against_cpu(dev)
+    cfg = DC.pvrcnn_detector_cfg()
+    det, dcfg = build_detector(cfg, device="cpu")
+    det, _ = build_detector(cfg, seeded_state_dict(0, det), device=dev)
+    args = (s["points"], s["valid"], s["det_boxes"], s["det_masks"], s["det_scores"],
+            vcn, proj, l2c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    pp, stats, new_pts, new_valid = F.see_and_detect(*args, det, cfg, IMAGE_SIZE)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches["min_sqdist_pruned"] < 1:
+        raise AssertionError("K1 was not launched in the SEE frame before PV-RCNN")
+    _, out = F.detect_stage(det, cfg, new_pts, new_valid)
+    for k in ("batch_cls_preds", "point_logits", "rcnn_cls", "rcnn_reg", "rois"):
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"PV-RCNN output {k} is not finite")
+    n_props, n_kept = int(out["roi_mask"].sum()), int(pp["pred_mask"].sum())
+    active = [int(v) for v in out["active_voxels"]]
+    kp = out["keypoints"][0]
+    distinct = int(torch.unique(kp, dim=0).shape[0])
+    if out["keypoints"].shape != (1, 2048, 3) or out["rcnn_reg"].shape != (1, 100, 7) \
+            or n_props < 1 or n_kept < 1 or active[0] < 1000 or distinct != 2048:
+        raise AssertionError(f"PV-RCNN did no real work: {distinct} distinct keypoints, "
+                             f"{n_props} proposals, {n_kept} kept, active {active}")
+    print(f"PV-RCNN at pv_rcnn.yaml's widths on the SEE frame's {int(new_valid.sum())} "
+          f"valid points (see_and_detect): kernel launches {launches}; active voxels "
+          f"input / conv1 / conv2 / conv3 / conv4 / conv_out {active} (cap "
+          f"{dcfg.max_voxels}); {n_props} proposals, {n_kept} boxes kept; peak device "
+          f"memory {peak:.2f} GiB")
+    K.reset_launches()
+    pp_f, st_f, _, _ = F.run_frame(image, s["points"], s["valid"], seg, vcn, det, cfg,
+                                   proj, l2c)
+    torch.cuda.synchronize()
+    fused_launches = dict(K.LAUNCHES)
+    if fused_launches["min_sqdist_pruned"] < 1:
+        raise AssertionError("K1 was not launched inside run_frame with PV-RCNN")
+    kept_f = int(pp_f["pred_mask"].sum())
+    if kept_f < 1 or not torch.isfinite(pp_f["pred_boxes"]).all():
+        raise AssertionError("run_frame with PV-RCNN returned no finite box")
+    print(f"fused frame with PV-RCNN (run_frame): kernel launches {fused_launches}; "
+          f"{int(st_f['inst_valid'].sum())} completions spliced, {kept_f} boxes kept")
+
+    stages, state = time_pvrcnn_stages(det, cfg, new_pts[None], new_valid[None])
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
+    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
+    fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE))
+    ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
+                                        cfg, proj, l2c))
+    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    print("PV-RCNN stages, CUDA-event / host ms (median of 3, each between "
+          "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
+                                        in stages.items()))
+    print(f"PV-RCNN detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
+          f"{det_host:.2f} ms host; SEE + PV-RCNN frame {fd_ms:.2f} ms, fused frame "
+          f"with PV-RCNN {ff_ms:.2f} ms (host clock, median of 5) on {card}; profiled "
+          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+    buckets = {}
+    pfe_cfg = cfg.MODEL.PFE
+    p_rows = new_pts.shape[0]
+    sources = [("raw_points", new_pts[new_valid], p_rows)]
+    vox_rows = int(round(dcfg.max_voxels * 1.5))
+    for name in det.pfe.layer_names:
+        st = state["ms3d"][name]
+        sources.append((name, det.pfe.stage_centres(name, st)[st.mask], vox_rows))
+    for name, sup, rows in sources:
+        sa = pfe_cfg.SA_LAYER[name]
+        cap = PN2.shared_table_capacity(sa.POOL_RADIUS, sa.NSAMPLE)
+        big, over = jax_grid_buckets(sup, float(max(sa.POOL_RADIUS)), rows, cap)
+        buckets[name] = {"largest": big, "capacity": cap, "over": over,
+                         "supports": int(sup.shape[0])}
+    print("largest bucket of JAX's grid ball query table (cell = the largest radius) "
+          "beside its capacity, by source: " + ", ".join(
+              f"{k} {v['largest']} / {v['capacity']} ({v['over']} buckets over, "
+              f"{v['supports']} supports)" for k, v in buckets.items()))
+    alone = ball_query_call(det, cfg, state, new_pts[None], new_valid[None])
+    print(f"largest ball query alone ({alone['ball_query_shape'][0]} keypoints x "
+          f"{alone['ball_query_shape'][1]} raw points, radii 0.4 and 0.8): "
+          f"{alone['ball_query_ms']:.3f} ms (CUDA events, median of 5), bound "
+          f"{alone['ball_query_bound_ms']:.4f} ms (the f32 distance pass at 3.35 TB/s); "
+          f"keypoint FPS alone ({alone['fps_steps']} steps over {alone['fps_points']} "
+          f"points): {alone['fps_ms']:.2f} ms, bound {alone['fps_bound_ms']:.4f} ms "
+          f"(9 operations a point a step at 67 TFLOP/s) on {card}")
+    return {"tiny_vs_cpu": tiny, "launches": launches, "fused_launches": fused_launches,
+            "active_voxels": active, "proposals": n_props, "kept": n_kept,
+            "peak_gib": peak, "stage_ms": stages, "detect_ms": det_ms,
+            "detect_host_ms": det_host, "see_detect_frame_ms": fd_ms,
+            "fused_frame_ms": ff_ms, "device_busy_ms": busy, "top_ops": top,
+            "buckets": buckets, **alone}
+
+
+def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 10) -> dict:
+    """Phase 14 training: the tiny step card vs the CPU's f64 step, then 1 +
+    ``steps`` PV-RCNN train steps at pvrcnn_detector_cfg (f32, batch 2 as
+    pv_rcnn.yaml, MAX_NUMBER_OF_VOXELS' train cap, weights from seed 0) on
+    two GT-completed frames; one split by CUDA events, one profiled; the
+    train proposal NMS (9,000 -> 512) timed alone. Raises unless every loss
+    is finite and every parameter moved after step 1, but the box branch's
+    where step 1 sampled no foreground RoI (its regression loss reads 0)
+    and its gradient is all zero."""
+    tiny = check_tiny_pvrcnn_step_against_cpu(dev)
+    cfg = DC.pvrcnn_detector_cfg()
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    pts, valid, gt = pts[:batch], valid[:batch], gt[:batch]
+    cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    cpu_model, _ = build_detector(cfg, max_voxels=cap, device="cpu")
+    model, _ = build_detector(cfg, seeded_state_dict(0, cpu_model), max_voxels=cap,
+                              device=dev)
+    state = create_train_state(model, cfg.OPTIMIZATION, total_steps=1000)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, tb, out = train_forward(state, pts, valid, gt, gen)
+    apply_gradients(state, loss)
+    losses = [{"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}]
+    for n, p in model.named_parameters():
+        if not torch.isfinite(p.grad).all():
+            raise AssertionError(f"gradient of {n} is not finite")
+    no_grad = [n for n, p in model.named_parameters() if not p.grad.any()]
+    # without a foreground RoI (random weights) the box branch has no
+    # gradient, and its zero biases no decay: only they may stay
+    excused = ("roi_head.reg_layers.",) if tb["rcnn_loss_reg"].item() == 0 else ()
+    idle = check_moved(model, start, excused, "PV-RCNN train step 1")
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(state, pts, valid, gt, gen))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fwd = model(pts, valid, gt_boxes=gt, generator=gen)
+    ev[1].record()
+    loss, _ = model.loss(fwd, gt)
+    ev[2].record()
+    apply_gradients(state, loss)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1])
+             for i, k in enumerate(("forward", "loss", "backward_update"))}
+    busy, top = profile_frame((state, pts, valid, gt, gen), train_step)
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError("a PV-RCNN training loss is not finite")
+    tg = out["rcnn_targets"]
+    fg = (tg["roi_sample_mask"] & tg["reg_valid_mask"]).sum(1).tolist()
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN
+    with torch.no_grad():
+        cls_p, box_p = fwd["batch_cls_preds"].detach(), fwd["batch_box_preds"].detach()
+        nms_ms = time_cuda(lambda: RH.proposal_layer(cls_p, box_p, nms_cfg), reps=3,
+                           warmup=1)
+        nms_host = host_ms(lambda: RH.proposal_layer(cls_p, box_p, nms_cfg), reps=3)
+    step_ms = statistics.median(times)
+    summary = {"tiny_vs_cpu": tiny, "step_ms": step_ms,
+               "frames_per_s": batch * 1e3 / step_ms, "step_ms_all": times,
+               "split_ms": split, "peak_gib": peak, "device_busy_ms": busy,
+               "top_ops": top, "losses": [m["loss"] for m in values],
+               "last_terms": values[-1], "no_gradient": no_grad, "idle": idle,
+               "proposals": out["roi_mask"].sum(1).tolist(), "sampled_fg": fg,
+               "train_nms_ms": nms_ms, "train_nms_host_ms": nms_host, "voxel_cap": cap}
+    print(f"PV-RCNN train steps at batch {batch} (pv_rcnn.yaml's widths, f32, train cap "
+          f"{cap} voxels) on GT-completed frames: losses "
+          + ", ".join(f"{v:.4f}" for v in summary["losses"])
+          + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items())
+          + f"; proposals {summary['proposals']}, sampled fg {fg}; parameters with an "
+          f"all-zero gradient in step 1: {no_grad}; of them still after it: {idle}")
+    print(f"PV-RCNN train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+          f"{steps}) = {summary['frames_per_s']:.2f} frames/s; CUDA events: forward "
+          f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
+          f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; "
+          f"profiled step: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    print(f"PV-RCNN train proposal NMS ({int(nms_cfg.NMS_PRE_MAXSIZE)} -> "
+          f"{int(nms_cfg.NMS_POST_MAXSIZE)}, a {int(nms_cfg.NMS_PRE_MAXSIZE)}-step greedy "
+          f"scan a frame, {batch} frames): {nms_ms:.2f} ms (CUDA events, median of 3), "
+          f"{nms_host:.2f} ms host")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2588,9 +3027,13 @@ def main() -> int:
                             tiny_cfg=tiny_htc_cfg(dcn=True), cli_steps=2,
                             roi_px=HTC_ROI_PX, eval_scenes=2)
     htc_train["dcn_step"] = train_dcn_step(dev, card)
+
+    # --- 14. PV-RCNN: on the completed frame, then training ------------------
+    pvrcnn = serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image)
+    pvrcnn["train"] = train_pvrcnn(dev, card, g_pts, g_valid, g_gt)
     print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 14. summary lines ---------------------------------------------------
+    # --- 15. summary lines ---------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
         "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
@@ -2603,7 +3046,8 @@ def main() -> int:
                      "kept": n_kept, "nms_ms": nms_ms,
                      "peak_gib": det_peak},
         "see_frame_peak_gib": see_peak, "train": train, "vcn_train": vcn_train,
-        "seg2d_train": seg2d_train, "htc": htc, "htc_train": htc_train, "card": smi}))
+        "seg2d_train": seg2d_train, "htc": htc, "htc_train": htc_train,
+        "pvrcnn": pvrcnn, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,8 @@
-"""SECOND-IoU detector configurations (copies of the ones in
+"""Detector configurations: SECOND-IoU's (copies of the ones in
 __graft_entry__.py, which the port does not import: ``_mini_detector_cfg``,
-``_flagship_detector_cfg`` and ``_tiny_detector_cfg``)."""
+``_flagship_detector_cfg`` and ``_tiny_detector_cfg``) and PV-RCNN's
+(``pvrcnn_detector_cfg`` at OpenPCDet's pv_rcnn.yaml widths on the
+flagship's grid, ``tiny_pvrcnn_cfg`` for small runs and the tests)."""
 from __future__ import annotations
 
 from ...utils.config import Cfg
@@ -116,4 +118,129 @@ def tiny_detector_cfg():
     cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = 128
     cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 32
     cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    return cfg
+
+
+def _pvrcnn_heads(sa_layers: dict, sources, num_keypoints: int, num_features: int,
+                  point_fc, roi: dict):
+    """PV-RCNN's PFE, POINT_HEAD and ROI_HEAD blocks, with pv_rcnn.yaml's
+    fixed settings; ``roi`` holds the widths and sizes that vary."""
+    pfe = Cfg({"NAME": "VoxelSetAbstraction", "POINT_SOURCE": "raw_points",
+               "NUM_KEYPOINTS": num_keypoints, "NUM_OUTPUT_FEATURES": num_features,
+               "SAMPLE_METHOD": "FPS", "FEATURES_SOURCE": list(sources),
+               "SA_LAYER": sa_layers})
+    point_head = Cfg({
+        "NAME": "PointHeadSimple", "CLS_FC": list(point_fc), "CLASS_AGNOSTIC": True,
+        "USE_POINT_FEATURES_BEFORE_FUSION": True,
+        "TARGET_CONFIG": {"GT_EXTRA_WIDTH": [0.2, 0.2, 0.2]},
+        "LOSS_CONFIG": {"LOSS_REG": "smooth-l1",
+                        "LOSS_WEIGHTS": {"point_cls_weight": 1.0}}})
+    nms = {"NMS_TYPE": "nms_gpu", "MULTI_CLASSES_NMS": False}
+    roi_head = Cfg({
+        "NAME": "PVRCNNHead", "CLASS_AGNOSTIC": True,
+        "SHARED_FC": list(roi["fc"]), "CLS_FC": list(roi["fc"]),
+        "REG_FC": list(roi["fc"]),
+        "DP_RATIO": 0.3,
+        "NMS_CONFIG": {"TRAIN": {**nms, **roi["nms_train"]},
+                       "TEST": {**nms, **roi["nms_test"]}},
+        "ROI_GRID_POOL": {**roi["grid_pool"], "POOL_METHOD": "max_pool"},
+        "TARGET_CONFIG": {"BOX_CODER": "ResidualCoder",
+                          "ROI_PER_IMAGE": roi["per_image"], "FG_RATIO": 0.5,
+                          "SAMPLE_ROI_BY_EACH_CLASS": True,
+                          "CLS_SCORE_TYPE": "roi_iou", "CLS_FG_THRESH": 0.75,
+                          "CLS_BG_THRESH": 0.25, "CLS_BG_THRESH_LO": 0.1,
+                          "HARD_BG_RATIO": 0.8, "REG_FG_THRESH": 0.55},
+        "LOSS_CONFIG": {"CLS_LOSS": "BinaryCrossEntropy", "REG_LOSS": "smooth-l1",
+                        "CORNER_LOSS_REGULARIZATION": True,
+                        "LOSS_WEIGHTS": {"rcnn_cls_weight": 1.0,
+                                         "rcnn_reg_weight": 1.0,
+                                         "rcnn_corner_weight": 1.0,
+                                         "code_weights": [1.0] * 7}}})
+    return pfe, point_head, roi_head
+
+
+def _nms(pre: int, post: int, thresh: float) -> dict:
+    return {"NMS_PRE_MAXSIZE": pre, "NMS_POST_MAXSIZE": post, "NMS_THRESH": thresh}
+
+
+def pvrcnn_detector_cfg():
+    """PV-RCNN at the widths of OpenPCDet's tools/cfgs/kitti_models/
+    pv_rcnn.yaml (PFE, POINT_HEAD, ROI_HEAD, POST_PROCESSING, batch 2) on
+    the flagship's CLASS_NAMES, DATA_CONFIG (voxel [0.1, 0.1, 0.15], 90,000
+    test and 80,000 train voxels), VFE, MAP_TO_BEV, BACKBONE_2D and Car
+    DENSE_HEAD, with its OPTIMIZATION (adam_onecycle). The 3D backbone runs
+    in f32 (pv_rcnn.yaml sets no dtype). The fused BEV is 512 channels, so
+    the keypoint features concatenate 512 + 32 + 32 + 64 + 128 + 128 = 896
+    channels before the fusion layer."""
+    cfg = flagship_detector_cfg()
+    m = cfg.MODEL
+    m.NAME = "PVRCNN"
+    m.BACKBONE_3D = Cfg({"NAME": "VoxelBackBone8x"})
+
+    def sa(ds, width, radii, nsample):
+        out = {"MLPS": [[width, width], [width, width]], "POOL_RADIUS": radii,
+               "NSAMPLE": nsample}
+        return out if ds is None else {"DOWNSAMPLE_FACTOR": ds, **out}
+
+    m.PFE, m.POINT_HEAD, m.ROI_HEAD = _pvrcnn_heads(
+        {"raw_points": sa(None, 16, [0.4, 0.8], [16, 16]),
+         "x_conv1": sa(1, 16, [0.4, 0.8], [16, 16]),
+         "x_conv2": sa(2, 32, [0.8, 1.2], [16, 32]),
+         "x_conv3": sa(4, 64, [1.2, 2.4], [16, 32]),
+         "x_conv4": sa(8, 64, [2.4, 4.8], [16, 32])},
+        ["bev", "x_conv1", "x_conv2", "x_conv3", "x_conv4", "raw_points"],
+        2048, 128, [256, 256],
+        {"fc": [256, 256], "nms_train": _nms(9000, 512, 0.8),
+         "nms_test": _nms(1024, 100, 0.7), "per_image": 128,
+         "grid_pool": {"GRID_SIZE": 6, "MLPS": [[64, 64], [64, 64]],
+                       "POOL_RADIUS": [0.8, 1.6], "NSAMPLE": [16, 16]}})
+    post = m.POST_PROCESSING
+    post.SCORE_THRESH = 0.1
+    post.NMS_CONFIG.NMS_THRESH = 0.1
+    post.NMS_CONFIG.NMS_PRE_MAXSIZE = 4096
+    post.NMS_CONFIG.NMS_POST_MAXSIZE = 500
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 2
+    return cfg
+
+
+def _graft_tiny_pvrcnn_cfg():
+    """A copy of __graft_entry__._tiny_pvrcnn_cfg: the tiny grid with
+    single-radius SA layers over bev, x_conv4 and the raw points."""
+    cfg = tiny_detector_cfg()
+    cfg.MODEL.NAME = "PVRCNN"
+    cfg.MODEL.PFE, cfg.MODEL.POINT_HEAD, cfg.MODEL.ROI_HEAD = _pvrcnn_heads(
+        {"raw_points": {"MLPS": [[8, 8]], "POOL_RADIUS": [0.8], "NSAMPLE": [8]},
+         "x_conv4": {"DOWNSAMPLE_FACTOR": 8, "MLPS": [[8, 8]],
+                     "POOL_RADIUS": [4.8], "NSAMPLE": [8]}},
+        ["bev", "x_conv4", "raw_points"], 64, 16, [16],
+        {"fc": [16], "nms_train": _nms(64, 8, 0.8), "nms_test": _nms(64, 8, 0.85),
+         "per_image": 8,
+         "grid_pool": {"GRID_SIZE": 3, "MLPS": [[8, 8]], "POOL_RADIUS": [1.6],
+                       "NSAMPLE": [8]}})
+    return cfg
+
+
+def tiny_pvrcnn_cfg():
+    """``_graft_tiny_pvrcnn_cfg`` with what the parity tests need from the
+    JAX package's tests/test_pvrcnn.py:_pvrcnn_cfg: two radii in every SA
+    layer and in the RoI-grid pool (the shared distance pass, two nsample
+    values), two layers in every MLP and FC stack (the dropout slot), and
+    every source of the full config, x_conv1-x_conv4 included."""
+    cfg = _graft_tiny_pvrcnn_cfg()
+    pfe, roi = cfg.MODEL.PFE, cfg.MODEL.ROI_HEAD
+    pfe.FEATURES_SOURCE = ["bev", "x_conv1", "x_conv2", "x_conv3", "x_conv4",
+                           "raw_points"]
+    radii = {"raw_points": [0.4, 0.8], "x_conv1": [0.4, 0.8], "x_conv2": [0.8, 1.2],
+             "x_conv3": [1.2, 2.4], "x_conv4": [2.4, 4.8]}
+    for name, r in radii.items():
+        width = 16 if name in ("x_conv3", "x_conv4") else 8
+        pfe.SA_LAYER[name] = Cfg({"MLPS": [[width, width], [width, width]],
+                                  "POOL_RADIUS": r, "NSAMPLE": [8, 16]})
+        if name != "raw_points":
+            pfe.SA_LAYER[name]["DOWNSAMPLE_FACTOR"] = 2 ** (int(name[-1]) - 1)
+    cfg.MODEL.POINT_HEAD.CLS_FC = [16, 16]
+    roi.SHARED_FC, roi.CLS_FC, roi.REG_FC = [16, 16], [16, 16], [16, 16]
+    roi.ROI_GRID_POOL.MLPS = [[8, 8], [8, 8]]
+    roi.ROI_GRID_POOL.POOL_RADIUS = [0.8, 1.6]
+    roi.ROI_GRID_POOL.NSAMPLE = [8, 16]
     return cfg

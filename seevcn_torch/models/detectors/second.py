@@ -1,6 +1,7 @@
 """SECOND-IoU: forward, training loss and post-processing (port of
 SECONDNetIoU, post_processing and build_detector of
-seevcn_tpu/models/detectors/second.py; reference second_net_iou.py).
+seevcn_tpu/models/detectors/second.py; reference second_net_iou.py), and
+``AnchorDetector``, the RPN that PV-RCNN (``pvrcnn.py``) shares with it.
 
 MeanVFE (the voxeliser's mean) -> VoxelBackBone8x -> HeightCompression ->
 BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS -> rotated BEV RoI-grid
@@ -60,8 +61,11 @@ class DetectorConfig:
         return (int(g[2]) + 1, int(g[1]), int(g[0]))
 
 
-class SECONDNetIoU(nn.Module):
-    """SECOND + IoU rcnn head."""
+class AnchorDetector(nn.Module):
+    """The anchor RPN part that SECOND-IoU and PV-RCNN share: MeanVFE (the
+    voxeliser's mean) -> VoxelBackBone8x -> HeightCompression ->
+    BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS, and in training the
+    RoI sample against the ground truth."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
@@ -88,7 +92,75 @@ class SECONDNetIoU(nn.Module):
             self.backbone_2d.num_bev_features, cfg.num_class,
             logic.num_anchors_per_location, logic.box_coder.code_size,
             logic.num_dir_bins)
-        r = mcfg.ROI_HEAD
+
+    def voxel_backbone(self, points: torch.Tensor, points_valid: torch.Tensor):
+        """Voxelise and run the 3D backbone -> (input SparseTensor, the
+        backbone's output dict)."""
+        cfg = self.cfg
+        feats, coords, mask = voxelize_batch(
+            points, points_valid, point_cloud_range=cfg.point_cloud_range,
+            voxel_size=cfg.voxel_size, max_voxels=cfg.max_voxels,
+            max_points_per_voxel=cfg.max_points_per_voxel)
+        st = SP.make_sparse_tensor(feats, coords, mask, cfg.sparse_shape,
+                                   points.shape[0])
+        return st, self.backbone_3d(st)
+
+    def bev_rpn(self, enc: SP.SparseTensor):
+        """The stride-8 sparse tensor -> (BEV features (B, H, W, C), the dense
+        head's output, batch_cls_preds, batch_box_preds)."""
+        # a bf16 backbone hands a bf16 BEV over; the 2D convs run in the
+        # dense head's dtype (f32)
+        bev2d = self.backbone_2d(height_compression(enc).to(
+            self.dense_head.conv_cls.weight.dtype))
+        head_out = self.dense_head(bev2d)
+        cls_preds, box_preds = self.cfg.head_logic.predict_boxes(head_out)
+        return bev2d, head_out, cls_preds, box_preds
+
+    def rpn(self, points: torch.Tensor, points_valid: torch.Tensor) -> dict:
+        """The RPN's part of the output dict, with ``bb`` (the backbone's
+        output) and ``props`` (the proposals)."""
+        st, bb = self.voxel_backbone(points, points_valid)
+        enc = bb["encoded_spconv_tensor"]
+        bev2d, head_out, cls_preds, box_preds = self.bev_rpn(enc)
+        rcfg = self.cfg.model_cfg.ROI_HEAD
+        props = proposal_layer(cls_preds, box_preds,
+                               rcfg.NMS_CONFIG["TRAIN" if self.training else "TEST"])
+        stages = [st] + [bb["multi_scale_3d_features"][f"x_conv{i}"]
+                         for i in range(1, 5)] + [enc]
+        return {"head_out": head_out, "batch_cls_preds": cls_preds,
+                "batch_box_preds": box_preds, "spatial_features_2d": bev2d,
+                "roi_mask": props["roi_mask"],
+                "active_voxels": torch.stack([s.mask.sum() for s in stages]),
+                "bb": bb, "props": props}
+
+    def sample_rois(self, props: dict, gt_boxes, generator=None, roi_u=None) -> dict:
+        """The RoI sample of each frame against gt_boxes (B, M, 8), its
+        priorities ``roi_u`` (B, R) where given, else drawn from
+        ``generator``."""
+        if gt_boxes is None:
+            raise ValueError("training needs gt_boxes")
+        if roi_u is None:
+            roi_u = uniform(props["rois"].shape[:2], generator, gt_boxes.device)
+        roi_u = roi_u.to(gt_boxes.device)
+        tcfg = self.cfg.model_cfg.ROI_HEAD.TARGET_CONFIG
+        per = [sample_rois_for_rcnn(*a, tcfg) for a in zip(
+            roi_u, props["rois"], props["roi_labels"], props["roi_scores"],
+            props["roi_mask"], gt_boxes)]
+        return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+    def rpn_loss(self, out: dict, gt_boxes: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """The RPN's loss (assignment against gt_boxes): -> (rpn_loss, terms
+        rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss)."""
+        logic = self.cfg.head_logic
+        return logic.loss(out["head_out"], logic.assign_targets(gt_boxes))
+
+
+class SECONDNetIoU(AnchorDetector):
+    """SECOND + IoU rcnn head: the rotated BEV RoI-grid pool -> SECONDHead."""
+
+    def __init__(self, cfg: DetectorConfig):
+        super().__init__(cfg)
+        r = cfg.model_cfg.ROI_HEAD
         self.roi_head = SECONDHead(
             self.backbone_2d.num_bev_features, int(r.ROI_GRID_POOL.GRID_SIZE),
             tuple(r.SHARED_FC), tuple(r.IOU_FC), float(r.DP_RATIO))
@@ -106,48 +178,21 @@ class SECONDNetIoU(nn.Module):
         that rcnn_iou scores. The sample's random priorities are ``roi_u``
         (B, R) where given, else drawn from ``generator``, which also draws
         the dropout masks."""
-        cfg = self.cfg
-        feats, coords, mask = voxelize_batch(
-            points, points_valid, point_cloud_range=cfg.point_cloud_range,
-            voxel_size=cfg.voxel_size, max_voxels=cfg.max_voxels,
-            max_points_per_voxel=cfg.max_points_per_voxel)
-        st = SP.make_sparse_tensor(feats, coords, mask, cfg.sparse_shape,
-                                   points.shape[0])
-        bb = self.backbone_3d(st)
-        enc = bb["encoded_spconv_tensor"]
-        # a bf16 backbone hands a bf16 BEV over; the 2D convs run in f32
-        bev = height_compression(enc).float()
-        bev2d = self.backbone_2d(bev)
-        head_out = self.dense_head(bev2d)
-        cls_preds, box_preds = cfg.head_logic.predict_boxes(head_out)
-        rcfg = cfg.model_cfg.ROI_HEAD
-        props = proposal_layer(cls_preds, box_preds,
-                               rcfg.NMS_CONFIG["TRAIN" if self.training else "TEST"])
-        stages = [st] + [bb["multi_scale_3d_features"][f"x_conv{i}"]
-                         for i in range(1, 5)] + [enc]
-        out = {"head_out": head_out, "batch_cls_preds": cls_preds,
-               "batch_box_preds": box_preds, "spatial_features_2d": bev2d,
-               "roi_mask": props["roi_mask"],
-               "active_voxels": torch.stack([s.mask.sum() for s in stages])}
+        out = self.rpn(points, points_valid)
+        out.pop("bb")
+        props = out.pop("props")
+        rcfg = self.cfg.model_cfg.ROI_HEAD
         if self.training:
-            if gt_boxes is None:
-                raise ValueError("training needs gt_boxes")
-            if roi_u is None:
-                roi_u = uniform(props["rois"].shape[:2], generator, points.device)
-            roi_u = roi_u.to(points.device)
-            per = [sample_rois_for_rcnn(*a, rcfg.TARGET_CONFIG) for a in zip(
-                roi_u, props["rois"], props["roi_labels"], props["roi_scores"],
-                props["roi_mask"], gt_boxes)]
-            targets = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+            targets = self.sample_rois(props, gt_boxes, generator, roi_u)
             out["rcnn_targets"] = targets
             rois = targets["rois"]
         else:
             out.update(props)
             rois = props["rois"]
         pooled = roi_grid_pool_bev(
-            bev2d, rois[..., :7], int(rcfg.ROI_GRID_POOL.GRID_SIZE),
-            cfg.point_cloud_range, cfg.voxel_size,
-            int(rcfg.ROI_GRID_POOL.DOWNSAMPLE_RATIO))
+            out["spatial_features_2d"], rois[..., :7],
+            int(rcfg.ROI_GRID_POOL.GRID_SIZE), self.cfg.point_cloud_range,
+            self.cfg.voxel_size, int(rcfg.ROI_GRID_POOL.DOWNSAMPLE_RATIO))
         if self.training:
             # the reference detaches the BEV features for the rcnn head
             pooled = pooled.detach()
@@ -159,8 +204,7 @@ class SECONDNetIoU(nn.Module):
         (assignment against gt_boxes) plus the IoU head's. -> (total, the
         terms: rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss,
         rcnn_loss_iou)."""
-        logic = self.cfg.head_logic
-        rpn_loss, tb = logic.loss(out["head_out"], logic.assign_targets(gt_boxes))
+        rpn_loss, tb = self.rpn_loss(out, gt_boxes)
         lcfg = self.cfg.model_cfg.ROI_HEAD.LOSS_CONFIG
         rcnn = rcnn_iou_loss(out["rcnn_iou"], out["rcnn_targets"]["rcnn_cls_labels"],
                              loss_type=lcfg.IOU_LOSS,
@@ -172,7 +216,9 @@ class SECONDNetIoU(nn.Module):
 def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool) -> dict:
     """The final NMS: per frame, pred_boxes (B, N, 7), pred_scores (B, N),
     pred_labels (B, N) int32, pred_mask (B, N). Ported: the rcnn branch with
-    the ``iou`` score type, the flagship's."""
+    the ``iou`` score type, the flagship's, which both ported detectors
+    reach: SECOND-IoU scores its RoIs with its IoU head, PV-RCNN sets
+    ``rcnn_iou`` to its class logit and ``rois`` to its refined boxes."""
     nms_cfg = post_cfg.NMS_CONFIG
     score_type = nms_cfg.get("SCORE_TYPE", "iou")
     if not has_roi_head or score_type not in (None, "iou"):
@@ -198,16 +244,21 @@ def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool) -> 
 
 def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
                    device="cuda"):
-    """cfg: a full pcdet config (MODEL / DATA_CONFIG / CLASS_NAMES) naming
-    SECONDNetIoU -> (model in eval mode on ``device``, DetectorConfig). A
-    given state dict (reference key names) is loaded with strict=True;
-    ``max_voxels`` overrides the voxel cap (DetectorConfig)."""
+    """cfg: a full pcdet config (MODEL / DATA_CONFIG / CLASS_NAMES) whose
+    MODEL.NAME is SECONDNetIoU or PVRCNN -> (model in eval mode on
+    ``device``, DetectorConfig). A given state dict (reference key names) is
+    loaded with strict=True; ``max_voxels`` overrides the voxel cap
+    (DetectorConfig)."""
+    from .pvrcnn import PVRCNN
+
     dev = resolve_device(device)
-    if cfg.MODEL.NAME != "SECONDNetIoU":
-        raise NotImplementedError(f"detector {cfg.MODEL.NAME}")
+    detectors = {"SECONDNetIoU": SECONDNetIoU, "PVRCNN": PVRCNN}
+    if cfg.MODEL.NAME not in detectors:
+        raise NotImplementedError(
+            f"detector {cfg.MODEL.NAME}: the port has {', '.join(detectors)}")
     dcfg = DetectorConfig(cfg.MODEL, cfg.DATA_CONFIG, cfg.CLASS_NAMES,
                           max_voxels=max_voxels)
-    model = SECONDNetIoU(dcfg)
+    model = detectors[cfg.MODEL.NAME](dcfg)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     return model.to(dev).eval(), dcfg

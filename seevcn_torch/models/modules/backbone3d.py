@@ -91,7 +91,11 @@ class VoxelBackBone8x(nn.Module):
         return SP.conv_out_shape(s, (3, 1, 1), (2, 1, 1), 0)
 
     def forward(self, st: SP.SparseTensor) -> dict:
-        x = self.conv_input(st._replace(features=st.features.to(self.dtype)))
+        # bf16 activations where asked; else the parameters' dtype (f64 for
+        # a model in double, as the parity tests run it)
+        dtype = self.dtype if self.dtype == torch.bfloat16 \
+            else self.conv_input._modules["0"].weight.dtype
+        x = self.conv_input(st._replace(features=st.features.to(dtype)))
         feats = {}
         for i, stage in enumerate((self.conv1, self.conv2, self.conv3,
                                    self.conv4), start=1):

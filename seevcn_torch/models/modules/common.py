@@ -64,7 +64,8 @@ class BatchNorm2d(_FlaxStatsBatchNorm, nn.BatchNorm2d):
 class MaskedBatchNorm(nn.BatchNorm1d):
     """BatchNorm over (N, C) rows of a fixed-capacity buffer, eps 1e-3 (the
     reference's BatchNorm1d on voxel features, spconv_backbone.py:73),
-    computed in f32 as the reference writes it, and zero on invalid rows. In
+    computed in f32 as the reference writes it (in f64 for a model in
+    double), and zero on invalid rows. In
     training the mean and the biased variance are taken over the valid rows
     only, so padding cannot reach the statistics."""
 
@@ -72,7 +73,7 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         super().__init__(channels, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         if self.training:
             m = mask.to(x.dtype)[:, None]
             cnt = m.sum().clamp_min(1.0)

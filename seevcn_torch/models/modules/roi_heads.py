@@ -85,15 +85,19 @@ def roi_grid_pool_bev(bev: torch.Tensor, rois: torch.Tensor, grid_size: int,
     return torch.stack(out)
 
 
-def _fc_layers(cin: int, widths: Sequence[int], dp_ratio: float) -> list[nn.Module]:
+def _fc_layers(cin: int, widths: Sequence[int], dp_ratio: float,
+               dropout: bool = True) -> list[nn.Module]:
     """Conv1d (k=1, no bias) + BN + ReLU per width, Dropout between them:
-    the reference's make_fc_layers, whose indices the checkpoint keys use."""
+    the reference's make_fc_layers, whose indices the checkpoint keys use.
+    With ``dropout`` False the slot holds an Identity: the JAX package
+    draws dropout in an rcnn head's shared stack only."""
     layers = []
     for k, f in enumerate(widths):
+        f = int(f)
         layers += [nn.Conv1d(cin, f, 1, bias=False),
                    BatchNorm1d(f, eps=1e-3, momentum=0.01), nn.ReLU()]
         if k != len(widths) - 1 and dp_ratio > 0:
-            layers.append(nn.Dropout(dp_ratio))
+            layers.append(nn.Dropout(dp_ratio) if dropout else nn.Identity())
         cin = f
     return layers
 
@@ -112,7 +116,8 @@ def dropout(x: torch.Tensor, p: float, generator=None) -> torch.Tensor:
 
 class SECONDHead(nn.Module):
     """IoU-scoring rcnn head: shared FC stack + IoU regressor; dropout
-    (DP_RATIO) between the shared layers in training."""
+    (DP_RATIO) between the shared layers in training, none in the IoU
+    branch (seevcn_tpu/models/modules/roi_heads.py:SECONDHead)."""
 
     def __init__(self, input_channels: int, grid_size: int,
                  shared_fc: Sequence[int] = (256, 256),
@@ -121,7 +126,7 @@ class SECONDHead(nn.Module):
         self.shared_fc_layer = nn.Sequential(*_fc_layers(
             input_channels * grid_size * grid_size, shared_fc, dp_ratio))
         self.iou_layers = nn.Sequential(
-            *_fc_layers(shared_fc[-1], iou_fc, dp_ratio),
+            *_fc_layers(shared_fc[-1], iou_fc, dp_ratio, dropout=False),
             nn.Conv1d(iou_fc[-1], 1, 1, bias=True))
 
     def forward(self, pooled: torch.Tensor, generator=None) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Point-set sampling ops in torch (port of seevcn_tpu/ops/sampling.py):
 pairwise distances, fixed-size tiling, farthest point sampling,
-partial-mesh kNN selection and the within-radius test of the replacement
-stage.
+partial-mesh kNN selection, the within-radius test of the replacement
+stage, and the spatial hash and grid dedupe that bound PV-RCNN's keypoint
+FPS.
 
 Fixed shapes and boolean validity masks, as in the reference; every
 function takes an optional leading batch dimension where the reference
@@ -116,3 +117,48 @@ def within_radius_mask(a: torch.Tensor, b: torch.Tensor, radius: float,
     d = min_sqdist(a[:, :3], b[:, :3], b_valid=b_valid,
                    prune_radius=float(radius))
     return d <= radius * radius
+
+
+_HASH_PRIMES = (73856093, 19349663, 83492791)
+
+
+def cell_hash(c: torch.Tensor, t: int) -> torch.Tensor:
+    """(..., 3) int32 cell coords -> bucket id in [0, t), the reference's
+    spatial hash: each coordinate times its prime in int32 (wrapping), the
+    three XORed, ``abs`` (which leaves INT_MIN negative), then the floor
+    modulo, all in int32 so that every bucket is the reference's."""
+    c = c.to(torch.int32)
+    h = (c[..., 0] * _HASH_PRIMES[0]) ^ (c[..., 1] * _HASH_PRIMES[1]) \
+        ^ (c[..., 2] * _HASH_PRIMES[2])
+    return torch.remainder(torch.abs(h), t)
+
+
+def grid_subsample(points: torch.Tensor, valid: torch.Tensor, cell: float,
+                   max_out: int, table_size: int = 1 << 18):
+    """Keep the lowest-index valid point of each occupied hash bucket of
+    ``cell``-sized cells (origin at the valid points' minimum), the buckets
+    in ascending order, truncated to ``max_out`` -> ((max_out,) int64
+    indices, (max_out,) bool). Unused slots read index 0. Hash collisions
+    merge distant cells, as in the reference; the kept set is the
+    reference's bit for bit."""
+    n = points.shape[0]
+    dev = points.device
+    xyz = points[:, :3]
+    origin = torch.where(valid[:, None], xyz, torch.inf).amin(0)
+    origin = torch.where(torch.isfinite(origin), origin, 0.0)
+    # a divisor tensor, not a Python float: CUDA turns division by a scalar
+    # into a product with its reciprocal, which may round a cell differently
+    c = torch.floor((xyz - origin) / xyz.new_tensor(max(float(cell), 1e-3)))
+    h = torch.where(valid, cell_hash(c.to(torch.int32), table_size), table_size)
+    slot = torch.full((table_size + 1,), n, dtype=torch.int64, device=dev)
+    slot.scatter_reduce_(0, h.long(), torch.arange(n, device=dev), "amin")
+    occ = slot[:table_size] < n
+    # the first max_out occupied buckets, in bucket order, without a sync
+    pos = torch.cumsum(occ, 0) - 1
+    sel = torch.full((max_out + 1,), -1, dtype=torch.int64, device=dev)
+    sel.scatter_(0, torch.where(occ & (pos < max_out), pos, max_out),
+                 torch.arange(table_size, device=dev))
+    sel = sel[:max_out]
+    ok = sel >= 0
+    idx = slot[sel.clamp_min(0)]
+    return torch.where(ok, idx, 0), ok

@@ -346,3 +346,32 @@ def vcn_selection_flips(got: list, ref: list) -> dict:
     if [w for w, _ in got] != [w for w, _ in ref]:
         raise AssertionError("the two runs made different sequences of choices")
     return {w: (int((a != b).sum()), a.numel()) for (w, a), (_, b) in zip(got, ref)}
+
+
+def seeded_flax_variables(shapes: dict, seed: int = 0) -> dict:
+    """Random flax variables in the layout of ``shapes`` (nested dicts of
+    anything with a ``.shape``, as ``jax.eval_shape`` of a model's init
+    gives them), as f32 numpy from ``seed``: kernels normal with std
+    1/sqrt(fan_in) (fan_in all dimensions but the last), batch-norm scales
+    and running variances U[0.5, 1.5), biases and running means N(0, 0.1),
+    so that no norm is an identity. Leaves are drawn in sorted key order."""
+    rng = np.random.RandomState(seed)
+
+    def fill(tree):
+        out = {}
+        for k in sorted(tree):
+            x = tree[k]
+            if isinstance(x, dict):
+                out[k] = fill(x)
+                continue
+            shape = tuple(x.shape)
+            if k == "kernel":
+                v = rng.randn(*shape) / np.sqrt(max(1, int(np.prod(shape[:-1]))))
+            elif k in ("scale", "var"):
+                v = rng.rand(*shape) + 0.5
+            else:
+                v = 0.1 * rng.randn(*shape)
+            out[k] = np.asarray(v, np.float32)
+        return out
+
+    return {col: fill(dict(tree)) for col, tree in shapes.items()}

@@ -2,7 +2,8 @@
 
 Copies of the VCN and detector exports of seevcn_tpu/utils/ckpt_compat.py
 (``vcn_state_dict_from_variables``, ``detector_state_dict_from_variables``),
-kept here because the port imports nothing of the JAX package. Each takes
+kept here because the port imports nothing of the JAX package, and the
+PV-RCNN export, which the JAX package lacks. Each takes
 the flax variable tree as numpy arrays (``{"params": ..., "batch_stats":
 ...}``) and returns a state dict in the reference's key names, which the
 port's modules load with ``strict=True``. The reference has no seg2d
@@ -92,17 +93,15 @@ def _spconv_export(kernel, kz, ky, kx) -> np.ndarray:
     return np.transpose(w, (4, 0, 1, 2, 3))
 
 
-def detector_state_dict_from_flax(variables: dict) -> dict:
-    """Flax SECONDNetIoU variables (numpy leaves) -> torch state dict in the
-    reference's OpenPCDet / spconv 2.x key names and layouts."""
-    p = variables["params"]
-    s = variables["batch_stats"]
+def _put(sd: dict, prefix: str, leaf: dict) -> None:
+    for k, v in leaf.items():
+        sd[f"{prefix}.{k}"] = torch.tensor(np.array(v))
+
+
+def _rpn_state_dict(p: dict, s: dict) -> dict:
+    """The parts SECOND-IoU and PV-RCNN share: backbone_3d, backbone_2d and
+    dense_head."""
     sd = {}
-
-    def put(prefix, leaf):
-        for k, v in leaf.items():
-            sd[f"{prefix}.{k}"] = torch.tensor(np.array(v))
-
     bb, bbs = p["backbone_3d"], s["backbone_3d"]
     layout = [("conv_input", "conv_input", (3, 3, 3)),
               ("conv1_0", "conv1.0", (3, 3, 3))]
@@ -112,46 +111,117 @@ def detector_state_dict_from_flax(variables: dict) -> dict:
             layout.append((my, f"conv{stage}.{j}", (3, 3, 3)))
     layout.append(("conv_out", "conv_out", (3, 1, 1)))
     for my, key, k in layout:
-        put(f"backbone_3d.{key}.0", {"weight": _spconv_export(bb[my]["kernel"], *k)})
-        put(f"backbone_3d.{key}.1", _bn_join(bb[my]["bn"], bbs[my]["bn"]))
+        _put(sd, f"backbone_3d.{key}.0", {"weight": _spconv_export(bb[my]["kernel"], *k)})
+        _put(sd, f"backbone_3d.{key}.1", _bn_join(bb[my]["bn"], bbs[my]["bn"]))
 
     b2, b2s = p["backbone_2d"], s["backbone_2d"]
     blocks = sorted({k.split("_")[0] for k in b2 if k.startswith("block")})
     for bi, blk in enumerate(blocks):
         down = f"{blk}_down"
-        put(f"backbone_2d.blocks.{bi}.1",
-            {"weight": _conv_to_conv2d(b2[down]["conv"])["weight"]})
-        put(f"backbone_2d.blocks.{bi}.2", _bn_join(b2[down]["bn"], b2s[down]["bn"]))
+        _put(sd, f"backbone_2d.blocks.{bi}.1",
+             {"weight": _conv_to_conv2d(b2[down]["conv"])["weight"]})
+        _put(sd, f"backbone_2d.blocks.{bi}.2", _bn_join(b2[down]["bn"], b2s[down]["bn"]))
         layers = sorted(int(k.split("_")[1]) for k in b2
                         if k.startswith(f"{blk}_") and k.split("_")[1].isdigit())
         for j in layers:
             my = f"{blk}_{j}"
-            put(f"backbone_2d.blocks.{bi}.{4 + 3 * j}",
-                {"weight": _conv_to_conv2d(b2[my]["conv"])["weight"]})
-            put(f"backbone_2d.blocks.{bi}.{5 + 3 * j}",
-                _bn_join(b2[my]["bn"], b2s[my]["bn"]))
+            _put(sd, f"backbone_2d.blocks.{bi}.{4 + 3 * j}",
+                 {"weight": _conv_to_conv2d(b2[my]["conv"])["weight"]})
+            _put(sd, f"backbone_2d.blocks.{bi}.{5 + 3 * j}",
+                 _bn_join(b2[my]["bn"], b2s[my]["bn"]))
     di = 0
     while f"deblock{di}" in b2:
         leaf = b2[f"deblock{di}"]
-        put(f"backbone_2d.deblocks.{di}.0", _convtranspose_to_deconv2d(leaf["deconv"]))
-        put(f"backbone_2d.deblocks.{di}.1", _bn_join(leaf["bn"], b2s[f"deblock{di}"]["bn"]))
+        _put(sd, f"backbone_2d.deblocks.{di}.0", _convtranspose_to_deconv2d(leaf["deconv"]))
+        _put(sd, f"backbone_2d.deblocks.{di}.1",
+             _bn_join(leaf["bn"], b2s[f"deblock{di}"]["bn"]))
         di += 1
 
     for name in ("conv_cls", "conv_box", "conv_dir_cls"):
         if name in p["dense_head"]:
-            put(f"dense_head.{name}", _conv_to_conv2d(p["dense_head"][name]))
+            _put(sd, f"dense_head.{name}", _conv_to_conv2d(p["dense_head"][name]))
+    return sd
 
+
+def _count(tree: dict, prefix: str) -> int:
+    return len([k for k in tree if k.startswith(prefix) and k[len(prefix):].isdigit()])
+
+
+def _fc_stack(sd: dict, key: str, r: dict, rs: dict, fc: str, bn: str,
+              out: str | None = None) -> None:
+    """A flax Dense + BatchNorm stack (``{fc}{i}``, ``{bn}{i}``, then
+    ``out``) into a make_fc_layers Sequential ``key``: conv i at index 4 i
+    (a Dropout slot after each layer but the last, DP_RATIO > 0), the final
+    conv at 4 n - 1."""
+    n = _count(r, fc)
+    for i in range(n):
+        _put(sd, f"{key}.{4 * i}", _dense_to_conv1d(r[f"{fc}{i}"]))
+        _put(sd, f"{key}.{4 * i + 1}", _bn_join(r[f"{bn}{i}"], rs[f"{bn}{i}"]))
+    if out is not None:
+        _put(sd, f"{key}.{4 * n - 1}", _dense_to_conv1d(r[out]))
+
+
+def detector_state_dict_from_flax(variables: dict) -> dict:
+    """Flax SECONDNetIoU variables (numpy leaves) -> torch state dict in the
+    reference's OpenPCDet / spconv 2.x key names and layouts."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _rpn_state_dict(p, s)
     r, rs = p["roi_head"], s["roi_head"]
-    # conv positions of make_fc_layers: a Dropout sits at index 3
-    for i in range(len([k for k in r if k.startswith("shared_fc")])):
-        put(f"roi_head.shared_fc_layer.{4 * i}", _dense_to_conv1d(r[f"shared_fc{i}"]))
-        put(f"roi_head.shared_fc_layer.{4 * i + 1}",
-            _bn_join(r[f"shared_bn{i}"], rs[f"shared_bn{i}"]))
-    n_iou = len([k for k in r if k.startswith("iou_fc")])
-    for i in range(n_iou):
-        put(f"roi_head.iou_layers.{4 * i}", _dense_to_conv1d(r[f"iou_fc{i}"]))
-        put(f"roi_head.iou_layers.{4 * i + 1}", _bn_join(r[f"iou_bn{i}"], rs[f"iou_bn{i}"]))
-    put(f"roi_head.iou_layers.{4 * n_iou - 1}", _dense_to_conv1d(r["iou_out"]))
+    _fc_stack(sd, "roi_head.shared_fc_layer", r, rs, "shared_fc", "shared_bn")
+    _fc_stack(sd, "roi_head.iou_layers", r, rs, "iou_fc", "iou_bn", "iou_out")
+    return sd
+
+
+def _sa_layer(sd: dict, key: str, p: dict, s: dict) -> None:
+    """A flax SALayer (``scale{i}.dense{j}``, ``bn{j}``) -> StackSAModuleMSG
+    ``{key}.mlps.{i}.{3 j}`` (a 1x1 Conv2d) and ``.{3 j + 1}`` (its BN)."""
+    for i in range(_count(p, "scale")):
+        sp, ss = p[f"scale{i}"], s[f"scale{i}"]
+        for j in range(_count(sp, "dense")):
+            w = np.asarray(sp[f"dense{j}"]["kernel"]).T[:, :, None, None]
+            _put(sd, f"{key}.mlps.{i}.{3 * j}", {"weight": w})
+            _put(sd, f"{key}.mlps.{i}.{3 * j + 1}", _bn_join(sp[f"bn{j}"], ss[f"bn{j}"]))
+
+
+def pvrcnn_state_dict_from_flax(variables: dict) -> dict:
+    """Flax PVRCNN variables (numpy leaves) -> torch state dict of the
+    port's PVRCNN, in OpenPCDet's names: the RPN as SECOND-IoU's;
+    ``pfe.SA_rawpoints``, ``pfe.SA_layers.{i}`` (the stages in ascending
+    order, as FEATURES_SOURCE lists them), ``pfe.vsa_point_feature_fusion``;
+    ``point_head.cls_layers``; ``roi_head.roi_grid_pool_layer``,
+    ``shared_fc_layer``, ``cls_layers``, ``reg_layers``. The first shared
+    layer's input is flattened (C, G^3) in the reference and (G^3, C) in
+    flax: its rows are permuted."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _rpn_state_dict(p, s)
+    pf, pfs = p["pfe"], s["pfe"]
+    if "sa_raw_points" in pf:
+        _sa_layer(sd, "pfe.SA_rawpoints", pf["sa_raw_points"], pfs["sa_raw_points"])
+    stages = sorted(k for k in pf if k.startswith("sa_x_conv"))
+    for i, name in enumerate(stages):
+        _sa_layer(sd, f"pfe.SA_layers.{i}", pf[name], pfs[name])
+    _put(sd, "pfe.vsa_point_feature_fusion.0", _dense_to_linear(pf["fusion_dense"]))
+    _put(sd, "pfe.vsa_point_feature_fusion.1",
+         _bn_join(pf["fusion_bn"], pfs["fusion_bn"]))
+
+    ph, phs = p["point_head"], s["point_head"]
+    n = _count(ph, "fc")
+    for i in range(n):
+        _put(sd, f"point_head.cls_layers.{3 * i}", _dense_to_linear(ph[f"fc{i}"]))
+        _put(sd, f"point_head.cls_layers.{3 * i + 1}", _bn_join(ph[f"bn{i}"], phs[f"bn{i}"]))
+    _put(sd, f"point_head.cls_layers.{3 * n}", _dense_to_linear(ph["cls_out"]))
+
+    r, rs = dict(p["roi_head"]), s["roi_head"]
+    _sa_layer(sd, "roi_head.roi_grid_pool_layer", r["roi_grid_pool"], rs["roi_grid_pool"])
+    pool = r["roi_grid_pool"]
+    c = sum(np.shape(pool[f"scale{i}"][f"dense{_count(pool[f'scale{i}'], 'dense') - 1}"]
+                     ["kernel"])[1] for i in range(_count(pool, "scale")))
+    k0 = np.asarray(r["shared_fc0"]["kernel"])
+    k0 = k0.reshape(-1, c, k0.shape[1]).transpose(1, 0, 2).reshape(k0.shape)
+    r["shared_fc0"] = {**r["shared_fc0"], "kernel": k0}
+    _fc_stack(sd, "roi_head.shared_fc_layer", r, rs, "shared_fc", "shared_bn")
+    _fc_stack(sd, "roi_head.cls_layers", r, rs, "cls_fc", "cls_bn", "cls_out")
+    _fc_stack(sd, "roi_head.reg_layers", r, rs, "reg_fc", "reg_bn", "reg_out")
     return sd
 
 
