@@ -39,7 +39,11 @@ config, the CLI's ``main`` with them, one HTC + DCN step through the API).
 Then PV-RCNN (phase 14): the tiny model's eval and train step against the
 CPU, PV-RCNN at OpenPCDet's pv_rcnn.yaml widths on the SEE frame's
 completed cloud (``see_and_detect``, K1 counted) and through ``run_frame``,
-its stages timed, and 1 + 10 train steps at batch 2.
+its stages timed, and 1 + 10 train steps at batch 2. Then PV-RCNN++
+(phase 15): the tiny model (SPC + VectorPool) against the CPU, PV-RCNN++ at
+pv_rcnn_plusplus.yaml's PFE on the same cloud and through ``run_frame`` (K1
+counted in each), its stages timed (the proposal filter and the sector FPS
+among them), and 1 + 5 train steps at batch 2.
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -93,7 +97,8 @@ from seevcn_torch.ops.cuda import min_dist as MD
 from seevcn_torch.ops.iou3d import boxes_iou_bev
 from seevcn_torch.ops.nms import nms_bev
 from seevcn_torch.ops.sampling import (cell_hash, farthest_point_sample, fps,
-                                      grid_subsample, partial_mesh_batch)
+                                      grid_subsample, partial_mesh_batch,
+                                      sector_fps_sample, sector_ids, sector_quotas)
 from seevcn_torch.ops.voxelize import voxelize_batch
 from seevcn_torch.see import device_pipeline as DP
 from seevcn_torch.see import frame as F
@@ -2276,13 +2281,14 @@ def _worst(got: dict, ref: dict, scale) -> tuple:
 
 
 @torch.no_grad()
-def check_tiny_pvrcnn_against_cpu(dev) -> dict:
-    """tiny_pvrcnn_cfg (DP_RATIO 0) with TF32 off, weights from seed 7 with
-    random statistics: the eval forward on the card against the port's CPU
-    path (which the tests hold against JAX): keypoints bit for bit, logits,
-    heads and boxes within atol 1e-4, rtol 1e-4 (f32 sums in another order),
-    proposals and kept boxes equal. Returns the worst differences."""
-    cfg = DC.tiny_pvrcnn_cfg()
+def check_tiny_pvrcnn_against_cpu(dev, cfg=None, label: str = "PV-RCNN") -> dict:
+    """``cfg`` (tiny_pvrcnn_cfg by default; DP_RATIO 0) with TF32 off,
+    weights from seed 7 with random statistics: the eval forward on the card
+    against the port's CPU path (which the tests hold against JAX):
+    keypoints bit for bit, logits, heads and boxes within atol 1e-4, rtol
+    1e-4 (f32 sums in another order), proposals and kept boxes equal.
+    Returns the worst differences."""
+    cfg = DC.tiny_pvrcnn_cfg() if cfg is None else cfg
     cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
     cpu = torch.device("cpu")
     sd = seeded_state_dict(7, build_detector(cfg, device=cpu)[0], random_stats=True)
@@ -2294,24 +2300,24 @@ def check_tiny_pvrcnn_against_cpu(dev) -> dict:
                                 device=w)
     (pp_d, out_d), (pp_c, out_c) = res[dev], res[cpu]
     if not torch.equal(out_d["keypoints"].cpu(), out_c["keypoints"]):
-        raise AssertionError("tiny PV-RCNN: keypoints differ from the CPU's")
+        raise AssertionError(f"tiny {label}: keypoints differ from the CPU's")
     worst = {}
     for k in ("batch_cls_preds", "point_logits", "rcnn_cls", "rcnn_reg", "rois"):
         got, ref = out_d[k].cpu(), out_c[k]
         worst[k] = (got - ref).abs().max().item()
         if not ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all():
-            raise AssertionError(f"tiny PV-RCNN: {k} off the CPU by {worst[k]}")
+            raise AssertionError(f"tiny {label}: {k} off the CPU by {worst[k]}")
     for k in ("roi_mask", "roi_labels"):
         if not torch.equal(out_d[k].cpu(), out_c[k]):
-            raise AssertionError(f"tiny PV-RCNN: proposal NMS differs ({k})")
+            raise AssertionError(f"tiny {label}: proposal NMS differs ({k})")
     if not torch.equal(pp_d["pred_mask"].cpu().sum(-1), pp_c["pred_mask"].sum(-1)):
-        raise AssertionError("tiny PV-RCNN: final NMS differs")
+        raise AssertionError(f"tiny {label}: final NMS differs")
     kept = int(pp_c["pred_mask"].sum())
-    print("tiny PV-RCNN eval, card vs CPU (TF32 off): keypoints bit-equal; max |diff| "
+    print(f"tiny {label} eval, card vs CPU (TF32 off): keypoints bit-equal; max |diff| "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
           + f"; proposals {int(out_c['roi_mask'].sum())} and kept boxes {kept} equal")
     if kept < 1:
-        raise AssertionError("tiny PV-RCNN kept no box")
+        raise AssertionError(f"tiny {label} kept no box")
     return worst
 
 
@@ -2336,17 +2342,19 @@ def tiny_pvrcnn_step(cfg, sd, inputs, device, dtype, pinned=None):
                  if not n.endswith("num_batches_tracked")), signs)
 
 
-def check_tiny_pvrcnn_step_against_cpu(dev) -> dict:
-    """One train step of tiny_pvrcnn_cfg (DP_RATIO 0, fixed RoI priorities,
-    TF32 off) on the card in f32 against the CPU's step in f64, with the
+def check_tiny_pvrcnn_step_against_cpu(dev, cfg=None, label: str = "PV-RCNN",
+                                      grad_tol: float = 1e-3) -> dict:
+    """One train step of ``cfg`` (tiny_pvrcnn_cfg by default; DP_RATIO 0,
+    fixed RoI priorities, TF32 off) on the card in f32 against the CPU's
+    step in f64, with the
     ReLUs' signs pinned to the CPU's (a sign tie moves a gradient): loss
-    terms within 5e-5 (relative) and gradients within 1e-3 of their
-    tensor's largest, the f32 error of this model's training forward
-    (tests/test_torch_pvrcnn_train.py); updated parameters within 1e-5
+    terms within 5e-5 (relative) and gradients within ``grad_tol`` of their
+    tensor's largest, the f32 error of the model's training forward
+    (PV-RCNN's 1e-3, tests/test_torch_pvrcnn_train.py); updated parameters within 1e-5
     where the gradient is sure (5% of its tensor's largest and 1e-6), 2 lr
     elsewhere; running statistics 1e-5. The unpinned card step and the
     CPU's own f32 step are printed beside."""
-    cfg = DC.tiny_pvrcnn_cfg()
+    cfg = DC.tiny_pvrcnn_cfg() if cfg is None else cfg
     cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
     cpu = torch.device("cpu")
     sd = seeded_state_dict(8, build_detector(cfg, device=cpu)[0], random_stats=True)
@@ -2370,18 +2378,18 @@ def check_tiny_pvrcnn_step_against_cpu(dev) -> dict:
         sure = (g >= 0.05 * g.max()) & (g >= 1e-6)
         err = (p - ref[2][n]).abs()
         if not (err <= torch.where(sure, 1e-5, 2 * lr)).all():
-            raise AssertionError(f"tiny PV-RCNN step: updated {n} off the CPU by "
+            raise AssertionError(f"tiny {label} step: updated {n} off the CPU by "
                                  f"{err.max().item()}")
-    print("tiny PV-RCNN train step, card f32 vs CPU f64 (ReLU signs pinned, TF32 "
+    print(f"tiny {label} train step, card f32 vs CPU f64 (ReLU signs pinned, TF32 "
           "off, DP_RATIO 0, fixed RoI priorities): worst "
           + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
           + f"; loss {ref[0]['loss'].item():.5f}; {sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))} "
           f"ReLU inputs of the unpinned card step on the other side of 0")
-    if worst["loss_terms"][0] > 5e-5 or worst["gradients"][0] > 1e-3 \
+    if worst["loss_terms"][0] > 5e-5 or worst["gradients"][0] > grad_tol \
             or worst["running_stats"][0] > 1e-5:
-        raise AssertionError("tiny PV-RCNN step on the card off the CPU's f64 step")
+        raise AssertionError(f"tiny {label} step on the card off the CPU's f64 step")
     if ref[0]["rcnn_loss_reg"].item() <= 0 or ref[0]["point_loss_cls"].item() <= 0:
-        raise AssertionError("tiny PV-RCNN step: no foreground RoI or keypoint")
+        raise AssertionError(f"tiny {label} step: no foreground RoI or keypoint")
     return {k: v[0] for k, v in worst.items()}
 
 
@@ -2400,9 +2408,11 @@ def jax_grid_buckets(sup, cell: float, n_rows: int, cap: int) -> tuple:
 
 
 def pvrcnn_stages(model, cfg, points, valid) -> dict:
-    """PVRCNN.forward's stages in eval, one after another, each between
-    synchronizes: {stage: (CUDA-event ms, host ms)}, and the output's parts
-    the callers read."""
+    """PVRCNN.forward's (or PVRCNNPlusPlus.forward's) stages in eval, one
+    after another, each between synchronizes: {stage: (CUDA-event ms, host
+    ms)}, and the output's parts the callers read. PV-RCNN++ takes its
+    proposals first; under SPC its keypoints come from the proposal filter,
+    the grid dedupe and the sector FPS, each a stage."""
     rcfg = cfg.MODEL.ROI_HEAD
     times, state = {}, {}
 
@@ -2418,25 +2428,38 @@ def pvrcnn_stages(model, cfg, points, valid) -> dict:
         return out
 
     pfe = model.pfe
+    width = PV.jax_stage_width(model.cfg, points.shape[0])
     with torch.no_grad():
         st, bb = stage("voxelize_backbone", lambda: model.voxel_backbone(points, valid))
         bev2d, _, cls_p, box_p = stage(
             "bev_rpn", lambda: model.bev_rpn(bb["encoded_spconv_tensor"]))
         props = stage("proposals", lambda: RH.proposal_layer(cls_p, box_p,
                                                              rcfg.NMS_CONFIG.TEST))
-        kp = stage("keypoints", lambda: pfe.sample_keypoints(points, valid))
+        rois = props["rois"][..., :7]
+        if pfe.sample_method == "SPC":
+            near = stage("spc_filter", lambda: pfe.spc_candidates(
+                points, valid, rois, props["roi_mask"]))
+            xyz, ok = stage("grid_dedupe", lambda: pfe.dedupe(points[..., :3], near))
+            idx, _ = stage("sector_fps", lambda: sector_fps_sample(
+                xyz, ok, pfe.num_keypoints, pfe.num_sectors))
+            kp = torch.gather(xyz, 1, idx[..., None].expand(*idx.shape, 3))
+            state.update(near=near, reps=xyz, reps_ok=ok)
+        else:
+            if isinstance(model, PV.PVRCNNPlusPlus):
+                valid = stage("roi_neighbourhood", lambda: model.roi_neighbourhood(
+                    points, valid, rois))
+            kp = stage("keypoints", lambda: pfe.sample_keypoints(points, valid))
         feats = [stage("vsa_bev", lambda: pfe.bev_features(kp, bev2d, PV.BEV_STRIDE)),
                  stage("vsa_raw_points", lambda: pfe.raw_point_features(kp, points, valid))]
         ms3d = bb["multi_scale_3d_features"]
         for name in pfe.layer_names:
             feats.append(stage(f"vsa_{name}", lambda n=name: pfe.stage_features(
-                n, kp, ms3d[n])))
+                n, kp, ms3d[n], width)))
         before = torch.cat(feats, -1)
         b, k, c = before.shape
         fused = stage("vsa_fusion", lambda: pfe.vsa_point_feature_fusion(
             before.reshape(b * k, c)).reshape(b, k, -1))
         logits = stage("point_head", lambda: model.point_head(before))
-        rois = props["rois"][..., :7]
         pooled = stage("roi_grid_pool", lambda: model.roi_head.pool(
             rois, kp, fused, torch.sigmoid(logits)))
         rcnn_cls, rcnn_reg = stage("rcnn_head", lambda: model.roi_head.head(pooled))
@@ -2447,7 +2470,7 @@ def pvrcnn_stages(model, cfg, points, valid) -> dict:
             return post_processing(out, cfg.MODEL.POST_PROCESSING, 1, True)
 
         stage("post_processing", post)
-    state.update(ms3d=ms3d, kp=kp)
+    state.update(ms3d=ms3d, kp=kp, width=width)
     return times, state
 
 
@@ -2473,7 +2496,8 @@ def ball_query_call(model, cfg, state, points, valid) -> dict:
     kp = state["kp"][0]
     sup = points[0][valid[0], :3].contiguous()
     q, n = kp.shape[0], sup.shape[0]
-    bq_ms = time_cuda(lambda: PN2.ball_query_multi(kp, sup, sa.POOL_RADIUS, sa.NSAMPLE),
+    bq_ms = time_cuda(lambda: PN2.ball_query_multi(kp, sup, sa.POOL_RADIUS, sa.NSAMPLE,
+                                                   width=points.shape[1]),
                       reps=5, warmup=1)
     bq_bound = q * n * 4 / HBM_BYTES_PER_S * 1e3
     idx, ok = grid_subsample(points[0], valid[0], 0.35, 1 << 15)
@@ -2485,6 +2509,42 @@ def ball_query_call(model, cfg, state, points, valid) -> dict:
     return {"ball_query_ms": bq_ms, "ball_query_bound_ms": bq_bound,
             "ball_query_shape": [q, n], "fps_ms": fps_ms, "fps_bound_ms": fps_bound,
             "fps_points": m, "fps_steps": k}
+
+
+def detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image) -> dict:
+    """``det`` (a PV-RCNN or PV-RCNN++ at ``cfg``) on the SEE frame's
+    completed cloud through ``see_and_detect`` (K1 counted, peak memory) and
+    through ``run_frame`` with the Mask R-CNN masks (K1 counted again); its
+    eval output checked finite: -> the counts, the output and the cloud."""
+    args = (s["points"], s["valid"], s["det_boxes"], s["det_masks"], s["det_scores"],
+            vcn, proj, l2c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    pp, stats, new_pts, new_valid = F.see_and_detect(*args, det, cfg, IMAGE_SIZE)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches["min_sqdist_pruned"] < 1:
+        raise AssertionError(f"K1 was not launched in the SEE frame before {label}")
+    _, out = F.detect_stage(det, cfg, new_pts, new_valid)
+    for k in ("batch_cls_preds", "point_logits", "rcnn_cls", "rcnn_reg", "rois"):
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"{label} output {k} is not finite")
+    K.reset_launches()
+    pp_f, st_f, _, _ = F.run_frame(image, s["points"], s["valid"], seg, vcn, det, cfg,
+                                   proj, l2c)
+    torch.cuda.synchronize()
+    fused_launches = dict(K.LAUNCHES)
+    if fused_launches["min_sqdist_pruned"] < 1:
+        raise AssertionError(f"K1 was not launched inside run_frame with {label}")
+    kept_f = int(pp_f["pred_mask"].sum())
+    if kept_f < 1 or not torch.isfinite(pp_f["pred_boxes"]).all():
+        raise AssertionError(f"run_frame with {label} returned no finite box")
+    return {"args": args, "pp": pp, "out": out, "new_pts": new_pts,
+            "new_valid": new_valid, "launches": launches, "peak": peak,
+            "fused_launches": fused_launches, "kept_f": kept_f,
+            "spliced_f": int(st_f["inst_valid"].sum())}
 
 
 def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
@@ -2499,21 +2559,10 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
     cfg = DC.pvrcnn_detector_cfg()
     det, dcfg = build_detector(cfg, device="cpu")
     det, _ = build_detector(cfg, seeded_state_dict(0, det), device=dev)
-    args = (s["points"], s["valid"], s["det_boxes"], s["det_masks"], s["det_scores"],
-            vcn, proj, l2c)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()
-    pp, stats, new_pts, new_valid = F.see_and_detect(*args, det, cfg, IMAGE_SIZE)
-    torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if launches["min_sqdist_pruned"] < 1:
-        raise AssertionError("K1 was not launched in the SEE frame before PV-RCNN")
-    _, out = F.detect_stage(det, cfg, new_pts, new_valid)
-    for k in ("batch_cls_preds", "point_logits", "rcnn_cls", "rcnn_reg", "rois"):
-        if not torch.isfinite(out[k]).all():
-            raise AssertionError(f"PV-RCNN output {k} is not finite")
+    fr = detector_frames(det, cfg, "PV-RCNN", s, vcn, seg, proj, l2c, image)
+    args, pp, out, new_pts, new_valid, launches, peak, fused_launches = (
+        fr[k] for k in ("args", "pp", "out", "new_pts", "new_valid", "launches", "peak",
+                        "fused_launches"))
     n_props, n_kept = int(out["roi_mask"].sum()), int(pp["pred_mask"].sum())
     active = [int(v) for v in out["active_voxels"]]
     kp = out["keypoints"][0]
@@ -2527,18 +2576,8 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
           f"input / conv1 / conv2 / conv3 / conv4 / conv_out {active} (cap "
           f"{dcfg.max_voxels}); {n_props} proposals, {n_kept} boxes kept; peak device "
           f"memory {peak:.2f} GiB")
-    K.reset_launches()
-    pp_f, st_f, _, _ = F.run_frame(image, s["points"], s["valid"], seg, vcn, det, cfg,
-                                   proj, l2c)
-    torch.cuda.synchronize()
-    fused_launches = dict(K.LAUNCHES)
-    if fused_launches["min_sqdist_pruned"] < 1:
-        raise AssertionError("K1 was not launched inside run_frame with PV-RCNN")
-    kept_f = int(pp_f["pred_mask"].sum())
-    if kept_f < 1 or not torch.isfinite(pp_f["pred_boxes"]).all():
-        raise AssertionError("run_frame with PV-RCNN returned no finite box")
     print(f"fused frame with PV-RCNN (run_frame): kernel launches {fused_launches}; "
-          f"{int(st_f['inst_valid'].sum())} completions spliced, {kept_f} boxes kept")
+          f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
 
     stages, state = time_pvrcnn_stages(det, cfg, new_pts[None], new_valid[None])
     det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
@@ -2559,7 +2598,7 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
     pfe_cfg = cfg.MODEL.PFE
     p_rows = new_pts.shape[0]
     sources = [("raw_points", new_pts[new_valid], p_rows)]
-    vox_rows = int(round(dcfg.max_voxels * 1.5))
+    vox_rows = state["width"]
     for name in det.pfe.layer_names:
         st = state["ms3d"][name]
         sources.append((name, det.pfe.stage_centres(name, st)[st.mask], vox_rows))
@@ -2589,17 +2628,19 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
             "buckets": buckets, **alone}
 
 
-def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 10) -> dict:
-    """Phase 14 training: the tiny step card vs the CPU's f64 step, then 1 +
-    ``steps`` PV-RCNN train steps at pvrcnn_detector_cfg (f32, batch 2 as
+def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 10, cfg=None, tiny_cfg=None,
+                 label: str = "PV-RCNN", tiny_grad_tol: float = 1e-3) -> dict:
+    """Phase 14 training (phase 15's with PV-RCNN++'s configs): the tiny step
+    at ``tiny_cfg`` card vs the CPU's f64 step, then 1 + ``steps`` train
+    steps at ``cfg`` (pvrcnn_detector_cfg by default; f32, batch 2 as
     pv_rcnn.yaml, MAX_NUMBER_OF_VOXELS' train cap, weights from seed 0) on
     two GT-completed frames; one split by CUDA events, one profiled; the
     train proposal NMS (9,000 -> 512) timed alone. Raises unless every loss
     is finite and every parameter moved after step 1, but the box branch's
     where step 1 sampled no foreground RoI (its regression loss reads 0)
     and its gradient is all zero."""
-    tiny = check_tiny_pvrcnn_step_against_cpu(dev)
-    cfg = DC.pvrcnn_detector_cfg()
+    tiny = check_tiny_pvrcnn_step_against_cpu(dev, tiny_cfg, label, tiny_grad_tol)
+    cfg = DC.pvrcnn_detector_cfg() if cfg is None else cfg
     batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     pts, valid, gt = pts[:batch], valid[:batch], gt[:batch]
     cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
@@ -2621,7 +2662,7 @@ def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 10) -> dict:
     # without a foreground RoI (random weights) the box branch has no
     # gradient, and its zero biases no decay: only they may stay
     excused = ("roi_head.reg_layers.",) if tb["rcnn_loss_reg"].item() == 0 else ()
-    idle = check_moved(model, start, excused, "PV-RCNN train step 1")
+    idle = check_moved(model, start, excused, f"{label} train step 1")
     times = []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -2644,7 +2685,7 @@ def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 10) -> dict:
     busy, top = profile_frame((state, pts, valid, gt, gen), train_step)
     values = [{k: float(v) for k, v in m.items()} for m in losses]
     if not all(math.isfinite(v) for m in values for v in m.values()):
-        raise AssertionError("a PV-RCNN training loss is not finite")
+        raise AssertionError(f"a {label} training loss is not finite")
     tg = out["rcnn_targets"]
     fg = (tg["roi_sample_mask"] & tg["reg_valid_mask"]).sum(1).tolist()
     nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN
@@ -2661,23 +2702,126 @@ def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 10) -> dict:
                "last_terms": values[-1], "no_gradient": no_grad, "idle": idle,
                "proposals": out["roi_mask"].sum(1).tolist(), "sampled_fg": fg,
                "train_nms_ms": nms_ms, "train_nms_host_ms": nms_host, "voxel_cap": cap}
-    print(f"PV-RCNN train steps at batch {batch} (pv_rcnn.yaml's widths, f32, train cap "
-          f"{cap} voxels) on GT-completed frames: losses "
+    print(f"{label} train steps at batch {batch} ({cfg.MODEL.NAME} at full width, f32, "
+          f"train cap {cap} voxels) on GT-completed frames: losses "
           + ", ".join(f"{v:.4f}" for v in summary["losses"])
           + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items())
           + f"; proposals {summary['proposals']}, sampled fg {fg}; parameters with an "
           f"all-zero gradient in step 1: {no_grad}; of them still after it: {idle}")
-    print(f"PV-RCNN train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+    print(f"{label} train step {step_ms:.2f} ms (host clock to a synchronize, median of "
           f"{steps}) = {summary['frames_per_s']:.2f} frames/s; CUDA events: forward "
           f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
           f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; "
           f"profiled step: device busy {busy:.2f} ms; device time by op: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
-    print(f"PV-RCNN train proposal NMS ({int(nms_cfg.NMS_PRE_MAXSIZE)} -> "
+    print(f"{label} train proposal NMS ({int(nms_cfg.NMS_PRE_MAXSIZE)} -> "
           f"{int(nms_cfg.NMS_POST_MAXSIZE)}, a {int(nms_cfg.NMS_PRE_MAXSIZE)}-step greedy "
           f"scan a frame, {batch} frames): {nms_ms:.2f} ms (CUDA events, median of 3), "
           f"{nms_host:.2f} ms host")
     return summary
+
+
+# PV-RCNN++: serving and training (phase 15)
+
+#: the f32 error of the tiny PV-RCNN++'s training forward in its gradients,
+#: as a share of a tensor's largest (tests/test_torch_pvrcnn_plusplus_train.py:
+#: its VectorPool and MSG batch norms carry more of it than PV-RCNN's 1e-3)
+PLUSPLUS_F32_GRAD = 2e-3
+
+
+def spc_sectors(xyz, ok, k: int, num_sectors: int) -> dict:
+    """Each sector's count of the sector FPS's candidates (one frame) and
+    its quota, as ``sector_fps_sample`` reckons them."""
+    sec = sector_ids(xyz, num_sectors)
+    quota = sector_quotas(sec[None], ok[None], num_sectors, k)[0]
+    return {"counts": torch.bincount(sec[ok], minlength=num_sectors).tolist(),
+            "quotas": quota.tolist(), "steps": int(quota.max())}
+
+
+def serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
+    """Phase 15 serving: the tiny PV-RCNN++ (SPC + VectorPool) on the card
+    against the CPU; PV-RCNN++ at pvrcnn_plusplus_detector_cfg (weights from
+    seed 0) on the SEE frame's completed cloud through ``see_and_detect``
+    and ``run_frame`` (K1 counted in each); detect_stage timed, its stages
+    (the SPC filter, the grid dedupe and the sector FPS among them) timed
+    and profiled, the SPC filter's kept points, the representatives and
+    each sector's count and quota, and the largest bucket of the grid table
+    JAX's VectorPool query would build for each group (cell = its radius)
+    beside its capacity."""
+    tiny = check_tiny_pvrcnn_against_cpu(dev, DC.tiny_pvrcnn_plusplus_cfg(), "PV-RCNN++")
+    cfg = DC.pvrcnn_plusplus_detector_cfg()
+    det, dcfg = build_detector(cfg, device="cpu")
+    det, _ = build_detector(cfg, seeded_state_dict(0, det), device=dev)
+    fr = detector_frames(det, cfg, "PV-RCNN++", s, vcn, seg, proj, l2c, image)
+    args, pp, out, new_pts, new_valid = (fr[k] for k in ("args", "pp", "out", "new_pts",
+                                                          "new_valid"))
+    k = det.pfe.num_keypoints
+    n_props, n_kept = int(out["roi_mask"].sum()), int(pp["pred_mask"].sum())
+    distinct = int(torch.unique(out["keypoints"][0], dim=0).shape[0])
+    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE)
+    if out["keypoints"].shape != (1, k, 3) or out["rcnn_reg"].shape != (1, n_rois, 7) \
+            or n_props < 1 or n_kept < 1 or distinct < k // 2:
+        raise AssertionError(f"PV-RCNN++ did no real work: {distinct} distinct keypoints, "
+                             f"{n_props} proposals, {n_kept} kept")
+    print(f"PV-RCNN++ at pv_rcnn_plusplus.yaml's PFE on the SEE frame's "
+          f"{int(new_valid.sum())} valid points (see_and_detect): kernel launches "
+          f"{fr['launches']}; {n_props} proposals, {n_kept} boxes kept, {distinct} distinct "
+          f"keypoints of {k}; peak device memory {fr['peak']:.2f} GiB")
+    print(f"fused frame with PV-RCNN++ (run_frame): kernel launches "
+          f"{fr['fused_launches']}; {fr['spliced_f']} completions spliced, {fr['kept_f']} "
+          f"boxes kept")
+
+    pts, vld = new_pts[None], new_valid[None]
+    stages, state = time_pvrcnn_stages(det, cfg, pts, vld)
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
+    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
+    fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE), reps=3)
+    ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
+                                        cfg, proj, l2c), reps=3)
+    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    sectors = spc_sectors(state["reps"][0], state["reps_ok"][0], k, det.pfe.num_sectors)
+    spc = {"kept": int(state["near"].sum()), "representatives": int(state["reps_ok"].sum()),
+           **sectors}
+    print("PV-RCNN++ stages, CUDA-event / host ms (median of 3, each between "
+          "synchronizes): " + ", ".join(f"{n} {a:.2f} / {b:.2f}" for n, (a, b)
+                                        in stages.items()))
+    print(f"PV-RCNN++ detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
+          f"{det_host:.2f} ms host; SEE + PV-RCNN++ frame {fd_ms:.2f} ms, fused frame with "
+          f"PV-RCNN++ {ff_ms:.2f} ms (host clock, median of 3) on {card}; profiled "
+          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+    print(f"SPC: {spc['kept']} of {int(new_valid.sum())} valid points near a proposal, "
+          f"{spc['representatives']} representatives after the grid dedupe; by sector "
+          f"counts {spc['counts']}, quotas {spc['quotas']} (sum {sum(spc['quotas'])}); "
+          f"the batched sector FPS ran {spc['steps']} steps over {det.pfe.num_sectors} "
+          f"sectors")
+    buckets = {}
+    sources = [("raw_points", new_pts[new_valid], new_pts.shape[0])]
+    for name in det.pfe.layer_names:
+        st = state["ms3d"][name]
+        sources.append((name, det.pfe.stage_centres(name, st)[st.mask], state["width"]))
+    for name, sup, rows in sources:
+        layer = det.pfe.SA_rawpoints if name == "raw_points" else \
+            det.pfe.SA_layers[det.pfe.layer_names.index(name)]
+        for g, grp in enumerate(layer.layers):
+            # JAX's VectorPool query is its ball_query: grid_ball_query's
+            # table, cell = the radius, capacity max(2 nsample, 32)
+            cap = max(2 * grp.nsample, 32)
+            big, over = jax_grid_buckets(sup, grp.radius, rows, cap)
+            buckets[f"{name}.{g}"] = {"radius": grp.radius, "largest": big,
+                                      "capacity": cap, "over": over,
+                                      "supports": int(sup.shape[0]), "width": rows}
+    print("largest bucket of JAX's VectorPool grid table (cell = the group's radius) "
+          "beside its capacity, by source and group: " + ", ".join(
+              f"{n} (r {v['radius']}) {v['largest']} / {v['capacity']} ({v['over']} buckets "
+              f"over, {v['supports']} supports, JAX width {v['width']})"
+              for n, v in buckets.items()))
+    return {"tiny_vs_cpu": tiny, "launches": fr["launches"],
+            "fused_launches": fr["fused_launches"], "proposals": n_props, "kept": n_kept,
+            "distinct_keypoints": distinct, "peak_gib": fr["peak"], "stage_ms": stages,
+            "detect_ms": det_ms, "detect_host_ms": det_host, "see_detect_frame_ms": fd_ms,
+            "fused_frame_ms": ff_ms, "device_busy_ms": busy, "top_ops": top, "spc": spc,
+            "buckets": buckets}
 
 
 def main() -> int:
@@ -3031,9 +3175,22 @@ def main() -> int:
     # --- 14. PV-RCNN: on the completed frame, then training ------------------
     pvrcnn = serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image)
     pvrcnn["train"] = train_pvrcnn(dev, card, g_pts, g_valid, g_gt)
-    print(f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
-    # --- 15. summary lines ---------------------------------------------------
+    # --- 15. PV-RCNN++: on the completed frame, then training ----------------
+    t15 = time.time()
+    plusplus = serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image)
+    kernels[0]["pvrcnn_plusplus_launches"] = {
+        "see_and_detect": plusplus["launches"]["min_sqdist_pruned"],
+        "run_frame": plusplus["fused_launches"]["min_sqdist_pruned"]}
+    plusplus["train"] = train_pvrcnn(dev, card, g_pts, g_valid, g_gt, steps=5,
+                                     cfg=DC.pvrcnn_plusplus_detector_cfg(),
+                                     tiny_cfg=DC.tiny_pvrcnn_plusplus_cfg(),
+                                     label="PV-RCNN++", tiny_grad_tol=PLUSPLUS_F32_GRAD)
+    plusplus["phase_s"] = time.time() - t15
+    print(f"phase 15 (PV-RCNN++) ran {plusplus['phase_s']:.0f} s; chip_smoke ran "
+          f"{time.time() - t_start:.0f} s after start-up")
+
+    # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
         "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
@@ -3047,7 +3204,7 @@ def main() -> int:
                      "peak_gib": det_peak},
         "see_frame_peak_gib": see_peak, "train": train, "vcn_train": vcn_train,
         "seg2d_train": seg2d_train, "htc": htc, "htc_train": htc_train,
-        "pvrcnn": pvrcnn, "card": smi}))
+        "pvrcnn": pvrcnn, "pvrcnn_plusplus": plusplus, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

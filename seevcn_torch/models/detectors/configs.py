@@ -1,8 +1,10 @@
 """Detector configurations: SECOND-IoU's (copies of the ones in
 __graft_entry__.py, which the port does not import: ``_mini_detector_cfg``,
-``_flagship_detector_cfg`` and ``_tiny_detector_cfg``) and PV-RCNN's
+``_flagship_detector_cfg`` and ``_tiny_detector_cfg``), PV-RCNN's
 (``pvrcnn_detector_cfg`` at OpenPCDet's pv_rcnn.yaml widths on the
-flagship's grid, ``tiny_pvrcnn_cfg`` for small runs and the tests)."""
+flagship's grid, ``tiny_pvrcnn_cfg`` for small runs and the tests) and
+PV-RCNN++'s (``pvrcnn_plusplus_detector_cfg``, pv_rcnn_plusplus.yaml's PFE
+on PV-RCNN's config, and ``tiny_pvrcnn_plusplus_cfg``)."""
 from __future__ import annotations
 
 from ...utils.config import Cfg
@@ -243,4 +245,85 @@ def tiny_pvrcnn_cfg():
     roi.ROI_GRID_POOL.MLPS = [[8, 8], [8, 8]]
     roi.ROI_GRID_POOL.POOL_RADIUS = [0.8, 1.6]
     roi.ROI_GRID_POOL.NSAMPLE = [8, 16]
+    return cfg
+
+
+def _vector_pool(reduced: int, msg_post, groups, ds=None) -> Cfg:
+    """A VectorPoolAggregationModuleMSG SA layer; ``groups``: (NUM_LOCAL_VOXEL,
+    MAX_NEIGHBOR_DISTANCE, NEIGHBOR_NSAMPLE, POST_MLPS) for each group."""
+    out = {"NAME": "VectorPoolAggregationModuleMSG", "NUM_GROUPS": len(groups),
+           "NUM_REDUCED_CHANNELS": reduced, "MSG_POST_MLPS": list(msg_post)}
+    for i, (nv, dist, ns, post) in enumerate(groups):
+        out[f"GROUP_CFG_{i}"] = {"NUM_LOCAL_VOXEL": list(nv), "MAX_NEIGHBOR_DISTANCE": dist,
+                                 "NEIGHBOR_NSAMPLE": ns, "POST_MLPS": list(post)}
+    if ds is not None:
+        out["DOWNSAMPLE_FACTOR"] = ds
+    return Cfg(out)
+
+
+def pvrcnn_plusplus_detector_cfg():
+    """PV-RCNN++: ``pvrcnn_detector_cfg`` with MODEL.NAME PVRCNNPlusPlus and
+    the PFE of OpenPCDet's tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml:
+    4,096 keypoints by sectorized proposal-centric sampling (SPC: 6
+    sectors, 1.6 m around the proposals), features from bev, x_conv3,
+    x_conv4 and the raw points, each SA layer a
+    VectorPoolAggregationModuleMSG of two groups, fused to 90 channels
+    (512 + 32 + 128 + 128 = 800 before the fusion).
+
+    Left out of the yaml's PFE: the keys the JAX package does not read
+    (LOCAL_AGGREGATION_TYPE, NUM_CHANNELS_OF_LOCAL_AGGREGATION,
+    FILTER_NEIGHBOR_WITH_ROI, RADIUS_OF_NEIGHBOR_WITH_ROI); its VectorPool
+    layers take the per-bin mean (``voxel_avg_pool``). The 3D backbone,
+    AnchorHeadSingle, POINT_HEAD, ROI_HEAD (the StackSA RoI-grid pool),
+    POST_PROCESSING and OPTIMIZATION stay pv_rcnn.yaml's: the JAX
+    package's PVRCNNPlusPlus builds AnchorHeadSingle whatever the config
+    says, and its PVRCNNHead pools with the StackSA layer only, so the
+    yaml's CenterHead and VectorPool RoI-grid pool have no counterpart
+    there."""
+    cfg = pvrcnn_detector_cfg()
+    m = cfg.MODEL
+    m.NAME = "PVRCNNPlusPlus"
+    m.PFE.NUM_KEYPOINTS = 4096
+    m.PFE.NUM_OUTPUT_FEATURES = 90
+    m.PFE.SAMPLE_METHOD = "SPC"
+    m.PFE["SPC_SAMPLING"] = Cfg({"NUM_SECTORS": 6, "SAMPLE_RADIUS_WITH_ROI": 1.6})
+    m.PFE.FEATURES_SOURCE = ["bev", "x_conv3", "x_conv4", "raw_points"]
+    m.PFE.SA_LAYER = Cfg({
+        "raw_points": _vector_pool(2, [32], [([2, 2, 2], 0.2, -1, [32, 32]),
+                                             ([3, 3, 3], 0.4, -1, [32, 32])]),
+        "x_conv3": _vector_pool(32, [128], [([3, 3, 3], 1.2, -1, [64, 64]),
+                                            ([3, 3, 3], 2.4, -1, [64, 64])], ds=4),
+        "x_conv4": _vector_pool(32, [128], [([3, 3, 3], 2.4, -1, [64, 64]),
+                                            ([3, 3, 3], 4.8, -1, [64, 64])], ds=8)})
+    return cfg
+
+
+def tiny_pvrcnn_plusplus_cfg(sample_method: str = "SPC", vector_pool: bool = True):
+    """PV-RCNN++ on ``tiny_pvrcnn_cfg``'s grid, heads and widths, with the
+    full config's sources (bev, x_conv3, x_conv4, raw points), for the
+    tests. ``sample_method`` FPS (with ROI_NEIGHBOR_RADIUS 2.4) or SPC (6
+    sectors, 1.6 m); ``vector_pool`` False keeps tiny_pvrcnn_cfg's StackSA
+    layers, True makes each a two-group VectorPool MSG layer at tiny widths
+    (one group with NEIGHBOR_NSAMPLE -1, one with 16). FPS + StackSA, FPS +
+    VectorPool and SPC + StackSA are the JAX package's three PV-RCNN++ test
+    topologies (tests/test_pvrcnn.py:173, :246, :297); SPC + VectorPool is
+    the full config's."""
+    cfg = tiny_pvrcnn_cfg()
+    cfg.MODEL.NAME = "PVRCNNPlusPlus"
+    pfe = cfg.MODEL.PFE
+    pfe.FEATURES_SOURCE = ["bev", "x_conv3", "x_conv4", "raw_points"]
+    pfe.SA_LAYER = Cfg({k: pfe.SA_LAYER[k] for k in ("raw_points", "x_conv3", "x_conv4")})
+    if sample_method == "SPC":
+        pfe.SAMPLE_METHOD = "SPC"
+        pfe["SPC_SAMPLING"] = Cfg({"NUM_SECTORS": 6, "SAMPLE_RADIUS_WITH_ROI": 1.6})
+    else:
+        pfe["ROI_NEIGHBOR_RADIUS"] = 2.4
+    if vector_pool:
+        pfe.SA_LAYER = Cfg({
+            "raw_points": _vector_pool(2, [8], [([2, 2, 2], 0.8, -1, [8, 8]),
+                                                ([3, 3, 3], 1.6, 16, [8, 8])]),
+            "x_conv3": _vector_pool(4, [16], [([3, 3, 3], 2.4, -1, [8, 8]),
+                                              ([3, 3, 3], 4.8, 16, [8, 8])], ds=4),
+            "x_conv4": _vector_pool(4, [16], [([2, 2, 2], 4.8, -1, [8, 8]),
+                                              ([3, 3, 3], 9.6, 16, [8, 8])], ds=8)})
     return cfg

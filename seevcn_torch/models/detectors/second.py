@@ -1,7 +1,8 @@
 """SECOND-IoU: forward, training loss and post-processing (port of
 SECONDNetIoU, post_processing and build_detector of
 seevcn_tpu/models/detectors/second.py; reference second_net_iou.py), and
-``AnchorDetector``, the RPN that PV-RCNN (``pvrcnn.py``) shares with it.
+``AnchorDetector``, the RPN that PV-RCNN and PV-RCNN++ (``pvrcnn.py``)
+share with it.
 
 MeanVFE (the voxeliser's mean) -> VoxelBackBone8x -> HeightCompression ->
 BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS -> rotated BEV RoI-grid
@@ -62,10 +63,10 @@ class DetectorConfig:
 
 
 class AnchorDetector(nn.Module):
-    """The anchor RPN part that SECOND-IoU and PV-RCNN share: MeanVFE (the
-    voxeliser's mean) -> VoxelBackBone8x -> HeightCompression ->
-    BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS, and in training the
-    RoI sample against the ground truth."""
+    """The anchor RPN part that SECOND-IoU, PV-RCNN and PV-RCNN++ share:
+    MeanVFE (the voxeliser's mean) -> VoxelBackBone8x -> HeightCompression
+    -> BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS, and in training
+    the RoI sample against the ground truth."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
@@ -216,9 +217,10 @@ class SECONDNetIoU(AnchorDetector):
 def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool) -> dict:
     """The final NMS: per frame, pred_boxes (B, N, 7), pred_scores (B, N),
     pred_labels (B, N) int32, pred_mask (B, N). Ported: the rcnn branch with
-    the ``iou`` score type, the flagship's, which both ported detectors
-    reach: SECOND-IoU scores its RoIs with its IoU head, PV-RCNN sets
-    ``rcnn_iou`` to its class logit and ``rois`` to its refined boxes."""
+    the ``iou`` score type, the flagship's, which every ported detector
+    reaches: SECOND-IoU scores its RoIs with its IoU head, PV-RCNN and
+    PV-RCNN++ set ``rcnn_iou`` to their class logit and ``rois`` to their
+    refined boxes."""
     nms_cfg = post_cfg.NMS_CONFIG
     score_type = nms_cfg.get("SCORE_TYPE", "iou")
     if not has_roi_head or score_type not in (None, "iou"):
@@ -245,14 +247,15 @@ def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool) -> 
 def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
                    device="cuda"):
     """cfg: a full pcdet config (MODEL / DATA_CONFIG / CLASS_NAMES) whose
-    MODEL.NAME is SECONDNetIoU or PVRCNN -> (model in eval mode on
-    ``device``, DetectorConfig). A given state dict (reference key names) is
-    loaded with strict=True; ``max_voxels`` overrides the voxel cap
-    (DetectorConfig)."""
-    from .pvrcnn import PVRCNN
+    MODEL.NAME is SECONDNetIoU, PVRCNN or PVRCNNPlusPlus -> (model in eval
+    mode on ``device``, DetectorConfig). A given state dict (reference key
+    names) is loaded with strict=True; ``max_voxels`` overrides the voxel
+    cap (DetectorConfig)."""
+    from .pvrcnn import PVRCNN, PVRCNNPlusPlus
 
     dev = resolve_device(device)
-    detectors = {"SECONDNetIoU": SECONDNetIoU, "PVRCNN": PVRCNN}
+    detectors = {"SECONDNetIoU": SECONDNetIoU, "PVRCNN": PVRCNN,
+                 "PVRCNNPlusPlus": PVRCNNPlusPlus}
     if cfg.MODEL.NAME not in detectors:
         raise NotImplementedError(
             f"detector {cfg.MODEL.NAME}: the port has {', '.join(detectors)}")

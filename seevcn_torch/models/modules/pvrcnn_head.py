@@ -106,7 +106,9 @@ class PVRCNNHead(nn.Module):
         weighted = keypoint_features * keypoint_scores[..., None]
         b, r = rois.shape[:2]
         grids = [roi_grid_points(fr, self.grid_size).reshape(-1, 3) for fr in rois]
-        feats = self.roi_grid_pool_layer(list(zip(grids, keypoints, weighted)))
+        # JAX's support width: the keypoint count
+        feats = self.roi_grid_pool_layer(list(zip(grids, keypoints, weighted)),
+                                         width=keypoints.shape[1])
         return feats.reshape(b, r, self.grid_size ** 3, -1)
 
     def head(self, pooled: torch.Tensor, generator=None):

@@ -9,11 +9,13 @@ distance matrix a chunk, shared by every radius of a multi-scale layer,
 then each row's in-radius supports ranked by a running count.
 
 Two details follow the JAX package so that its results are met bit for
-bit wherever it is exact:
+bit wherever it is exact. Both depend on the support width JAX's query
+sees, its padded support row count, which the caller passes as ``width``
+(the port hands over only a frame's valid rows):
 - the squared distance is the Gram form |q|^2 + |s|^2 - 2 q.s (clamped at
-  0) below ``GRID_BQ_MIN_SUPPORT`` supports, where JAX runs its dense
-  query, and the difference form (dx^2 + dy^2 + dz^2) from there on, where
-  JAX runs its hash grid;
+  0) below ``GRID_BQ_MIN_SUPPORT``, where JAX runs its dense query, and
+  the difference form (dx^2 + dy^2 + dz^2) from there on, where JAX runs
+  its hash grid;
 - a slot past a group's last member reads, on the dense side, the next
   supports that are not members, in index order (JAX's sort of the
   members' keys), and 0 on the grid side.
@@ -85,12 +87,15 @@ def _first_n(ok: torch.Tensor, nsample: int, grid: bool):
 
 
 def ball_query_multi(new_xyz: torch.Tensor, support_xyz: torch.Tensor, radii,
-                     nsamples, support_valid: torch.Tensor | None = None):
+                     nsamples, support_valid: torch.Tensor | None = None,
+                     width: int | None = None):
     """new_xyz (K, 3), support_xyz (N, 3) -> [(idx (K, ns) int64, valid
     (K, ns) bool) for each (radius, ns)]: ``ball_query`` at several radii
-    over one distance pass."""
+    over one distance pass. ``width``, the support width of JAX's query
+    (default N), picks the distance form and the filling of the slots
+    past a group's end."""
     k, n = new_xyz.shape[0], support_xyz.shape[0]
-    grid = n >= GRID_BQ_MIN_SUPPORT
+    grid = (n if width is None else int(width)) >= GRID_BQ_MIN_SUPPORT
     chunk = max(1, PAIR_BUDGET // max(n, 1))
     sup = support_xyz[:, :3]
     outs = [[] for _ in radii]
@@ -106,12 +111,14 @@ def ball_query_multi(new_xyz: torch.Tensor, support_xyz: torch.Tensor, radii,
 
 
 def ball_query(new_xyz: torch.Tensor, support_xyz: torch.Tensor, radius: float,
-               nsample: int, support_valid: torch.Tensor | None = None):
+               nsample: int, support_valid: torch.Tensor | None = None,
+               width: int | None = None):
     """new_xyz (K, 3), support_xyz (N, 3) -> (idx (K, nsample) int64, valid
     (K, nsample) bool): the first ``nsample`` valid supports by index within
-    ``radius`` of each query (CUDA ball_query semantics), exactly."""
+    ``radius`` of each query (CUDA ball_query semantics), exactly; ``width``
+    as in ``ball_query_multi``."""
     return ball_query_multi(new_xyz, support_xyz, (radius,), (nsample,),
-                            support_valid)[0]
+                            support_valid, width)[0]
 
 
 def group_features(idx: torch.Tensor, valid: torch.Tensor, new_xyz: torch.Tensor,

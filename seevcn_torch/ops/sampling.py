@@ -1,14 +1,16 @@
 """Point-set sampling ops in torch (port of seevcn_tpu/ops/sampling.py):
 pairwise distances, fixed-size tiling, farthest point sampling,
 partial-mesh kNN selection, the within-radius test of the replacement
-stage, and the spatial hash and grid dedupe that bound PV-RCNN's keypoint
-FPS.
+stage, the spatial hash and grid dedupe that bound PV-RCNN's keypoint
+FPS, and PV-RCNN++'s proposal-centric filter and sector FPS.
 
 Fixed shapes and boolean validity masks, as in the reference; every
 function takes an optional leading batch dimension where the reference
 vmaps.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -162,3 +164,102 @@ def grid_subsample(points: torch.Tensor, valid: torch.Tensor, cell: float,
     ok = sel >= 0
     idx = slot[sel.clamp_min(0)]
     return torch.where(ok, idx, 0), ok
+
+
+def sample_points_with_roi_mask(points: torch.Tensor, rois: torch.Tensor,
+                                roi_mask: torch.Tensor, sample_radius_with_roi: float,
+                                valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(N,) bool: the points within their nearest RoI's half-diagonal plus
+    ``sample_radius_with_roi`` of that RoI's centre, PV-RCNN++'s
+    proposal-centric filter (reference voxel_set_abstraction.py:
+    sample_points_with_roi). points (N, 3+), rois (M, 7+), roi_mask (M,).
+
+    As the JAX package computes it: Gram-form distances to the centres
+    (masked RoIs at +inf), the nearest by ``argmin`` (ties to the lower
+    index), the half-diagonal's norm summed x, y, z; no point passes when
+    no RoI is valid, and none that is not ``valid``."""
+    d2 = pairwise_sqdist(points[:, :3], rois[:, :3])
+    d2 = torch.where(roi_mask[None, :], d2, torch.inf)
+    nearest = torch.argmin(d2, dim=1)
+    min_dis = torch.sqrt(torch.gather(d2, 1, nearest[:, None])[:, 0])
+    half = rois[nearest, 3:6] / 2
+    roi_max_dim = torch.sqrt(half[:, 0] * half[:, 0] + half[:, 1] * half[:, 1]
+                             + half[:, 2] * half[:, 2])
+    mask = (min_dis < roi_max_dim + sample_radius_with_roi) & roi_mask.any()
+    return mask if valid is None else mask & valid
+
+
+def sector_ids(points: torch.Tensor, num_sectors: int) -> torch.Tensor:
+    """(..., N, 3+) -> (..., N) int64 azimuthal sector in [0, S): floor((
+    atan2(y, x) + pi) / (2 pi / S)) in f32, clamped, as the JAX package's
+    ``sector_fps_sample`` computes it."""
+    f32 = dict(dtype=torch.float32, device=points.device)
+    # tensors, not Python scalars: CUDA divides by a scalar through its
+    # reciprocal
+    ang = torch.atan2(points[..., 1].float(), points[..., 0].float()) \
+        + torch.tensor(math.pi, **f32)
+    sec = torch.floor(ang / torch.tensor(2.0 * math.pi / num_sectors, **f32))
+    return sec.to(torch.int32).clamp(0, num_sectors - 1).long()
+
+
+def sector_quotas(sec: torch.Tensor, valid: torch.Tensor, num_sectors: int,
+                  num_keypoints: int) -> torch.Tensor:
+    """(b, N) sectors and validity -> (b, S) int64 quotas: min(count_s,
+    ceil(count_s / total * k)), the share in f32 as the JAX package's
+    ``sector_fps_sample`` takes it."""
+    s = int(num_sectors)
+    cnt = torch.zeros((sec.shape[0], s + 1), dtype=torch.int64, device=sec.device)
+    cnt.scatter_add_(1, torch.where(valid, sec, s), torch.ones_like(sec))
+    cnt = cnt[:, :s]
+    total = cnt.sum(1, keepdim=True).clamp_min(1)
+    return torch.minimum(cnt, torch.ceil(cnt.float() / total.float() * num_keypoints).long())
+
+
+@torch.no_grad()
+def sector_fps_sample(points: torch.Tensor, valid: torch.Tensor, num_keypoints: int,
+                      num_sectors: int):
+    """Azimuthal-sector quota FPS (reference voxel_set_abstraction.py:
+    sector_fps; port of the JAX package's ``sector_fps_sample``): points
+    (..., N, 3+), valid (..., N) -> ((..., k) int64 indices, (..., k) bool
+    pick validity), k = ``num_keypoints``.
+
+    Each point's sector is floor((atan2(y, x) + pi) / (2 pi / S)); sector s
+    keeps quota_s = min(count_s, ceil(count_s / total * k)) picks (in f32),
+    the FPS picks of its valid points in order; pick j of sector s scores
+    (j + 0.5) / quota_s, and the k smallest scores win, ties to the lower
+    (sector, pick) position, as ``jax.lax.top_k`` breaks them (a stable
+    sort). Picks past a quota or in an empty sector never win; a slot no
+    pick fills reads the first winner, with validity False.
+
+    All sectors of all frames run as one batched ``farthest_point_sample``.
+    It runs max(quota) steps, not JAX's k: FPS picks in order, so the first
+    quota_s picks of a sector are the same however far the loop goes, and
+    no later pick can win."""
+    *lead, n, _ = points.shape
+    s, k = int(num_sectors), int(num_keypoints)
+    xyz = points[..., :3].reshape(-1, n, 3)
+    v = valid.reshape(-1, n)
+    b, dev = xyz.shape[0], xyz.device
+    sec = sector_ids(xyz, s)                                           # (b, n)
+    quota = sector_quotas(sec, v, s, k)                                # (b, s)
+    per_k = min(k, n)
+    steps = max(1, min(per_k, int(quota.max())))
+    sectors = torch.arange(s, device=dev)
+    in_sec = v[:, None, :] & (sec[:, None, :] == sectors[None, :, None])   # (b, s, n)
+    idx = farthest_point_sample(xyz[:, None].expand(b, s, n, 3), steps, in_sec)
+    j = torch.arange(steps, device=dev)
+    score = torch.where(j < quota[..., None],
+                        (j.float() + 0.5) / quota.clamp_min(1)[..., None].float(), torch.inf)
+    picked = torch.gather(sec, 1, idx.reshape(b, -1)).reshape(b, s, steps) \
+        == sectors[None, :, None]
+    score = torch.where(picked, score, torch.inf).reshape(b, -1)
+    idx = idx.reshape(b, -1)
+    if score.shape[1] < k:                       # fewer candidates than k
+        pad = k - score.shape[1]
+        score = torch.cat([score, score.new_full((b, pad), torch.inf)], 1)
+        idx = torch.cat([idx, idx.new_zeros((b, pad))], 1)
+    order = torch.sort(score, dim=1, stable=True).indices[:, :k]
+    out = torch.gather(idx, 1, order)
+    ok = torch.isfinite(torch.gather(score, 1, order))
+    out = torch.where(ok, out, out[:, :1])
+    return out.reshape(*lead, k), ok.reshape(*lead, k)

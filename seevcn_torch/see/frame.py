@@ -5,7 +5,8 @@ The port of the chain that bench.py composes from ``mask_stage``,
 ``see_stage``, ``vcn_stage``, ``replace_stage`` and ``det_stage``
 (bench.py:157-231): Mask R-CNN on the camera image, the SEE program of the
 reference, which turns a scan and those masks into the completed cloud, and
-the detector, which reads that cloud: SECOND-IoU, bench.py's, or PV-RCNN. ``run_frame`` is bench.py's
+the detector, which reads that cloud: SECOND-IoU, bench.py's, PV-RCNN or
+PV-RCNN++. ``run_frame`` is bench.py's
 ``frame_fused`` (bench.py:238-246); ``see_and_detect`` is the same frame
 with the masks given as an input.
 """
@@ -99,9 +100,9 @@ def complete_frame(points, valid, det_boxes, det_masks, det_scores, vcn, proj,
 def detect_stage(model, cfg, points, valid, *, device="cuda"):
     """bench.py's ``det_stage``: the detector's eval forward on one frame
     (points (P, 3), valid (P,)), then its post-processing NMS. ``model`` is
-    a SECONDNetIoU or a PVRCNN on ``device`` (``build_detector``), ``cfg``
-    the full config it was built from; both reach post-processing's rcnn
-    branch with the ``iou`` score. Returns (post-processed dict with a batch
+    a SECONDNetIoU, a PVRCNN or a PVRCNNPlusPlus on ``device``
+    (``build_detector``), ``cfg`` the full config it was built from; each
+    reaches post-processing's rcnn branch with the ``iou`` score. Returns (post-processed dict with a batch
     axis of 1, the forward's output dict).
 
     Runs in the backbone's dtype (BACKBONE_3D.DTYPE) with f32 products and
@@ -119,7 +120,7 @@ def see_and_detect(points, valid, det_boxes, det_masks, det_scores, vcn,
                    proj, lidar_to_cam, detector, det_cfg,
                    image_size=(384, 1280), *, device="cuda", **frame_kw):
     """One SEE frame (``complete_frame``) and the detector (SECOND-IoU or
-    PV-RCNN, ``detect_stage``) on its output cloud (``new_pts``,
+    PV-RCNN or PV-RCNN++, ``detect_stage``) on its output cloud (``new_pts``,
     ``new_valid``), as bench.py's ``frame_fused`` does after its mask
     stage. Returns (post-processed detections, SEE stats, new_pts,
     new_valid)."""

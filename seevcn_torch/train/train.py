@@ -3,8 +3,8 @@ reference detector3d/tools/train_utils/train_utils.py:11-135).
 
 ``train_step`` is the reference's step: the training forward with the
 ground truth, the loss, the backward, then the scheduled update with the
-gradients clipped, for either ported detector (SECONDNetIoU, PVRCNN: each
-model's ``loss`` gives its terms). It is single-device; the reference's
+gradients clipped, for every ported detector (SECONDNetIoU, PVRCNN,
+PVRCNNPlusPlus: each model's ``loss`` gives its terms). It is single-device; the reference's
 sharded step (``shard_train_step``) maps to DDP, which the port has not
 taken up yet.
 """
@@ -27,8 +27,9 @@ class TrainState:
 
 
 def create_train_state(model, opt_cfg, total_steps: int) -> TrainState:
-    """``model`` (a SECONDNetIoU or a PVRCNN on its device) into training
-    mode, with the OPTIMIZATION config's optimizer over ``total_steps``."""
+    """``model`` (a SECONDNetIoU, a PVRCNN or a PVRCNNPlusPlus on its
+    device) into training mode, with the OPTIMIZATION config's optimizer
+    over ``total_steps``."""
     model.train()
     return TrainState(model, build_optimizer(opt_cfg, total_steps, model.parameters()))
 
@@ -58,7 +59,7 @@ def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
     """One step on points (B, P, 3), valid (B, P), gt_boxes (B, M, 8) (zero
     rows padding). -> metrics, detached: loss and the model's loss terms
     (rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss, then SECOND-IoU's
-    rcnn_loss_iou, or PV-RCNN's point_loss_cls, rcnn_loss_cls,
+    rcnn_loss_iou, or PV-RCNN's (and PV-RCNN++'s) point_loss_cls, rcnn_loss_cls,
     rcnn_loss_reg, rcnn_loss_corner, rcnn_loss)."""
     loss, tb, _ = train_forward(state, points, valid, gt_boxes, generator, roi_u)
     apply_gradients(state, loss)

@@ -172,9 +172,34 @@ def detector_state_dict_from_flax(variables: dict) -> dict:
     return sd
 
 
+def _linear_bn_stack(sd: dict, key: str, p: dict, s: dict, fc: str, bn: str) -> None:
+    """A flax Dense + BatchNorm stack (``{fc}{i}``, ``{bn}{i}``) -> the
+    port's Linear + BN + ReLU Sequential ``key`` (Linear i at 3 i)."""
+    for i in range(_count(p, fc)):
+        _put(sd, f"{key}.{3 * i}", _dense_to_linear(p[f"{fc}{i}"]))
+        _put(sd, f"{key}.{3 * i + 1}", _bn_join(p[f"{bn}{i}"], s[f"{bn}{i}"]))
+
+
+def _vector_pool_layer(sd: dict, key: str, p: dict, s: dict) -> None:
+    """A flax VectorPoolAggregationMSG (``group{g}`` with ``reduce``,
+    ``post{i}``/``post_bn{i}``; ``msg_post{i}``/``msg_bn{i}``) ->
+    ``{key}.layers.{g}.reduce``, ``.layers.{g}.post_mlps`` and
+    ``{key}.msg_post_mlps``."""
+    for g in range(_count(p, "group")):
+        gp, gs = p[f"group{g}"], s[f"group{g}"]
+        if "reduce" in gp:
+            _put(sd, f"{key}.layers.{g}.reduce", _dense_to_linear(gp["reduce"]))
+        _linear_bn_stack(sd, f"{key}.layers.{g}.post_mlps", gp, gs, "post", "post_bn")
+    _linear_bn_stack(sd, f"{key}.msg_post_mlps", p, s, "msg_post", "msg_bn")
+
+
 def _sa_layer(sd: dict, key: str, p: dict, s: dict) -> None:
     """A flax SALayer (``scale{i}.dense{j}``, ``bn{j}``) -> StackSAModuleMSG
-    ``{key}.mlps.{i}.{3 j}`` (a 1x1 Conv2d) and ``.{3 j + 1}`` (its BN)."""
+    ``{key}.mlps.{i}.{3 j}`` (a 1x1 Conv2d) and ``.{3 j + 1}`` (its BN); a
+    VectorPoolAggregationMSG as ``_vector_pool_layer``."""
+    if "group0" in p:
+        _vector_pool_layer(sd, key, p, s)
+        return
     for i in range(_count(p, "scale")):
         sp, ss = p[f"scale{i}"], s[f"scale{i}"]
         for j in range(_count(sp, "dense")):
@@ -184,10 +209,11 @@ def _sa_layer(sd: dict, key: str, p: dict, s: dict) -> None:
 
 
 def pvrcnn_state_dict_from_flax(variables: dict) -> dict:
-    """Flax PVRCNN variables (numpy leaves) -> torch state dict of the
-    port's PVRCNN, in OpenPCDet's names: the RPN as SECOND-IoU's;
+    """Flax PVRCNN or PVRCNNPlusPlus variables (numpy leaves) -> torch state
+    dict of the port's model, in OpenPCDet's names: the RPN as SECOND-IoU's;
     ``pfe.SA_rawpoints``, ``pfe.SA_layers.{i}`` (the stages in ascending
-    order, as FEATURES_SOURCE lists them), ``pfe.vsa_point_feature_fusion``;
+    order, as FEATURES_SOURCE lists them; StackSA or VectorPool layers),
+    ``pfe.vsa_point_feature_fusion``;
     ``point_head.cls_layers``; ``roi_head.roi_grid_pool_layer``,
     ``shared_fc_layer``, ``cls_layers``, ``reg_layers``. The first shared
     layer's input is flattened (C, G^3) in the reference and (G^3, C) in

@@ -137,17 +137,29 @@ def test_configs():
 
 
 def test_build_detector_dispatch():
+    """An unknown detector names the three the port has; SAMPLE_METHOD SPC
+    builds, but a plain PV-RCNN cannot feed it proposals and raises JAX's
+    ValueError at its forward, while PV-RCNN++ builds and runs with it."""
     cfg = C.tiny_pvrcnn_cfg()
     cfg.MODEL.NAME = "PointPillar"
-    with pytest.raises(NotImplementedError, match="SECONDNetIoU, PVRCNN"):
+    with pytest.raises(NotImplementedError, match="SECONDNetIoU, PVRCNN, PVRCNNPlusPlus"):
         build_detector(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_detector(C.tiny_pvrcnn_cfg())
     spc = C.tiny_pvrcnn_cfg()
     spc.MODEL.PFE.SAMPLE_METHOD = "SPC"
-    with pytest.raises(NotImplementedError, match="PV-RCNN\\+\\+"):
-        build_detector(spc, device="cpu")
+    spc.MODEL.PFE["SPC_SAMPLING"] = {"NUM_SECTORS": 6, "SAMPLE_RADIUS_WITH_ROI": 1.6}
+    pts, valid = (to_torch(a) for a in _frames())
+    model, _ = build_detector(spc, device="cpu")
+    with torch.no_grad(), pytest.raises(ValueError, match="SPC requires a detector that "
+                                        "feeds rois"):
+        model(pts, valid)
+    spc.MODEL.NAME = "PVRCNNPlusPlus"
+    model, _ = build_detector(spc, device="cpu")
+    assert type(model).__name__ == "PVRCNNPlusPlus"
+    with torch.no_grad():
+        assert model(pts, valid)["keypoints"].shape == (B, 64, 3)
 
 
 # --- sampling: the hash and the grid dedupe --------------------------------
@@ -291,6 +303,71 @@ def test_ball_query_overflow_departure():
     assert int(_buckets(sup, np.ones(n, bool), r, JP.table_size_for(n, 32)).max()) > 32
 
 
+def _form_fault_input():
+    """ROADMAP §3's input for the distance-form fault: 10,000 valid supports
+    uniform in 60 +- 10 x 20 +- 10 x -1 +- 1 m, padded with rows at 1e4 to
+    20,000 (JAX's width), and 512 queries in the same box."""
+    rng = np.random.RandomState(4)
+    box = lambda n: (rng.uniform(-1, 1, (n, 3)) * [10, 10, 1]   # noqa: E731
+                     + [60, 20, -1]).astype(np.float32)
+    sup = box(10000)
+    q = box(512)
+    padded = np.concatenate([sup, np.full((10000, 3), 1e4, np.float32)])
+    feats = rng.randn(20000, 6).astype(np.float32)
+    return q, sup, padded, np.arange(20000) < 10000, feats
+
+
+@pytest.mark.parametrize("layer", ["sa_layer", "vector_pool"])
+def test_ball_query_form_follows_jax_width(layer):
+    """Repaired fault (ROADMAP §3): the ball query takes its distance form
+    from JAX's padded support width, not from the frame's compacted row
+    count. On the compacted 10,000 rows the Gram form keeps, in row 161, a
+    support outside the radius, where JAX's difference form (its width
+    20,000 runs the hash grid) does not; with ``width`` the port's query
+    equals JAX's, and so do an SA layer's (JAX's SALayer on the padded
+    array) and a VectorPool group's (whose JAX query is ``ball_query`` on
+    the padded array) outputs on the compacted frame, within 1e-5."""
+    q, sup, padded, valid, feats = _form_fault_input()
+    r, ns = 2.4, 16
+    ji, jv = (np.asarray(a) for a in JP.ball_query(
+        jnp.asarray(q), jnp.asarray(padded), r, ns, jnp.asarray(valid), exact=True))
+    tq, ts = torch.from_numpy(q), torch.from_numpy(sup)
+    gi, gv = P.ball_query(tq, ts, r, ns)             # the compacted count: Gram
+    differ = ((gi.numpy() != ji) & jv).any(1) | (gv.numpy() != jv).any(1)
+    assert np.nonzero(differ)[0].tolist() == [161]
+    ti, tv = P.ball_query(tq, ts, r, ns, width=padded.shape[0])
+    assert_close(tv, jv, name="valid")
+    assert_close(ti, ji.astype(np.int64), name="idx")
+    args = tuple(jnp.asarray(a)[None] for a in (q, padded, feats, valid))
+    if layer == "sa_layer":
+        jm = JPFE.SALayer((r,), (ns,), ((8, 8),), exact_ball_query=True)
+        pm = PFE.SALayer(6, (r,), (ns,), ((8, 8),))
+    else:
+        jm = JPFE.VectorPoolAggregation((3, 3, 3), r, ns, (8,), 4)
+        pm = PFE.VectorPoolAggregation(6, (3, 3, 3), r, ns, (8,), 4)
+    variables = seeded_flax_variables(jax.eval_shape(
+        lambda: jm.init(jax.random.PRNGKey(0), *args)), seed=5)
+    ref = np.asarray(jax.jit(lambda v: jm.apply(v, *args))(
+        jax.tree.map(jnp.asarray, variables)))
+    sd = {}
+    if layer == "sa_layer":
+        W._sa_layer(sd, "l", variables["params"], variables["batch_stats"])
+        pm.load_state_dict({k[2:]: v for k, v in sd.items()}, strict=True)
+    else:
+        wrap = lambda t: {"group0": t}                            # noqa: E731
+        W._sa_layer(sd, "l", wrap(variables["params"]), wrap(variables["batch_stats"]))
+        pm.load_state_dict({k[len("l.layers.0."):]: v for k, v in sd.items()}, strict=True)
+    pm.eval()
+    frames = [(tq, ts, torch.from_numpy(feats[:10000]))]
+    with torch.no_grad():
+        got = pm(frames, width=padded.shape[0])
+        compacted = pm(frames, width=sup.shape[0])
+    assert_close(got[0], ref[0], atol=1e-5, rtol=1e-5, name=f"{layer} output")
+    if layer == "vector_pool":
+        # the extra member moves row 161's bin means: the fault shows here
+        assert np.abs(compacted[0, 161].numpy() - ref[0, 161]).max() > 1e-3
+
+
 def test_group_features_and_masked_max_pool_match_jax():
     rng = np.random.RandomState(5)
     sup = rng.uniform(-3, 3, (500, 3)).astype(np.float32)
@@ -337,7 +414,7 @@ def test_sa_layer_matches_jax(train):
     frames = [(torch.from_numpy(q[b]), torch.from_numpy(sup[b][valid[b]]),
                torch.from_numpy(feats[b][valid[b]])) for b in range(2)]
     with torch.no_grad():
-        got = port(frames)
+        got = port(frames, width=300)
     assert got.shape == (2, 40, 24)
     assert_close(got, np.asarray(ref), atol=1e-5, rtol=1e-5, name="SA output")
     if train:
