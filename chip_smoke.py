@@ -43,7 +43,13 @@ its stages timed, and 1 + 10 train steps at batch 2. Then PV-RCNN++
 (phase 15): the tiny model (SPC + VectorPool) against the CPU, PV-RCNN++ at
 pv_rcnn_plusplus.yaml's PFE on the same cloud and through ``run_frame`` (K1
 counted in each), its stages timed (the proposal filter and the sector FPS
-among them), and 1 + 5 train steps at batch 2.
+among them), and 1 + 5 train steps at batch 2. Then the single-stage
+detectors (phase 16): the tiny PointPillar, multi-head residual SECONDNet and
+focal SECONDNet against the CPU in eval and in a train step, the ATSS
+assigner against the CPU, PointPillar at pointpillar.yaml's widths and the
+multi-head SECONDNet on the SEE frame's completed cloud and through
+``run_frame`` (K1 counted), their stages and NMS timed, 1 + 1 + 5 train steps
+at batch 4 each, and the focal SECONDNet's eval forward.
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -69,7 +75,10 @@ import torch
 
 from seevcn_torch.models.detectors import configs as DC
 from seevcn_torch.models.detectors import pvrcnn as PV
-from seevcn_torch.models.detectors.second import build_detector, post_processing
+from seevcn_torch.models.detectors.second import (PointPillar, build_detector,
+                                                  post_processing)
+from seevcn_torch.models.modules.dense_heads import AnchorHeadLogic
+from seevcn_torch.models.modules.map_to_bev import height_compression
 from seevcn_torch.models.modules import pvrcnn_head as PVH
 from seevcn_torch.models.modules import roi_heads as RH
 from seevcn_torch.cli import train_seg2d as SEG_CLI
@@ -2511,11 +2520,15 @@ def ball_query_call(model, cfg, state, points, valid) -> dict:
             "fps_points": m, "fps_steps": k}
 
 
-def detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image) -> dict:
-    """``det`` (a PV-RCNN or PV-RCNN++ at ``cfg``) on the SEE frame's
-    completed cloud through ``see_and_detect`` (K1 counted, peak memory) and
-    through ``run_frame`` with the Mask R-CNN masks (K1 counted again); its
-    eval output checked finite: -> the counts, the output and the cloud."""
+def detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image,
+                    finite=("batch_cls_preds", "point_logits", "rcnn_cls", "rcnn_reg",
+                            "rois")) -> dict:
+    """``det`` (a detector at ``cfg``: PV-RCNN's keys of its output are
+    checked finite by default) on the SEE frame's completed cloud through
+    ``see_and_detect`` (K1 counted, peak memory) and through ``run_frame``
+    with the Mask R-CNN masks (K1 counted again); its eval output's
+    ``finite`` keys checked finite: -> the counts, the output and the
+    cloud."""
     args = (s["points"], s["valid"], s["det_boxes"], s["det_masks"], s["det_scores"],
             vcn, proj, l2c)
     torch.cuda.synchronize()
@@ -2528,7 +2541,7 @@ def detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image) -> dict:
     if launches["min_sqdist_pruned"] < 1:
         raise AssertionError(f"K1 was not launched in the SEE frame before {label}")
     _, out = F.detect_stage(det, cfg, new_pts, new_valid)
-    for k in ("batch_cls_preds", "point_logits", "rcnn_cls", "rcnn_reg", "rois"):
+    for k in finite:
         if not torch.isfinite(out[k]).all():
             raise AssertionError(f"{label} output {k} is not finite")
     K.reset_launches()
@@ -2822,6 +2835,420 @@ def serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
             "detect_ms": det_ms, "detect_host_ms": det_host, "see_detect_frame_ms": fd_ms,
             "fused_frame_ms": ff_ms, "device_busy_ms": busy, "top_ops": top, "spc": spc,
             "buckets": buckets}
+
+
+# Single-stage detectors: PointPillar and SECONDNet (phase 16)
+
+SINGLE_STAGE = {"pointpillar": ("PointPillar", DC.pointpillar_detector_cfg,
+                                DC.tiny_pointpillar_cfg),
+                "second_multihead": ("SECONDNet (residual, multi-head)",
+                                     DC.second_multihead_detector_cfg,
+                                     DC.tiny_second_multihead_cfg),
+                "second_focal": ("SECONDNet (focal)", DC.second_focal_detector_cfg,
+                                 DC.tiny_second_focal_cfg)}
+SINGLE_STAGE_OUT = ("batch_cls_preds", "batch_box_preds", "spatial_features_2d")
+
+
+def single_stage_train_inputs():
+    """tiny_train_inputs' blob frames and cars, with a pedestrian and a
+    cyclist in frame 0, each near a node of the tiny stride-8 anchor grid
+    (16 / 3 m apart), so that every class has a positive anchor: numpy
+    (points, valid, gt)."""
+    pts, valid, gt, _ = (t.numpy() for t in tiny_train_inputs("cpu"))
+    gt[0, 2] = [10.6, 2.7, -0.6, 0.8, 0.6, 1.73, 0.1, 2.0]
+    gt[0, 3] = [5.3, -2.6, -0.6, 1.76, 0.6, 1.73, 1.5, 3.0]
+    return pts, valid, gt
+
+
+@torch.no_grad()
+def check_tiny_single_stage_against_cpu(dev) -> dict:
+    """Each tiny single-stage detector (weights from seed 7 with random
+    statistics, TF32 off) through ``detect_stage`` on the card against the
+    port's CPU path (which the tests hold against JAX): head maps, boxes
+    and BEV features within 1e-5 of a tensor's largest |value|,
+    post-processed keep masks and labels equal. Returns the worst
+    differences (relative to the largest) by detector."""
+    cpu = torch.device("cpu")
+    pts, valid = blob_points(4)
+    worst = {}
+    for key, (label, _, tiny) in SINGLE_STAGE.items():
+        cfg = tiny()
+        sd = seeded_state_dict(7, build_detector(cfg, device=cpu)[0], random_stats=True)
+        res = {}
+        for w in (dev, cpu):
+            m, _ = build_detector(cfg, sd, device=w)
+            res[w] = F.detect_stage(m, cfg, torch.from_numpy(pts), torch.from_numpy(valid),
+                                    device=w)
+        (pp_d, out_d), (pp_c, out_c) = res[dev], res[cpu]
+        worst[key] = _worst({k: out_d[k].cpu() for k in SINGLE_STAGE_OUT},
+                            {k: out_c[k] for k in SINGLE_STAGE_OUT},
+                            lambda r: r.abs().max().item() + 1e-30)
+        if worst[key][0] > 1e-5:
+            raise AssertionError(f"tiny {label}: {worst[key][1]} off the CPU by "
+                                 f"{worst[key][0]:.3g} of its largest")
+        for k in ("pred_mask", "pred_labels"):
+            if not torch.equal(pp_d[k].cpu(), pp_c[k]):
+                raise AssertionError(f"tiny {label}: post-processing differs ({k})")
+        if not pp_c["pred_mask"].any():
+            raise AssertionError(f"tiny {label} kept no box")
+    print("tiny single-stage detectors eval, card vs CPU (TF32 off): worst |diff| / "
+          "largest " + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
+          + "; kept boxes and labels equal")
+    return {k: v[0] for k, v in worst.items()}
+
+
+def check_tiny_single_stage_steps_against_cpu(dev) -> dict:
+    """One train step of each tiny single-stage detector on the card in f32
+    against the CPU's step in f64 (weights from seed 8 with random
+    statistics, TF32 off), the ReLUs' signs pinned to the CPU's: loss terms
+    within 1e-5 (relative) and gradients within 5e-4 of their tensor's
+    largest; updated parameters within 1e-5 where the gradient is sure, 2
+    lr elsewhere; running statistics 1e-5. The unpinned card step and the
+    CPU's own f32 step are printed beside. ``tiny_pvrcnn_step`` runs the
+    steps; its RoI priorities are a placeholder these detectors never read."""
+    cpu = torch.device("cpu")
+    pts, valid, gt = single_stage_train_inputs()
+    inputs = (pts, valid, gt, np.zeros((2, 1), np.float32))
+    out = {}
+    for key, (label, _, tiny) in SINGLE_STAGE.items():
+        cfg = tiny()
+        sd = seeded_state_dict(8, build_detector(cfg, device=cpu)[0], random_stats=True)
+        ref = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float64)
+        card = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32, pinned=ref[4])
+        free = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32)
+        cpu32 = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float32)
+        lr = build_lr_schedule(cfg.OPTIMIZATION, 100)(0)
+        rel = lambda r: r.abs().max().item() + 1e-30          # noqa: E731
+        worst = {"loss_terms": _worst(card[0], ref[0], lambda r: abs(r.item()) + 1e-30),
+                 "gradients": _worst(card[1], ref[1], rel),
+                 "gradients_unpinned": _worst(free[1], ref[1], rel),
+                 "gradients_cpu_f32": _worst(cpu32[1], ref[1], rel),
+                 "running_stats": _worst(card[3], ref[3],
+                                         lambda r: 1.0 + r.abs().max().item())}
+        for n, p in card[2].items():
+            g = ref[1][n].abs()
+            sure = (g >= 0.05 * g.max()) & (g >= 1e-6)
+            err = (p - ref[2][n]).abs()
+            if not (err <= torch.where(sure, 1e-5, 2 * lr)).all():
+                raise AssertionError(f"tiny {label} step: updated {n} off the CPU by "
+                                     f"{err.max().item()}")
+        flips = sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))
+        print(f"tiny {label} train step, card f32 vs CPU f64 (ReLU signs pinned, TF32 off): "
+              "worst " + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
+              + f"; loss {ref[0]['loss'].item():.5f}; {flips} ReLU inputs of the unpinned "
+              "card step on the other side of 0")
+        if worst["loss_terms"][0] > 1e-5 or worst["gradients"][0] > 5e-4 \
+                or worst["running_stats"][0] > 1e-5:
+            raise AssertionError(f"tiny {label} step on the card off the CPU's f64 step")
+        if ref[0]["rpn_loss_loc"].item() <= 0:
+            raise AssertionError(f"tiny {label} step: no foreground anchor")
+        out[key] = {k: v[0] for k, v in worst.items()}
+    return out
+
+
+def check_atss_against_cpu(dev) -> dict:
+    """The ATSS assigner (TOPK 9) on the card against the CPU: the
+    three-class KITTI head at stride 8 over a 64 x 64 map (tests/
+    test_multiclass.py's range [0, -32, -3, 64, 32, 1] at 0.125 m: 24,576
+    anchors) and 21 ground-truth boxes of the three classes over two
+    frames: labels and weights equal, targets within 1e-5."""
+    head = DC._kitti_three_class_head(8)
+    head.TARGET_ASSIGNER_CONFIG["NAME"] = "ATSS"
+    head.TARGET_ASSIGNER_CONFIG["TOPK"] = 9
+    logic = AnchorHeadLogic(head, 3, ["Car", "Pedestrian", "Cyclist"], [512, 512, 32],
+                            [0, -32, -3, 64, 32, 1])
+    rng = np.random.RandomState(3)
+    sizes = np.float32([[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]])
+    cls = rng.randint(0, 3, (2, 12))
+    gt = np.concatenate([rng.uniform([2, -30, -1.5], [62, 30, -0.5], (2, 12, 3)),
+                         sizes[cls], rng.uniform(-3, 3, (2, 12, 1)),
+                         (cls + 1)[..., None]], -1).astype(np.float32)
+    gt[1, 9:] = 0.0
+    ref = logic.assign_targets(torch.from_numpy(gt))
+    got = logic.assign_targets(torch.from_numpy(gt).to(dev))
+    ms = host_ms(lambda: logic.assign_targets(torch.from_numpy(gt).to(dev)), reps=3)
+    for k in ("box_cls_labels", "reg_weights"):
+        if not torch.equal(got[k].cpu(), ref[k]):
+            raise AssertionError(f"ATSS on the card: {k} differs from the CPU's")
+    err = (got["box_reg_targets"].cpu() - ref["box_reg_targets"]).abs().max().item()
+    if err > 1e-5:
+        raise AssertionError(f"ATSS on the card: targets off the CPU's by {err}")
+    pos = int((ref["box_cls_labels"] > 0).sum())
+    print(f"ATSS (TOPK 9) over {logic.anchors_flat.shape[0]} anchors and 21 ground-truth "
+          f"boxes of three classes, card vs CPU: labels and weights equal ({pos} positive), "
+          f"targets within {err:.3g}; {ms:.2f} ms on the card (host clock, median of 3)")
+    if pos < 1:
+        raise AssertionError("ATSS assigned no positive")
+    return {"positives": pos, "max_target_err": err, "ms": ms}
+
+
+def single_stage_stages(model, cfg, points, valid) -> tuple:
+    """The detector's eval forward and post-processing, stage by stage,
+    each between synchronizes: {stage: (CUDA-event ms, host ms)}, and the
+    output. PointPillar: voxelize (its pillars), vfe, scatter; SECONDNet:
+    voxelize, backbone_3d (and the height compression); both: bev_backbone,
+    head (with the box decoding), post_processing."""
+    times = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        res = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times[name] = (ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3)
+        return res
+
+    b = points.shape[0]
+    with torch.no_grad():
+        if isinstance(model, PointPillar):
+            pts, pid, means, coords, mask = stage("voxelize",
+                                                  lambda: model.pillars(points, valid))
+            feats = stage("vfe", lambda: model.vfe(pts, pid, means, coords,
+                                                   b * model.cfg.max_voxels))
+            bev = stage("scatter", lambda: model.scatter(feats, coords, mask, b))
+        else:
+            st = stage("voxelize", lambda: SP.make_sparse_tensor(*voxelize_batch(
+                points, valid, point_cloud_range=model.cfg.point_cloud_range,
+                voxel_size=model.cfg.voxel_size, max_voxels=model.cfg.max_voxels,
+                max_points_per_voxel=model.cfg.max_points_per_voxel),
+                model.cfg.sparse_shape, b))
+            bev = stage("backbone_3d", lambda: height_compression(
+                model.backbone_3d(st)["encoded_spconv_tensor"]))
+        bev2d = stage("bev_backbone", lambda: model.backbone_2d(bev))
+        head_out = stage("head", lambda: model.dense_head(bev2d))
+        cls_p, box_p = model.cfg.head_logic.predict_boxes(head_out)
+        out = {"batch_cls_preds": cls_p, "batch_box_preds": box_p}
+        stage("post_processing", lambda: post_processing(
+            out, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES), False))
+    return times, out
+
+
+def time_single_stage_nms(out, cfg) -> dict:
+    """Post-processing's NMS alone on the frame's own head output (CUDA
+    events, median of 3): each per-class pass (MULTI_CLASSES_NMS) or the one
+    pass, and its greedy scan alone over the NMS_PRE_MAXSIZE top boxes."""
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
+    cls = torch.sigmoid(out["batch_cls_preds"][0])
+    boxes = out["batch_box_preds"][0, :, :7]
+    columns = [cls[:, k] for k in range(cls.shape[1])] if nms.MULTI_CLASSES_NMS \
+        else [cls.max(-1).values]
+    res = {"passes": len(columns)}
+    pre, post = int(nms.NMS_PRE_MAXSIZE), int(nms.NMS_POST_MAXSIZE)
+    with torch.no_grad():
+        res["nms_ms"] = time_cuda(lambda: [nms_bev(boxes, sc, float(nms.NMS_THRESH), pre, post,
+                                                   thresh) for sc in columns],
+                                  reps=3, warmup=1)
+        sc = columns[0]
+        k = min(pre, boxes.shape[0])
+        top = boxes[torch.sort(sc, descending=True, stable=True).indices[:k]]
+        overlap = boxes_iou_bev(top, top, row_chunk=512 if k > 2048 else None)
+        ok = torch.sort(sc, descending=True, stable=True).values[:k] >= thresh
+        res["greedy_scan_ms"] = time_cuda(lambda: NMS._greedy_suppress(
+            overlap, ok, float(nms.NMS_THRESH)), reps=3, warmup=1)
+        res["iou_ms"] = time_cuda(lambda: boxes_iou_bev(top, top, row_chunk=512
+                                                        if k > 2048 else None),
+                                  reps=3, warmup=1)
+    res.update(k=k, above_thresh=int(ok.sum()))
+    return res
+
+
+def group_positives(logic, gt) -> list:
+    """Each anchor class's positive count in the assigner's targets for
+    ``gt`` (B, M, 8)."""
+    labels = logic.assign_targets(gt)["box_cls_labels"]
+    return [int((labels == c + 1).sum()) for c in range(logic.num_class)]
+
+
+def serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
+    """Phase 16 serving of ``key`` (pointpillar or second_multihead, weights
+    from seed 0) on the SEE frame's completed cloud: ``see_and_detect`` and
+    ``run_frame`` (K1 counted in each, peak memory), ``detect_stage`` timed
+    (CUDA events, median of 5), its stages, post-processing's NMS alone,
+    the active pillars or voxels against the cap, device busy and top
+    ops."""
+    label, full, _ = SINGLE_STAGE[key]
+    cfg = full()
+    det, dcfg = build_detector(cfg, device="cpu")
+    det, _ = build_detector(cfg, seeded_state_dict(0, det), device=dev)
+    fr = detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image,
+                         finite=SINGLE_STAGE_OUT)
+    pp, out, new_pts, new_valid = (fr[k] for k in ("pp", "out", "new_pts", "new_valid"))
+    active = [int(v) for v in out["active_voxels"]]
+    kept = int(pp["pred_mask"].sum())
+    labels = torch.bincount(pp["pred_labels"][0][pp["pred_mask"][0]].long(),
+                            minlength=4)[1:].tolist()
+    n_anchors = dcfg.head_logic.anchors_flat.shape[0]
+    if out["batch_box_preds"].shape != (1, n_anchors, 7) or kept < 1 or active[0] < 1000:
+        raise AssertionError(f"{label} did no real work: active {active}, {kept} kept")
+    print(f"{label} at full width on the SEE frame's {int(new_valid.sum())} valid points "
+          f"(see_and_detect): kernel launches {fr['launches']}; active "
+          f"{'pillars' if key == 'pointpillar' else 'voxels input / conv1-4 / conv_out'} "
+          f"{active} (cap {dcfg.max_voxels}); {n_anchors} anchors, {kept} boxes kept "
+          f"(by class {labels}); peak device memory {fr['peak']:.2f} GiB")
+    print(f"fused frame with {label} (run_frame): kernel launches {fr['fused_launches']}; "
+          f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
+    pts, vld = new_pts[None], new_valid[None]
+    single_stage_stages(det, cfg, pts, vld)
+    runs = [single_stage_stages(det, cfg, pts, vld) for _ in range(3)]
+    stages = {k: (statistics.median(r[0][k][0] for r in runs),
+                  statistics.median(r[0][k][1] for r in runs)) for k in runs[0][0]}
+    nms = time_single_stage_nms(runs[-1][1], cfg)
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
+    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
+    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
+    ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
+                                        cfg, proj, l2c), reps=3)
+    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    print(f"{label} stages, CUDA-event / host ms (median of 3, each between "
+          "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
+                                        in stages.items()))
+    print(f"{label} post-processing NMS alone ({nms['passes']} pass(es) of K={nms['k']}, "
+          f"{nms['above_thresh']} of them above SCORE_THRESH in the first): "
+          f"{nms['nms_ms']:.2f} ms, of which the {nms['k']} x {nms['k']} rotated IoU "
+          f"{nms['iou_ms']:.2f} ms and the greedy scan {nms['greedy_scan_ms']:.2f} ms a "
+          "pass (CUDA events, median of 3)")
+    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
+          f"{det_host:.2f} ms host; SEE + {label} frame {fd_ms:.2f} ms, fused frame with "
+          f"{label} {ff_ms:.2f} ms (host clock, median of 3) on {card}; profiled "
+          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+    return {"launches": fr["launches"], "fused_launches": fr["fused_launches"],
+            "active": active, "cap": dcfg.max_voxels, "kept": kept, "kept_by_class": labels,
+            "peak_gib": fr["peak"], "stage_ms": stages, "nms": nms, "detect_ms": det_ms,
+            "detect_host_ms": det_host, "see_detect_frame_ms": fd_ms,
+            "fused_frame_ms": ff_ms, "device_busy_ms": busy, "top_ops": top}
+
+
+def train_single_stage(dev, card, key, pts, valid, gt, steps: int = 5) -> dict:
+    """Phase 16 training of ``key`` at full width (f32, batch 4 as the
+    configs', the train voxel cap, weights from seed 0) on the four
+    GT-completed frames: 1 + ``steps`` train steps, one split by CUDA
+    events, one profiled. Raises unless every loss is finite and every
+    parameter moved after step 1, but a head group's box and direction
+    convs while the step's targets give that group's classes no positive
+    (their gradient all zero)."""
+    label, full, _ = SINGLE_STAGE[key]
+    cfg = full()
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    pts, valid, gt = pts[:batch], valid[:batch], gt[:batch]
+    cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    cpu_model, _ = build_detector(cfg, max_voxels=cap, device="cpu")
+    model, dcfg = build_detector(cfg, seeded_state_dict(0, cpu_model), max_voxels=cap,
+                                 device=dev)
+    state = create_train_state(model, cfg.OPTIMIZATION, total_steps=1000)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    positives = group_positives(dcfg.head_logic, gt)
+    excused = ()
+    head = model.dense_head
+    for g, grp in enumerate(getattr(head, "groups", ())):
+        if sum(positives[c] for c in grp) == 0:
+            excused += (f"dense_head.rpn_heads.{g}.conv_box.",
+                        f"dense_head.rpn_heads.{g}.conv_dir_cls.")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, tb, out = train_forward(state, pts, valid, gt)
+    apply_gradients(state, loss)
+    losses = [{"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}]
+    for n, p in model.named_parameters():
+        if not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{label}: gradient of {n} is not finite")
+    idle = check_moved(model, start, excused, f"{label} train step 1")
+    train_step(state, pts, valid, gt)                       # warm-up
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(state, pts, valid, gt))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fwd = model(pts, valid, gt_boxes=gt)
+    ev[1].record()
+    loss, _ = model.loss(fwd, gt)
+    ev[2].record()
+    apply_gradients(state, loss)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1])
+             for i, k in enumerate(("forward", "loss", "backward_update"))}
+    busy, top = profile_frame((state, pts, valid, gt), train_step)
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"a {label} training loss is not finite")
+    step_ms = statistics.median(times)
+    summary = {"step_ms": step_ms, "frames_per_s": batch * 1e3 / step_ms,
+               "step_ms_all": times, "split_ms": split, "peak_gib": peak,
+               "device_busy_ms": busy, "top_ops": top,
+               "losses": [m["loss"] for m in values], "last_terms": values[-1],
+               "positives_by_class": positives, "idle": idle, "voxel_cap": cap,
+               "active": [int(v) for v in out["active_voxels"]]}
+    print(f"{label} train steps at batch {batch} (full width, f32, train cap {cap}) on "
+          f"GT-completed frames: losses " + ", ".join(f"{v:.4f}" for v in summary["losses"])
+          + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items())
+          + f"; positive anchors by class {positives}; active {summary['active']}; "
+          f"parameters still after step 1 (no foreground in their group): {idle}")
+    print(f"{label} train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+          f"{steps} after a warm-up) = {summary['frames_per_s']:.2f} frames/s; CUDA events: "
+          f"forward {split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
+          f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; profiled "
+          f"step: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    return summary
+
+
+def serve_second_focal(dev, card, new_pts, new_valid) -> dict:
+    """Phase 16: the focal SECONDNet at full width (weights from seed 0) on
+    the SEE frame's completed cloud: one timed eval forward (CUDA events,
+    median of 3) and the voxels each focal layer adds."""
+    label, full, _ = SINGLE_STAGE["second_focal"]
+    cfg = full()
+    det, dcfg = build_detector(cfg, device="cpu")
+    det, _ = build_detector(cfg, seeded_state_dict(0, det), device=dev)
+    pp, out = F.detect_stage(det, cfg, new_pts, new_valid)
+    for k in SINGLE_STAGE_OUT:
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"{label} output {k} is not finite")
+    with torch.no_grad():
+        bb = det.voxel_backbone(new_pts[None], new_valid[None])[1]
+    # the voxels a focal layer adds: its stage's actives less its input's
+    # (each stage's later convs are submanifold)
+    ins = [int(a["mask"].sum()) for a in bb["focal_aux"]]
+    outs = [int(bb["multi_scale_3d_features"][f"x_conv{i}"].mask.sum()) for i in (1, 2, 3)]
+    added = [o - i for o, i in zip(outs, ins)]
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=3, warmup=1)
+    kept = int(pp["pred_mask"].sum())
+    print(f"{label} at full width on the SEE frame: detect_stage {det_ms:.2f} ms (CUDA "
+          f"events, median of 3) on {card}; active voxels {[int(v) for v in out['active_voxels']]}"
+          f" (cap {dcfg.max_voxels}); the focal layers' inputs {ins} voxels, each adds "
+          f"{added} (at most {det.backbone_3d.conv1[0].topk * 26} each); {kept} boxes kept")
+    if kept < 1:
+        raise AssertionError(f"{label} kept no box")
+    return {"detect_ms": det_ms, "focal_inputs": ins, "focal_added": added, "kept": kept,
+            "active": [int(v) for v in out["active_voxels"]]}
+
+
+def single_stage(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt) -> dict:
+    """Phase 16: the tiny single-stage detectors and ATSS card vs CPU, then
+    PointPillar and the multi-head SECONDNet at full width on the completed
+    frame and in the train step, and the focal SECONDNet's eval forward."""
+    res = {"tiny_vs_cpu": check_tiny_single_stage_against_cpu(dev),
+           "tiny_steps_vs_cpu": check_tiny_single_stage_steps_against_cpu(dev),
+           "atss": check_atss_against_cpu(dev)}
+    for key in ("pointpillar", "second_multihead"):
+        res[key] = serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image)
+        res[key]["train"] = train_single_stage(dev, card, key, g_pts, g_valid, g_gt)
+    new_pts, new_valid, _ = F.complete_frame(s["points"], s["valid"], s["det_boxes"],
+                                             s["det_masks"], s["det_scores"], vcn, proj, l2c,
+                                             IMAGE_SIZE)
+    res["second_focal"] = serve_second_focal(dev, card, new_pts, new_valid)
+    return res
+
 
 
 def main() -> int:
@@ -3190,6 +3617,17 @@ def main() -> int:
     print(f"phase 15 (PV-RCNN++) ran {plusplus['phase_s']:.0f} s; chip_smoke ran "
           f"{time.time() - t_start:.0f} s after start-up")
 
+    # --- 16. single-stage detectors: PointPillar and SECONDNet ---------------
+    t16 = time.time()
+    singles = single_stage(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt)
+    for key in ("pointpillar", "second_multihead"):
+        kernels[0][f"{key}_launches"] = {
+            "see_and_detect": singles[key]["launches"]["min_sqdist_pruned"],
+            "run_frame": singles[key]["fused_launches"]["min_sqdist_pruned"]}
+    singles["phase_s"] = time.time() - t16
+    print(f"phase 16 (PointPillar, SECONDNet) ran {singles['phase_s']:.0f} s; chip_smoke "
+          f"ran {time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -3204,7 +3642,12 @@ def main() -> int:
                      "peak_gib": det_peak},
         "see_frame_peak_gib": see_peak, "train": train, "vcn_train": vcn_train,
         "seg2d_train": seg2d_train, "htc": htc, "htc_train": htc_train,
-        "pvrcnn": pvrcnn, "pvrcnn_plusplus": plusplus, "card": smi}))
+        "pvrcnn": pvrcnn, "pvrcnn_plusplus": plusplus,
+        "pointpillar": singles["pointpillar"], "second_multihead": singles["second_multihead"],
+        "second_focal": singles["second_focal"],
+        "single_stage_checks": {k: singles[k] for k in ("tiny_vs_cpu", "tiny_steps_vs_cpu",
+                                                        "atss", "phase_s")},
+        "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -327,3 +327,193 @@ def tiny_pvrcnn_plusplus_cfg(sample_method: str = "SPC", vector_pool: bool = Tru
             "x_conv4": _vector_pool(4, [16], [([2, 2, 2], 4.8, -1, [8, 8]),
                                               ([3, 3, 3], 9.6, 16, [8, 8])], ds=8)})
     return cfg
+
+
+# --- single-stage anchor detectors: PointPillar and SECONDNet ---------------
+
+def _kitti_anchor(name: str, size, bottom: float, stride: int, matched: float,
+                  unmatched: float) -> dict:
+    """One class of OpenPCDet's KITTI ANCHOR_GENERATOR_CONFIG (rotations 0 and
+    1.57, not centre-aligned)."""
+    return {"class_name": name, "anchor_sizes": [list(size)],
+            "anchor_rotations": [0, 1.57], "anchor_bottom_heights": [bottom],
+            "align_center": False, "feature_map_stride": stride,
+            "matched_threshold": matched, "unmatched_threshold": unmatched}
+
+
+def _kitti_three_class_head(stride: int, name: str = "AnchorHeadSingle") -> Cfg:
+    """The Car / Pedestrian / Cyclist anchor head of OpenPCDet's KITTI
+    models (pointpillar.yaml, second.yaml): anchors at ``stride``, the
+    axis-aligned assigner with the residual coder, loss weights cls 1.0,
+    loc 2.0, dir 0.2."""
+    return Cfg({
+        "NAME": name, "CLASS_AGNOSTIC": False, "USE_DIRECTION_CLASSIFIER": True,
+        "DIR_OFFSET": 0.78539, "DIR_LIMIT_OFFSET": 0.0, "NUM_DIR_BINS": 2,
+        "ANCHOR_GENERATOR_CONFIG": [
+            _kitti_anchor("Car", (3.9, 1.6, 1.56), -1.78, stride, 0.6, 0.45),
+            _kitti_anchor("Pedestrian", (0.8, 0.6, 1.73), -0.6, stride, 0.5, 0.35),
+            _kitti_anchor("Cyclist", (1.76, 0.6, 1.73), -0.6, stride, 0.5, 0.35)],
+        "TARGET_ASSIGNER_CONFIG": {
+            "NAME": "AxisAlignedTargetAssigner", "POS_FRACTION": -1.0,
+            "SAMPLE_SIZE": 512, "NORM_BY_NUM_EXAMPLES": False,
+            "MATCH_HEIGHT": False, "BOX_CODER": "ResidualCoder"},
+        "LOSS_CONFIG": {"LOSS_WEIGHTS": {
+            "cls_weight": 1.0, "loc_weight": 2.0, "dir_weight": 0.2,
+            "code_weights": [1.0] * 7}}})
+
+
+def _single_stage_post(thresh: float, pre: int, post: int, multi: bool) -> Cfg:
+    return Cfg({"RECALL_THRESH_LIST": [0.3, 0.5, 0.7], "SCORE_THRESH": 0.1,
+                "OUTPUT_RAW_SCORE": False, "EVAL_METRIC": "kitti",
+                "NMS_CONFIG": {"MULTI_CLASSES_NMS": multi, "NMS_TYPE": "nms_gpu",
+                               "NMS_THRESH": thresh, "NMS_PRE_MAXSIZE": pre,
+                               "NMS_POST_MAXSIZE": post}})
+
+
+def _kitti_optimization() -> Cfg:
+    """OpenPCDet's KITTI OPTIMIZATION block: adam_onecycle, LR 0.003, batch 4."""
+    return Cfg({"OPTIMIZER": "adam_onecycle", "BATCH_SIZE_PER_GPU": 4,
+                "NUM_EPOCHS": 80, "LR": 0.003, "WEIGHT_DECAY": 0.01,
+                "MOMENTUM": 0.9, "MOMS": [0.95, 0.85], "PCT_START": 0.4,
+                "DIV_FACTOR": 10, "DECAY_STEP_LIST": [35, 45], "LR_DECAY": 0.1,
+                "LR_CLIP": 0.0000001, "LR_WARMUP": False, "WARMUP_EPOCH": 1,
+                "GRAD_NORM_CLIP": 10})
+
+
+def pointpillar_detector_cfg():
+    """PointPillar at OpenPCDet's tools/cfgs/kitti_models/pointpillar.yaml:
+    0.16 x 0.16 x 4 m pillars over [0, -39.68, -3, 69.12, 39.68, 1] (a 432 x
+    496 grid), PillarVFE (absolute xyz, no distance, 64 filters), the
+    64-channel scatter, BACKBONE_2D [3, 5, 5] x [64, 128, 256] at strides 2
+    up by [1, 2, 4] to 3 x 128, AnchorHeadSingle with the three KITTI
+    classes at stride 2, NMS 0.01 over 4,096 -> 500, adam_onecycle at batch
+    4. One change: ``used_feature_list`` is [x, y, z], as the flagship's,
+    because the SEE frame's completed points carry no intensity; the VFE
+    reads 3 + 3 + 3 = 9 features. The JAX package's PointPillar averages
+    every point of a pillar (MAX_POINTS_PER_VOXEL is not read)."""
+    return Cfg({
+        "CLASS_NAMES": ["Car", "Pedestrian", "Cyclist"],
+        "DATA_CONFIG": {
+            "POINT_CLOUD_RANGE": [0, -39.68, -3, 69.12, 39.68, 1],
+            "POINT_FEATURE_ENCODING": {"used_feature_list": ["x", "y", "z"]},
+            "DATA_PROCESSOR": [
+                {"NAME": "transform_points_to_voxels", "VOXEL_SIZE": [0.16, 0.16, 4],
+                 "MAX_POINTS_PER_VOXEL": 32,
+                 "MAX_NUMBER_OF_VOXELS": {"train": 16000, "test": 40000}}]},
+        "MODEL": {
+            "NAME": "PointPillar",
+            "VFE": {"NAME": "PillarVFE", "WITH_DISTANCE": False,
+                    "USE_ABSLOTE_XYZ": True, "USE_NORM": True, "NUM_FILTERS": [64]},
+            "MAP_TO_BEV": {"NAME": "PointPillarScatter", "NUM_BEV_FEATURES": 64},
+            "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [3, 5, 5],
+                            "LAYER_STRIDES": [2, 2, 2], "NUM_FILTERS": [64, 128, 256],
+                            "UPSAMPLE_STRIDES": [1, 2, 4],
+                            "NUM_UPSAMPLE_FILTERS": [128, 128, 128]},
+            "DENSE_HEAD": _kitti_three_class_head(2),
+            "POST_PROCESSING": _single_stage_post(0.01, 4096, 500, False)},
+        "OPTIMIZATION": _kitti_optimization()})
+
+
+def second_multihead_detector_cfg():
+    """SECONDNet with the structure of OpenPCDet's tools/cfgs/nuscenes_models/
+    cbgs_second_multihead.yaml (VoxelResBackBone8x, AnchorHeadMulti with a
+    64-channel shared conv and one group a class, per-class NMS 0.2 over
+    1,000 -> 83) on the KITTI data and widths of kitti_models/second.yaml:
+    0.05 x 0.05 x 0.1 m voxels over [0, -40, -3, 70.4, 40, 1] (1408 x 1600
+    x 40), 5 points a voxel, 16,000 / 40,000 voxels, HeightCompression 256,
+    BACKBONE_2D [5, 5] x [128, 256] up to 2 x 256, the three KITTI classes
+    at stride 8, batch 4, points [x, y, z]. No published multi-head yaml
+    runs unchanged here: the JAX package's grouped head has no
+    SEPARATE_REG_CONFIG and no velocity code, which the nuScenes heads
+    need."""
+    return Cfg({
+        "CLASS_NAMES": ["Car", "Pedestrian", "Cyclist"],
+        "DATA_CONFIG": {
+            "POINT_CLOUD_RANGE": [0, -40, -3, 70.4, 40, 1],
+            "POINT_FEATURE_ENCODING": {"used_feature_list": ["x", "y", "z"]},
+            "DATA_PROCESSOR": [
+                {"NAME": "transform_points_to_voxels", "VOXEL_SIZE": [0.05, 0.05, 0.1],
+                 "MAX_POINTS_PER_VOXEL": 5,
+                 "MAX_NUMBER_OF_VOXELS": {"train": 16000, "test": 40000}}]},
+        "MODEL": {
+            "NAME": "SECONDNet",
+            "VFE": {"NAME": "MeanVFE"},
+            "BACKBONE_3D": {"NAME": "VoxelResBackBone8x"},
+            "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+            "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [5, 5],
+                            "LAYER_STRIDES": [1, 2], "NUM_FILTERS": [128, 256],
+                            "UPSAMPLE_STRIDES": [1, 2],
+                            "NUM_UPSAMPLE_FILTERS": [256, 256]},
+            "DENSE_HEAD": _multihead(_kitti_three_class_head(8, "AnchorHeadMulti"), 64,
+                                     [["Car"], ["Pedestrian"], ["Cyclist"]]),
+            "POST_PROCESSING": _single_stage_post(0.2, 1000, 83, True)},
+        "OPTIMIZATION": _kitti_optimization()})
+
+
+def _multihead(head: Cfg, shared: int, groups) -> Cfg:
+    head["SHARED_CONV_NUM_FILTER"] = shared
+    head["USE_MULTIHEAD"] = True
+    head["SEPARATE_MULTIHEAD"] = True
+    head["CLASS_NAMES_EACH_HEAD"] = [list(g) for g in groups]
+    return head
+
+
+def second_focal_detector_cfg():
+    """``second_multihead_detector_cfg`` with the focal 3D backbone
+    (VoxelBackBone8xFocal: the JAX package's TOPK 128 and THRESHOLD 0.5,
+    which its model fixes) and AnchorHeadSingle, second.yaml's head, with
+    second.yaml's NMS (0.01 over 4,096 -> 500)."""
+    cfg = second_multihead_detector_cfg()
+    cfg.MODEL.BACKBONE_3D = Cfg({"NAME": "VoxelBackBone8xFocal"})
+    cfg.MODEL.DENSE_HEAD = _kitti_three_class_head(8)
+    cfg.MODEL.POST_PROCESSING = _single_stage_post(0.01, 4096, 500, False)
+    return cfg
+
+
+def _tiny_single_stage(cfg, voxel_size, stride: int):
+    """A full single-stage config cut to the tiny grid ([0, -8, -2, 16, 8,
+    2]) with narrow 2D widths and small NMS, for the tests."""
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -8, -2, 16, 8, 2]
+    vox = cfg.DATA_CONFIG.DATA_PROCESSOR[0]
+    vox.VOXEL_SIZE = list(voxel_size)
+    vox.MAX_NUMBER_OF_VOXELS = {"train": 512, "test": 512}
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS, b2.NUM_FILTERS, b2.NUM_UPSAMPLE_FILTERS = [1, 1], [16, 32], [16, 16]
+    b2.LAYER_STRIDES = [1, 2] if stride == 8 else [2, 2]
+    b2.UPSAMPLE_STRIDES = [1, 2]
+    for a in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG:
+        a["feature_map_stride"] = stride
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE, nms.NMS_POST_MAXSIZE = 256, 16
+    return cfg
+
+
+def tiny_pointpillar_cfg():
+    """PointPillar on the tiny grid: 0.5 m pillars (32 x 32), a 16-filter
+    VFE, BACKBONE_2D [1, 1] x [16, 32] at strides 2, 2 up by [1, 2],
+    anchors at stride 2."""
+    cfg = _tiny_single_stage(pointpillar_detector_cfg(), (0.5, 0.5, 4), 2)
+    cfg.MODEL.VFE.NUM_FILTERS = [16]
+    cfg.MODEL.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    return cfg
+
+
+def tiny_second_multihead_cfg():
+    """The multi-head SECONDNet on the tiny grid (0.5 x 0.5 x 0.1 m, 32 x 32
+    x 40): VoxelResBackBone8x, BACKBONE_2D [1, 1] x [16, 32] at strides 1,
+    2, a 16-channel shared conv and the groups [Car], [Pedestrian,
+    Cyclist] (one group of two classes), anchors at stride 8."""
+    cfg = _tiny_single_stage(second_multihead_detector_cfg(), (0.5, 0.5, 0.1), 8)
+    _multihead(cfg.MODEL.DENSE_HEAD, 16, [["Car"], ["Pedestrian", "Cyclist"]])
+    return cfg
+
+
+def tiny_second_focal_cfg():
+    """The focal SECONDNet on ``tiny_second_multihead_cfg``'s grid and
+    widths, with AnchorHeadSingle, and 2,048 voxel rows a frame: the focal
+    layers' new voxels take the strided convs' outputs past the 512 rows of
+    the other tiny configs, where the JAX package's rulebook mode would
+    truncate them (ROADMAP §3)."""
+    cfg = _tiny_single_stage(second_focal_detector_cfg(), (0.5, 0.5, 0.1), 8)
+    cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    return cfg

@@ -1,7 +1,8 @@
 """Anchors and their targets (port of ``generate_anchors``,
-``AxisAlignedTargetAssigner`` and ``get_direction_targets`` of
-seevcn_tpu/models/modules/anchors.py; reference anchor_generator.py:17-60 and
-axis_aligned_target_assigner.py:36-210).
+``AxisAlignedTargetAssigner``, ``ATSSTargetAssigner`` and
+``get_direction_targets`` of seevcn_tpu/models/modules/anchors.py; reference
+anchor_generator.py:17-60, axis_aligned_target_assigner.py:36-210 and
+atss_target_assigner.py:7-142).
 
 Anchors: grid anchors at every feature-map cell, per class sizes, rotations
 and bottom heights, flattened (z, y, x, size, rot) as the conv head's
@@ -11,6 +12,13 @@ matched / unmatched thresholds, and each ground truth's best anchors forced
 to match; residual targets for the positives. Fixed shapes over padded
 ground truth (all-zero rows), as in the reference: a padding row has zero
 IoU everywhere and is neutralised by ``g2a_max == 0 -> -1``.
+
+ATSS assigns over every anchor at once, in the head's layout (the anchor
+classes interleaved per location, as the head predicts them and as the
+axis-aligned assigner lays out its targets). The JAX package joins the
+classes class-major there, which puts the labels of several anchor classes
+on rows the head predicts for other anchors; with one anchor class the two
+orders agree.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ import torch
 
 from ...geom.boxes import boxes3d_nearest_bev_iou
 from ...geom.transforms import limit_period
-from ...ops.iou3d import boxes_iou3d
+from ...ops.iou3d import boxes_iou3d, boxes_iou_bev
 
 
 def generate_anchors(anchor_generator_cfg, grid_size, point_cloud_range,
@@ -152,3 +160,72 @@ def get_direction_targets(anchors: torch.Tensor, reg_targets: torch.Tensor,
     offset_rot = limit_period(rot_gt - dir_offset, 0, 2 * math.pi)
     bins = torch.floor(offset_rot / (2 * math.pi / num_bins)).to(torch.int64)
     return bins.clamp(0, num_bins - 1)
+
+
+class ATSSTargetAssigner:
+    """Adaptive training sample selection (arXiv:1912.02424): per ground
+    truth, the TOPK anchors nearest by 3D centre distance (a stable sort:
+    ties to the lower row), their IoUs thresholded at mean + std (ddof 1) +
+    1e-6, the anchor centre inside the ground truth's rotated BEV rectangle;
+    each anchor then takes its best-IoU positive ground truth, and each
+    valid ground truth's best anchor (first maximum) is forced to it, the
+    later ground truth winning a shared anchor as XLA's scatter does. No
+    anchor is ignored: labels are 0 or a class id."""
+
+    def __init__(self, topk: int, box_coder, match_height: bool = False):
+        self.topk = int(topk)
+        self.box_coder = box_coder
+        self.match_height = bool(match_height)
+
+    def assign(self, anchors: torch.Tensor, gt_boxes: torch.Tensor) -> dict:
+        """anchors (A, ndim) in the head's layout; gt_boxes (B, M, 8), zero
+        rows padding -> box_cls_labels (B, A) int32, box_reg_targets (B, A,
+        code), reg_weights (B, A)."""
+        a = anchors[:, :7]
+        per = [self._assign_one(a, gt) for gt in gt_boxes]
+        return {k: torch.stack([p[i] for p in per]) for i, k in enumerate(
+            ("box_cls_labels", "box_reg_targets", "reg_weights"))}
+
+    def _assign_one(self, a: torch.Tensor, gt_all: torch.Tensor):
+        gt = gt_all[:, :7]
+        gt_cls = gt_all[:, -1].to(torch.int32)
+        valid = gt_all.abs().sum(1) > 0
+        num_gt, num_a = gt.shape[0], a.shape[0]
+        iou = boxes_iou3d(a, gt, row_chunk=8192) if self.match_height \
+            else boxes_iou_bev(a, gt, row_chunk=8192)
+        iou = torch.where(valid[None, :], iou, 0.0)
+
+        d = a[:, None, :3] - gt[None, :, :3]
+        dist = (d * d).sum(-1).sqrt()
+        k = min(self.topk, num_a)
+        topk_idx = torch.sort(dist.T, dim=1, stable=True).indices[:, :k]    # (M, K)
+        cand = torch.zeros((num_gt, num_a), dtype=torch.bool, device=a.device)
+        cand.scatter_(1, topk_idx, True)
+        cand_iou = torch.gather(iou.T, 1, topk_idx)
+        thr = cand_iou.mean(1) + cand_iou.std(1) + 1e-6
+
+        c, s = torch.cos(-gt[:, 6]), torch.sin(-gt[:, 6])
+        lx = d[..., 0] * c[None, :] - d[..., 1] * s[None, :]
+        ly = d[..., 0] * s[None, :] + d[..., 1] * c[None, :]
+        inside = (lx.abs() <= gt[None, :, 3] / 2) & (ly.abs() <= gt[None, :, 4] / 2)
+        is_pos = cand.T & (iou >= thr[None, :]) & inside & valid[None, :]
+
+        neg = -1e9
+        iou_pos = torch.where(is_pos, iou, neg)
+        best_val, best_gt = iou_pos.amax(1), iou_pos.argmax(1)
+        # force-match each valid ground truth's best anchor; where several
+        # name one anchor the last one's write stands, an invalid row's
+        # write keeping what was there
+        gt_best_val, gt_best_anchor = iou.amax(0), iou.argmax(0)
+        rows = torch.arange(num_gt, device=a.device)
+        writer = torch.full((num_a,), -1, dtype=torch.long, device=a.device).scatter_reduce(
+            0, gt_best_anchor, rows, "amax", include_self=True)
+        j = writer.clamp_min(0)
+        forced = (writer >= 0) & valid[j]
+        best_gt = torch.where(forced, j, best_gt)
+        best_val = torch.where(forced, gt_best_val[j], best_val)
+
+        fg = best_val > neg / 2
+        labels = torch.where(fg, gt_cls[best_gt], 0).to(torch.int32)
+        targets = torch.where(fg[:, None], self.box_coder.encode(gt[best_gt], a), 0.0)
+        return labels, targets, fg.to(torch.float32)

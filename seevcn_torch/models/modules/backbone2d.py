@@ -1,7 +1,11 @@
 """Dense 2D BEV backbone (port of seevcn_tpu/models/modules/backbone2d.py;
 reference base_bev_backbone.py:6-112): per level a strided 3x3 conv and
-LAYER_NUMS[i] 3x3 convs (conv-BN-ReLU, no bias), then a transposed-conv
-upsample per level and a channel concat. Keys as the reference's
+LAYER_NUMS[i] 3x3 convs (conv-BN-ReLU, no bias), then an upsample per
+level and a channel concat. An upsample stride s >= 1 is a transposed conv
+of kernel and stride s; s < 1 a conv of kernel and stride round(1 / s),
+unpadded; with one more upsample stride than levels, a final transposed
+conv over the concat follows (``deblocks.{levels}``); with none, the
+levels' own outputs are joined. Keys as the reference's
 (``blocks.0.1.weight`` after its ZeroPad2d at index 0)."""
 from __future__ import annotations
 
@@ -19,11 +23,7 @@ class BaseBEVBackbone(nn.Module):
                  upsample_strides: Sequence[float] = (),
                  num_upsample_filters: Sequence[int] = ()):
         super().__init__()
-        if len(upsample_strides) != len(layer_nums) \
-                or any(s < 1 for s in upsample_strides):
-            raise NotImplementedError(
-                "BaseBEVBackbone is ported with one upsample of stride >= 1 "
-                "per level")
+        levels = len(layer_nums)
         self.blocks = nn.ModuleList()
         self.deblocks = nn.ModuleList()
         cin = input_channels
@@ -35,18 +35,33 @@ class BaseBEVBackbone(nn.Module):
             for _ in range(n):
                 layers += conv_block2d(num_filters[i], num_filters[i])
             self.blocks.append(nn.Sequential(*layers))
-            s = int(upsample_strides[i])
-            self.deblocks.append(nn.Sequential(*deconv_block2d(
-                num_filters[i], num_upsample_filters[i], s)))
+            if upsample_strides:
+                s = upsample_strides[i]
+                if s >= 1:
+                    up = deconv_block2d(num_filters[i], num_upsample_filters[i], int(s))
+                else:
+                    k = int(round(1 / s))
+                    up = conv_block2d(num_filters[i], num_upsample_filters[i], kernel=k,
+                                      stride=k, padding=0)
+                self.deblocks.append(nn.Sequential(*up))
             cin = num_filters[i]
-        self.num_bev_features = int(sum(num_upsample_filters))
+        joined = int(sum(num_upsample_filters[:levels])) if upsample_strides \
+            else int(sum(num_filters))
+        if len(upsample_strides) > levels:
+            self.deblocks.append(nn.Sequential(*deconv_block2d(
+                joined, joined, int(upsample_strides[-1]))))
+        self.num_bev_features = int(sum(num_upsample_filters)) if num_upsample_filters \
+            else int(num_filters[-1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) -> (B, H', W', sum(NUM_UPSAMPLE_FILTERS)), NHWC at
-        both ends as in the reference; NCHW inside."""
+        """(B, H, W, C) -> (B, H', W', num_bev_features), NHWC at both ends
+        as in the reference; NCHW inside."""
         x = x.permute(0, 3, 1, 2)
         ups = []
-        for block, deblock in zip(self.blocks, self.deblocks):
+        for i, block in enumerate(self.blocks):
             x = block(x)
-            ups.append(deblock(x))
-        return torch.cat(ups, dim=1).permute(0, 2, 3, 1)
+            ups.append(self.deblocks[i](x) if len(self.deblocks) else x)
+        out = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
+        if len(self.deblocks) > len(self.blocks):
+            out = self.deblocks[-1](out)
+        return out.permute(0, 2, 3, 1)

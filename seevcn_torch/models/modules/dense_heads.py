@@ -1,8 +1,10 @@
-"""Anchor-based dense head (port of AnchorHeadSingle and AnchorHeadLogic of
-seevcn_tpu/models/modules/dense_heads.py; reference anchor_head_single.py:7-75
-and anchor_head_template.py): 1x1 conv heads for class, box and direction;
-anchor decoding; target assignment and the focal, sin-difference smooth-L1
-and direction cross-entropy losses."""
+"""Anchor-based dense heads (port of AnchorHeadSingle, AnchorHeadMulti,
+build_anchor_head and AnchorHeadLogic of
+seevcn_tpu/models/modules/dense_heads.py; reference anchor_head_single.py:7-75,
+anchor_head_multi.py and anchor_head_template.py): 1x1 conv heads for
+class, box and direction, single or grouped by class; anchor decoding;
+target assignment (axis-aligned or ATSS) and the focal, sin-difference
+smooth-L1 and direction cross-entropy losses."""
 from __future__ import annotations
 
 import math
@@ -14,8 +16,10 @@ from torch import nn
 
 from ...geom.transforms import limit_period
 from ..losses import sigmoid_focal_loss, weighted_cross_entropy, weighted_smooth_l1
-from .anchors import AxisAlignedTargetAssigner, generate_anchors, get_direction_targets
+from .anchors import (ATSSTargetAssigner, AxisAlignedTargetAssigner, generate_anchors,
+                      get_direction_targets)
 from .box_coder import build_box_coder
+from .common import BatchNorm2d
 
 
 class AnchorHeadSingle(nn.Module):
@@ -40,6 +44,75 @@ class AnchorHeadSingle(nn.Module):
         if self.conv_dir_cls is not None:
             out["dir_cls_preds"] = self.conv_dir_cls(x).permute(0, 2, 3, 1)
         return out
+
+
+class AnchorHeadMulti(nn.Module):
+    """Grouped anchor heads: an optional shared 3x3 conv + BN + ReLU, then
+    per group of classes (CLASS_NAMES_EACH_HEAD) an AnchorHeadSingle over
+    that group's anchors, scoring only the group's classes (the reference's
+    SingleHead, without its separate regression branches). The groups' outputs
+    are joined on the per-location anchor axis, the layout of
+    AnchorHeadLogic (the groups partition the classes in order), and a
+    class outside a group reads the constant -1e4 (sigmoid 0, no
+    gradient). Keys as the reference's: ``shared_conv.{0,1}``,
+    ``rpn_heads.{g}.conv_cls`` / ``conv_box`` / ``conv_dir_cls``."""
+
+    def __init__(self, input_channels: int, num_class: int, code_size: int,
+                 num_dir_bins: int, per_class_anchors: Sequence[int],
+                 groups: Sequence[Sequence[int]], shared_conv_channels: int = 64):
+        super().__init__()
+        self.num_class, self.code_size, self.num_dir_bins = num_class, code_size, num_dir_bins
+        self.groups = [tuple(g) for g in groups]
+        self.group_anchors = [int(sum(per_class_anchors[c] for c in g)) for g in self.groups]
+        cin = input_channels
+        self.shared_conv = None
+        if shared_conv_channels:
+            self.shared_conv = nn.Sequential(
+                nn.Conv2d(cin, shared_conv_channels, 3, padding=1, bias=False),
+                BatchNorm2d(shared_conv_channels, eps=1e-3, momentum=0.01), nn.ReLU())
+            cin = shared_conv_channels
+        self.rpn_heads = nn.ModuleList(
+            AnchorHeadSingle(cin, len(g), a, code_size, num_dir_bins)
+            for a, g in zip(self.group_anchors, self.groups))
+
+    def forward(self, bev: torch.Tensor) -> dict:
+        """bev (B, H, W, C) -> head maps (B, H, W, A*...), NHWC."""
+        x = bev
+        if self.shared_conv is not None:
+            x = self.shared_conv(bev.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        b, h, w, _ = x.shape
+        parts = {}
+        for head, grp, a in zip(self.rpn_heads, self.groups, self.group_anchors):
+            out = {k: v.reshape(b, h, w, a, -1) for k, v in head(x).items()}
+            full = out["cls_preds"].new_full((b, h, w, a, self.num_class), -1e4)
+            full[..., list(grp)] = out["cls_preds"]
+            out["cls_preds"] = full
+            for k, v in out.items():
+                parts.setdefault(k, []).append(v)
+        return {k: torch.cat(v, 3).reshape(b, h, w, -1) for k, v in parts.items()}
+
+
+def build_anchor_head(head_cfg, logic, input_channels: int, num_class: int,
+                      class_names) -> nn.Module:
+    """DENSE_HEAD.NAME's module: AnchorHeadSingle or AnchorHeadMulti (whose
+    CLASS_NAMES_EACH_HEAD must partition CLASS_NAMES in order)."""
+    name = head_cfg.get("NAME", "AnchorHeadSingle")
+    if name == "AnchorHeadMulti":
+        names = list(class_names)
+        groups = [list(g) for g in head_cfg.CLASS_NAMES_EACH_HEAD]
+        flat = [n for g in groups for n in g]
+        if flat != names:
+            raise ValueError("CLASS_NAMES_EACH_HEAD must partition CLASS_NAMES in order "
+                             f"(got {flat} vs {names})")
+        return AnchorHeadMulti(
+            input_channels, num_class, logic.box_coder.code_size, logic.num_dir_bins,
+            logic.num_anchors_per_location_list,
+            [[names.index(n) for n in g] for g in groups],
+            int(head_cfg.get("SHARED_CONV_NUM_FILTER", 64)))
+    if name != "AnchorHeadSingle":
+        raise NotImplementedError(f"DENSE_HEAD {name}")
+    return AnchorHeadSingle(input_channels, num_class, logic.num_anchors_per_location,
+                            logic.box_coder.code_size, logic.num_dir_bins)
 
 
 class AnchorHeadLogic:
@@ -71,12 +144,12 @@ class AnchorHeadLogic:
             a, npl = generate_anchors([c], grid_size, point_cloud_range,
                                       anchor_ndim=self.box_coder.code_size)
             self._per_class_anchors.append(a.reshape(-1, npl[0], a.shape[-1]))
+        match_height = bool(tcfg.get("MATCH_HEIGHT", False))
         if tcfg.get("NAME", "AxisAlignedTargetAssigner") == "ATSS":
-            raise NotImplementedError(
-                "the ATSS target assigner is not ported (ROADMAP queue 1, item 4)")
-        self.assigner = AxisAlignedTargetAssigner(
-            acfg, class_names, self.box_coder,
-            match_height=bool(tcfg.get("MATCH_HEIGHT", False)))
+            self.assigner = ATSSTargetAssigner(int(tcfg.TOPK), self.box_coder, match_height)
+        else:
+            self.assigner = AxisAlignedTargetAssigner(acfg, class_names, self.box_coder,
+                                                      match_height=match_height)
         self._anchors = {}
 
     def _device_anchors(self, device):
@@ -92,8 +165,12 @@ class AnchorHeadLogic:
         return self._device_anchors(device)[0]
 
     def assign_targets(self, gt_boxes: torch.Tensor) -> dict:
-        """gt_boxes (B, M, 8), zero rows padding -> the assigner's targets."""
-        return self.assigner.assign(self._device_anchors(gt_boxes.device)[1], gt_boxes)
+        """gt_boxes (B, M, 8), zero rows padding -> the assigner's targets,
+        in the head's anchor layout."""
+        flat, per_class = self._device_anchors(gt_boxes.device)
+        if isinstance(self.assigner, ATSSTargetAssigner):
+            return self.assigner.assign(flat, gt_boxes)
+        return self.assigner.assign(per_class, gt_boxes)
 
     def loss(self, preds: dict, targets: dict) -> tuple[torch.Tensor, dict]:
         """The RPN loss: focal classification, sin-difference smooth-L1 box

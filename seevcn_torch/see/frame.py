@@ -5,8 +5,9 @@ The port of the chain that bench.py composes from ``mask_stage``,
 ``see_stage``, ``vcn_stage``, ``replace_stage`` and ``det_stage``
 (bench.py:157-231): Mask R-CNN on the camera image, the SEE program of the
 reference, which turns a scan and those masks into the completed cloud, and
-the detector, which reads that cloud: SECOND-IoU, bench.py's, PV-RCNN or
-PV-RCNN++. ``run_frame`` is bench.py's
+the detector, which reads that cloud: SECOND-IoU, bench.py's, or any
+other detector of ``build_detector`` (PV-RCNN, PV-RCNN++, SECONDNet,
+PointPillar). ``run_frame`` is bench.py's
 ``frame_fused`` (bench.py:238-246); ``see_and_detect`` is the same frame
 with the masks given as an input.
 """
@@ -100,18 +101,23 @@ def complete_frame(points, valid, det_boxes, det_masks, det_scores, vcn, proj,
 def detect_stage(model, cfg, points, valid, *, device="cuda"):
     """bench.py's ``det_stage``: the detector's eval forward on one frame
     (points (P, 3), valid (P,)), then its post-processing NMS. ``model`` is
-    a SECONDNetIoU, a PVRCNN or a PVRCNNPlusPlus on ``device``
-    (``build_detector``), ``cfg`` the full config it was built from; each
-    reaches post-processing's rcnn branch with the ``iou`` score. Returns (post-processed dict with a batch
-    axis of 1, the forward's output dict).
+    any detector of ``build_detector`` on ``device``, ``cfg`` the full
+    config it was built from; post-processing takes its RCNN branch where
+    the config has a ROI_HEAD (SECOND-IoU, PV-RCNN, PV-RCNN++), its dense
+    branch where not (SECONDNet, PointPillar), and reads the frame's points
+    and the class names, as the JAX package's eval does
+    (seevcn_tpu/train/eval.py:38-47). Returns (post-processed dict with a
+    batch axis of 1, the forward's output dict).
 
     Runs in the backbone's dtype (BACKBONE_3D.DTYPE) with f32 products and
     with TF32 off, as ``complete_frame`` leaves it."""
     dev = resolve_device(device)
     tf32_off()
-    out = model(points.to(dev)[None], valid.to(dev)[None])
-    pp = post_processing(out, cfg.MODEL.POST_PROCESSING,
-                         len(cfg.CLASS_NAMES), has_roi_head=True)
+    pts, vld = points.to(dev)[None], valid.to(dev)[None]
+    out = model(pts, vld)
+    pp = post_processing(out, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES),
+                         has_roi_head="ROI_HEAD" in cfg.MODEL, points=pts,
+                         points_valid=vld, class_names=list(cfg.CLASS_NAMES))
     return pp, out
 
 
@@ -119,8 +125,8 @@ def detect_stage(model, cfg, points, valid, *, device="cuda"):
 def see_and_detect(points, valid, det_boxes, det_masks, det_scores, vcn,
                    proj, lidar_to_cam, detector, det_cfg,
                    image_size=(384, 1280), *, device="cuda", **frame_kw):
-    """One SEE frame (``complete_frame``) and the detector (SECOND-IoU or
-    PV-RCNN or PV-RCNN++, ``detect_stage``) on its output cloud (``new_pts``,
+    """One SEE frame (``complete_frame``) and the detector (any of
+    ``build_detector``'s, ``detect_stage``) on its output cloud (``new_pts``,
     ``new_valid``), as bench.py's ``frame_fused`` does after its mask
     stage. Returns (post-processed detections, SEE stats, new_pts,
     new_valid)."""

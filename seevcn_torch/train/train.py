@@ -4,7 +4,8 @@ reference detector3d/tools/train_utils/train_utils.py:11-135).
 ``train_step`` is the reference's step: the training forward with the
 ground truth, the loss, the backward, then the scheduled update with the
 gradients clipped, for every ported detector (SECONDNetIoU, PVRCNN,
-PVRCNNPlusPlus: each model's ``loss`` gives its terms). It is single-device; the reference's
+PVRCNNPlusPlus, and SECONDNet and PointPillar, which sample no RoIs: each
+model's ``loss`` gives its terms). It is single-device; the reference's
 sharded step (``shard_train_step``) maps to DDP, which the port has not
 taken up yet.
 """
@@ -27,8 +28,8 @@ class TrainState:
 
 
 def create_train_state(model, opt_cfg, total_steps: int) -> TrainState:
-    """``model`` (a SECONDNetIoU, a PVRCNN or a PVRCNNPlusPlus on its
-    device) into training mode, with the OPTIMIZATION config's optimizer
+    """``model`` (any detector of ``build_detector``, on its device) into
+    training mode, with the OPTIMIZATION config's optimizer
     over ``total_steps``."""
     model.train()
     return TrainState(model, build_optimizer(opt_cfg, total_steps, model.parameters()))
@@ -38,7 +39,8 @@ def train_forward(state: TrainState, points, valid, gt_boxes, generator=None,
                   roi_u=None):
     """The training forward and loss: -> (loss, loss terms, forward output).
     ``generator``, a generator of the points' device, draws the RoI sample's
-    priorities (unless ``roi_u`` (B, R) gives them) and the dropout masks."""
+    priorities (unless ``roi_u`` (B, R) gives them) and the dropout masks;
+    a detector without an RoI head draws nothing."""
     out = state.model(points, valid, gt_boxes=gt_boxes, generator=generator,
                       roi_u=roi_u)
     loss, tb = state.model.loss(out, gt_boxes)
@@ -60,7 +62,8 @@ def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
     rows padding). -> metrics, detached: loss and the model's loss terms
     (rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss, then SECOND-IoU's
     rcnn_loss_iou, or PV-RCNN's (and PV-RCNN++'s) point_loss_cls, rcnn_loss_cls,
-    rcnn_loss_reg, rcnn_loss_corner, rcnn_loss)."""
+    rcnn_loss_reg, rcnn_loss_corner, rcnn_loss, or the focal SECONDNet's
+    loss_box_of_pts)."""
     loss, tb, _ = train_forward(state, points, valid, gt_boxes, generator, roi_u)
     apply_gradients(state, loss)
     return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}

@@ -3,7 +3,8 @@
 Copies of the VCN and detector exports of seevcn_tpu/utils/ckpt_compat.py
 (``vcn_state_dict_from_variables``, ``detector_state_dict_from_variables``),
 kept here because the port imports nothing of the JAX package, and the
-PV-RCNN export, which the JAX package lacks. Each takes
+PV-RCNN and single-stage (SECONDNet, PointPillar) exports, which the JAX
+package lacks. Each takes
 the flax variable tree as numpy arrays (``{"params": ..., "batch_stats":
 ...}``) and returns a state dict in the reference's key names, which the
 port's modules load with ``strict=True``. The reference has no seg2d
@@ -98,23 +99,52 @@ def _put(sd: dict, prefix: str, leaf: dict) -> None:
         sd[f"{prefix}.{k}"] = torch.tensor(np.array(v))
 
 
-def _rpn_state_dict(p: dict, s: dict) -> dict:
-    """The parts SECOND-IoU and PV-RCNN share: backbone_3d, backbone_2d and
-    dense_head."""
-    sd = {}
-    bb, bbs = p["backbone_3d"], s["backbone_3d"]
-    layout = [("conv_input", "conv_input", (3, 3, 3)),
-              ("conv1_0", "conv1.0", (3, 3, 3))]
-    for stage in (2, 3, 4):
-        for j, my in enumerate((f"conv{stage}_down", f"conv{stage}_0",
-                                f"conv{stage}_1")):
-            layout.append((my, f"conv{stage}.{j}", (3, 3, 3)))
-    layout.append(("conv_out", "conv_out", (3, 1, 1)))
-    for my, key, k in layout:
-        _put(sd, f"backbone_3d.{key}.0", {"weight": _spconv_export(bb[my]["kernel"], *k)})
-        _put(sd, f"backbone_3d.{key}.1", _bn_join(bb[my]["bn"], bbs[my]["bn"]))
+def _sparse_layer(sd: dict, key: str, leaf: dict, stats: dict, k=(3, 3, 3)) -> None:
+    """A flax SpConvLayer (``kernel``, ``bn``) -> ``{key}.0`` and ``{key}.1``."""
+    _put(sd, f"{key}.0", {"weight": _spconv_export(leaf["kernel"], *k)})
+    _put(sd, f"{key}.1", _bn_join(leaf["bn"], stats["bn"]))
 
-    b2, b2s = p["backbone_2d"], s["backbone_2d"]
+
+def _backbone_3d(sd: dict, bb: dict, bbs: dict) -> None:
+    """The three 3D backbones, by the flax tree's names: VoxelBackBone8x
+    (``conv{i}_down``, ``conv{i}_{j}`` layers), VoxelResBackBone8x (the
+    ``conv{i}_{j}`` residual blocks with ``conv1`` and ``conv2``, into
+    ``conv{i}.{j + 1}.conv1`` / ``.bn1`` / ``.conv2`` / ``.bn2``) and
+    VoxelBackBone8xFocal (``focal{i}`` with ``kernel``, ``kernel_imp`` and
+    ``bn``, into ``.conv.0``, ``.conv_imp`` and ``.conv.1``), each stage a
+    list in the flax order."""
+    order = {1: ["conv1_0"]}
+    for i in (2, 3, 4):
+        order[i] = [f"conv{i}_down", f"conv{i}_0", f"conv{i}_1"]
+    if "conv1_1" in bb:                                   # residual
+        order[1] = ["conv1_0", "conv1_1"]
+    if "focal1" in bb:
+        order[1] = ["focal1", "conv1_0"]
+        for i in (2, 3):
+            order[i].insert(2, f"focal{i}")
+    _sparse_layer(sd, "backbone_3d.conv_input", bb["conv_input"], bbs["conv_input"])
+    for i, names in order.items():
+        for j, name in enumerate(names):
+            key, leaf, st = f"backbone_3d.conv{i}.{j}", bb[name], bbs[name]
+            if name.startswith("focal"):
+                _sparse_layer(sd, f"{key}.conv", leaf, st)
+                _put(sd, f"{key}.conv_imp",
+                     {"weight": _spconv_export(leaf["kernel_imp"], 3, 3, 3)})
+            elif "conv1" in leaf:                         # a residual block
+                for c in ("1", "2"):
+                    _put(sd, f"{key}.conv{c}",
+                         {"weight": _spconv_export(leaf[f"conv{c}"]["kernel"], 3, 3, 3)})
+                    _put(sd, f"{key}.bn{c}", _bn_join(leaf[f"conv{c}"]["bn"],
+                                                      st[f"conv{c}"]["bn"]))
+            else:
+                _sparse_layer(sd, key, leaf, st)
+    _sparse_layer(sd, "backbone_3d.conv_out", bb["conv_out"], bbs["conv_out"], (3, 1, 1))
+
+
+def _backbone_2d(sd: dict, b2: dict, b2s: dict) -> None:
+    """BaseBEVBackbone: ``block{i}_down`` and ``block{i}_{j}`` into
+    ``blocks.{i}``; ``deblock{i}`` (a ``deconv``, or a ``conv`` for a stride
+    below 1) and ``deblock_final`` into ``deblocks``."""
     blocks = sorted({k.split("_")[0] for k in b2 if k.startswith("block")})
     for bi, blk in enumerate(blocks):
         down = f"{blk}_down"
@@ -129,17 +159,57 @@ def _rpn_state_dict(p: dict, s: dict) -> dict:
                  {"weight": _conv_to_conv2d(b2[my]["conv"])["weight"]})
             _put(sd, f"backbone_2d.blocks.{bi}.{5 + 3 * j}",
                  _bn_join(b2[my]["bn"], b2s[my]["bn"]))
-    di = 0
-    while f"deblock{di}" in b2:
-        leaf = b2[f"deblock{di}"]
-        _put(sd, f"backbone_2d.deblocks.{di}.0", _convtranspose_to_deconv2d(leaf["deconv"]))
-        _put(sd, f"backbone_2d.deblocks.{di}.1",
-             _bn_join(leaf["bn"], b2s[f"deblock{di}"]["bn"]))
-        di += 1
+    names = [f"deblock{i}" for i in range(_count(b2, "deblock"))]
+    if "deblock_final" in b2:
+        names.append("deblock_final")
+    for di, name in enumerate(names):
+        leaf = b2[name]
+        conv = _convtranspose_to_deconv2d(leaf["deconv"]) if "deconv" in leaf \
+            else _conv_to_conv2d(leaf["conv"])
+        _put(sd, f"backbone_2d.deblocks.{di}.0", conv)
+        _put(sd, f"backbone_2d.deblocks.{di}.1", _bn_join(leaf["bn"], b2s[name]["bn"]))
 
+
+def _dense_head(sd: dict, dh: dict, dhs: dict) -> None:
+    """AnchorHeadSingle (``conv_cls``, ``conv_box``, ``conv_dir_cls``) or
+    AnchorHeadMulti (``shared_conv`` + ``shared_bn`` into
+    ``shared_conv.{0,1}``, ``head{g}_conv_*`` into ``rpn_heads.{g}.conv_*``,
+    the keys of ckpt_compat's ``multi_dense_head_from_torch``)."""
+    if "shared_conv" in dh:
+        _put(sd, "dense_head.shared_conv.0",
+             {"weight": _conv_to_conv2d(dh["shared_conv"])["weight"]})
+        _put(sd, "dense_head.shared_conv.1", _bn_join(dh["shared_bn"], dhs["shared_bn"]))
+    for name, leaf in dh.items():
+        if name.startswith("head") and "_conv_" in name:
+            g, conv = name[len("head"):].split("_", 1)
+            _put(sd, f"dense_head.rpn_heads.{g}.{conv}", _conv_to_conv2d(leaf))
     for name in ("conv_cls", "conv_box", "conv_dir_cls"):
-        if name in p["dense_head"]:
-            _put(sd, f"dense_head.{name}", _conv_to_conv2d(p["dense_head"][name]))
+        if name in dh:
+            _put(sd, f"dense_head.{name}", _conv_to_conv2d(dh[name]))
+
+
+def _rpn_state_dict(p: dict, s: dict) -> dict:
+    """The anchor RPN's modules: backbone_3d (where there is one),
+    backbone_2d and dense_head."""
+    sd = {}
+    if "backbone_3d" in p:
+        _backbone_3d(sd, p["backbone_3d"], s["backbone_3d"])
+    _backbone_2d(sd, p["backbone_2d"], s["backbone_2d"])
+    _dense_head(sd, p["dense_head"], s.get("dense_head", {}))
+    return sd
+
+
+def single_stage_state_dict_from_flax(variables: dict) -> dict:
+    """Flax SECONDNet or PointPillar variables (numpy leaves) -> torch state
+    dict of the port's model: the RPN as ``_rpn_state_dict`` gives it, and
+    PointPillar's ``vfe.pfn{i}`` (``linear``, ``norm``) into OpenPCDet's
+    ``vfe.pfn_layers.{i}.linear`` / ``.norm``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _rpn_state_dict(p, s)
+    for i in range(_count(p.get("vfe", {}), "pfn")):
+        leaf, st = p["vfe"][f"pfn{i}"], s["vfe"][f"pfn{i}"]
+        _put(sd, f"vfe.pfn_layers.{i}.linear", _dense_to_linear(leaf["linear"]))
+        _put(sd, f"vfe.pfn_layers.{i}.norm", _bn_join(leaf["norm"], st["norm"]))
     return sd
 
 

@@ -137,12 +137,13 @@ def test_configs():
 
 
 def test_build_detector_dispatch():
-    """An unknown detector names the three the port has; SAMPLE_METHOD SPC
+    """An unknown detector names the five the port has; SAMPLE_METHOD SPC
     builds, but a plain PV-RCNN cannot feed it proposals and raises JAX's
     ValueError at its forward, while PV-RCNN++ builds and runs with it."""
     cfg = C.tiny_pvrcnn_cfg()
-    cfg.MODEL.NAME = "PointPillar"
-    with pytest.raises(NotImplementedError, match="SECONDNetIoU, PVRCNN, PVRCNNPlusPlus"):
+    cfg.MODEL.NAME = "CenterPoint"
+    with pytest.raises(NotImplementedError,
+                       match="SECONDNet, SECONDNetIoU, PointPillar, PVRCNN, PVRCNNPlusPlus"):
         build_detector(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
