@@ -49,7 +49,12 @@ focal SECONDNet against the CPU in eval and in a train step, the ATSS
 assigner against the CPU, PointPillar at pointpillar.yaml's widths and the
 multi-head SECONDNet on the SEE frame's completed cloud and through
 ``run_frame`` (K1 counted), their stages and NMS timed, 1 + 1 + 5 train steps
-at batch 4 each, and the focal SECONDNet's eval forward.
+at batch 4 each, and the focal SECONDNet's eval forward. Then CenterPoint
+and Voxel R-CNN (phase 17): the tiny models against the CPU in eval and in
+a train step, each at full width (centerpoint.yaml's model on the flagship's
+grid, voxel_rcnn_car.yaml) on the SEE frame's completed cloud and through
+``run_frame`` (K1 counted), their stages, first BEV conv and Voxel R-CNN's
+pools timed, and 1 + 1 + 5 train steps (batch 4 and 2).
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -60,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -79,6 +85,7 @@ from seevcn_torch.models.detectors.second import (PointPillar, build_detector,
                                                   post_processing)
 from seevcn_torch.models.modules.dense_heads import AnchorHeadLogic
 from seevcn_torch.models.modules.map_to_bev import height_compression
+from seevcn_torch.models.modules import pfe as PFE
 from seevcn_torch.models.modules import pvrcnn_head as PVH
 from seevcn_torch.models.modules import roi_heads as RH
 from seevcn_torch.cli import train_seg2d as SEG_CLI
@@ -2351,36 +2358,78 @@ def tiny_pvrcnn_step(cfg, sd, inputs, device, dtype, pinned=None):
                  if not n.endswith("num_batches_tracked")), signs)
 
 
-def check_tiny_pvrcnn_step_against_cpu(dev, cfg=None, label: str = "PV-RCNN",
-                                      grad_tol: float = 1e-3) -> dict:
-    """One train step of ``cfg`` (tiny_pvrcnn_cfg by default; DP_RATIO 0,
-    fixed RoI priorities, TF32 off) on the card in f32 against the CPU's
-    step in f64, with the
-    ReLUs' signs pinned to the CPU's (a sign tie moves a gradient): loss
-    terms within 5e-5 (relative) and gradients within ``grad_tol`` of their
-    tensor's largest, the f32 error of the model's training forward
-    (PV-RCNN's 1e-3, tests/test_torch_pvrcnn_train.py); updated parameters within 1e-5
-    where the gradient is sure (5% of its tensor's largest and 1e-6), 2 lr
-    elsewhere; running statistics 1e-5. The unpinned card step and the
-    CPU's own f32 step are printed beside."""
-    cfg = DC.tiny_pvrcnn_cfg() if cfg is None else cfg
-    cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
+#: CenterPoint's shared conv bias: the training batch norm after the conv
+#: cancels it, so its gradient is rounding noise around 0 (held against the
+#: conv's weight gradient, and excused from moving)
+BIAS_BEFORE_BN = "dense_head.shared_conv.bias"
+
+
+@contextlib.contextmanager
+def ball_query_choices(pinned=None):
+    """Within the block, record the members that each SA layer's ball query
+    chooses (indices and validity of every radius, on the CPU) into the
+    list yielded. Given ``pinned``, such a list from another run, each
+    query returns that run's members instead of its own: a support at a
+    sphere's edge falls in or out by the f32 rounding of its distance,
+    which differs between devices and dtypes (the RoIs' grid points carry
+    the RPN's f32 error), and a nearer member then takes its slot."""
+    plain = PFE.ball_query_multi
+    got, queue = [], None if pinned is None else list(pinned)
+
+    def choose(q, sup, radii, nsamples, **kw):
+        res = plain(q, sup, radii, nsamples, **kw)
+        got.append([(i.cpu(), v.cpu()) for i, v in res])
+        if queue is None:
+            return res
+        return [(i.to(q.device), v.to(q.device)) for i, v in queue.pop(0)]
+
+    PFE.ball_query_multi = choose
+    try:
+        yield got
+    finally:
+        PFE.ball_query_multi = plain
+
+
+def ball_query_flips(got, ref) -> int:
+    """The query rows whose chosen members differ between two records of
+    ``ball_query_choices``."""
+    return sum(int((((i != j) & (v | w)) | (v != w)).any(1).sum())
+               for a, b in zip(got, ref) for (i, v), (j, w) in zip(a, b))
+
+
+def hold_tiny_step(dev, label: str, cfg, sd, inputs, *, loss_tol: float = 1e-5,
+                   grad_tol: float = 5e-4, pin_queries: bool = False, note: str = "") -> tuple:
+    """One train step of the tiny ``cfg`` (state dict ``sd``; ``inputs`` the
+    points, validity, ground truth and RoI priorities) on the card in f32
+    against the CPU's step in f64 (TF32 off), the ReLUs' signs pinned to the
+    CPU's and, with ``pin_queries``, the ball queries' members
+    (``ball_query_choices``): loss terms within ``loss_tol`` (relative),
+    gradients within ``grad_tol`` of their tensor's largest
+    (``BIAS_BEFORE_BN``'s of its conv weight's), updated parameters within
+    1e-5 where the gradient is sure (5% of its tensor's largest and 1e-6), 2
+    lr elsewhere, running statistics 1e-5. The unpinned card step and the
+    CPU's own f32 step are printed beside. -> (the worst differences, the
+    CPU's loss terms)."""
     cpu = torch.device("cpu")
-    sd = seeded_state_dict(8, build_detector(cfg, device=cpu)[0], random_stats=True)
-    pts, valid, gt = pvrcnn_train_inputs(cfg, sd)
-    u = np.random.RandomState(9).rand(2, int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN
-                                             .NMS_POST_MAXSIZE)).astype(np.float32)
-    inputs = (pts, valid, gt, u)
-    ref = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float64)
-    card = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32, pinned=ref[4])
-    free = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32)
+    with ball_query_choices() as chosen:
+        ref = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float64)
+    with ball_query_choices(chosen if pin_queries else None):
+        card = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32, pinned=ref[4])
+    with ball_query_choices() as free_chosen:
+        free = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32)
     cpu32 = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float32)
     lr = build_lr_schedule(cfg.OPTIMIZATION, 100)(0)
-    rel = lambda r: r.abs().max().item() + 1e-30          # noqa: E731
+    scale = {n: g.abs().max().item() + 1e-30 for n, g in ref[1].items()}
+    if BIAS_BEFORE_BN in scale:
+        scale[BIAS_BEFORE_BN] = scale[BIAS_BEFORE_BN.replace("bias", "weight")]
+
+    def grads_off(run):
+        return max(((run[1][n] - ref[1][n]).abs().max().item() / scale[n], n)
+                   for n in ref[1])
+
     worst = {"loss_terms": _worst(card[0], ref[0], lambda r: abs(r.item()) + 1e-30),
-             "gradients": _worst(card[1], ref[1], rel),
-             "gradients_unpinned": _worst(free[1], ref[1], rel),
-             "gradients_cpu_f32": _worst(cpu32[1], ref[1], rel),
+             "gradients": grads_off(card), "gradients_unpinned": grads_off(free),
+             "gradients_cpu_f32": grads_off(cpu32),
              "running_stats": _worst(card[3], ref[3], lambda r: 1.0 + r.abs().max().item())}
     for n, p in card[2].items():
         g = ref[1][n].abs()
@@ -2389,17 +2438,39 @@ def check_tiny_pvrcnn_step_against_cpu(dev, cfg=None, label: str = "PV-RCNN",
         if not (err <= torch.where(sure, 1e-5, 2 * lr)).all():
             raise AssertionError(f"tiny {label} step: updated {n} off the CPU by "
                                  f"{err.max().item()}")
-    print(f"tiny {label} train step, card f32 vs CPU f64 (ReLU signs pinned, TF32 "
-          "off, DP_RATIO 0, fixed RoI priorities): worst "
+    flips = sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))
+    print(f"tiny {label} train step, card f32 vs CPU f64 (ReLU signs"
+          f"{' and ball-query members' if pin_queries else ''} pinned, TF32 off{note}): worst "
           + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
-          + f"; loss {ref[0]['loss'].item():.5f}; {sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))} "
-          f"ReLU inputs of the unpinned card step on the other side of 0")
-    if worst["loss_terms"][0] > 5e-5 or worst["gradients"][0] > grad_tol \
+          + f"; loss {ref[0]['loss'].item():.5f}; {flips} ReLU inputs of the unpinned card "
+          f"step on the other side of 0, {ball_query_flips(free_chosen, chosen)} query rows "
+          "with other members")
+    if worst["loss_terms"][0] > loss_tol or worst["gradients"][0] > grad_tol \
             or worst["running_stats"][0] > 1e-5:
         raise AssertionError(f"tiny {label} step on the card off the CPU's f64 step")
-    if ref[0]["rcnn_loss_reg"].item() <= 0 or ref[0]["point_loss_cls"].item() <= 0:
+    return {k: v[0] for k, v in worst.items()}, ref[0]
+
+
+def check_tiny_pvrcnn_step_against_cpu(dev, cfg=None, label: str = "PV-RCNN",
+                                      grad_tol: float = 1e-3) -> dict:
+    """One train step of ``cfg`` (tiny_pvrcnn_cfg by default; DP_RATIO 0,
+    fixed RoI priorities, weights from seed 8 with random statistics) held
+    by ``hold_tiny_step``: loss terms within 5e-5 (relative) and gradients
+    within ``grad_tol`` of their tensor's largest, the f32 error of the
+    model's training forward (PV-RCNN's 1e-3,
+    tests/test_torch_pvrcnn_train.py)."""
+    cfg = DC.tiny_pvrcnn_cfg() if cfg is None else cfg
+    cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    sd = seeded_state_dict(8, build_detector(cfg, device="cpu")[0], random_stats=True)
+    pts, valid, gt = pvrcnn_train_inputs(cfg, sd)
+    u = np.random.RandomState(9).rand(2, int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN
+                                             .NMS_POST_MAXSIZE)).astype(np.float32)
+    worst, terms = hold_tiny_step(dev, label, cfg, sd, (pts, valid, gt, u), loss_tol=5e-5,
+                                  grad_tol=grad_tol,
+                                  note=", DP_RATIO 0, fixed RoI priorities")
+    if terms["rcnn_loss_reg"].item() <= 0 or terms["point_loss_cls"].item() <= 0:
         raise AssertionError(f"tiny {label} step: no foreground RoI or keypoint")
-    return {k: v[0] for k, v in worst.items()}
+    return worst
 
 
 def jax_grid_buckets(sup, cell: float, n_rows: int, cap: int) -> tuple:
@@ -2416,6 +2487,20 @@ def jax_grid_buckets(sup, cell: float, n_rows: int, cap: int) -> tuple:
     return int(counts.max()), int((counts > cap).sum())
 
 
+def timed_stage(times: dict, name: str, fn):
+    """``fn()`` between synchronizes, its (CUDA-event ms, host ms) into
+    ``times[name]``: -> its result."""
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    res = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    times[name] = (ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3)
+    return res
+
+
 def pvrcnn_stages(model, cfg, points, valid) -> dict:
     """PVRCNN.forward's (or PVRCNNPlusPlus.forward's) stages in eval, one
     after another, each between synchronizes: {stage: (CUDA-event ms, host
@@ -2425,16 +2510,7 @@ def pvrcnn_stages(model, cfg, points, valid) -> dict:
     rcfg = cfg.MODEL.ROI_HEAD
     times, state = {}, {}
 
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        t0 = time.perf_counter()
-        ev[0].record()
-        out = fn()
-        ev[1].record()
-        torch.cuda.synchronize()
-        times[name] = (ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3)
-        return out
+    stage = functools.partial(timed_stage, times)
 
     pfe = model.pfe
     width = PV.jax_stage_width(model.cfg, points.shape[0])
@@ -2483,11 +2559,13 @@ def pvrcnn_stages(model, cfg, points, valid) -> dict:
     return times, state
 
 
-def time_pvrcnn_stages(model, cfg, points, valid, reps: int = 3) -> tuple:
+def time_stages(stages, model, cfg, points, valid, reps: int = 3) -> tuple:
     """Median over ``reps`` runs (after one warm-up) of each stage's
-    (CUDA-event ms, host ms), and the last run's state."""
-    pvrcnn_stages(model, cfg, points, valid)
-    runs = [pvrcnn_stages(model, cfg, points, valid) for _ in range(reps)]
+    (CUDA-event ms, host ms) of ``stages`` (``pvrcnn_stages``,
+    ``single_stage_stages`` or ``center_rcnn_stages``), and the last run's
+    state."""
+    stages(model, cfg, points, valid)
+    runs = [stages(model, cfg, points, valid) for _ in range(reps)]
     med = {k: (statistics.median(r[0][k][0] for r in runs),
                statistics.median(r[0][k][1] for r in runs)) for k in runs[0][0]}
     return med, runs[-1][1]
@@ -2592,7 +2670,7 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
     print(f"fused frame with PV-RCNN (run_frame): kernel launches {fused_launches}; "
           f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
 
-    stages, state = time_pvrcnn_stages(det, cfg, new_pts[None], new_valid[None])
+    stages, state = time_stages(pvrcnn_stages, det, cfg, new_pts[None], new_valid[None])
     det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
     det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
     fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE))
@@ -2785,7 +2863,7 @@ def serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
           f"boxes kept")
 
     pts, vld = new_pts[None], new_valid[None]
-    stages, state = time_pvrcnn_stages(det, cfg, pts, vld)
+    stages, state = time_stages(pvrcnn_stages, det, cfg, pts, vld)
     det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
     det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
     fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE), reps=3)
@@ -2898,51 +2976,19 @@ def check_tiny_single_stage_against_cpu(dev) -> dict:
 
 
 def check_tiny_single_stage_steps_against_cpu(dev) -> dict:
-    """One train step of each tiny single-stage detector on the card in f32
-    against the CPU's step in f64 (weights from seed 8 with random
-    statistics, TF32 off), the ReLUs' signs pinned to the CPU's: loss terms
-    within 1e-5 (relative) and gradients within 5e-4 of their tensor's
-    largest; updated parameters within 1e-5 where the gradient is sure, 2
-    lr elsewhere; running statistics 1e-5. The unpinned card step and the
-    CPU's own f32 step are printed beside. ``tiny_pvrcnn_step`` runs the
-    steps; its RoI priorities are a placeholder these detectors never read."""
-    cpu = torch.device("cpu")
+    """One train step of each tiny single-stage detector (weights from seed
+    8 with random statistics) held by ``hold_tiny_step`` at 1e-5 (loss
+    terms) and 5e-4 (gradients); its RoI priorities are a placeholder these
+    detectors never read."""
     pts, valid, gt = single_stage_train_inputs()
     inputs = (pts, valid, gt, np.zeros((2, 1), np.float32))
     out = {}
     for key, (label, _, tiny) in SINGLE_STAGE.items():
         cfg = tiny()
-        sd = seeded_state_dict(8, build_detector(cfg, device=cpu)[0], random_stats=True)
-        ref = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float64)
-        card = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32, pinned=ref[4])
-        free = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32)
-        cpu32 = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float32)
-        lr = build_lr_schedule(cfg.OPTIMIZATION, 100)(0)
-        rel = lambda r: r.abs().max().item() + 1e-30          # noqa: E731
-        worst = {"loss_terms": _worst(card[0], ref[0], lambda r: abs(r.item()) + 1e-30),
-                 "gradients": _worst(card[1], ref[1], rel),
-                 "gradients_unpinned": _worst(free[1], ref[1], rel),
-                 "gradients_cpu_f32": _worst(cpu32[1], ref[1], rel),
-                 "running_stats": _worst(card[3], ref[3],
-                                         lambda r: 1.0 + r.abs().max().item())}
-        for n, p in card[2].items():
-            g = ref[1][n].abs()
-            sure = (g >= 0.05 * g.max()) & (g >= 1e-6)
-            err = (p - ref[2][n]).abs()
-            if not (err <= torch.where(sure, 1e-5, 2 * lr)).all():
-                raise AssertionError(f"tiny {label} step: updated {n} off the CPU by "
-                                     f"{err.max().item()}")
-        flips = sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))
-        print(f"tiny {label} train step, card f32 vs CPU f64 (ReLU signs pinned, TF32 off): "
-              "worst " + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
-              + f"; loss {ref[0]['loss'].item():.5f}; {flips} ReLU inputs of the unpinned "
-              "card step on the other side of 0")
-        if worst["loss_terms"][0] > 1e-5 or worst["gradients"][0] > 5e-4 \
-                or worst["running_stats"][0] > 1e-5:
-            raise AssertionError(f"tiny {label} step on the card off the CPU's f64 step")
-        if ref[0]["rpn_loss_loc"].item() <= 0:
+        sd = seeded_state_dict(8, build_detector(cfg, device="cpu")[0], random_stats=True)
+        out[key], terms = hold_tiny_step(dev, label, cfg, sd, inputs)
+        if terms["rpn_loss_loc"].item() <= 0:
             raise AssertionError(f"tiny {label} step: no foreground anchor")
-        out[key] = {k: v[0] for k, v in worst.items()}
     return out
 
 
@@ -2990,16 +3036,7 @@ def single_stage_stages(model, cfg, points, valid) -> tuple:
     head (with the box decoding), post_processing."""
     times = {}
 
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        t0 = time.perf_counter()
-        ev[0].record()
-        res = fn()
-        ev[1].record()
-        torch.cuda.synchronize()
-        times[name] = (ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3)
-        return res
+    stage = functools.partial(timed_stage, times)
 
     b = points.shape[0]
     with torch.no_grad():
@@ -3092,11 +3129,8 @@ def serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     print(f"fused frame with {label} (run_frame): kernel launches {fr['fused_launches']}; "
           f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
     pts, vld = new_pts[None], new_valid[None]
-    single_stage_stages(det, cfg, pts, vld)
-    runs = [single_stage_stages(det, cfg, pts, vld) for _ in range(3)]
-    stages = {k: (statistics.median(r[0][k][0] for r in runs),
-                  statistics.median(r[0][k][1] for r in runs)) for k in runs[0][0]}
-    nms = time_single_stage_nms(runs[-1][1], cfg)
+    stages, out = time_stages(single_stage_stages, det, cfg, pts, vld)
+    nms = time_single_stage_nms(out, cfg)
     det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
     det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
     fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
@@ -3249,6 +3283,402 @@ def single_stage(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt)
     res["second_focal"] = serve_second_focal(dev, card, new_pts, new_valid)
     return res
 
+
+# CenterPoint and Voxel R-CNN (phase 17)
+
+CENTER_RCNN = {"centerpoint": ("CenterPoint", DC.centerpoint_detector_cfg,
+                               DC.tiny_centerpoint_cfg),
+               "voxel_rcnn": ("Voxel R-CNN", DC.voxel_rcnn_detector_cfg,
+                              DC.tiny_voxel_rcnn_cfg)}
+#: the eval outputs phase 17 checks finite and holds card vs CPU
+CENTER_RCNN_OUT = {"centerpoint": ("batch_box_preds", "batch_cls_preds",
+                                   "spatial_features_2d"),
+                   "voxel_rcnn": ("batch_cls_preds", "batch_box_preds", "rcnn_cls",
+                                  "rcnn_reg", "rois")}
+
+
+def tiny_center_rcnn_cfg(key: str):
+    """The tiny config of ``key`` with DP_RATIO 0 (the card and the CPU draw
+    no dropout)."""
+    cfg = CENTER_RCNN[key][2]()
+    if "ROI_HEAD" in cfg.MODEL:
+        cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    return cfg
+
+
+@torch.no_grad()
+def check_tiny_center_rcnn_against_cpu(dev) -> dict:
+    """The tiny CenterPoint and Voxel R-CNN (weights from seed 7 with random
+    statistics, TF32 off) through ``detect_stage`` on the card against the
+    port's CPU path (which the tests hold against JAX), Voxel R-CNN's
+    ball-query members pinned to the CPU's: the decoded outputs (boxes,
+    probabilities or logits, refined RoIs) within 1e-6 of a tensor's
+    largest |value|, the head maps and BEV features within 1e-5 (the f32
+    sums of cuDNN and the CPU's convolutions part by up to about 1e-6 of a
+    one-channel map's largest); CenterPoint's decoded labels, Voxel
+    R-CNN's proposals, and the kept sets and labels after post-processing
+    equal. Returns the worst differences (relative to the largest) by
+    detector."""
+    cpu = torch.device("cpu")
+    pts, valid = blob_points(4)
+    worst, flips = {}, {}
+    for key, (label, _, _) in CENTER_RCNN.items():
+        cfg = tiny_center_rcnn_cfg(key)
+        sd = seeded_state_dict(7, build_detector(cfg, device=cpu)[0], random_stats=True)
+
+        def run(w, pinned=None):
+            m, _ = build_detector(cfg, sd, device=w)
+            with ball_query_choices(pinned) as chosen:
+                res = F.detect_stage(m, cfg, torch.from_numpy(pts), torch.from_numpy(valid),
+                                     device=w)
+            return res, chosen
+
+        (pp_c, out_c), chosen = run(cpu)
+        (pp_d, out_d), _ = run(dev, chosen)
+        flips[key] = ball_query_flips(run(dev)[1], chosen)
+        decoded = [k for k in CENTER_RCNN_OUT[key] if k != "spatial_features_2d"]
+        maps = {k: out_c[k] for k in out_c if k == "spatial_features_2d"}
+        maps.update({f"head_out.{k}": v for k, v in out_c["head_out"].items()})
+        got = {k: out_d[k].cpu() for k in decoded}
+        got.update({k: out_d[k].cpu() for k in maps if k in out_d})
+        got.update({f"head_out.{k}": v.cpu() for k, v in out_d["head_out"].items()})
+        exact = ("batch_pred_labels",) if key == "centerpoint" else ("roi_mask", "roi_labels")
+        rel = lambda r: r.abs().max().item() + 1e-30          # noqa: E731
+        worst[key] = {"decoded": _worst(got, {k: out_c[k] for k in decoded}, rel),
+                      "maps": _worst(got, maps, rel)}
+        for part, tol in (("decoded", 1e-6), ("maps", 1e-5)):
+            if worst[key][part][0] > tol:
+                raise AssertionError(f"tiny {label}: {worst[key][part][1]} off the CPU by "
+                                     f"{worst[key][part][0]:.3g} of its largest")
+        for k in exact + ("pred_mask", "pred_labels"):
+            src_d, src_c = (out_d, out_c) if k in exact else (pp_d, pp_c)
+            if not torch.equal(src_d[k].cpu(), src_c[k]):
+                raise AssertionError(f"tiny {label}: {k} differs from the CPU's")
+        if not pp_c["pred_mask"].any():
+            raise AssertionError(f"tiny {label} kept no box")
+    print("tiny CenterPoint and Voxel R-CNN eval, card vs CPU (TF32 off, Voxel R-CNN's "
+          "ball-query members pinned to the CPU's): worst |diff| / largest, decoded outputs "
+          "(bound 1e-6) and head maps and BEV features (1e-5): "
+          + ", ".join(f"{k} {v['decoded'][0]:.3g} ({v['decoded'][1]}), {v['maps'][0]:.3g} "
+                      f"({v['maps'][1]})" for k, v in worst.items())
+          + "; decoded labels, proposals, kept boxes and labels equal; query rows whose "
+          f"members the unpinned card chose otherwise {flips}")
+    return {k: {part: w[0] for part, w in v.items()} for k, v in worst.items()}
+
+
+def check_tiny_center_rcnn_steps_against_cpu(dev) -> dict:
+    """One train step of the tiny CenterPoint (the single-stage inputs:
+    cars, a pedestrian, a cyclist) and the tiny Voxel R-CNN (cars near its
+    training proposals, fixed RoI priorities, DP_RATIO 0, its ball-query
+    members pinned to the CPU's), weights from seed 8 with random
+    statistics, held by ``hold_tiny_step`` at 1e-5 (loss terms) and 5e-4
+    (gradients)."""
+    out = {}
+    for key, (label, _, _) in CENTER_RCNN.items():
+        cfg = tiny_center_rcnn_cfg(key)
+        sd = seeded_state_dict(8, build_detector(cfg, device="cpu")[0], random_stats=True)
+        rcnn = key == "voxel_rcnn"
+        if rcnn:
+            pts, valid, gt = pvrcnn_train_inputs(cfg, sd)
+            n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
+            u = np.random.RandomState(9).rand(2, n_rois).astype(np.float32)
+        else:
+            pts, valid, gt = single_stage_train_inputs()
+            u = np.zeros((2, 1), np.float32)
+        out[key], terms = hold_tiny_step(
+            dev, label, cfg, sd, (pts, valid, gt, u), pin_queries=rcnn,
+            note=", DP_RATIO 0, fixed RoI priorities" if rcnn else "")
+        fg = "rcnn_loss_reg" if rcnn else "loc_loss"
+        if terms[fg].item() <= 0:
+            raise AssertionError(f"tiny {label} step: no foreground ({fg} 0)")
+    return out
+
+
+def center_rcnn_stages(model, cfg, points, valid) -> tuple:
+    """The eval forward and post-processing of CenterPoint or Voxel R-CNN,
+    stage by stage, each between synchronizes: {stage: (CUDA-event ms, host
+    ms)}, and the state the callers read. Both: voxelize, backbone_3d (with
+    the height compression), bev_backbone, head (CenterPoint's center head;
+    Voxel R-CNN's anchor head with its box decoding); CenterPoint: decode
+    (the max-pool and the top k), post_processing (its final NMS); Voxel
+    R-CNN: proposals (the proposal NMS), pool_{stage} for each source (its
+    ball query and SA layer, PRE_MLP with it), rcnn_head, post_processing."""
+    times = {}
+
+    stage = functools.partial(timed_stage, times)
+
+    dcfg, b = model.cfg, points.shape[0]
+    with torch.no_grad():
+        st = stage("voxelize", lambda: SP.make_sparse_tensor(*voxelize_batch(
+            points, valid, point_cloud_range=dcfg.point_cloud_range,
+            voxel_size=dcfg.voxel_size, max_voxels=dcfg.max_voxels,
+            max_points_per_voxel=dcfg.max_points_per_voxel), dcfg.sparse_shape, b))
+        bb = stage("backbone_3d", lambda: model.backbone_3d(st))
+        bev = height_compression(bb["encoded_spconv_tensor"])
+        bev2d = stage("bev_backbone", lambda: model.backbone_2d(bev.float()))
+        head_out = stage("head", lambda: model.dense_head(bev2d))
+        state = {"ms3d": bb["multi_scale_3d_features"], "bev": bev}
+        if "ROI_HEAD" not in cfg.MODEL:
+            out = stage("decode", lambda: model.decode(head_out))
+        else:
+            cls_p, box_p = stage("head_decode", lambda: dcfg.head_logic.predict_boxes(head_out))
+            props = stage("proposals", lambda: RH.proposal_layer(
+                cls_p, box_p, cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST))
+            rois = props["rois"][..., :7]
+            head = model.roi_head
+            width = PV.jax_stage_width(dcfg, b)
+            pooled = [stage(f"pool_{n}", lambda n=n: head.pool_source(
+                n, rois, state["ms3d"][n], width)) for n in head.sources]
+            cls, reg = stage("rcnn_head", lambda: head.head(torch.cat(pooled, -1)))
+            out = {**props, "rois": PVH.decode_rcnn_boxes(rois, reg), "rcnn_iou": cls}
+            state.update(rois=rois, width=width)
+        stage("post_processing", lambda: post_processing(
+            out, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES), "ROI_HEAD" in cfg.MODEL))
+    return times, state
+
+
+def time_roi_pools(model, state) -> dict:
+    """Each Voxel R-CNN source alone on the frame's proposals (CUDA events,
+    median of 3): its ball query (every grid point of every RoI against the
+    stage's active voxel centres, at JAX's width) beside its bound, the f32
+    (queries x supports) distance pass written once at 3.35 TB/s, and its
+    whole pool (PRE_MLP, query, grouping, MLP, max)."""
+    head, rois, width = model.roi_head, state["rois"], state["width"]
+    grid = PVH.roi_grid_points(rois[0], head.grid_size).reshape(-1, 3)
+    res = {}
+    with torch.no_grad():
+        for n in head.sources:
+            st = state["ms3d"][n]
+            sup = head.centres(n, st, rois.dtype)[st.mask]
+            layer = head.get_submodule(f"pool_{n}")
+            q, m = grid.shape[0], sup.shape[0]
+            res[n] = {
+                "queries": q, "supports": m, "radius": layer.radii[0],
+                "ball_query_ms": time_cuda(lambda: PN2.ball_query_multi(
+                    grid, sup, layer.radii, layer.nsamples, width=width), reps=3, warmup=0),
+                "ball_query_bound_ms": q * m * 4 / HBM_BYTES_PER_S * 1e3,
+                "pool_ms": time_cuda(lambda: head.pool_source(n, rois, st, width),
+                                     reps=3, warmup=0)}
+    return res
+
+
+def time_first_bev_conv(model, bev) -> dict:
+    """The BEV backbone's first 3x3 conv alone on the frame's BEV map
+    (cuDNN, f32, TF32 off; CUDA events, median of 3), beside its FLOP bound
+    at 67 TFLOP/s: the shape ROADMAP Next item 2 asks about."""
+    conv = model.backbone_2d.blocks[0][1]
+    x = torch.nn.functional.pad(bev.float().permute(0, 3, 1, 2), (1, 1, 1, 1))
+    with torch.no_grad():
+        ms = time_cuda(lambda: conv(x), reps=3, warmup=1)
+    _, cin, h, w = x.shape
+    cout = conv.weight.shape[0]
+    oh, ow = (h - 3) // conv.stride[0] + 1, (w - 3) // conv.stride[1] + 1
+    flops = 2 * cin * cout * 9 * oh * ow
+    return {"shape": f"{cin} -> {cout} at {oh}x{ow}", "ms": ms,
+            "bound_ms": flops / FP32_FLOPS * 1e3}
+
+
+def time_center_head_convs(model, bev) -> dict:
+    """CenterPoint's head on the frame's BEV features (cuDNN, f32, TF32 off;
+    CUDA events, median of 3): the whole head, then each conv alone on its
+    own input as a contiguous NCHW tensor (as the head runs it) and with
+    channels-last strides (the NCHW view of an NHWC map): {"head_ms": ms,
+    "convs": {name: (shape, ms contiguous, ms channels-last)}}."""
+    head = model.dense_head
+    convs_ms = {}
+    with torch.no_grad():
+        bev2d = model.backbone_2d(bev.float())
+        x = bev2d.permute(0, 3, 1, 2).contiguous()
+        whole = time_cuda(lambda: head(bev2d), reps=3, warmup=1)
+        convs = [("shared_conv", head.shared_conv, x)]
+        h = head.relu(head.shared_bn(head.shared_conv(x)))
+        for name in head.sep.heads:
+            c0 = head.sep.get_submodule(f"{name}_conv0")
+            convs += [(f"{name}_conv0", c0, h),
+                      (f"{name}_out", head.sep.get_submodule(f"{name}_out"), head.relu(c0(h)))]
+        for name, conv, inp in convs:
+            last = inp.contiguous(memory_format=torch.channels_last)
+            convs_ms[name] = (f"{conv.in_channels} -> {conv.out_channels} at "
+                              f"{inp.shape[2]}x{inp.shape[3]}",
+                              time_cuda(lambda: conv(inp), reps=3, warmup=1),
+                              time_cuda(lambda: conv(last), reps=3, warmup=1))
+    return {"head_ms": whole, "convs": convs_ms}
+
+
+def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
+    """Phase 17 serving of ``key`` (centerpoint or voxel_rcnn, its full
+    config, weights from seed 0) on the SEE frame's completed cloud:
+    ``see_and_detect`` and ``run_frame`` (K1 counted in each, peak memory),
+    ``detect_stage`` timed (CUDA events, median of 5) and its stages, the
+    first BEV conv alone, Voxel R-CNN's pools alone, the active voxels
+    against the cap and against JAX's extraction capacity, device busy and
+    top ops; the SEE + detector and fused frames (host, median of 3)."""
+    label, full, _ = CENTER_RCNN[key]
+    cfg = full()
+    det, dcfg = build_detector(cfg, device="cpu")
+    det, _ = build_detector(cfg, seeded_state_dict(0, det), device=dev)
+    fr = detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image,
+                         finite=CENTER_RCNN_OUT[key])
+    pp, out, new_pts, new_valid = (fr[k] for k in ("pp", "out", "new_pts", "new_valid"))
+    active = [int(v) for v in out["active_voxels"]]
+    jax_capacity = PV.jax_stage_width(dcfg, 1)
+    kept = int(pp["pred_mask"].sum())
+    labels = torch.bincount(pp["pred_labels"][0][pp["pred_mask"][0]].long(),
+                            minlength=dcfg.num_class + 1)[1:].tolist()
+    rows = out["batch_box_preds"].shape[1]
+    want = int(cfg.MODEL.POST_PROCESSING.MAX_OBJ_PER_SAMPLE) if key == "centerpoint" \
+        else dcfg.head_logic.anchors_flat.shape[0]
+    if rows != want or kept < 1 or active[0] < 1000:
+        raise AssertionError(f"{label} did no real work: {rows} rows, active {active}, "
+                             f"{kept} kept")
+    over = [f"conv{i}" for i, a in enumerate(active[1:5], start=1) if a > jax_capacity]
+    extra = f"; {int(out['roi_mask'].sum())} proposals" if key == "voxel_rcnn" else ""
+    print(f"{label} at full width on the SEE frame's {int(new_valid.sum())} valid points "
+          f"(see_and_detect): kernel launches {fr['launches']}; active voxels input / "
+          f"conv1-4 / conv_out {active} (cap {dcfg.max_voxels}; JAX's extraction capacity "
+          f"{jax_capacity}: over it {over}){extra}; {kept} boxes kept (by class {labels}); "
+          f"peak device memory {fr['peak']:.2f} GiB")
+    print(f"fused frame with {label} (run_frame): kernel launches {fr['fused_launches']}; "
+          f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
+    pts, vld = new_pts[None], new_valid[None]
+    stages, state = time_stages(center_rcnn_stages, det, cfg, pts, vld)
+    conv = time_first_bev_conv(det, state["bev"])
+    pools = time_roi_pools(det, state) if key == "voxel_rcnn" else {}
+    head_convs = time_center_head_convs(det, state["bev"]) if key == "centerpoint" else {}
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
+    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
+    ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
+                                        cfg, proj, l2c), reps=3)
+    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    print(f"{label} stages, CUDA-event / host ms (median of 3, each between "
+          "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
+                                        in stages.items()))
+    print(f"{label} first BEV conv alone ({conv['shape']}, cuDNN f32): {conv['ms']:.3f} ms "
+          f"(CUDA events, median of 3), bound {conv['bound_ms']:.4f} ms at 67 TFLOP/s")
+    if head_convs:
+        print(f"{label} head (cuDNN f32, CUDA events, median of 3) {head_convs['head_ms']:.3f} "
+              "ms; each conv alone, contiguous NCHW / channels-last input: " + ", ".join(
+                  f"{n} ({sh}) {a:.3f} / {b:.3f} ms"
+                  for n, (sh, a, b) in head_convs["convs"].items()))
+    for n, p in pools.items():
+        print(f"{label} pool {n} alone ({p['queries']} grid points x {p['supports']} voxel "
+              f"centres, r {p['radius']}): ball query {p['ball_query_ms']:.2f} ms, bound "
+              f"{p['ball_query_bound_ms']:.4f} ms (the f32 distance pass at 3.35 TB/s); the "
+              f"whole pool {p['pool_ms']:.2f} ms (CUDA events, median of 3)")
+    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 5); SEE + {label} "
+          f"frame {fd_ms:.2f} ms, fused frame with {label} {ff_ms:.2f} ms (host clock, median "
+          f"of 3) on {card}; profiled "
+          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+    return {"launches": fr["launches"], "fused_launches": fr["fused_launches"],
+            "active": active, "cap": dcfg.max_voxels, "jax_extract_capacity": jax_capacity,
+            "kept": kept, "kept_by_class": labels, "peak_gib": fr["peak"],
+            "stage_ms": stages, "first_bev_conv": conv, "pools": pools,
+            "head_convs": head_convs,
+            "detect_ms": det_ms, "see_detect_frame_ms": fd_ms, "fused_frame_ms": ff_ms,
+            "device_busy_ms": busy, "top_ops": top}
+
+
+def train_center_rcnn(dev, card, key, pts, valid, gt, steps: int = 5) -> dict:
+    """Phase 17 training of ``key`` at full width (f32, the config's batch:
+    CenterPoint 4, Voxel R-CNN 2; the train voxel cap; weights from seed 0)
+    on the GT-completed frames: 1 + 1 + ``steps`` train steps (step 1
+    checked, a warm-up, the timed steps), one split by CUDA events, one
+    profiled. Raises unless every loss is finite and every parameter moved
+    after step 1, but CenterPoint's ``BIAS_BEFORE_BN`` and Voxel R-CNN's box
+    branch where step 1 sampled no foreground RoI, each only while its
+    gradient is all zero."""
+    label, full, _ = CENTER_RCNN[key]
+    cfg = full()
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    pts, valid, gt = pts[:batch], valid[:batch], gt[:batch]
+    cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    cpu_model, _ = build_detector(cfg, max_voxels=cap, device="cpu")
+    model, _ = build_detector(cfg, seeded_state_dict(0, cpu_model), max_voxels=cap,
+                              device=dev)
+    state = create_train_state(model, cfg.OPTIMIZATION, total_steps=1000)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, tb, out = train_forward(state, pts, valid, gt, gen)
+    apply_gradients(state, loss)
+    losses = [{"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}]
+    for n, p in model.named_parameters():
+        if not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{label}: gradient of {n} is not finite")
+    excused = (BIAS_BEFORE_BN,)
+    if key == "voxel_rcnn" and tb["rcnn_loss_reg"].item() == 0:
+        excused += ("roi_head.reg_",)
+    idle = check_moved(model, start, excused, f"{label} train step 1")
+    train_step(state, pts, valid, gt, gen)                  # warm-up
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(state, pts, valid, gt, gen))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fwd = model(pts, valid, gt_boxes=gt, generator=gen)
+    ev[1].record()
+    loss, _ = model.loss(fwd, gt)
+    ev[2].record()
+    apply_gradients(state, loss)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1])
+             for i, k in enumerate(("forward", "loss", "backward_update"))}
+    busy, top = profile_frame((state, pts, valid, gt, gen), train_step)
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"a {label} training loss is not finite")
+    step_ms = statistics.median(times)
+    summary = {"step_ms": step_ms, "frames_per_s": batch * 1e3 / step_ms,
+               "step_ms_all": times, "split_ms": split, "peak_gib": peak,
+               "device_busy_ms": busy, "top_ops": top,
+               "losses": [m["loss"] for m in values], "last_terms": values[-1],
+               "idle": idle, "voxel_cap": cap,
+               "active": [int(v) for v in out["active_voxels"]]}
+    if key == "voxel_rcnn":
+        tg = out["rcnn_targets"]
+        summary.update(proposals=out["roi_mask"].sum(1).tolist(),
+                       sampled_fg=(tg["roi_sample_mask"] & tg["reg_valid_mask"]).sum(1).tolist())
+    print(f"{label} train steps at batch {batch} (full width, f32, train cap {cap}) on "
+          f"GT-completed frames: losses " + ", ".join(f"{v:.4f}" for v in summary["losses"])
+          + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items())
+          + f"; active {summary['active']}"
+          + (f"; proposals {summary['proposals']}, sampled fg {summary['sampled_fg']}"
+             if key == "voxel_rcnn" else "")
+          + f"; parameters still after step 1 (all-zero gradient, excused): {idle}")
+    print(f"{label} train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+          f"{steps} after a warm-up) = {summary['frames_per_s']:.2f} frames/s; CUDA events: "
+          f"forward {split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
+          f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; profiled "
+          f"step: device busy {busy:.2f} ms; device time by op: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    return summary
+
+
+def center_rcnn(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt) -> dict:
+    """Phase 17: the tiny CenterPoint and Voxel R-CNN card vs CPU (eval and
+    one train step), then each at full width on the completed frame and in
+    the train step."""
+    parts, t0 = {}, time.time()
+    res = {"tiny_vs_cpu": check_tiny_center_rcnn_against_cpu(dev),
+           "tiny_steps_vs_cpu": check_tiny_center_rcnn_steps_against_cpu(dev)}
+    parts["tiny"] = time.time() - t0
+    for key in CENTER_RCNN:
+        t0 = time.time()
+        res[key] = serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image)
+        parts[f"{key}_serve"], t0 = time.time() - t0, time.time()
+        res[key]["train"] = train_center_rcnn(dev, card, key, g_pts, g_valid, g_gt)
+        parts[f"{key}_train"] = time.time() - t0
+    res["part_s"] = parts
+    print("phase 17 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return res
 
 
 def main() -> int:
@@ -3628,6 +4058,17 @@ def main() -> int:
     print(f"phase 16 (PointPillar, SECONDNet) ran {singles['phase_s']:.0f} s; chip_smoke "
           f"ran {time.time() - t_start:.0f} s after start-up")
 
+    # --- 17. CenterPoint and Voxel R-CNN ---------------------------------------
+    t17 = time.time()
+    centers = center_rcnn(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt)
+    for key in CENTER_RCNN:
+        kernels[0][f"{key}_launches"] = {
+            "see_and_detect": centers[key]["launches"]["min_sqdist_pruned"],
+            "run_frame": centers[key]["fused_launches"]["min_sqdist_pruned"]}
+    centers["phase_s"] = time.time() - t17
+    print(f"phase 17 (CenterPoint, Voxel R-CNN) ran {centers['phase_s']:.0f} s; chip_smoke "
+          f"ran {time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -3647,6 +4088,9 @@ def main() -> int:
         "second_focal": singles["second_focal"],
         "single_stage_checks": {k: singles[k] for k in ("tiny_vs_cpu", "tiny_steps_vs_cpu",
                                                         "atss", "phase_s")},
+        "centerpoint": centers["centerpoint"], "voxel_rcnn": centers["voxel_rcnn"],
+        "center_rcnn_checks": {k: centers[k] for k in ("tiny_vs_cpu", "tiny_steps_vs_cpu",
+                                                       "part_s", "phase_s")},
         "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@ __graft_entry__.py, which the port does not import: ``_mini_detector_cfg``,
 (``pvrcnn_detector_cfg`` at OpenPCDet's pv_rcnn.yaml widths on the
 flagship's grid, ``tiny_pvrcnn_cfg`` for small runs and the tests) and
 PV-RCNN++'s (``pvrcnn_plusplus_detector_cfg``, pv_rcnn_plusplus.yaml's PFE
-on PV-RCNN's config, and ``tiny_pvrcnn_plusplus_cfg``)."""
+on PV-RCNN's config, and ``tiny_pvrcnn_plusplus_cfg``), the single-stage
+detectors' (PointPillar, SECONDNet), CenterPoint's
+(``centerpoint_detector_cfg``) and Voxel R-CNN's
+(``voxel_rcnn_detector_cfg``), each with a tiny version."""
 from __future__ import annotations
 
 from ...utils.config import Cfg
@@ -516,4 +519,192 @@ def tiny_second_focal_cfg():
     truncate them (ROADMAP §3)."""
     cfg = _tiny_single_stage(second_focal_detector_cfg(), (0.5, 0.5, 0.1), 8)
     cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS = {"train": 2048, "test": 2048}
+    return cfg
+
+
+# --- CenterPoint and Voxel R-CNN ---------------------------------------------
+
+def centerpoint_detector_cfg():
+    """CenterPoint with the MODEL block of OpenPCDet's tools/cfgs/
+    waymo_models/centerpoint.yaml on the flagship's DATA_CONFIG (the yaml's
+    own voxel size [0.1, 0.1, 0.15] over KITTI's [0, -40, -3, 70.4, 40, 1]:
+    704 x 800 x 27 voxels, 90,000 test / 80,000 train voxels, points [x, y,
+    z]): VoxelResBackBone8x, HeightCompression (NUM_BEV_FEATURES 256, the
+    yaml's; on this grid's 27 z levels the backbone ends one level high, so
+    the BEV map has 128 channels at 100 x 88), BACKBONE_2D [5, 5] x [128,
+    256] up [1, 2] x [256, 256], CenterHead at stride 8 (a 64-channel shared
+    conv, 2-conv branches), LOSS_WEIGHTS cls 1.0 and loc 2.0, and
+    POST_PROCESSING SCORE_THRESH 0.1, MAX_OBJ_PER_SAMPLE 500, NMS 0.7 over
+    4,096 -> 500; adam_onecycle at batch 4, LR 0.003.
+
+    Cuts: the yaml's three Waymo classes under KITTI's names (Car,
+    Pedestrian, Cyclist), one head for all three as its
+    CLASS_NAMES_EACH_HEAD; the POST_PROCESSING block moved from the dense
+    head to MODEL, where the JAX package reads it. Keys of the yaml the
+    JAX package does not read, kept for the record where they carry a
+    value: NUM_HM_CONV (its heatmap branch has one hidden conv, as every
+    branch), USE_BIAS_BEFORE_NORM (its shared conv always has a bias),
+    SHARED_CONV_CHANNEL (fixed at 64, the yaml's value), the branches' BN
+    (it has none), code_weights (its L1 weighs the 8 channels alike) and
+    TARGET_ASSIGNER_CONFIG (its targets fix stride 8, overlap 0.1, radius
+    at least 2); POST_CENTER_LIMIT_RANGE is left out (the yaml's is the
+    Waymo range and the JAX package does not read it)."""
+    classes = ["Car", "Pedestrian", "Cyclist"]
+    return Cfg({
+        "CLASS_NAMES": classes,
+        "DATA_CONFIG": flagship_detector_cfg().DATA_CONFIG,
+        "MODEL": {
+            "NAME": "CenterPoint",
+            "VFE": {"NAME": "MeanVFE"},
+            "BACKBONE_3D": {"NAME": "VoxelResBackBone8x"},
+            "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+            "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [5, 5],
+                            "LAYER_STRIDES": [1, 2], "NUM_FILTERS": [128, 256],
+                            "UPSAMPLE_STRIDES": [1, 2],
+                            "NUM_UPSAMPLE_FILTERS": [256, 256]},
+            "DENSE_HEAD": {
+                "NAME": "CenterHead", "CLASS_AGNOSTIC": False,
+                "CLASS_NAMES_EACH_HEAD": [classes], "SHARED_CONV_CHANNEL": 64,
+                "USE_BIAS_BEFORE_NORM": True, "NUM_HM_CONV": 2,
+                "SEPARATE_HEAD_CFG": {
+                    "HEAD_ORDER": ["center", "center_z", "dim", "rot"],
+                    "HEAD_DICT": {"center": {"out_channels": 2, "num_conv": 2},
+                                  "center_z": {"out_channels": 1, "num_conv": 2},
+                                  "dim": {"out_channels": 3, "num_conv": 2},
+                                  "rot": {"out_channels": 2, "num_conv": 2}}},
+                "TARGET_ASSIGNER_CONFIG": {"FEATURE_MAP_STRIDE": 8, "NUM_MAX_OBJS": 500,
+                                           "GAUSSIAN_OVERLAP": 0.1, "MIN_RADIUS": 2},
+                "LOSS_CONFIG": {"LOSS_WEIGHTS": {"cls_weight": 1.0, "loc_weight": 2.0,
+                                                 "code_weights": [1.0] * 8}}},
+            "POST_PROCESSING": {
+                "RECALL_THRESH_LIST": [0.3, 0.5, 0.7], "SCORE_THRESH": 0.1,
+                "MAX_OBJ_PER_SAMPLE": 500, "OUTPUT_RAW_SCORE": False,
+                "EVAL_METRIC": "kitti",
+                "NMS_CONFIG": {"MULTI_CLASSES_NMS": False, "NMS_TYPE": "nms_gpu",
+                               "NMS_THRESH": 0.7, "NMS_PRE_MAXSIZE": 4096,
+                               "NMS_POST_MAXSIZE": 500}}},
+        "OPTIMIZATION": _kitti_optimization()})
+
+
+def _pool_layer(mlps, radius: float, nsample: int) -> dict:
+    return {"MLPS": [list(m) for m in mlps], "QUERY_RANGES": [[4, 4, 4]],
+            "POOL_RADIUS": [radius], "NSAMPLE": [nsample], "POOL_METHOD": "max_pool"}
+
+
+def voxel_rcnn_detector_cfg():
+    """Voxel R-CNN at OpenPCDet's tools/cfgs/kitti_models/voxel_rcnn_car.yaml:
+    0.05 x 0.05 x 0.1 m voxels over [0, -40, -3, 70.4, 40, 1] (1408 x 1600 x
+    40), 5 points a voxel, 40,000 test / 16,000 train voxels, points [x, y,
+    z]; VoxelBackBone8x, HeightCompression 256, BACKBONE_2D [5, 5] x [64,
+    128] up [1, 2] x [128, 128]; the Car anchor head at stride 8; the RoI
+    head: ROI_GRID_POOL over x_conv2, x_conv3 and x_conv4, GRID_SIZE 6,
+    radii 0.4 / 0.8 / 1.6, NSAMPLE 16, MLPS [[32, 32]]; SHARED_FC, CLS_FC
+    and REG_FC [256, 256], DP_RATIO 0.3; proposal NMS TRAIN 9,000 -> 512 at
+    0.8, TEST 1,024 -> 100 at 0.7; 128 RoIs an image; the final NMS 0.1
+    over 4,096 -> 500 at SCORE_THRESH 0.3; adam_onecycle at LR 0.01, batch
+    2. PRE_MLP True is the JAX package's own test's value
+    (tests/test_voxelrcnn.py). QUERY_RANGES is kept and not read: the JAX
+    package's head (and the port's) queries the voxel centres by radius,
+    not by the reference's voxel query. Nothing else is cut but the
+    weights."""
+    nms = {"NMS_TYPE": "nms_gpu", "MULTI_CLASSES_NMS": False}
+    cfg = Cfg({
+        "CLASS_NAMES": ["Car"],
+        "DATA_CONFIG": {
+            "POINT_CLOUD_RANGE": [0, -40, -3, 70.4, 40, 1],
+            "POINT_FEATURE_ENCODING": {"used_feature_list": ["x", "y", "z"]},
+            "DATA_PROCESSOR": [
+                {"NAME": "transform_points_to_voxels", "VOXEL_SIZE": [0.05, 0.05, 0.1],
+                 "MAX_POINTS_PER_VOXEL": 5,
+                 "MAX_NUMBER_OF_VOXELS": {"train": 16000, "test": 40000}}]},
+        "MODEL": {
+            "NAME": "VoxelRCNN",
+            "VFE": {"NAME": "MeanVFE"},
+            "BACKBONE_3D": {"NAME": "VoxelBackBone8x"},
+            "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+            "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [5, 5],
+                            "LAYER_STRIDES": [1, 2], "NUM_FILTERS": [64, 128],
+                            "UPSAMPLE_STRIDES": [1, 2],
+                            "NUM_UPSAMPLE_FILTERS": [128, 128]},
+            "DENSE_HEAD": _kitti_three_class_head(8),
+            "ROI_HEAD": {
+                "NAME": "VoxelRCNNHead", "CLASS_AGNOSTIC": True,
+                "SHARED_FC": [256, 256], "CLS_FC": [256, 256], "REG_FC": [256, 256],
+                "DP_RATIO": 0.3,
+                "NMS_CONFIG": {"TRAIN": {**nms, **_nms(9000, 512, 0.8)},
+                               "TEST": {**nms, **_nms(1024, 100, 0.7)}},
+                "ROI_GRID_POOL": {
+                    "FEATURES_SOURCE": ["x_conv2", "x_conv3", "x_conv4"], "PRE_MLP": True,
+                    "GRID_SIZE": 6,
+                    "POOL_LAYERS": {"x_conv2": _pool_layer([[32, 32]], 0.4, 16),
+                                    "x_conv3": _pool_layer([[32, 32]], 0.8, 16),
+                                    "x_conv4": _pool_layer([[32, 32]], 1.6, 16)}},
+                "TARGET_CONFIG": {"BOX_CODER": "ResidualCoder", "ROI_PER_IMAGE": 128,
+                                  "FG_RATIO": 0.5, "SAMPLE_ROI_BY_EACH_CLASS": True,
+                                  "CLS_SCORE_TYPE": "roi_iou", "CLS_FG_THRESH": 0.75,
+                                  "CLS_BG_THRESH": 0.25, "CLS_BG_THRESH_LO": 0.1,
+                                  "HARD_BG_RATIO": 0.8, "REG_FG_THRESH": 0.55},
+                "LOSS_CONFIG": {"CLS_LOSS": "BinaryCrossEntropy", "REG_LOSS": "smooth-l1",
+                                "CORNER_LOSS_REGULARIZATION": True,
+                                "LOSS_WEIGHTS": {"rcnn_cls_weight": 1.0,
+                                                 "rcnn_reg_weight": 1.0,
+                                                 "rcnn_corner_weight": 1.0,
+                                                 "code_weights": [1.0] * 7}}},
+            "POST_PROCESSING": _single_stage_post(0.1, 4096, 500, False)},
+        "OPTIMIZATION": _kitti_optimization()})
+    head = cfg.MODEL.DENSE_HEAD
+    head.ANCHOR_GENERATOR_CONFIG = head.ANCHOR_GENERATOR_CONFIG[:1]
+    cfg.MODEL.POST_PROCESSING.SCORE_THRESH = 0.3
+    cfg.OPTIMIZATION.LR = 0.01
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 2
+    return cfg
+
+
+def tiny_centerpoint_cfg():
+    """CenterPoint on the tiny grid [0, -8, -2, 16, 8, 2] at 0.25 x 0.25 x
+    0.1 m (64 x 64 x 40, an 8 x 8 map at stride 8), 512 voxels, BACKBONE_2D
+    [1, 1] x [16, 32] up [1, 2] x [16, 16], MAX_OBJ_PER_SAMPLE 64 (under the
+    map's 8 x 8 x 3 cells, above its peaks from random weights), NMS 256
+    -> 16; the head's widths are the JAX package's fixed 64."""
+    cfg = centerpoint_detector_cfg()
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -8, -2, 16, 8, 2]
+    vox = cfg.DATA_CONFIG.DATA_PROCESSOR[0]
+    vox.VOXEL_SIZE = [0.25, 0.25, 0.1]
+    vox.MAX_NUMBER_OF_VOXELS = {"train": 512, "test": 512}
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS, b2.NUM_FILTERS, b2.NUM_UPSAMPLE_FILTERS = [1, 1], [16, 32], [16, 16]
+    post = cfg.MODEL.POST_PROCESSING
+    post.MAX_OBJ_PER_SAMPLE = 64
+    post.NMS_CONFIG.NMS_PRE_MAXSIZE, post.NMS_CONFIG.NMS_POST_MAXSIZE = 256, 16
+    return cfg
+
+
+def tiny_voxel_rcnn_cfg():
+    """Voxel R-CNN on the tiny grid (0.5 x 0.5 x 0.1 m, 32 x 32 x 40), 512
+    voxels a frame, BACKBONE_2D [1, 1] x [16, 32] up [1, 2] x [16, 16], the
+    RoI head at GRID_SIZE 3 with the full config's sources and PRE_MLP,
+    radii 1.2 / 2.4 / 4.8 m (each stage's voxel pitch is 10x the full
+    config's) and NSAMPLE 8 / 16 / 16, MLPS [[8, 8]], FC stacks [16, 16],
+    proposals 128 -> 16 (train) and 64 -> 8 (test), 8 RoIs an image, the
+    final NMS 256 -> 16. Every pooled stage's active voxels stay under the
+    JAX package's extraction capacity (round(2 x 512 x 1.5) rows)."""
+    cfg = voxel_rcnn_detector_cfg()
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -8, -2, 16, 8, 2]
+    vox = cfg.DATA_CONFIG.DATA_PROCESSOR[0]
+    vox.VOXEL_SIZE = [0.5, 0.5, 0.1]
+    vox.MAX_NUMBER_OF_VOXELS = {"train": 512, "test": 512}
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS, b2.NUM_FILTERS, b2.NUM_UPSAMPLE_FILTERS = [1, 1], [16, 32], [16, 16]
+    roi = cfg.MODEL.ROI_HEAD
+    roi.SHARED_FC, roi.CLS_FC, roi.REG_FC = [16, 16], [16, 16], [16, 16]
+    roi.NMS_CONFIG.TRAIN.update(_nms(128, 16, 0.8))
+    roi.NMS_CONFIG.TEST.update(_nms(64, 8, 0.7))
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 8
+    pool = roi.ROI_GRID_POOL
+    pool.GRID_SIZE = 3
+    pool.POOL_LAYERS = Cfg({"x_conv2": _pool_layer([[8, 8]], 1.2, 8),
+                            "x_conv3": _pool_layer([[8, 8]], 2.4, 16),
+                            "x_conv4": _pool_layer([[8, 8]], 4.8, 16)})
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE, nms.NMS_POST_MAXSIZE = 256, 16
     return cfg

@@ -3,7 +3,9 @@ post-processing (port of SECONDNetIoU, SECONDNet, PointPillar,
 focal_importance_loss, post_processing and build_detector of
 seevcn_tpu/models/detectors/second.py; reference second_net_iou.py,
 second_net.py, pointpillar.py), and ``AnchorDetector``, the RPN that
-PV-RCNN and PV-RCNN++ (``pvrcnn.py``) share with SECOND-IoU and SECONDNet.
+PV-RCNN, PV-RCNN++ (``pvrcnn.py``) and Voxel R-CNN (``voxelrcnn.py``) share
+with SECOND-IoU and SECONDNet, and whose voxel backbone CenterPoint
+(``centerpoint.py``) runs under its own head.
 
 SECOND-IoU: MeanVFE (the voxeliser's mean) -> VoxelBackBone8x ->
 HeightCompression -> BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS ->
@@ -62,9 +64,10 @@ class DetectorConfig:
         self.grid_size = compute_grid_size(self.point_cloud_range, self.voxel_size)
         feat_cfg = data_cfg.get("POINT_FEATURE_ENCODING", None)
         self.num_point_features = len(feat_cfg.used_feature_list) if feat_cfg else 4
-        self.head_logic = AnchorHeadLogic(
-            model_cfg.DENSE_HEAD, self.num_class, self.class_names,
-            self.grid_size, self.point_cloud_range)
+        # a center head carries no anchors
+        self.head_logic = None if model_cfg.DENSE_HEAD.get("NAME") == "CenterHead" \
+            else AnchorHeadLogic(model_cfg.DENSE_HEAD, self.num_class, self.class_names,
+                                 self.grid_size, self.point_cloud_range)
 
     @property
     def sparse_shape(self) -> tuple:
@@ -463,12 +466,22 @@ def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool,
     the dense head's boxes scored by their best class's sigmoid, labelled
     by its argmax + 1: one NMS with SCORE_THRESH, or with MULTI_CLASSES_NMS
     one a class (``_multi_classes_nms``; SCORE_THRESH may then hold a
-    threshold a class)."""
+    threshold a class). Where the output carries ``batch_pred_labels``
+    (CenterPoint), ``batch_cls_preds`` (B, N, 1) already holds the boxes'
+    probabilities and the labels are those: one NMS over them. That is a
+    deliberate departure from the JAX package, whose post-processing takes
+    a second sigmoid of those probabilities and labels every box 1 (the
+    argmax of one column): its kept set, order and boxes are the port's at
+    SCORE_THRESH 0, its scores sigmoid(the port's)."""
     nms_cfg = post_cfg.NMS_CONFIG
     score_thresh = post_cfg.get("SCORE_THRESH", 0.1)
     if has_roi_head:
         boxes, labels, valid = out["rois"], out["roi_labels"], out["roi_mask"]
         scores = _rcnn_scores(out, nms_cfg, points, points_valid, class_names)
+    elif "batch_pred_labels" in out:
+        boxes, labels = out["batch_box_preds"], out["batch_pred_labels"]
+        scores = out["batch_cls_preds"][..., 0]
+        valid = torch.ones_like(scores, dtype=torch.bool)
     else:
         cls = torch.sigmoid(out["batch_cls_preds"])
         boxes = out["batch_box_preds"]
@@ -493,16 +506,20 @@ def post_processing(out: dict, post_cfg, num_class: int, has_roi_head: bool,
 def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
                    device="cuda"):
     """cfg: a full pcdet config (MODEL / DATA_CONFIG / CLASS_NAMES) whose
-    MODEL.NAME is SECONDNet, SECONDNetIoU, PointPillar, PVRCNN or
-    PVRCNNPlusPlus -> (model in eval mode on ``device``, DetectorConfig). A
-    given state dict (reference key names) is loaded with strict=True;
+    MODEL.NAME is SECONDNet, SECONDNetIoU, PointPillar, PVRCNN,
+    PVRCNNPlusPlus, CenterPoint or VoxelRCNN -> (model in eval mode on
+    ``device``, DetectorConfig). A given state dict (the port's key names:
+    the reference's where the modules match) is loaded with strict=True;
     ``max_voxels`` overrides the voxel cap (DetectorConfig)."""
+    from .centerpoint import CenterPoint
     from .pvrcnn import PVRCNN, PVRCNNPlusPlus
+    from .voxelrcnn import VoxelRCNN
 
     dev = resolve_device(device)
     detectors = {"SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
                  "PointPillar": PointPillar, "PVRCNN": PVRCNN,
-                 "PVRCNNPlusPlus": PVRCNNPlusPlus}
+                 "PVRCNNPlusPlus": PVRCNNPlusPlus, "CenterPoint": CenterPoint,
+                 "VoxelRCNN": VoxelRCNN}
     if cfg.MODEL.NAME not in detectors:
         raise NotImplementedError(
             f"detector {cfg.MODEL.NAME}: the port has {', '.join(detectors)}")

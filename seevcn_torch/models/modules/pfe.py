@@ -55,6 +55,16 @@ STAGE_CHANNELS = {"x_conv1": 16, "x_conv2": 32, "x_conv3": 64, "x_conv4": 64}
 PRE_CAP = 1 << 15
 
 
+def voxel_centres(coords: torch.Tensor, stride: float, voxel_size, point_cloud_range,
+                  dtype) -> torch.Tensor:
+    """(N, 4) voxel coords [b, z, y, x] of a stage at ``stride`` -> (N, 3)
+    metric centres in ``dtype``."""
+    pcr = coords.new_tensor(point_cloud_range, dtype=dtype)
+    vs = coords.new_tensor(voxel_size, dtype=dtype)
+    c = coords.to(dtype)
+    return torch.stack([(c[:, 3 - i] + 0.5) * vs[i] * stride + pcr[i] for i in range(3)], 1)
+
+
 def _shared_mlp(cin: int, widths: Sequence[int]) -> nn.Sequential:
     """1x1 Conv2d (no bias) + BN + ReLU per width, as the reference's
     ``shared_mlps``; the conv runs as a product over the flattened rows."""
@@ -330,12 +340,8 @@ class VoxelSetAbstraction(nn.Module):
         """(N, 3) metric centres of a stage's voxels (coords [b, z, y, x])."""
         sa_cfg = self.cfg.SA_LAYER[name]
         ds = float(sa_cfg.get("DOWNSAMPLE_FACTOR", STAGE_STRIDES[name]))
-        dtype = self.vsa_point_feature_fusion[0].weight.dtype
-        pcr = st.coords.new_tensor(self.point_cloud_range, dtype=dtype)
-        vs = st.coords.new_tensor(self.voxel_size, dtype=dtype)
-        c = st.coords.to(dtype)
-        return torch.stack([(c[:, 3 - i] + 0.5) * vs[i] * ds + pcr[i]
-                            for i in range(3)], 1)
+        return voxel_centres(st.coords, ds, self.voxel_size, self.point_cloud_range,
+                             self.vsa_point_feature_fusion[0].weight.dtype)
 
     def stage_features(self, name: str, keypoints: torch.Tensor,
                        st: SP.SparseTensor, width: int) -> torch.Tensor:

@@ -4,8 +4,10 @@ reference detector3d/tools/train_utils/train_utils.py:11-135).
 ``train_step`` is the reference's step: the training forward with the
 ground truth, the loss, the backward, then the scheduled update with the
 gradients clipped, for every ported detector (SECONDNetIoU, PVRCNN,
-PVRCNNPlusPlus, and SECONDNet and PointPillar, which sample no RoIs: each
-model's ``loss`` gives its terms). It is single-device; the reference's
+PVRCNNPlusPlus and VoxelRCNN, which draw their RoI sample and dropout from
+the step's generator, and SECONDNet, PointPillar and CenterPoint, which
+draw nothing: each model's ``loss`` gives its terms). It is single-device;
+the reference's
 sharded step (``shard_train_step``) maps to DDP, which the port has not
 taken up yet.
 """
@@ -62,8 +64,10 @@ def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
     rows padding). -> metrics, detached: loss and the model's loss terms
     (rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss, then SECOND-IoU's
     rcnn_loss_iou, or PV-RCNN's (and PV-RCNN++'s) point_loss_cls, rcnn_loss_cls,
+    rcnn_loss_reg, rcnn_loss_corner, rcnn_loss, or Voxel R-CNN's rcnn_loss_cls,
     rcnn_loss_reg, rcnn_loss_corner, rcnn_loss, or the focal SECONDNet's
-    loss_box_of_pts)."""
+    loss_box_of_pts; CenterPoint's are hm_loss, loc_loss and rpn_loss, their
+    weighted sum)."""
     loss, tb, _ = train_forward(state, points, valid, gt_boxes, generator, roi_u)
     apply_gradients(state, loss)
     return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}

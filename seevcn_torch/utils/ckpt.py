@@ -17,6 +17,13 @@ which its forward never uses: the loader drops it. A spconv weight is stored
 (out, kz, ky, kx, in) by spconv 2.x and (kz, ky, kx, in, out) by 1.x, the
 layout OpenPCDet-era files carry: the loader reads both into the port's 2.x
 parameter.
+
+No CenterPoint or Voxel R-CNN ``.pth`` is read: the JAX package's
+``ckpt_compat`` has no importer for either (OpenPCDet's CenterHead keeps
+its branches' BN and a ``heads_list``, and its VoxelRCNNHead its
+``roi_grid_pool_layers``, none of which the JAX package's modules hold),
+and the port's loader reads what the JAX importer reads. Their weights
+come from the JAX package's flax trees (``utils/weights.py``).
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 Copies of the VCN and detector exports of seevcn_tpu/utils/ckpt_compat.py
 (``vcn_state_dict_from_variables``, ``detector_state_dict_from_variables``),
 kept here because the port imports nothing of the JAX package, and the
-PV-RCNN and single-stage (SECONDNet, PointPillar) exports, which the JAX
-package lacks. Each takes
+PV-RCNN, single-stage (SECONDNet, PointPillar), CenterPoint and Voxel
+R-CNN exports, which the JAX package lacks. Each takes
 the flax variable tree as numpy arrays (``{"params": ..., "batch_stats":
 ...}``) and returns a state dict in the reference's key names, which the
 port's modules load with ``strict=True``. The reference has no seg2d
@@ -319,6 +319,49 @@ def pvrcnn_state_dict_from_flax(variables: dict) -> dict:
     _fc_stack(sd, "roi_head.cls_layers", r, rs, "cls_fc", "cls_bn", "cls_out")
     _fc_stack(sd, "roi_head.reg_layers", r, rs, "reg_fc", "reg_bn", "reg_out")
     return sd
+
+
+def centerpoint_state_dict_from_flax(variables: dict) -> dict:
+    """Flax CenterPoint variables (numpy leaves) -> torch state dict of the
+    port's model: ``backbone_3d`` and ``backbone_2d`` in OpenPCDet's names
+    (as ``_rpn_state_dict``), the center head in the JAX package's:
+    ``dense_head.shared_conv`` (a Conv2d with its bias), ``.shared_bn`` and
+    ``.sep.{name}_conv0`` / ``.sep.{name}_out`` for each target."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {}
+    _backbone_3d(sd, p["backbone_3d"], s["backbone_3d"])
+    _backbone_2d(sd, p["backbone_2d"], s["backbone_2d"])
+    dh, dhs = p["dense_head"], s["dense_head"]
+    _put(sd, "dense_head.shared_conv", _conv_to_conv2d(dh["shared_conv"]))
+    _put(sd, "dense_head.shared_bn", _bn_join(dh["shared_bn"], dhs["shared_bn"]))
+    for name, leaf in dh["sep"].items():
+        _put(sd, f"dense_head.sep.{name}", _conv_to_conv2d(leaf))
+    return sd
+
+
+def voxel_rcnn_state_dict_from_flax(variables: dict) -> dict:
+    """Flax VoxelRCNN variables (numpy leaves) -> torch state dict of the
+    port's model: the RPN in OpenPCDet's names (as SECOND-IoU's), the RoI
+    head in the JAX package's module names: ``roi_head.pre_{stage}`` (a
+    Linear) and ``pre_bn_{stage}``, ``pool_{stage}`` (an SALayer, as
+    ``_sa_layer`` maps it), ``{shared,cls,reg}_fc{i}`` (Linear) and
+    ``_bn{i}``, ``cls_out`` and ``reg_out``. The first shared layer reads
+    the pooled features flattened grid-major in both, so no row moves."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _rpn_state_dict(p, s)
+    _voxel_rcnn_head(sd, "roi_head", p["roi_head"], s["roi_head"])
+    return sd
+
+
+def _voxel_rcnn_head(sd: dict, key: str, r: dict, rs: dict) -> None:
+    """A flax VoxelRCNNHead into ``{key}.{its module names}``."""
+    for name, leaf in r.items():
+        if name.startswith("pool_"):
+            _sa_layer(sd, f"{key}.{name}", leaf, rs[name])
+        elif "scale" in leaf:
+            _put(sd, f"{key}.{name}", _bn_join(leaf, rs[name]))
+        else:
+            _put(sd, f"{key}.{name}", _dense_to_linear(leaf))
 
 
 def seg2d_state_dict_from_flax(variables: dict) -> dict:

@@ -122,8 +122,10 @@ def test_package_imports_no_jax():
     # models.vcn.{transforms,dataset,vc_shapenet,metrics,runner} and
     # utils.viz3d among them, and seg2d training's cli.train_seg2d,
     # models.seg2d.{synthetic,coco_eval} and ops.resize, and HTC's ops.dcn,
-    # and PointPillar's models.modules.vfe
-    assert int(out.stdout.strip()) >= 61
+    # and PointPillar's models.modules.vfe, and CenterPoint's and Voxel
+    # R-CNN's models.modules.center_head, models.detectors.{centerpoint,
+    # voxelrcnn}
+    assert int(out.stdout.strip()) >= 64
 
 
 def test_default_device_raises_without_cuda():
