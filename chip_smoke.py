@@ -54,7 +54,14 @@ and Voxel R-CNN (phase 17): the tiny models against the CPU in eval and in
 a train step, each at full width (centerpoint.yaml's model on the flagship's
 grid, voxel_rcnn_car.yaml) on the SEE frame's completed cloud and through
 ``run_frame`` (K1 counted), their stages, first BEV conv and Voxel R-CNN's
-pools timed, and 1 + 1 + 5 train steps (batch 4 and 2).
+pools timed, and 1 + 1 + 5 train steps (batch 4 and 2). Then PointRCNN and
+Part-A2 (phase 18): the tiny models against the CPU in eval and in a train
+step (their f32 selections pinned to the CPU's), the inverse sparse conv
+against the CPU forward and backward, each at full width (pointrcnn.yaml,
+PartA2.yaml) on the SEE frame's completed cloud and through ``run_frame``
+(K1 counted), their stages and ops alone timed (ball queries, three-NN,
+FPS, inverse convs, roiaware pools, the first BEV conv), PointRCNN also on
+16,384 resampled points, and 1 + 1 + 3 train steps (batch 2 and 4).
 Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
@@ -80,10 +87,12 @@ import numpy as np
 import torch
 
 from seevcn_torch.models.detectors import configs as DC
+from seevcn_torch.models.detectors import pointrcnn as PRC
 from seevcn_torch.models.detectors import pvrcnn as PV
 from seevcn_torch.models.detectors.second import (PointPillar, build_detector,
                                                   post_processing)
 from seevcn_torch.models.modules.dense_heads import AnchorHeadLogic
+from seevcn_torch.models.modules.backbone3d import VoxelBackBone8x
 from seevcn_torch.models.modules.map_to_bev import height_compression
 from seevcn_torch.models.modules import pfe as PFE
 from seevcn_torch.models.modules import pvrcnn_head as PVH
@@ -107,6 +116,8 @@ from seevcn_torch.models.vcn.runner import VCNTrainer
 from seevcn_torch.ops import cuda as K
 from seevcn_torch.ops import nms as NMS
 from seevcn_torch.ops import pointnet2 as PN2
+from seevcn_torch.ops import roiaware as RA
+from seevcn_torch.ops import sampling as SMP
 from seevcn_torch.ops import sparse as SP
 from seevcn_torch.ops.clustering import largest_cluster_batch
 from seevcn_torch.ops.cuda import min_dist as MD
@@ -904,6 +915,27 @@ def profile_ops(args, fn):
         elif ms:
             per_op[e.key] = per_op.get(e.key, 0.0) + ms
     return busy, per_op
+
+
+def profile_kernels(args, fn):
+    """One call of ``fn(*args)`` under torch.profiler recording the device
+    only, read from its raw kernel records: (device ms summed over them,
+    the six kernel names, cut to 60 characters, that took most device
+    time, as (name, ms)). ``profile_frame``'s aggregation of CPU ops is
+    too slow for the many small launches of a PointRCNN frame (its FPS and
+    NMS loops); this reads the records directly."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    busy, per = 0.0, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.duration_ns() / 1e6
+        busy += ms
+        per[e.name()[:60]] = per.get(e.name()[:60], 0.0) + ms
+    return busy, sorted(per.items(), key=lambda kv: -kv[1])[:6]
 
 
 def tiny_train_inputs(dev):
@@ -2273,20 +2305,27 @@ def train_dcn_step(dev, card) -> dict:
 # --------------------------------------------------------------------------
 # PV-RCNN: serving and training (phase 14)
 
-def pvrcnn_train_inputs(cfg, sd):
+def pvrcnn_train_inputs(cfg, sd, relative: bool = False):
     """tiny_train_inputs' two blob frames and ground truth, plus in each
     frame a car near two of the training proposals of the PV-RCNN at
     ``cfg`` with state dict ``sd`` (shifted 0.25 m and 0.15 m, turned 0.08
     rad: an IoU well above REG_FG_THRESH, clear of the rotated IoU's
-    degenerate case of coincident edges), so that its RoI sample has
-    foreground. -> numpy (points, valid, gt_boxes)."""
+    degenerate case of coincident edges; with ``relative``, shifted 6% of
+    the proposal's length and width and of the proposal's class, so that a
+    pedestrian-sized proposal keeps that IoU too), so that its RoI sample
+    has foreground. -> numpy (points, valid, gt_boxes)."""
     pts, valid, gt, _ = (t.numpy() for t in tiny_train_inputs("cpu"))
     model, _ = build_detector(cfg, sd, device="cpu")
     model.train()
     with torch.no_grad():
-        rois = model.rpn(torch.from_numpy(pts), torch.from_numpy(valid))["props"]["rois"]
-    gt[:, 2:4, :7] = rois[:, :2, :7].numpy() + np.float32([0.25, 0.15, 0, 0, 0, 0, 0.08])
+        props = model.rpn(torch.from_numpy(pts), torch.from_numpy(valid))["props"]
+    rois = props["rois"][:, :2, :7].numpy()
+    shift = np.zeros_like(rois) + np.float32([0.25, 0.15, 0, 0, 0, 0, 0.08])
     gt[:, 2:4, 7] = 1.0
+    if relative:
+        shift[..., :2] = 0.06 * rois[..., 3:5]
+        gt[:, 2:4, 7] = props["roi_labels"][:, :2].numpy()
+    gt[:, 2:4, :7] = rois + shift
     return pts, valid, gt
 
 
@@ -2364,58 +2403,108 @@ def tiny_pvrcnn_step(cfg, sd, inputs, device, dtype, pinned=None):
 BIAS_BEFORE_BN = "dense_head.shared_conv.bias"
 
 
+def _to_device(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return type(x)(_to_device(v, dev) for v in x)
+
+
 @contextlib.contextmanager
-def ball_query_choices(pinned=None):
-    """Within the block, record the members that each SA layer's ball query
-    chooses (indices and validity of every radius, on the CPU) into the
-    list yielded. Given ``pinned``, such a list from another run, each
-    query returns that run's members instead of its own: a support at a
-    sphere's edge falls in or out by the f32 rounding of its distance,
-    which differs between devices and dtypes (the RoIs' grid points carry
-    the RPN's f32 error), and a nearer member then takes its slot."""
-    plain = PFE.ball_query_multi
-    got, queue = [], None if pinned is None else list(pinned)
+def pinned_calls(targets, pinned=None):
+    """Within the block, each call of a function of ``targets`` ((module,
+    name) pairs, or (module, name, repin) triples) has its result recorded
+    on the CPU, in call order, into the dict yielded (by "module.name");
+    given ``pinned``, such a dict from another run, each call returns that
+    run's result, on the device of its first tensor argument, instead of
+    its own, or, for a triple, ``repin(args, kwargs, that result)``."""
+    got = {f"{t[0].__name__}.{t[1]}": [] for t in targets}
+    queues = None if pinned is None else {k: list(v) for k, v in pinned.items()}
+    plain = {f"{t[0].__name__}.{t[1]}": getattr(t[0], t[1]) for t in targets}
 
-    def choose(q, sup, radii, nsamples, **kw):
-        res = plain(q, sup, radii, nsamples, **kw)
-        got.append([(i.cpu(), v.cpu()) for i, v in res])
-        if queue is None:
-            return res
-        return [(i.to(q.device), v.to(q.device)) for i, v in queue.pop(0)]
+    def pinned_fn(key, repin):
+        def call(*a, **kw):
+            res = plain[key](*a, **kw)
+            got[key].append(_to_device(res, "cpu"))
+            if queues is None:
+                return res
+            dev = next(t for t in a if isinstance(t, torch.Tensor)).device
+            res = _to_device(queues[key].pop(0), dev)
+            return res if repin is None else repin(a, kw, res)
+        return call
 
-    PFE.ball_query_multi = choose
+    for m, n, *repin in targets:
+        setattr(m, n, pinned_fn(f"{m.__name__}.{n}", repin[0] if repin else None))
     try:
         yield got
     finally:
-        PFE.ball_query_multi = plain
+        for m, n, *_ in targets:
+            setattr(m, n, plain[f"{m.__name__}.{n}"])
 
 
-def ball_query_flips(got, ref) -> int:
-    """The query rows whose chosen members differ between two records of
-    ``ball_query_choices``."""
-    return sum(int((((i != j) & (v | w)) | (v != w)).any(1).sum())
-               for a, b in zip(got, ref) for (i, v), (j, w) in zip(a, b))
+def three_nn_own_distances(args, kwargs, pinned) -> tuple:
+    """``three_nn``'s pinned picks with this run's own Gram-form distances
+    of those pairs (``gram_sqdist_fma`` on the run's device and dtype,
+    invalid supports at +inf): only the picks are a choice."""
+    query, support, *rest = args
+    valid = rest[0] if rest else kwargs.get("support_valid")
+    idx = pinned[0]
+    d = SMP.gram_sqdist_fma(query[:, :3], support[:, :3])
+    if valid is not None:
+        d = torch.where(valid[None, :], d, torch.inf)
+    return idx, torch.gather(d, 1, idx)
+
+
+#: the selections that the card-vs-CPU checks pin to the CPU's, each an f32
+#: choice that can fall the other way on the card: the ball query's members
+#: (a support at a sphere's edge), the three-NN picks (a Gram-form distance
+#: near a tie; the distances stay the run's own), the RoI point pool's
+#: indices and the roiaware cells (a point on a box face or a cell face)
+SELECTIONS = ((PFE, "ball_query_multi"), (SMP, "three_nn", three_nn_own_distances),
+              (PRC, "roi_point_indices"), (RA, "roi_cells"))
+
+
+def selection_choices(pinned=None):
+    """``pinned_calls`` over ``SELECTIONS``."""
+    return pinned_calls(SELECTIONS, pinned)
+
+
+def selection_flips(got: dict, ref: dict) -> dict:
+    """The rows (dim 0) whose recorded choice differs between two records
+    of ``selection_choices``, by function (indices, masks and cells; of
+    three-NN's record the picks, not the distances)."""
+    def rows(a, b):
+        if isinstance(a, torch.Tensor):
+            if a.is_floating_point():          # three-NN's distances: the picks count
+                return torch.zeros(a.shape[0], dtype=torch.bool)
+            diff = a != b
+            return diff.reshape(diff.shape[0], -1).any(1) if diff.dim() else diff[None]
+        per = [rows(x, y) for x, y in zip(a, b)]
+        return functools.reduce(torch.logical_or, per)
+
+    return {k.rsplit(".", 1)[1]: sum(int(rows(a, b).sum()) for a, b in zip(got[k], ref[k]))
+            for k in ref}
 
 
 def hold_tiny_step(dev, label: str, cfg, sd, inputs, *, loss_tol: float = 1e-5,
-                   grad_tol: float = 5e-4, pin_queries: bool = False, note: str = "") -> tuple:
+                   grad_tol: float = 5e-4, pin_queries: bool = False, note: str = "",
+                   loss_tols: dict | None = None) -> tuple:
     """One train step of the tiny ``cfg`` (state dict ``sd``; ``inputs`` the
     points, validity, ground truth and RoI priorities) on the card in f32
     against the CPU's step in f64 (TF32 off), the ReLUs' signs pinned to the
-    CPU's and, with ``pin_queries``, the ball queries' members
-    (``ball_query_choices``): loss terms within ``loss_tol`` (relative),
-    gradients within ``grad_tol`` of their tensor's largest
+    CPU's and, with ``pin_queries``, the selections (``selection_choices``):
+    loss terms within ``loss_tol`` (relative; ``loss_tols`` names the terms
+    held otherwise), gradients within ``grad_tol`` of their tensor's largest
     (``BIAS_BEFORE_BN``'s of its conv weight's), updated parameters within
     1e-5 where the gradient is sure (5% of its tensor's largest and 1e-6), 2
     lr elsewhere, running statistics 1e-5. The unpinned card step and the
     CPU's own f32 step are printed beside. -> (the worst differences, the
     CPU's loss terms)."""
     cpu = torch.device("cpu")
-    with ball_query_choices() as chosen:
+    with selection_choices() as chosen:
         ref = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float64)
-    with ball_query_choices(chosen if pin_queries else None):
+    with selection_choices(chosen if pin_queries else None):
         card = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32, pinned=ref[4])
-    with ball_query_choices() as free_chosen:
+    with selection_choices() as free_chosen:
         free = tiny_pvrcnn_step(cfg, sd, inputs, dev, torch.float32)
     cpu32 = tiny_pvrcnn_step(cfg, sd, inputs, cpu, torch.float32)
     lr = build_lr_schedule(cfg.OPTIMIZATION, 100)(0)
@@ -2428,6 +2517,7 @@ def hold_tiny_step(dev, label: str, cfg, sd, inputs, *, loss_tol: float = 1e-5,
                    for n in ref[1])
 
     worst = {"loss_terms": _worst(card[0], ref[0], lambda r: abs(r.item()) + 1e-30),
+             "loss_terms_cpu_f32": _worst(cpu32[0], ref[0], lambda r: abs(r.item()) + 1e-30),
              "gradients": grads_off(card), "gradients_unpinned": grads_off(free),
              "gradients_cpu_f32": grads_off(cpu32),
              "running_stats": _worst(card[3], ref[3], lambda r: 1.0 + r.abs().max().item())}
@@ -2438,16 +2528,20 @@ def hold_tiny_step(dev, label: str, cfg, sd, inputs, *, loss_tol: float = 1e-5,
         if not (err <= torch.where(sure, 1e-5, 2 * lr)).all():
             raise AssertionError(f"tiny {label} step: updated {n} off the CPU by "
                                  f"{err.max().item()}")
-    flips = sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))
+    relu_flips = sum(int((a != b).sum()) for a, b in zip(free[4], ref[4]))
     print(f"tiny {label} train step, card f32 vs CPU f64 (ReLU signs"
-          f"{' and ball-query members' if pin_queries else ''} pinned, TF32 off{note}): worst "
+          f"{' and the selections' if pin_queries else ''} pinned, TF32 off{note}"
+          f"{f'; loss-term bounds {loss_tols}' if loss_tols else ''}): worst "
           + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
-          + f"; loss {ref[0]['loss'].item():.5f}; {flips} ReLU inputs of the unpinned card "
-          f"step on the other side of 0, {ball_query_flips(free_chosen, chosen)} query rows "
-          "with other members")
-    if worst["loss_terms"][0] > loss_tol or worst["gradients"][0] > grad_tol \
-            or worst["running_stats"][0] > 1e-5:
-        raise AssertionError(f"tiny {label} step on the card off the CPU's f64 step")
+          + f"; loss {ref[0]['loss'].item():.5f}; {relu_flips} ReLU inputs of the unpinned "
+          f"card step on the other side of 0, rows with other choices "
+          f"{selection_flips(free_chosen, chosen)}")
+    tols = {k: (loss_tols or {}).get(k, loss_tol) for k in ref[0]}
+    terms_over = [k for k in ref[0] if (card[0][k] - ref[0][k]).abs().item()
+                  > tols[k] * (abs(ref[0][k].item()) + 1e-30)]
+    if terms_over or worst["gradients"][0] > grad_tol or worst["running_stats"][0] > 1e-5:
+        raise AssertionError(f"tiny {label} step on the card off the CPU's f64 step"
+                             + (f" (loss terms {terms_over})" if terms_over else ""))
     return {k: v[0] for k, v in worst.items()}, ref[0]
 
 
@@ -2604,16 +2698,18 @@ def detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image,
     """``det`` (a detector at ``cfg``: PV-RCNN's keys of its output are
     checked finite by default) on the SEE frame's completed cloud through
     ``see_and_detect`` (K1 counted, peak memory) and through ``run_frame``
-    with the Mask R-CNN masks (K1 counted again); its eval output's
-    ``finite`` keys checked finite: -> the counts, the output and the
-    cloud."""
+    with the Mask R-CNN masks (K1 counted again), each timed once by the
+    host clock; its eval output's ``finite`` keys checked finite: -> the
+    counts, the times, the output and the cloud."""
     args = (s["points"], s["valid"], s["det_boxes"], s["det_masks"], s["det_scores"],
             vcn, proj, l2c)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
+    t0 = time.perf_counter()
     pp, stats, new_pts, new_valid = F.see_and_detect(*args, det, cfg, IMAGE_SIZE)
     torch.cuda.synchronize()
+    see_detect_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if launches["min_sqdist_pruned"] < 1:
@@ -2623,9 +2719,11 @@ def detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image,
         if not torch.isfinite(out[k]).all():
             raise AssertionError(f"{label} output {k} is not finite")
     K.reset_launches()
+    t0 = time.perf_counter()
     pp_f, st_f, _, _ = F.run_frame(image, s["points"], s["valid"], seg, vcn, det, cfg,
                                    proj, l2c)
     torch.cuda.synchronize()
+    run_frame_ms = (time.perf_counter() - t0) * 1e3
     fused_launches = dict(K.LAUNCHES)
     if fused_launches["min_sqdist_pruned"] < 1:
         raise AssertionError(f"K1 was not launched inside run_frame with {label}")
@@ -2635,7 +2733,8 @@ def detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image,
     return {"args": args, "pp": pp, "out": out, "new_pts": new_pts,
             "new_valid": new_valid, "launches": launches, "peak": peak,
             "fused_launches": fused_launches, "kept_f": kept_f,
-            "spliced_f": int(st_f["inst_valid"].sum())}
+            "spliced_f": int(st_f["inst_valid"].sum()), "see_detect_ms": see_detect_ms,
+            "run_frame_ms": run_frame_ms}
 
 
 def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
@@ -3328,14 +3427,14 @@ def check_tiny_center_rcnn_against_cpu(dev) -> dict:
 
         def run(w, pinned=None):
             m, _ = build_detector(cfg, sd, device=w)
-            with ball_query_choices(pinned) as chosen:
+            with selection_choices(pinned) as chosen:
                 res = F.detect_stage(m, cfg, torch.from_numpy(pts), torch.from_numpy(valid),
                                      device=w)
             return res, chosen
 
         (pp_c, out_c), chosen = run(cpu)
         (pp_d, out_d), _ = run(dev, chosen)
-        flips[key] = ball_query_flips(run(dev)[1], chosen)
+        flips[key] = selection_flips(run(dev)[1], chosen)
         decoded = [k for k in CENTER_RCNN_OUT[key] if k != "spatial_features_2d"]
         maps = {k: out_c[k] for k in out_c if k == "spatial_features_2d"}
         maps.update({f"head_out.{k}": v for k, v in out_c["head_out"].items()})
@@ -3361,8 +3460,8 @@ def check_tiny_center_rcnn_against_cpu(dev) -> dict:
           "(bound 1e-6) and head maps and BEV features (1e-5): "
           + ", ".join(f"{k} {v['decoded'][0]:.3g} ({v['decoded'][1]}), {v['maps'][0]:.3g} "
                       f"({v['maps'][1]})" for k, v in worst.items())
-          + "; decoded labels, proposals, kept boxes and labels equal; query rows whose "
-          f"members the unpinned card chose otherwise {flips}")
+          + "; decoded labels, proposals, kept boxes and labels equal; rows the unpinned "
+          f"card chose otherwise {flips}")
     return {k: {part: w[0] for part, w in v.items()} for k, v in worst.items()}
 
 
@@ -3678,6 +3777,519 @@ def center_rcnn(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt) 
         parts[f"{key}_train"] = time.time() - t0
     res["part_s"] = parts
     print("phase 17 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return res
+
+
+# --- phase 18: PointRCNN and Part-A2 --------------------------------------------
+
+POINT_PART = {"pointrcnn": ("PointRCNN", DC.pointrcnn_detector_cfg, DC.tiny_pointrcnn_cfg),
+              "parta2": ("Part-A2", DC.parta2_detector_cfg, DC.tiny_parta2_cfg)}
+#: the eval outputs phase 18 checks finite and holds card vs CPU: the
+#: decoded boxes, and the heads' logits and residuals
+POINT_PART_OUT = {"pointrcnn": ("batch_box_preds", "rois", "batch_cls_preds", "rcnn_cls",
+                                "rcnn_reg"),
+                  "parta2": ("batch_box_preds", "rois", "batch_cls_preds", "seg_logits",
+                             "part_reg", "rcnn_cls", "rcnn_reg")}
+#: the tiny checks' bounds (relative to the largest) that differ from 1e-6
+#: (eval outputs) and 1e-5 (loss terms): those of the output and the term
+#: that the card's f32 run strays past the common bound in, set at twice
+#: their own f32 error, the CPU's f32 run against its f64 run on the same
+#: input (two f32 results each within e of the exact one part by up to
+#: 2e); the checks print that error beside (PointRCNN's rcnn_cls 4.97e-6,
+#: Part-A2's rcnn_loss_reg 6.54e-6)
+POINT_PART_EVAL_TOLS = {"pointrcnn": {"rcnn_cls": 1e-5}}
+POINT_PART_LOSS_TOLS = {"parta2": {"rcnn_loss_reg": 1.5e-5}}
+
+
+def tiny_point_part_cfg(key: str):
+    cfg = POINT_PART[key][2]()
+    cfg.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    return cfg
+
+
+def three_nn_drift(got: list, ref: list) -> float:
+    """The largest |difference| (m^2) between two records of ``three_nn``
+    (of ``selection_choices``) in the distances of the same picks."""
+    return max(((d - e).abs()[(i == j) & torch.isfinite(e)].max().item()
+                for (i, d), (j, e) in zip(got, ref)), default=0.0)
+
+
+@torch.no_grad()
+def check_tiny_point_part_against_cpu(dev) -> dict:
+    """The tiny PointRCNN and Part-A2 (weights from seed 7 with random
+    statistics, TF32 off) through ``detect_stage`` on the card against the
+    port's CPU path (which the tests hold against JAX), the picks of
+    ``selection_choices`` pinned to the CPU's (three-NN's distances are the
+    card's own): the decoded boxes and the heads' logits and residuals
+    within 1e-6 of a tensor's largest |value| (``POINT_PART_EVAL_TOLS``
+    names the others; the CPU's f32 run against its f64 run is printed
+    beside); the proposals, and the kept sets and labels after
+    post-processing, equal. Returns the worst differences (relative to the
+    largest) by detector."""
+    cpu = torch.device("cpu")
+    pts, valid = blob_points(4)
+    worst, own, flips, drift = {}, {}, {}, {}
+    rel = lambda r: r.abs().max().item() + 1e-30          # noqa: E731
+    for key, (label, _, _) in POINT_PART.items():
+        cfg = tiny_point_part_cfg(key)
+        sd = seeded_state_dict(7, build_detector(cfg, device=cpu)[0], random_stats=True)
+
+        def run(w, pinned=None, dtype=torch.float32):
+            m, _ = build_detector(cfg, sd, device=w)
+            with selection_choices(pinned) as chosen:
+                res = F.detect_stage(m.to(dtype), cfg, torch.from_numpy(pts).to(dtype),
+                                     torch.from_numpy(valid), device=w)
+            return res, chosen
+
+        (pp_c, out_c), chosen = run(cpu)
+        (pp_d, out_d), chosen_d = run(dev, chosen)
+        out_64 = run(cpu, chosen, torch.float64)[0][1]
+        flips[key] = selection_flips(run(dev)[1], chosen)
+        drift[key] = three_nn_drift(chosen_d[f"{SMP.__name__}.three_nn"],
+                                    chosen[f"{SMP.__name__}.three_nn"]) \
+            if key == "pointrcnn" else None
+        ks = POINT_PART_OUT[key]
+        worst[key] = {k: _worst({k: out_d[k].cpu()}, {k: out_c[k]}, rel)[0] for k in ks}
+        own[key] = {k: _worst({k: out_c[k]}, {k: out_64[k]}, rel)[0] for k in ks}
+        tols = {k: POINT_PART_EVAL_TOLS.get(key, {}).get(k, 1e-6) for k in ks}
+        over = [k for k in ks if worst[key][k] > tols[k]]
+        if over:
+            raise AssertionError(f"tiny {label}: " + ", ".join(
+                f"{k} off the CPU by {worst[key][k]:.3g} of its largest (bound {tols[k]:g})"
+                for k in over))
+        for k in ("roi_mask", "roi_labels", "pred_mask", "pred_labels"):
+            src_d, src_c = (out_d, out_c) if k.startswith("roi") else (pp_d, pp_c)
+            if not torch.equal(src_d[k].cpu(), src_c[k]):
+                raise AssertionError(f"tiny {label}: {k} differs from the CPU's")
+        if not pp_c["pred_mask"].any():
+            raise AssertionError(f"tiny {label} kept no box")
+    print("tiny PointRCNN and Part-A2 eval, card vs CPU (TF32 off, the picks pinned to the "
+          "CPU's, three-NN's distances the card's own): |diff| / largest by output (bound "
+          f"1e-6; otherwise {POINT_PART_EVAL_TOLS}): " + "; ".join(
+              f"{key} " + ", ".join(f"{k} {v:.3g}" for k, v in w.items())
+              for key, w in worst.items())
+          + "; the CPU's own f32 run against its f64 run: " + "; ".join(
+              f"{key} " + ", ".join(f"{k} {v:.3g}" for k, v in w.items())
+              for key, w in own.items())
+          + f"; PointRCNN's three-NN distances of the same picks, card vs CPU, at most "
+          f"{drift['pointrcnn']:.3g} m^2 apart; proposals, kept boxes and "
+          f"labels equal; rows the unpinned card chose otherwise {flips}")
+    return {"worst": worst, "cpu_f32_vs_f64": own, "three_nn_drift_m2": drift["pointrcnn"]}
+
+
+def check_tiny_point_part_steps_against_cpu(dev) -> dict:
+    """One train step of the tiny PointRCNN and Part-A2 (cars near their
+    training proposals, fixed RoI priorities, DP_RATIO 0, the picks of
+    ``selection_choices`` pinned to the CPU's), weights from seed 8 with
+    random statistics, held by ``hold_tiny_step`` at 5e-4 (gradients) and
+    1e-5 (loss terms; ``POINT_PART_LOSS_TOLS`` names the others). Each step
+    has a foreground RoI, and Part-A2's a foreground voxel for its part
+    head."""
+    out = {}
+    for key, (label, _, _) in POINT_PART.items():
+        cfg = tiny_point_part_cfg(key)
+        sd = seeded_state_dict(8, build_detector(cfg, device="cpu")[0], random_stats=True)
+        if key == "pointrcnn":
+            # the seeded residuals decode to boxes metres long on one side and
+            # millimetres on another; a tenth of them keeps the proposals
+            # box-shaped, so that ground truth beside one is foreground
+            last = max(int(k.split(".")[2]) for k in sd if k.startswith("point_head.box_layers."))
+            for leaf in ("weight", "bias"):
+                sd[f"point_head.box_layers.{last}.{leaf}"] *= 0.1
+        pts, valid, gt = pvrcnn_train_inputs(cfg, sd, relative=True)
+        n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
+        u = np.random.RandomState(9).rand(2, n_rois).astype(np.float32)
+        out[key], terms = hold_tiny_step(
+            dev, label, cfg, sd, (pts, valid, gt, u), pin_queries=True,
+            loss_tols=POINT_PART_LOSS_TOLS.get(key), note=", DP_RATIO 0, fixed RoI priorities")
+        if terms["rcnn_loss_reg"].item() <= 0:
+            raise AssertionError(f"tiny {label} step: no foreground RoI")
+        if key == "parta2" and terms["part_loss"].item() <= 0:
+            raise AssertionError(f"tiny {label} step: no foreground voxel for the part head")
+    return out
+
+
+def check_inverse_conv_against_cpu(dev) -> dict:
+    """``sparse_inverse_conv3d`` on the card against the CPU, forward and
+    backward: a stride-2 conv of a random 2-frame sparse tensor (5 x 8 x 8,
+    16 channels), then its inverse onto the input's rows (16 -> 32), the
+    output and the gradients of the features and the weight within 1e-5
+    of their largest."""
+    rng = np.random.RandomState(0)
+    occ = rng.rand(2, 5, 8, 8) < 0.2
+    coords = torch.from_numpy(np.argwhere(occ).astype(np.int32))
+    feats = torch.from_numpy(rng.randn(coords.shape[0], 16).astype(np.float32))
+    w_down = torch.from_numpy((rng.randn(27, 16, 16) * 0.2).astype(np.float32))
+    w_up = torch.from_numpy((rng.randn(27, 16, 32) * 0.2).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(coords.shape[0], 32).astype(np.float32))
+
+    def run(w):
+        st = SP.make_sparse_tensor(feats.to(w), coords.to(w), torch.ones(
+            coords.shape[0], dtype=torch.bool, device=w), (5, 8, 8), 2)
+        down = SP.sparse_conv3d(st, w_down.to(w), 3, 2, 1, out_capacity=SP.ALL)
+        x = down.features.detach().requires_grad_(True)
+        wu = w_up.to(w).clone().requires_grad_(True)
+        with torch.enable_grad():
+            y = SP.sparse_inverse_conv3d(down._replace(features=x), wu, st, 3, 2, 1).features
+            y.backward(dy.to(w))
+        return {"forward": y.detach().cpu(), "grad_features": x.grad.cpu(),
+                "grad_weight": wu.grad.cpu()}
+
+    ref, got = run(torch.device("cpu")), run(dev)
+    worst = {k: (got[k] - ref[k]).abs().max().item() / (ref[k].abs().max().item() + 1e-30)
+             for k in ref}
+    print("sparse_inverse_conv3d card vs CPU (TF32 off): worst |diff| / largest "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + " (bound 1e-5)")
+    if max(worst.values()) > 1e-5:
+        raise AssertionError("sparse_inverse_conv3d on the card off the CPU")
+    return worst
+
+
+def pointrcnn_stages(model, cfg, points, valid) -> tuple:
+    """PointRCNN's eval forward and post-processing stage by stage, each
+    between synchronizes: fps{l} and sa{l} (its ball query, grouping and
+    MLP) at each SA level, fp{l} (the three-NN interpolation and the MLP)
+    from the deepest level up, point_head (with the box decoding),
+    proposals (the 9,000 proposal NMS), roi_pool, rcnn_head and
+    post_processing."""
+    times = {}
+    stage = functools.partial(timed_stage, times)
+    bb = model.backbone_3d
+    with torch.no_grad():
+        xyz, feats, vld = [points[..., :3]], [None], [valid]
+        for li in range(len(bb.SA_modules)):
+            nx, nv = stage(f"fps{li}", lambda: bb.sample(li, xyz[-1], vld[-1]))
+            feats.append(stage(f"sa{li}", lambda: bb.abstract(li, nx, xyz[-1], feats[-1],
+                                                               vld[-1])))
+            xyz.append(nx)
+            vld.append(nv)
+        up, ups = feats[-1], {}
+        for li in range(len(bb.SA_modules) - 1, -1, -1):
+            up = ups[li] = stage(f"fp{li}", lambda: bb.propagate(li, xyz[li], xyz[li + 1], up,
+                                                                 vld[li + 1], feats[li]))
+        head = model.point_head
+        cls_p, reg_p = stage("point_head", lambda: head(up))
+        boxes = model.coder.decode(reg_p, points[..., :3], cls_p.argmax(-1) + 1)
+        props = stage("proposals", lambda: RH.proposal_layer(
+            torch.where(valid[..., None], cls_p, -1e9), boxes,
+            cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST))
+        rois = props["rois"][..., :7]
+        geo, pooled = stage("roi_pool", lambda: model.roi_head.pool(rois, points[..., :3], up,
+                                                                    valid))
+        cls, reg = stage("rcnn_head", lambda: model.roi_head.head(geo, pooled))
+        out = {**props, "rois": PVH.decode_rcnn_boxes(rois, reg), "rcnn_iou": cls}
+        stage("post_processing", lambda: post_processing(
+            out, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES), True))
+    return times, {"xyz": xyz, "valid": vld, "fp_out": ups, "rois": rois}
+
+
+def time_pointrcnn_ops(model, state) -> dict:
+    """PointRCNN's ops alone on the frame (CUDA events, median of 3): each
+    SA level's ball query (its queries against the level below's valid
+    points, both radii) beside the (queries x supports) f32 distance pass
+    at 3.35 TB/s; the three-NN interpolation of FP 0 beside its bound: the
+    larger of its bytes (queries, supports and their features read once,
+    the output written once) at 3.35 TB/s and its operations (11 a pair:
+    the dot's 3 FMAs, the norms' 2 adds, 3 comparisons to pick 3) at 67
+    TFLOP/s; and SA 0's FPS alone beside its bound, 9 operations a point a
+    step."""
+    bb, xyz, vld = model.backbone_3d, state["xyz"], state["valid"]
+    res = {"ball_query": {}}
+    with torch.no_grad():
+        for li, layer in enumerate(bb.SA_modules):
+            q, sup = xyz[li + 1][0], xyz[li][0][vld[li][0]]
+            res["ball_query"][f"sa{li}"] = {
+                "queries": q.shape[0], "supports": sup.shape[0],
+                "ms": time_cuda(lambda: PN2.ball_query_multi(q, sup, layer.radii, layer.nsamples,
+                                                             width=xyz[li].shape[1]),
+                                reps=3, warmup=0),
+                "bound_ms": q.shape[0] * sup.shape[0] * 4 / HBM_BYTES_PER_S * 1e3}
+        q, s, f, v = xyz[0][0], xyz[1][0], state["fp_out"][1][0], vld[1][0]
+        n, m, c = q.shape[0], s.shape[0], f.shape[1]
+        byte_ms = (n * 12 + m * 12 + m * c * 4 + n * c * 4) / HBM_BYTES_PER_S * 1e3
+        op_ms = 11 * n * m / FP32_FLOPS * 1e3
+        bound, by = max((byte_ms, "bytes"), (op_ms, "operations"))
+        res["three_nn"] = {"queries": n, "supports": m, "channels": c,
+                           "ms": time_cuda(lambda: SMP.three_nn_interpolate(q, s, f, v), reps=3,
+                                           warmup=1),
+                           "bound_ms": bound, "bound_by": by}
+        k, npts = bb.npoints[0], int(vld[0][0].sum())
+        res["fps0"] = {"steps": k, "points": npts,
+                       "ms": time_cuda(lambda: farthest_point_sample(xyz[0][:1], k, vld[0][:1]),
+                                       reps=1, warmup=0),
+                       "bound_ms": 9 * k * npts / FP32_FLOPS * 1e3}
+    return res
+
+
+def parta2_stages(model, cfg, points, valid) -> tuple:
+    """Part-A2's eval forward and post-processing stage by stage, each
+    between synchronizes: voxelize, unet_encoder, unet_decoder, part_head,
+    bev_backbone (the height compression and the 2D backbone), head (the
+    anchor head and its box decoding), proposals, roi_pool (both roiaware
+    pools of every frame), rcnn_head and post_processing."""
+    times = {}
+    stage = functools.partial(timed_stage, times)
+    dcfg, b = model.cfg, points.shape[0]
+    unet = model.backbone_3d
+    with torch.no_grad():
+        st = stage("voxelize", lambda: SP.make_sparse_tensor(*voxelize_batch(
+            points, valid, point_cloud_range=dcfg.point_cloud_range,
+            voxel_size=dcfg.voxel_size, max_voxels=dcfg.max_voxels,
+            max_points_per_voxel=dcfg.max_points_per_voxel), dcfg.sparse_shape, b))
+        enc = stage("unet_encoder", lambda: VoxelBackBone8x.forward(unet, st))
+        ms3d = enc["multi_scale_3d_features"]
+        pf = stage("unet_decoder", lambda: unet.decode(ms3d))
+        seg, part = stage("part_head", lambda: (model.seg_out(pf.features)[:, 0],
+                                                model.part_out(pf.features)))
+        bev = height_compression(enc["encoded_spconv_tensor"])
+        bev2d = stage("bev_backbone", lambda: model.backbone_2d(bev.float()))
+        cls_p, box_p = stage("head", lambda: dcfg.head_logic.predict_boxes(
+            model.dense_head(bev2d)))
+        props = stage("proposals", lambda: RH.proposal_layer(
+            cls_p, box_p, cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST))
+        rois = props["rois"][..., :7]
+        feats = model.part_features(pf, seg, part)
+        pooled = stage("roi_pool", lambda: model.pool(rois, pf, feats))
+        cls, reg = stage("rcnn_head", lambda: model.roi_head(pooled))
+        out = {**props, "rois": PVH.decode_rcnn_boxes(rois, reg), "rcnn_iou": cls}
+        stage("post_processing", lambda: post_processing(
+            out, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES), True))
+    return times, {"ms3d": ms3d, "pf": pf, "feats": feats, "rois": rois, "bev": bev}
+
+
+def time_parta2_ops(model, state) -> dict:
+    """Part-A2's ops alone on the frame (CUDA events, median of 3): each
+    inverse conv (on its UR block's merged input, onto the stage below's
+    rows); the two roiaware pools of frame 0 (avg over the 4 part and
+    segmentation channels, max over the 16 features) beside their bound,
+    the larger of their bytes (the rois, the voxel centres and features
+    read once, the pooled grid written once) at 3.35 TB/s and their
+    operations (20 a (RoI, voxel) pair: the rotation, the cell and its
+    bounds) at 67 TFLOP/s."""
+    unet, ms3d, pf = model.backbone_3d, state["ms3d"], state["pf"]
+    res = {"inverse_convs": {}, "roiaware": {}}
+    with torch.no_grad():
+        x = ms3d["x_conv4"]
+        for i, _, _, _ in unet.UR:
+            merged = unet.ur_block(i, ms3d[f"x_conv{i}"], x)
+            inv = unet.get_submodule(f"inv_conv{i}")
+            target = ms3d[f"x_conv{i - 1}"]
+            res["inverse_convs"][f"inv_conv{i}"] = {
+                "rows": [int(merged.mask.sum()), int(target.mask.sum())],
+                "ms": time_cuda(lambda: inv(merged, target), reps=3, warmup=1)}
+            x = inv(merged, target)
+        rows = pf.mask & (pf.coords[:, 0] == 0)
+        c, f = model.centres(pf)[rows], state["feats"][rows]
+        ok = torch.ones_like(c[:, 0], dtype=torch.bool)
+        ro, g = state["rois"][0], model.roi_head.grid_size
+        for method, part in (("avg", f[:, :4]), ("max", f[:, 4:])):
+            n, ch, r = c.shape[0], part.shape[1], ro.shape[0]
+            byte_ms = (r * 28 + n * (12 + ch * 4) + r * g ** 3 * ch * 4) / HBM_BYTES_PER_S * 1e3
+            op_ms = 20 * r * n / FP32_FLOPS * 1e3
+            bound, by = max((byte_ms, "bytes"), (op_ms, "operations"))
+            res["roiaware"][method] = {
+                "rois": r, "voxels": n, "channels": ch, "grid": g, "bound_ms": bound,
+                "bound_by": by, "ms": time_cuda(lambda: RA.roiaware_pool3d(
+                    ro, c, part, ok, g, method), reps=3, warmup=1)}
+    return res
+
+
+def serve_point_part(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
+    """Phase 18 serving of ``key`` (pointrcnn or parta2, its full config,
+    weights from seed 0) on the SEE frame's completed cloud:
+    ``see_and_detect`` and ``run_frame`` (K1 counted in each, peak memory),
+    ``detect_stage`` timed (CUDA events, median of 3) and its stages (one
+    run after the warm-up of the frames above), the ops alone, Part-A2's
+    first BEV conv alone and its active voxels against the cap and JAX's
+    extraction capacity, device busy and top ops, the SEE + detector and
+    fused frames (host clock, median of 3 after the counted runs);
+    PointRCNN also at 16,384 points
+    resampled from the frame by ``resample_points`` (seed 0)."""
+    label, full, _ = POINT_PART[key]
+    cfg = full()
+    det, dcfg = build_detector(cfg, device="cpu")
+    det, _ = build_detector(cfg, seeded_state_dict(0, det), device=dev)
+    fr = detector_frames(det, cfg, label, s, vcn, seg, proj, l2c, image,
+                         finite=POINT_PART_OUT[key])
+    pp, out, new_pts, new_valid = (fr[k] for k in ("pp", "out", "new_pts", "new_valid"))
+    kept = int(pp["pred_mask"].sum())
+    labels = torch.bincount(pp["pred_labels"][0][pp["pred_mask"][0]].long(),
+                            minlength=dcfg.num_class + 1)[1:].tolist()
+    n_props = int(out["roi_mask"].sum())
+    res = {"launches": fr["launches"], "fused_launches": fr["fused_launches"], "kept": kept,
+           "kept_by_class": labels, "proposals": n_props, "peak_gib": fr["peak"]}
+    pts, vld = new_pts[None], new_valid[None]
+    if key == "pointrcnn":
+        rows = out["batch_box_preds"].shape[1]
+        if rows != new_pts.shape[0] or kept < 1 or n_props < 1:
+            raise AssertionError(f"{label} did no real work: {rows} rows, {kept} kept")
+        extra = f"{rows} points scored"
+        stages, state = pointrcnn_stages(det, cfg, pts, vld)
+        ops = time_pointrcnn_ops(det, state)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        sub = SMP.resample_points(new_pts, new_valid, 16384, generator=gen)
+        sub_ms = time_cuda(lambda: F.detect_stage(det, cfg, sub, torch.ones(
+            16384, dtype=torch.bool, device=dev)), reps=1, warmup=0)
+        res.update(resampled_16384_ms=sub_ms)
+    else:
+        active = [int(v) for v in out["active_voxels"]]
+        jax_capacity = PV.jax_stage_width(dcfg, 1)
+        if kept < 1 or active[0] < 1000 or n_props < 1:
+            raise AssertionError(f"{label} did no real work: active {active}, {kept} kept")
+        over = [f"conv{i}" for i, a in enumerate(active[1:5], start=1) if a > jax_capacity]
+        extra = (f"active voxels input / conv1-4 / conv_out {active} (cap {dcfg.max_voxels}; "
+                 f"JAX's extraction capacity {jax_capacity}: over it {over})")
+        stages, state = parta2_stages(det, cfg, pts, vld)
+        ops = time_parta2_ops(det, state)
+        ops["first_bev_conv"] = time_first_bev_conv(det, state["bev"])
+        res.update(active=active, cap=dcfg.max_voxels, jax_extract_capacity=jax_capacity)
+    print(f"{label} at full width on the SEE frame's {int(new_valid.sum())} valid points "
+          f"(see_and_detect): kernel launches {fr['launches']}; {extra}; {n_props} proposals; "
+          f"{kept} boxes kept (by class {labels}); peak device memory {fr['peak']:.2f} GiB")
+    print(f"fused frame with {label} (run_frame): kernel launches {fr['fused_launches']}; "
+          f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=3, warmup=0)
+    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
+    ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det, cfg,
+                                        proj, l2c), reps=3)
+    busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
+    print(f"{label} stages, CUDA-event / host ms (one run, each between synchronizes): "
+          + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in stages.items()))
+    if key == "pointrcnn":
+        print(f"{label} ops alone (CUDA events): ball query " + ", ".join(
+            f"{n} ({b['queries']} x {b['supports']}) {b['ms']:.2f} ms (bound {b['bound_ms']:.4f})"
+            for n, b in ops["ball_query"].items())
+            + f"; three-NN interpolation at FP 0 ({ops['three_nn']['queries']} x "
+            f"{ops['three_nn']['supports']}, {ops['three_nn']['channels']} channels) "
+            f"{ops['three_nn']['ms']:.2f} ms, bound {ops['three_nn']['bound_ms']:.4f} ms "
+            f"({ops['three_nn']['bound_by']}); FPS at SA 0 ({ops['fps0']['steps']} steps over "
+            f"{ops['fps0']['points']} points) {ops['fps0']['ms']:.2f} ms, bound "
+            f"{ops['fps0']['bound_ms']:.4f} ms; detect_stage at 16,384 resampled points "
+            f"{res['resampled_16384_ms']:.2f} ms (one run)")
+    else:
+        conv = ops["first_bev_conv"]
+        print(f"{label} ops alone (CUDA events, median of 3): inverse convs " + ", ".join(
+            f"{n} (rows {v['rows']}) {v['ms']:.2f} ms" for n, v in ops["inverse_convs"].items())
+            + "; roiaware pools of frame 0 " + ", ".join(
+                f"{m} ({v['rois']} RoIs x {v['voxels']} voxels, {v['channels']} channels, "
+                f"{v['grid']}^3) {v['ms']:.3f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+                for m, v in ops["roiaware"].items())
+            + f"; first BEV conv ({conv['shape']}, cuDNN f32) {conv['ms']:.3f} ms, bound "
+            f"{conv['bound_ms']:.4f} ms at 67 TFLOP/s")
+    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 3); SEE + {label} "
+          f"frame {fd_ms:.2f} ms, fused frame with {label} {ff_ms:.2f} ms (host clock, median "
+          f"of 3 after the counted runs) on {card}; profiled detect_stage: device "
+          f"busy {busy:.2f} ms; device time by kernel: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
+    res.update(stage_ms=stages, ops=ops, detect_ms=det_ms, see_detect_frame_ms=fd_ms,
+               fused_frame_ms=ff_ms, device_busy_ms=busy, top_ops=top)
+    return res
+
+
+def train_point_part(dev, card, key, pts, valid, gt, steps: int = 3) -> dict:
+    """Phase 18 training of ``key`` at full width (f32, the config's batch:
+    PointRCNN 2, Part-A2 4 at its train voxel cap; weights from seed 0) on
+    the GT-completed frames: 1 + 1 + ``steps`` train steps (step 1 checked,
+    a warm-up, the timed steps), one split by CUDA events, one profiled.
+    Raises unless every loss is finite and every parameter moved after step
+    1, but the RoI head's box branch where step 1 sampled no foreground
+    RoI, and Part-A2's ``part_out`` where no kept voxel's centre lies in a
+    ground-truth box (its part loss 0), each only while its gradient is all
+    zero."""
+    label, full, _ = POINT_PART[key]
+    cfg = full()
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    pts, valid, gt = pts[:batch], valid[:batch], gt[:batch]
+    cap = None
+    if key == "parta2":
+        cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    cpu_model, _ = build_detector(cfg, max_voxels=cap, device="cpu")
+    model, _ = build_detector(cfg, seeded_state_dict(0, cpu_model), max_voxels=cap, device=dev)
+    state = create_train_state(model, cfg.OPTIMIZATION, total_steps=1000)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, tb, out = train_forward(state, pts, valid, gt, gen)
+    apply_gradients(state, loss)
+    losses = [{"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}]
+    for n, p in model.named_parameters():
+        if not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{label}: gradient of {n} is not finite")
+    excused = ("roi_head.reg_",) if tb["rcnn_loss_reg"].item() == 0 else ()
+    if key == "parta2" and tb["part_loss"].item() == 0:
+        excused += ("part_out.",)
+    idle = check_moved(model, start, excused, f"{label} train step 1")
+    train_step(state, pts, valid, gt, gen)                  # warm-up
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(state, pts, valid, gt, gen))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fwd = model(pts, valid, gt_boxes=gt, generator=gen)
+    ev[1].record()
+    loss, _ = model.loss(fwd, gt)
+    ev[2].record()
+    apply_gradients(state, loss)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1])
+             for i, k in enumerate(("forward", "loss", "backward_update"))}
+    busy, top = profile_kernels((state, pts, valid, gt, gen), train_step)
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"a {label} training loss is not finite")
+    step_ms = statistics.median(times)
+    tg = out["rcnn_targets"]
+    summary = {"step_ms": step_ms, "frames_per_s": batch * 1e3 / step_ms,
+               "step_ms_all": times, "split_ms": split, "peak_gib": peak,
+               "device_busy_ms": busy, "top_ops": top,
+               "losses": [m["loss"] for m in values], "last_terms": values[-1],
+               "idle": idle, "proposals": out["roi_mask"].sum(1).tolist(),
+               "sampled_fg": (tg["roi_sample_mask"] & tg["reg_valid_mask"]).sum(1).tolist()}
+    if key == "parta2":
+        fg, _ = model.part_targets(out["_voxel_tensor"], gt)
+        summary.update(voxel_cap=cap, active=[int(v) for v in out["active_voxels"]],
+                       foreground_voxels=int(fg.sum()))
+    print(f"{label} train steps at batch {batch} (full width, f32"
+          + (f", train cap {cap}" if cap else "") + ") on GT-completed frames: losses "
+          + ", ".join(f"{v:.4f}" for v in summary["losses"])
+          + "; last terms " + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items())
+          + (f"; active {summary['active']}, foreground voxels "
+             f"{summary['foreground_voxels']}" if cap else "")
+          + f"; proposals {summary['proposals']}, sampled fg {summary['sampled_fg']}"
+          + f"; parameters still after step 1 (all-zero gradient, excused): {idle}")
+    print(f"{label} train step {step_ms:.2f} ms (host clock to a synchronize, median of "
+          f"{steps} after a warm-up) = {summary['frames_per_s']:.2f} frames/s; CUDA events: "
+          f"forward {split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
+          f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; profiled "
+          f"step: device busy {busy:.2f} ms; device time by kernel: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    return summary
+
+
+def point_part(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt) -> dict:
+    """Phase 18: the tiny PointRCNN and Part-A2 card vs CPU (eval and one
+    train step) and the inverse conv card vs CPU, then each at full width
+    on the completed frame and in the train step."""
+    parts, t0 = {}, time.time()
+    res = {"tiny_vs_cpu": check_tiny_point_part_against_cpu(dev),
+           "tiny_steps_vs_cpu": check_tiny_point_part_steps_against_cpu(dev),
+           "inverse_conv_vs_cpu": check_inverse_conv_against_cpu(dev)}
+    parts["tiny"] = time.time() - t0
+    for key in POINT_PART:
+        t0 = time.time()
+        res[key] = serve_point_part(dev, card, key, s, vcn, seg, proj, l2c, image)
+        parts[f"{key}_serve"], t0 = time.time() - t0, time.time()
+        res[key]["train"] = train_point_part(dev, card, key, g_pts, g_valid, g_gt)
+        parts[f"{key}_train"] = time.time() - t0
+    res["part_s"] = parts
+    print("phase 18 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return res
 
 
@@ -4069,6 +4681,17 @@ def main() -> int:
     print(f"phase 17 (CenterPoint, Voxel R-CNN) ran {centers['phase_s']:.0f} s; chip_smoke "
           f"ran {time.time() - t_start:.0f} s after start-up")
 
+    # --- 18. PointRCNN and Part-A2 ----------------------------------------------
+    t18 = time.time()
+    points_parts = point_part(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt)
+    for key in POINT_PART:
+        kernels[0][f"{key}_launches"] = {
+            "see_and_detect": points_parts[key]["launches"]["min_sqdist_pruned"],
+            "run_frame": points_parts[key]["fused_launches"]["min_sqdist_pruned"]}
+    points_parts["phase_s"] = time.time() - t18
+    print(f"phase 18 (PointRCNN, Part-A2) ran {points_parts['phase_s']:.0f} s; chip_smoke "
+          f"ran {time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -4091,6 +4714,9 @@ def main() -> int:
         "centerpoint": centers["centerpoint"], "voxel_rcnn": centers["voxel_rcnn"],
         "center_rcnn_checks": {k: centers[k] for k in ("tiny_vs_cpu", "tiny_steps_vs_cpu",
                                                        "part_s", "phase_s")},
+        "pointrcnn": points_parts["pointrcnn"], "parta2": points_parts["parta2"],
+        "point_part_checks": {k: points_parts[k] for k in (
+            "tiny_vs_cpu", "tiny_steps_vs_cpu", "inverse_conv_vs_cpu", "part_s", "phase_s")},
         "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ PV-RCNN++'s (``pvrcnn_plusplus_detector_cfg``, pv_rcnn_plusplus.yaml's PFE
 on PV-RCNN's config, and ``tiny_pvrcnn_plusplus_cfg``), the single-stage
 detectors' (PointPillar, SECONDNet), CenterPoint's
 (``centerpoint_detector_cfg``) and Voxel R-CNN's
-(``voxel_rcnn_detector_cfg``), each with a tiny version."""
+(``voxel_rcnn_detector_cfg``), PointRCNN's (``pointrcnn_detector_cfg``)
+and Part-A2's (``parta2_detector_cfg``), each with a tiny version."""
 from __future__ import annotations
 
 from ...utils.config import Cfg
@@ -705,6 +706,210 @@ def tiny_voxel_rcnn_cfg():
     pool.POOL_LAYERS = Cfg({"x_conv2": _pool_layer([[8, 8]], 1.2, 8),
                             "x_conv3": _pool_layer([[8, 8]], 2.4, 16),
                             "x_conv4": _pool_layer([[8, 8]], 4.8, 16)})
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE, nms.NMS_POST_MAXSIZE = 256, 16
+    return cfg
+
+
+# --- PointRCNN and Part-A2 -----------------------------------------------------
+
+def _rcnn_target(score_type: str, fg: float, bg: float, reg_fg: float) -> dict:
+    """An RoI sampler's TARGET_CONFIG: 128 RoIs an image, half foreground,
+    the background 80% hard."""
+    return {"BOX_CODER": "ResidualCoder", "ROI_PER_IMAGE": 128, "FG_RATIO": 0.5,
+            "SAMPLE_ROI_BY_EACH_CLASS": True, "CLS_SCORE_TYPE": score_type,
+            "CLS_FG_THRESH": fg, "CLS_BG_THRESH": bg, "CLS_BG_THRESH_LO": 0.1,
+            "HARD_BG_RATIO": 0.8, "REG_FG_THRESH": reg_fg}
+
+
+def _rcnn_loss() -> dict:
+    return {"CLS_LOSS": "BinaryCrossEntropy", "REG_LOSS": "smooth-l1",
+            "CORNER_LOSS_REGULARIZATION": True,
+            "LOSS_WEIGHTS": {"rcnn_cls_weight": 1.0, "rcnn_reg_weight": 1.0,
+                             "rcnn_corner_weight": 1.0, "code_weights": [1.0] * 7}}
+
+
+def pointrcnn_detector_cfg():
+    """PointRCNN at OpenPCDet's tools/cfgs/kitti_models/pointrcnn.yaml, the
+    three KITTI classes over [0, -40, -3, 70.4, 40, 1]: PointNet2MSG with SA
+    NPOINTS [4096, 1024, 256, 64], RADIUS [[0.1, 0.5], [0.5, 1.0], [1.0,
+    2.0], [2.0, 4.0]], NSAMPLE [16, 32] at each level, MLPS [[[16, 16, 32],
+    [32, 32, 64]], [[64, 64, 128], [64, 96, 128]], [[128, 196, 256], [128,
+    196, 256]], [[256, 256, 512], [256, 384, 512]]], FP_MLPS [[128, 128],
+    [256, 256], [512, 512], [512, 512]]; PointHeadBox with CLS_FC and REG_FC
+    [256, 256] and PointResidualCoder's mean sizes Car [3.9, 1.6, 1.56],
+    Pedestrian [0.8, 0.6, 1.73], Cyclist [1.76, 0.6, 1.73]; PointRCNNHead
+    with 512 sampled points, depth normaliser 70, XYZ_UP_LAYER [128, 128],
+    CLS_FC and REG_FC [256, 256]; proposal NMS TRAIN 9,000 -> 512 at 0.8,
+    TEST 9,000 -> 100 at 0.85; 128 RoIs an image scored ``cls`` (fg 0.6, bg
+    0.45, reg fg 0.55); the final NMS 0.1 over 4,096 -> 500 at SCORE_THRESH
+    0.1; adam_onecycle at LR 0.01, batch 2.
+
+    One change: ``used_feature_list`` is [x, y, z], as the flagship's,
+    because the SEE frame's completed points carry no intensity (the first
+    SA level reads no features). Keys of the yaml that the JAX package does
+    not read, kept for the record: the RoI head's SA_CONFIG (its head pools
+    the raw in-box points, no set abstraction), USE_BN and DP_RATIO (its
+    head has neither), POOL_EXTRA_WIDTH (it pools the RoI as given), the
+    point head's LOSS_CONFIG (its weights are 1) and CLASS_AGNOSTIC. The
+    yaml's DATA_PROCESSOR ``sample_points`` (16,384 points a frame) is a
+    data processor, which the JAX package runs in its dataset
+    (seevcn_tpu/data/dataset.py:77), not in the model; the model takes the
+    frame's points as they come (chip_smoke.py also runs it on 16,384
+    points resampled by ``resample_points``). No voxel block and no dense
+    head: the model has neither."""
+    nms = {"NMS_TYPE": "nms_gpu", "MULTI_CLASSES_NMS": False}
+    return Cfg({
+        "CLASS_NAMES": ["Car", "Pedestrian", "Cyclist"],
+        "DATA_CONFIG": {
+            "POINT_CLOUD_RANGE": [0, -40, -3, 70.4, 40, 1],
+            "POINT_FEATURE_ENCODING": {"used_feature_list": ["x", "y", "z"]},
+            "DATA_PROCESSOR": [
+                {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+                {"NAME": "sample_points", "NUM_POINTS": {"train": 16384, "test": 16384}},
+                {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": False}}]},
+        "MODEL": {
+            "NAME": "PointRCNN",
+            "BACKBONE_3D": {
+                "NAME": "PointNet2MSG",
+                "SA_CONFIG": {
+                    "NPOINTS": [4096, 1024, 256, 64],
+                    "RADIUS": [[0.1, 0.5], [0.5, 1.0], [1.0, 2.0], [2.0, 4.0]],
+                    "NSAMPLE": [[16, 32]] * 4,
+                    "MLPS": [[[16, 16, 32], [32, 32, 64]], [[64, 64, 128], [64, 96, 128]],
+                             [[128, 196, 256], [128, 196, 256]],
+                             [[256, 256, 512], [256, 384, 512]]]},
+                "FP_MLPS": [[128, 128], [256, 256], [512, 512], [512, 512]]},
+            "POINT_HEAD": {
+                "NAME": "PointHeadBox", "CLS_FC": [256, 256], "REG_FC": [256, 256],
+                "CLASS_AGNOSTIC": False, "USE_POINT_FEATURES_BEFORE_FUSION": False,
+                "TARGET_CONFIG": {
+                    "GT_EXTRA_WIDTH": [0.2, 0.2, 0.2], "BOX_CODER": "PointResidualCoder",
+                    "BOX_CODER_CONFIG": {"use_mean_size": True,
+                                         "mean_size": [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73],
+                                                       [1.76, 0.6, 1.73]]}},
+                "LOSS_CONFIG": {"LOSS_REG": "WeightedSmoothL1Loss", "LOSS_WEIGHTS": {
+                    "point_cls_weight": 1.0, "point_box_weight": 1.0,
+                    "code_weights": [1.0] * 8}}},
+            "ROI_HEAD": {
+                "NAME": "PointRCNNHead", "CLASS_AGNOSTIC": True,
+                "ROI_POINT_POOL": {"POOL_EXTRA_WIDTH": [0.0, 0.0, 0.0],
+                                   "NUM_SAMPLED_POINTS": 512, "DEPTH_NORMALIZER": 70.0},
+                "XYZ_UP_LAYER": [128, 128], "CLS_FC": [256, 256], "REG_FC": [256, 256],
+                "DP_RATIO": 0.0, "USE_BN": False,
+                "SA_CONFIG": {"NPOINTS": [128, 32, -1], "RADIUS": [0.2, 0.4, 100],
+                              "NSAMPLE": [16, 16, 16],
+                              "MLPS": [[128, 128, 128], [128, 128, 256], [256, 256, 512]]},
+                "NMS_CONFIG": {"TRAIN": {**nms, **_nms(9000, 512, 0.8)},
+                               "TEST": {**nms, **_nms(9000, 100, 0.85)}},
+                "TARGET_CONFIG": _rcnn_target("cls", 0.6, 0.45, 0.55),
+                "LOSS_CONFIG": _rcnn_loss()},
+            "POST_PROCESSING": _single_stage_post(0.1, 4096, 500, False)},
+        "OPTIMIZATION": {**_kitti_optimization(), "LR": 0.01, "BATCH_SIZE_PER_GPU": 2}})
+
+
+def parta2_detector_cfg():
+    """Part-A2 at OpenPCDet's tools/cfgs/kitti_models/PartA2.yaml: 0.05 x
+    0.05 x 0.1 m voxels over [0, -40, -3, 70.4, 40, 1] (1408 x 1600 x 40), 5
+    points a voxel, 40,000 test / 16,000 train voxels, points [x, y, z];
+    UNetV2, HeightCompression 256, BACKBONE_2D [5, 5] x [128, 256] up [1,
+    2] x [256, 256]; the three-class anchor head at stride 8; the
+    intra-part head (one Linear each to the segmentation logit and the three
+    part locations); PartA2FCHead over the 12^3 roiaware grid, SHARED_FC
+    [256, 256, 256], CLS_FC and REG_FC [256, 256]; proposal NMS TRAIN 9,000
+    -> 512 at 0.8, TEST 1,024 -> 100 at 0.7; 128 RoIs an image scored
+    ``roi_iou`` (0.75 / 0.25, reg fg 0.65); the final NMS 0.1 over 4,096 ->
+    500 at SCORE_THRESH 0.1; adam_onecycle at LR 0.01, batch 4.
+
+    One change: ``used_feature_list`` is [x, y, z], as the flagship's. Keys
+    of the yaml that the JAX package does not read, kept for the record:
+    DP_RATIO (its head has no dropout), SEG_MASK_SCORE_THRESH and
+    DISABLE_PART, the point head's CLS_FC / PART_FC and LOSS_CONFIG (its
+    part head is one Linear each, weights 1), and ROI_AWARE_POOL (its
+    POOL_SIZE 12 is read as ROI_GRID_POOL.GRID_SIZE, with the same default
+    of 12; NUM_FEATURES and MAX_POINTS_PER_VOXEL are CUDA buffer sizes).
+    Nothing else is cut but the weights."""
+    nms = {"NMS_TYPE": "nms_gpu", "MULTI_CLASSES_NMS": False}
+    cfg = voxel_rcnn_detector_cfg()
+    cfg.CLASS_NAMES = ["Car", "Pedestrian", "Cyclist"]
+    m = cfg.MODEL
+    m.NAME = "PartA2Net"
+    m.BACKBONE_3D = Cfg({"NAME": "UNetV2"})
+    m.BACKBONE_2D.NUM_FILTERS = [128, 256]
+    m.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [256, 256]
+    m.DENSE_HEAD = _kitti_three_class_head(8)
+    m.POINT_HEAD = Cfg({
+        "NAME": "PointIntraPartOffsetHead", "CLS_FC": [], "PART_FC": [],
+        "CLASS_AGNOSTIC": True,
+        "TARGET_CONFIG": {"GT_EXTRA_WIDTH": [0.2, 0.2, 0.2]},
+        "LOSS_CONFIG": {"LOSS_REG": "smooth-l1", "LOSS_WEIGHTS": {
+            "point_cls_weight": 1.0, "point_part_weight": 1.0}}})
+    m.ROI_HEAD = Cfg({
+        "NAME": "PartA2FCHead", "CLASS_AGNOSTIC": True,
+        "SHARED_FC": [256, 256, 256], "CLS_FC": [256, 256], "REG_FC": [256, 256],
+        "DP_RATIO": 0.3, "DISABLE_PART": False, "SEG_MASK_SCORE_THRESH": 0.3,
+        "NMS_CONFIG": {"TRAIN": {**nms, **_nms(9000, 512, 0.8)},
+                       "TEST": {**nms, **_nms(1024, 100, 0.7)}},
+        "ROI_AWARE_POOL": {"POOL_SIZE": 12, "NUM_FEATURES": 128,
+                           "MAX_POINTS_PER_VOXEL": 128},
+        "ROI_GRID_POOL": {"GRID_SIZE": 12},
+        "TARGET_CONFIG": _rcnn_target("roi_iou", 0.75, 0.25, 0.65),
+        "LOSS_CONFIG": _rcnn_loss()})
+    m.POST_PROCESSING.SCORE_THRESH = 0.1
+    cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 4
+    return cfg
+
+
+def tiny_pointrcnn_cfg():
+    """PointRCNN at the JAX package's own test's widths
+    (tests/test_pointrcnn.py): NPOINTS [128, 32], RADIUS [[0.5, 1.0], [1.0,
+    2.0]], NSAMPLE 8, MLPS [[[8, 8], [8, 8]], [[16, 16], [16, 16]]],
+    FP_MLPS [[16, 16], [16, 16]], the point head's CLS_FC and REG_FC [32],
+    64 sampled points an RoI, XYZ_UP_LAYER [16, 16], CLS_FC and REG_FC
+    [32], proposals 128 -> 16, 16 RoIs an image, the final NMS 256 -> 16;
+    the full config's three classes and mean sizes."""
+    cfg = pointrcnn_detector_cfg()
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.SA_CONFIG = Cfg({"NPOINTS": [128, 32], "RADIUS": [[0.5, 1.0], [1.0, 2.0]],
+                        "NSAMPLE": [[8, 8], [8, 8]],
+                        "MLPS": [[[8, 8], [8, 8]], [[16, 16], [16, 16]]]})
+    bb.FP_MLPS = [[16, 16], [16, 16]]
+    ph = cfg.MODEL.POINT_HEAD
+    ph.CLS_FC, ph.REG_FC = [32], [32]
+    roi = cfg.MODEL.ROI_HEAD
+    roi.ROI_POINT_POOL.NUM_SAMPLED_POINTS = 64
+    roi.XYZ_UP_LAYER, roi.CLS_FC, roi.REG_FC = [16, 16], [32], [32]
+    roi.NMS_CONFIG.TRAIN.update(_nms(128, 16, 0.8))
+    roi.NMS_CONFIG.TEST.update(_nms(128, 16, 0.85))
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE, nms.NMS_POST_MAXSIZE = 256, 16
+    return cfg
+
+
+def tiny_parta2_cfg():
+    """Part-A2 on the tiny grid (0.5 x 0.5 x 0.1 m, 32 x 32 x 40), 512
+    voxels a frame, BACKBONE_2D [1, 1] x [16, 32] up [1, 2] x [16, 16], the
+    JAX package's own test's head (tests/test_parta2.py: SHARED_FC [64, 64],
+    CLS_FC and REG_FC [32], GRID_SIZE 4, proposals 128 -> 16, 16 RoIs an
+    image), the final NMS 256 -> 16. BACKBONE_3D.MODE "sparse", so that the
+    JAX package's per-voxel rows are the voxeliser's (its default "hybrid"
+    re-extracts them, key-sorted, into round(1.5 x 1,024) rows)."""
+    cfg = parta2_detector_cfg()
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -8, -2, 16, 8, 2]
+    vox = cfg.DATA_CONFIG.DATA_PROCESSOR[0]
+    vox.VOXEL_SIZE = [0.5, 0.5, 0.1]
+    vox.MAX_NUMBER_OF_VOXELS = {"train": 512, "test": 512}
+    cfg.MODEL.BACKBONE_3D["MODE"] = "sparse"
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS, b2.NUM_FILTERS, b2.NUM_UPSAMPLE_FILTERS = [1, 1], [16, 32], [16, 16]
+    roi = cfg.MODEL.ROI_HEAD
+    roi.SHARED_FC, roi.CLS_FC, roi.REG_FC = [64, 64], [32], [32]
+    roi.ROI_GRID_POOL.GRID_SIZE = 4
+    roi.NMS_CONFIG.TRAIN.update(_nms(128, 16, 0.8))
+    roi.NMS_CONFIG.TEST.update(_nms(128, 16, 0.7))
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    roi.TARGET_CONFIG.REG_FG_THRESH = 0.55
     nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
     nms.NMS_PRE_MAXSIZE, nms.NMS_POST_MAXSIZE = 256, 16
     return cfg

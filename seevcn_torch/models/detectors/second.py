@@ -3,9 +3,10 @@ post-processing (port of SECONDNetIoU, SECONDNet, PointPillar,
 focal_importance_loss, post_processing and build_detector of
 seevcn_tpu/models/detectors/second.py; reference second_net_iou.py,
 second_net.py, pointpillar.py), and ``AnchorDetector``, the RPN that
-PV-RCNN, PV-RCNN++ (``pvrcnn.py``) and Voxel R-CNN (``voxelrcnn.py``) share
-with SECOND-IoU and SECONDNet, and whose voxel backbone CenterPoint
-(``centerpoint.py``) runs under its own head.
+PV-RCNN, PV-RCNN++ (``pvrcnn.py``), Voxel R-CNN (``voxelrcnn.py``) and
+Part-A2 (``parta2.py``) share with SECOND-IoU and SECONDNet, and whose voxel
+backbone CenterPoint (``centerpoint.py``) runs under its own head.
+PointRCNN (``pointrcnn.py``) runs on the points, with no voxels.
 
 SECOND-IoU: MeanVFE (the voxeliser's mean) -> VoxelBackBone8x ->
 HeightCompression -> BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS ->
@@ -35,7 +36,7 @@ from ...ops.nms import nms_bev
 from ...ops.voxelize import grid_size as compute_grid_size
 from ...ops.voxelize import voxelize, voxelize_batch
 from ..modules.backbone2d import BaseBEVBackbone
-from ..modules.backbone3d import BACKBONES
+from ..modules.unet3d import BACKBONES  # VoxelBackBone8x and the rest, and UNetV2
 from ..modules.dense_heads import AnchorHeadLogic, build_anchor_head
 from ..modules.map_to_bev import height_compression, pillar_scatter
 from ..modules.roi_heads import (SECONDHead, proposal_layer, rcnn_iou_loss,
@@ -46,7 +47,10 @@ from ..modules.vfe import DynamicPillarVFE
 class DetectorConfig:
     """Static detector configuration derived from a reference pcdet config
     (MODEL + DATA_CONFIG blocks). The voxel cap is MAX_NUMBER_OF_VOXELS'
-    test value unless ``max_voxels`` is given (its train value, to train)."""
+    test value unless ``max_voxels`` is given (its train value, to train).
+    A point-based config (PointRCNN's) has no voxel block and no dense
+    head: its voxel fields are None and it carries no anchors, as a center
+    head carries none."""
 
     def __init__(self, model_cfg, data_cfg, class_names, max_voxels=None):
         self.model_cfg = model_cfg
@@ -55,19 +59,22 @@ class DetectorConfig:
         self.point_cloud_range = [float(v) for v in data_cfg.POINT_CLOUD_RANGE]
         vox = [p for p in data_cfg.DATA_PROCESSOR
                if p.NAME in ("transform_points_to_voxels",
-                             "transform_points_to_voxels_placeholder")][0]
-        self.voxel_size = [float(v) for v in vox.VOXEL_SIZE]
-        # a placeholder block (a dynamic VFE's) carries no voxel cap
-        mv = vox.get("MAX_NUMBER_OF_VOXELS", 60000)
-        self.max_voxels = int(max_voxels or (mv["test"] if isinstance(mv, dict) else mv))
-        self.max_points_per_voxel = int(vox.get("MAX_POINTS_PER_VOXEL", 5))
-        self.grid_size = compute_grid_size(self.point_cloud_range, self.voxel_size)
+                             "transform_points_to_voxels_placeholder")]
+        self.voxel_size = self.max_voxels = self.grid_size = None
+        if vox:
+            vox = vox[0]
+            self.voxel_size = [float(v) for v in vox.VOXEL_SIZE]
+            # a placeholder block (a dynamic VFE's) carries no voxel cap
+            mv = vox.get("MAX_NUMBER_OF_VOXELS", 60000)
+            self.max_voxels = int(max_voxels or (mv["test"] if isinstance(mv, dict) else mv))
+            self.max_points_per_voxel = int(vox.get("MAX_POINTS_PER_VOXEL", 5))
+            self.grid_size = compute_grid_size(self.point_cloud_range, self.voxel_size)
         feat_cfg = data_cfg.get("POINT_FEATURE_ENCODING", None)
         self.num_point_features = len(feat_cfg.used_feature_list) if feat_cfg else 4
-        # a center head carries no anchors
-        self.head_logic = None if model_cfg.DENSE_HEAD.get("NAME") == "CenterHead" \
-            else AnchorHeadLogic(model_cfg.DENSE_HEAD, self.num_class, self.class_names,
-                                 self.grid_size, self.point_cloud_range)
+        head = model_cfg.get("DENSE_HEAD", None)
+        self.head_logic = None if head is None or head.get("NAME") == "CenterHead" \
+            else AnchorHeadLogic(head, self.num_class, self.class_names, self.grid_size,
+                                 self.point_cloud_range)
 
     @property
     def sparse_shape(self) -> tuple:
@@ -179,19 +186,24 @@ class AnchorDetector(_AnchorRPN):
         return out
 
     def sample_rois(self, props: dict, gt_boxes, generator=None, roi_u=None) -> dict:
-        """The RoI sample of each frame against gt_boxes (B, M, 8), its
-        priorities ``roi_u`` (B, R) where given, else drawn from
-        ``generator``."""
-        if gt_boxes is None:
-            raise ValueError("training needs gt_boxes")
-        if roi_u is None:
-            roi_u = uniform(props["rois"].shape[:2], generator, gt_boxes.device)
-        roi_u = roi_u.to(gt_boxes.device)
-        tcfg = self.cfg.model_cfg.ROI_HEAD.TARGET_CONFIG
-        per = [sample_rois_for_rcnn(*a, tcfg) for a in zip(
-            roi_u, props["rois"], props["roi_labels"], props["roi_scores"],
-            props["roi_mask"], gt_boxes)]
-        return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        """``sample_rois`` at the config's TARGET_CONFIG."""
+        return sample_rois(props, gt_boxes, self.cfg.model_cfg.ROI_HEAD.TARGET_CONFIG,
+                           generator, roi_u)
+
+
+def sample_rois(props: dict, gt_boxes, target_cfg, generator=None, roi_u=None) -> dict:
+    """The RoI sample of each frame of the proposals ``props`` against
+    gt_boxes (B, M, 8), its priorities ``roi_u`` (B, R) where given, else
+    drawn from ``generator``."""
+    if gt_boxes is None:
+        raise ValueError("training needs gt_boxes")
+    if roi_u is None:
+        roi_u = uniform(props["rois"].shape[:2], generator, gt_boxes.device)
+    roi_u = roi_u.to(gt_boxes.device)
+    per = [sample_rois_for_rcnn(*a, target_cfg) for a in zip(
+        roi_u, props["rois"], props["roi_labels"], props["roi_scores"],
+        props["roi_mask"], gt_boxes)]
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
 
 
 def focal_importance_loss(focal_aux, gt_boxes: torch.Tensor, pcr, vs) -> torch.Tensor:
@@ -507,11 +519,14 @@ def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
                    device="cuda"):
     """cfg: a full pcdet config (MODEL / DATA_CONFIG / CLASS_NAMES) whose
     MODEL.NAME is SECONDNet, SECONDNetIoU, PointPillar, PVRCNN,
-    PVRCNNPlusPlus, CenterPoint or VoxelRCNN -> (model in eval mode on
+    PVRCNNPlusPlus, CenterPoint, VoxelRCNN, PointRCNN or PartA2Net (or
+    PartA2, its other name in the JAX package) -> (model in eval mode on
     ``device``, DetectorConfig). A given state dict (the port's key names:
     the reference's where the modules match) is loaded with strict=True;
     ``max_voxels`` overrides the voxel cap (DetectorConfig)."""
     from .centerpoint import CenterPoint
+    from .parta2 import PartA2
+    from .pointrcnn import PointRCNN
     from .pvrcnn import PVRCNN, PVRCNNPlusPlus
     from .voxelrcnn import VoxelRCNN
 
@@ -519,7 +534,8 @@ def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
     detectors = {"SECONDNet": SECONDNet, "SECONDNetIoU": SECONDNetIoU,
                  "PointPillar": PointPillar, "PVRCNN": PVRCNN,
                  "PVRCNNPlusPlus": PVRCNNPlusPlus, "CenterPoint": CenterPoint,
-                 "VoxelRCNN": VoxelRCNN}
+                 "VoxelRCNN": VoxelRCNN, "PointRCNN": PointRCNN, "PartA2Net": PartA2,
+                 "PartA2": PartA2}
     if cfg.MODEL.NAME not in detectors:
         raise NotImplementedError(
             f"detector {cfg.MODEL.NAME}: the port has {', '.join(detectors)}")

@@ -1,8 +1,10 @@
 """Point-set sampling ops in torch (port of seevcn_tpu/ops/sampling.py):
-pairwise distances, fixed-size tiling, farthest point sampling,
-partial-mesh kNN selection, the within-radius test of the replacement
-stage, the spatial hash and grid dedupe that bound PV-RCNN's keypoint
-FPS, and PV-RCNN++'s proposal-centric filter and sector FPS.
+pairwise distances, fixed-size tiling and resampling, farthest point
+sampling, partial-mesh kNN selection, the within-radius test of the
+replacement stage, the spatial hash and grid dedupe that bound PV-RCNN's
+keypoint FPS, PV-RCNN++'s proposal-centric filter and sector FPS, and
+PointNet++'s three-nearest-neighbour interpolation (PointRCNN's feature
+propagation).
 
 Fixed shapes and boolean validity masks, as in the reference; every
 function takes an optional leading batch dimension where the reference
@@ -40,6 +42,20 @@ def tile_to_n(points: torch.Tensor, valid: torch.Tensor, n: int):
     out = torch.gather(points, -2,
                        idx[..., None].expand(*idx.shape, points.shape[-1]))
     return out, valid.any(-1)
+
+
+def resample_points(points: torch.Tensor, valid: torch.Tensor, n: int,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """Fixed-count resample (data_transforms.py:ResamplePoints): (M, C)
+    points -> (n, C), the valid rows cycle-tiled (``tile_to_n``) after a
+    random permutation of all rows drawn from ``generator`` where one is
+    given (the reference's ``jax.random.permutation``; the draws differ
+    between the two, the rule does not)."""
+    if generator is not None:
+        perm = torch.randperm(points.shape[0], generator=generator,
+                              device=generator.device).to(points.device)
+        points, valid = points[perm], valid[perm]
+    return tile_to_n(points, valid, n)[0]
 
 
 @torch.no_grad()
@@ -263,3 +279,73 @@ def sector_fps_sample(points: torch.Tensor, valid: torch.Tensor, num_keypoints: 
     ok = torch.isfinite(torch.gather(score, 1, order))
     out = torch.where(ok, out, out[:, :1])
     return out.reshape(*lead, k), ok.reshape(*lead, k)
+
+
+#: (query, support) pairs of one chunk of ``three_nn``
+THREE_NN_PAIRS = 1 << 25
+
+
+def _sqnorm_fma(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (...,) x0 x0 + x1 x1 + x2 x2 as a fused multiply-add
+    chain, which is how XLA's CPU fusion of the reference's
+    ``sum(a * a, -1)`` rounds it."""
+    return torch.addcmul(torch.addcmul(x[..., 0] * x[..., 0], x[..., 1], x[..., 1]),
+                         x[..., 2], x[..., 2])
+
+
+def gram_sqdist_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``pairwise_sqdist`` with the squared norms of ``_sqnorm_fma``: (N, 3)
+    x (M, 3) -> (N, M). On the CPU this is the reference's jitted
+    ``pairwise_sqdist`` bit for bit, its Gram-form residue at coincident
+    points included."""
+    ab = torch.matmul(a, b.transpose(-1, -2))
+    return torch.clamp_min(_sqnorm_fma(a)[:, None] + _sqnorm_fma(b)[None, :] - 2 * ab, 0.0)
+
+
+@torch.no_grad()
+def three_nn(query: torch.Tensor, support: torch.Tensor,
+             support_valid: torch.Tensor | None = None):
+    """The three nearest supports of each query: query (N, 3), support (M,
+    3) -> (idx (N, 3) int64, d (N, 3) squared distances), as the reference
+    selects them (``lax.top_k`` of the negated Gram-form distances): the
+    Gram form clamped at 0 (``gram_sqdist_fma``: a query that is also a
+    support keeps that form's rounding residue), invalid supports at +inf,
+    nearest first, ties to the lower index. Three passes of ``argmin``
+    (the first minimum), each pick masked before the next, give that order
+    exactly; invalid supports rank at the largest finite f32, above every
+    valid one and below a masked pick, so that fewer than three valid
+    supports still give three distinct picks, as top_k's do. The queries
+    run in chunks of ``THREE_NN_PAIRS`` pairs: the rows are independent,
+    so chunking changes nothing."""
+    n, m = query.shape[0], support.shape[0]
+    chunk = max(1, THREE_NN_PAIRS // max(m, 1))
+    big = torch.finfo(query.dtype).max
+    idx_out, d_out = [], []
+    for s in range(0, n, chunk):
+        d = gram_sqdist_fma(query[s:s + chunk, :3], support[:, :3])
+        if support_valid is not None:
+            d = torch.where(support_valid[None, :], d, torch.inf)
+        key = torch.where(torch.isinf(d), big, d)
+        picks = []
+        for _ in range(3):
+            j = torch.argmin(key, dim=1)
+            picks.append(j)
+            key.scatter_(1, j[:, None], torch.inf)
+        idx = torch.stack(picks, 1)
+        idx_out.append(idx)
+        d_out.append(torch.gather(d, 1, idx))
+    return torch.cat(idx_out), torch.cat(d_out)
+
+
+def three_nn_interpolate(query: torch.Tensor, support: torch.Tensor,
+                         features: torch.Tensor,
+                         support_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse-distance-weighted 3-NN feature interpolation (pointnet2
+    three_nn + three_interpolate): query (N, 3), support (M, 3), features
+    (M, C) -> (N, C). Weights 1 / max(d, 1e-8) over the ``three_nn``
+    distances, normalised to sum 1; an invalid pick weighs 0. The selection
+    carries no gradient; the features do."""
+    idx, d = three_nn(query, support, support_valid)
+    w = 1.0 / d.clamp_min(1e-8)
+    w = w / w.sum(1, keepdim=True)
+    return torch.einsum("nk,nkc->nc", w.to(features.dtype), features[idx])

@@ -7,7 +7,9 @@ gathers those rows (a miss reads zeros) and does one matrix product; a
 strided conv first finds its output active set from every (input, offset)
 candidate. The reference's other lowerings of the same math (zfold, dense,
 hybrid) are TPU layouts and are not ported: the port runs this one whatever
-``BACKBONE_3D.MODE`` says.
+``BACKBONE_3D.MODE`` says. The inverse conv of Part-A2's UNet decoder
+(``sparse_inverse_conv3d``) is the same gather-GEMM in the other
+direction.
 
 The backward is the reference's (``_conv_core``'s custom VJP): the weight
 gradient re-gathers the forward's rows, and the input gradient is the
@@ -167,7 +169,8 @@ def _zero_where_not(mask, y):
 
 class _BwdPlan(NamedTuple):
     """What the transposed gather needs: the input's coords and mask, the
-    conv's geometry, the output's keys and key space."""
+    conv's geometry, the output's keys and key space, and whether the
+    forward was the inverse conv (whose transpose is the regular conv)."""
     in_coords: torch.Tensor
     in_mask: torch.Tensor
     offs: torch.Tensor
@@ -176,6 +179,7 @@ class _BwdPlan(NamedTuple):
     out_shape: tuple
     out_keys: torch.Tensor
     out_space: int
+    inverse: bool = False
 
 
 class _RulebookConv(torch.autograd.Function):
@@ -183,7 +187,10 @@ class _RulebookConv(torch.autograd.Function):
     sparse.py:_conv_core): dW = (re-gathered inputs)^T dy, the gathered
     matrix re-gathered from the forward's rows rather than kept; dx the
     transposed conv as a second gather-GEMM through the inverse queries, so
-    no scatter-add and no atomics: deterministic."""
+    no scatter-add and no atomics: deterministic. The inverse conv runs the
+    same function with the two query sets swapped (``plan.inverse``): its
+    forward gathers through the inverse queries, its input gradient
+    through the regular conv's."""
 
     @staticmethod
     def forward(ctx, features, weight, rows, out_mask, plan):
@@ -213,8 +220,9 @@ class _RulebookConv(torch.autograd.Function):
                 dw.addmm_(g.T, dy[s:s + GEMM_ROWS].float())
             dw = dw.view(k, cin, cout).to(weight.dtype)
         if ctx.needs_input_grad[0]:
-            q = _invconv_queries(plan.in_coords, plan.in_mask, plan.offs,
-                                 plan.stride, plan.pad, plan.out_shape)
+            queries = _conv_queries if plan.inverse else _invconv_queries
+            q = queries(plan.in_coords, plan.in_mask, plan.offs, plan.stride, plan.pad,
+                        plan.out_shape)
             rows_t = _lookup_rows(plan.out_keys, q, plan.out_space)
             wt = weight.permute(0, 2, 1).reshape(k * cout, cin).to(features.dtype)
             dx = _zero_where_not(plan.in_mask, _gather_product(dy, wt, rows_t))
@@ -326,6 +334,31 @@ def sparse_conv3d(st: SparseTensor, weight: torch.Tensor, kernel_size=3,
     feats = _gather_gemm(st, out_coords, out_mask, weight, ks, stride, pad,
                          in_keys, out_keys, out_shape)
     return SparseTensor(feats, out_coords, out_mask, out_shape, st.batch_size)
+
+
+def sparse_inverse_conv3d(st: SparseTensor, weight: torch.Tensor, target: SparseTensor,
+                          kernel_size=3, stride=1, padding=0) -> SparseTensor:
+    """Inverse (transposed) sparse conv (spconv's SparseInverseConv3d with
+    a shared indice_key): features at the rows of ``target``, the tensor
+    before the strided conv that made ``st``, from ``st``:
+    out(p) = sum_k W[k] in((p + pad - off_k) / stride) where that divides.
+    weight (K, cin, cout). The exact adjoint of the strided conv's gather,
+    through ``_RulebookConv`` with the query sets swapped."""
+    ks = _as3(kernel_size)
+    if weight.shape[0] != ks[0] * ks[1] * ks[2]:
+        raise ValueError(f"weight {tuple(weight.shape)} for kernel {ks}")
+    offs = _offsets(ks, st.features.device)
+    q = _invconv_queries(target.coords, target.mask, offs, stride, padding,
+                         st.spatial_shape)
+    rows = _lookup_rows(linear_key(st.coords, st.spatial_shape, st.mask), q,
+                        _key_space(st.spatial_shape, st.batch_size))
+    out_keys = linear_key(target.coords, target.spatial_shape, target.mask)
+    plan = _BwdPlan(st.coords, st.mask, offs, _as3(stride), _as3(padding),
+                    tuple(target.spatial_shape), out_keys,
+                    _key_space(target.spatial_shape, target.batch_size), inverse=True)
+    w3 = weight.reshape(offs.shape[0], st.features.shape[1], -1)
+    feats = _RulebookConv.apply(st.features, w3, rows, target.mask, plan)
+    return target._replace(features=feats)
 
 
 def to_dense(st: SparseTensor) -> torch.Tensor:

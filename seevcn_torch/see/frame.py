@@ -7,7 +7,7 @@ The port of the chain that bench.py composes from ``mask_stage``,
 reference, which turns a scan and those masks into the completed cloud, and
 the detector, which reads that cloud: SECOND-IoU, bench.py's, or any
 other detector of ``build_detector`` (PV-RCNN, PV-RCNN++, SECONDNet,
-PointPillar). ``run_frame`` is bench.py's
+PointPillar, CenterPoint, Voxel R-CNN, PointRCNN, Part-A2). ``run_frame`` is bench.py's
 ``frame_fused`` (bench.py:238-246); ``see_and_detect`` is the same frame
 with the masks given as an input.
 """
@@ -103,8 +103,9 @@ def detect_stage(model, cfg, points, valid, *, device="cuda"):
     (points (P, 3), valid (P,)), then its post-processing NMS. ``model`` is
     any detector of ``build_detector`` on ``device``, ``cfg`` the full
     config it was built from; post-processing takes its RCNN branch where
-    the config has a ROI_HEAD (SECOND-IoU, PV-RCNN, PV-RCNN++), its dense
-    branch where not (SECONDNet, PointPillar), and reads the frame's points
+    the config has a ROI_HEAD (SECOND-IoU, PV-RCNN, PV-RCNN++, Voxel R-CNN,
+    PointRCNN, Part-A2), its dense branch where not (SECONDNet,
+    PointPillar, CenterPoint), and reads the frame's points
     and the class names, as the JAX package's eval does
     (seevcn_tpu/train/eval.py:38-47). Returns (post-processed dict with a
     batch axis of 1, the forward's output dict).

@@ -5,7 +5,8 @@ reference detector3d/tools/train_utils/train_utils.py:11-135).
 ground truth, the loss, the backward, then the scheduled update with the
 gradients clipped, for every ported detector (SECONDNetIoU, PVRCNN,
 PVRCNNPlusPlus and VoxelRCNN, which draw their RoI sample and dropout from
-the step's generator, and SECONDNet, PointPillar and CenterPoint, which
+the step's generator, PointRCNN and PartA2, which draw their RoI sample
+from it and no dropout, and SECONDNet, PointPillar and CenterPoint, which
 draw nothing: each model's ``loss`` gives its terms). It is single-device;
 the reference's
 sharded step (``shard_train_step``) maps to DDP, which the port has not
@@ -67,7 +68,9 @@ def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
     rcnn_loss_reg, rcnn_loss_corner, rcnn_loss, or Voxel R-CNN's rcnn_loss_cls,
     rcnn_loss_reg, rcnn_loss_corner, rcnn_loss, or the focal SECONDNet's
     loss_box_of_pts; CenterPoint's are hm_loss, loc_loss and rpn_loss, their
-    weighted sum)."""
+    weighted sum; PointRCNN's point_loss_cls, point_loss_box and the RCNN's
+    four, no RPN's; Part-A2's the RPN's, seg_loss, part_loss and the RCNN's
+    four)."""
     loss, tb, _ = train_forward(state, points, valid, gt_boxes, generator, roi_u)
     apply_gradients(state, loss)
     return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}

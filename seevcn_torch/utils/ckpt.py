@@ -22,8 +22,10 @@ No CenterPoint or Voxel R-CNN ``.pth`` is read: the JAX package's
 ``ckpt_compat`` has no importer for either (OpenPCDet's CenterHead keeps
 its branches' BN and a ``heads_list``, and its VoxelRCNNHead its
 ``roi_grid_pool_layers``, none of which the JAX package's modules hold),
-and the port's loader reads what the JAX importer reads. Their weights
-come from the JAX package's flax trees (``utils/weights.py``).
+and the port's loader reads what the JAX importer reads. Nor is a
+PointRCNN or Part-A2 ``.pth``: ``ckpt_compat`` has no importer for either.
+Their weights come from the JAX package's flax trees
+(``utils/weights.py``).
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 Copies of the VCN and detector exports of seevcn_tpu/utils/ckpt_compat.py
 (``vcn_state_dict_from_variables``, ``detector_state_dict_from_variables``),
 kept here because the port imports nothing of the JAX package, and the
-PV-RCNN, single-stage (SECONDNet, PointPillar), CenterPoint and Voxel
-R-CNN exports, which the JAX package lacks. Each takes
+PV-RCNN, single-stage (SECONDNet, PointPillar), CenterPoint, Voxel R-CNN,
+PointRCNN and Part-A2 exports, which the JAX package lacks. Each takes
 the flax variable tree as numpy arrays (``{"params": ..., "batch_stats":
 ...}``) and returns a state dict in the reference's key names, which the
 port's modules load with ``strict=True``. The reference has no seg2d
@@ -362,6 +362,92 @@ def _voxel_rcnn_head(sd: dict, key: str, r: dict, rs: dict) -> None:
             _put(sd, f"{key}.{name}", _bn_join(leaf, rs[name]))
         else:
             _put(sd, f"{key}.{name}", _dense_to_linear(leaf))
+
+
+def _residual_block(sd: dict, key: str, leaf: dict, st: dict) -> None:
+    """A flax SparseBasicBlock (``conv1``, ``conv2``, each a kernel and a
+    ``bn``) into ``{key}.conv1`` / ``.bn1`` / ``.conv2`` / ``.bn2``."""
+    for c in ("1", "2"):
+        _put(sd, f"{key}.conv{c}", {"weight": _spconv_export(leaf[f"conv{c}"]["kernel"], 3, 3, 3)})
+        _put(sd, f"{key}.bn{c}", _bn_join(leaf[f"conv{c}"]["bn"], st[f"conv{c}"]["bn"]))
+
+
+def _fc_head(sd: dict, key: str, p: dict, s: dict, name: str) -> None:
+    """A flax ``{name}_fc{i}`` / ``{name}_bn{i}`` / ``{name}_out`` stack into
+    a make_fc_layers Sequential ``key`` (Linear i at 3 i, the output Linear
+    at 3 n)."""
+    n = _count(p, f"{name}_fc")
+    _linear_bn_stack(sd, key, p, s, f"{name}_fc", f"{name}_bn")
+    _put(sd, f"{key}.{3 * n}", _dense_to_linear(p[f"{name}_out"]))
+
+
+def pointrcnn_state_dict_from_flax(variables: dict) -> dict:
+    """Flax PointRCNN variables (numpy leaves) -> torch state dict of the
+    port's model: OpenPCDet's ``backbone_3d.SA_modules.{l}`` (the flax
+    ``sa{l}``, as ``_sa_layer`` maps an SALayer) and
+    ``backbone_3d.FP_modules.{l}.mlp`` (``fp{l}_dense{j}`` into the 1x1
+    Conv2d at 3 j, ``fp{l}_bn{j}`` into its BN), ``point_head.cls_layers``
+    and ``box_layers`` (the flax ``cls_*`` and ``reg_*`` stacks); the RoI
+    head's JAX names, each a Linear with its bias: ``roi_head.xyz_up{i}``,
+    ``merge_down``, ``cls_fc{i}``, ``cls_out``, ``reg_fc{i}``, ``reg_out``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {}
+    bb, bbs = p["backbone_3d"], s["backbone_3d"]
+    for li in range(_count(bb, "sa")):
+        _sa_layer(sd, f"backbone_3d.SA_modules.{li}", bb[f"sa{li}"], bbs[f"sa{li}"])
+    li = 0
+    while f"fp{li}_dense0" in bb:
+        j = 0
+        while f"fp{li}_dense{j}" in bb:
+            key = f"backbone_3d.FP_modules.{li}.mlp"
+            w = np.asarray(bb[f"fp{li}_dense{j}"]["kernel"]).T[:, :, None, None]
+            _put(sd, f"{key}.{3 * j}", {"weight": w})
+            _put(sd, f"{key}.{3 * j + 1}", _bn_join(bb[f"fp{li}_bn{j}"], bbs[f"fp{li}_bn{j}"]))
+            j += 1
+        li += 1
+    ph, phs = p["point_head"], s["point_head"]
+    _fc_head(sd, "point_head.cls_layers", ph, phs, "cls")
+    _fc_head(sd, "point_head.box_layers", ph, phs, "reg")
+    for name, leaf in p["roi_head"].items():
+        _put(sd, f"roi_head.{name}", _dense_to_linear(leaf))
+    return sd
+
+
+def _unet_decoder(sd: dict, key: str, bb: dict, bbs: dict) -> None:
+    """A flax UNetV2's decoder (``up{i}`` with ``conv_t``, ``conv_m`` and
+    ``conv_inv``) into ``{key}.conv_up_t{i}``, ``.conv_up_m{i}`` and
+    ``.inv_conv{i}``, the last of stage 1 into ``.conv5.0``."""
+    for i in (4, 3, 2, 1):
+        up, ups = bb[f"up{i}"], bbs[f"up{i}"]
+        _residual_block(sd, f"{key}.conv_up_t{i}", up["conv_t"], ups["conv_t"])
+        _sparse_layer(sd, f"{key}.conv_up_m{i}", up["conv_m"], ups["conv_m"])
+        last = f"{key}.inv_conv{i}" if i > 1 else f"{key}.conv5.0"
+        _sparse_layer(sd, last, up["conv_inv"], ups["conv_inv"])
+
+
+def parta2_state_dict_from_flax(variables: dict) -> dict:
+    """Flax PartA2 variables (numpy leaves) -> torch state dict of the
+    port's model: the RPN in OpenPCDet's names (the UNet's encoder as
+    VoxelBackBone8x's); the decoder's flax ``up{i}`` into OpenPCDet's
+    spconv_unet.py names, ``conv_t`` -> ``conv_up_t{i}`` (a residual
+    block), ``conv_m`` -> ``conv_up_m{i}``, ``conv_inv`` -> ``inv_conv{i}``
+    (i = 4, 3, 2) or, at stage 1, ``conv5.0``; the JAX package's names for
+    the part head (``seg_out``, ``part_out``) and the RoI head
+    (``roi_head.{shared,cls,reg}_fc{i}`` and ``_bn{i}``, ``cls_out``,
+    ``reg_out``), whose first shared layer reads the pooled grid
+    cell-major, channels minor, in both."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _rpn_state_dict(p, s)
+    _unet_decoder(sd, "backbone_3d", p["backbone_3d"], s["backbone_3d"])
+    for name in ("seg_out", "part_out", "cls_out", "reg_out"):
+        key = name if name in ("seg_out", "part_out") else f"roi_head.{name}"
+        _put(sd, key, _dense_to_linear(p[name]))
+    for branch in ("shared", "cls", "reg"):
+        for i in range(_count(p, f"{branch}_fc")):
+            _put(sd, f"roi_head.{branch}_fc{i}", _dense_to_linear(p[f"{branch}_fc{i}"]))
+            _put(sd, f"roi_head.{branch}_bn{i}",
+                 _bn_join(p[f"{branch}_bn{i}"], s[f"{branch}_bn{i}"]))
+    return sd
 
 
 def seg2d_state_dict_from_flax(variables: dict) -> dict:
