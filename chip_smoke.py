@@ -62,7 +62,16 @@ PartA2.yaml) on the SEE frame's completed cloud and through ``run_frame``
 (K1 counted), their stages and ops alone timed (ball queries, three-NN,
 FPS, inverse convs, roiaware pools, the first BEV conv), PointRCNN also on
 16,384 resampled points, and 1 + 1 + 3 train steps (batch 2 and 4).
-Every failed check raises, so the exit code is not 0. The last line of
+Then CaDDN and the KITTI data path (phase 19): the tiny CaDDN in both
+forms against the CPU in eval and in a train step (the frustum cells
+pinned to the CPU's), a synthetic KITTI split of 8 frames written to a
+temporary directory, its GT completion (K1 counted) into the .pcds that
+SCKittiDataset reads, that dataset with kitti_dataset.yaml's augmentor
+through BackgroundLoader and ``augment_on_device`` into 3 SECOND-IoU train
+steps, ``eval_one_epoch`` with KITTI's AP, then CaDDN at CaDDN.yaml's
+widths on one of the split's frames (stages, the frustum sample and the
+collapse conv alone) and 1 + 1 + 3 train steps at batch 2 on its camera
+items. Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
 
@@ -76,6 +85,7 @@ import functools
 import json
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -86,6 +96,7 @@ import time
 import numpy as np
 import torch
 
+from seevcn_torch.models.detectors import caddn as CADDN
 from seevcn_torch.models.detectors import configs as DC
 from seevcn_torch.models.detectors import pointrcnn as PRC
 from seevcn_torch.models.detectors import pvrcnn as PV
@@ -260,6 +271,110 @@ def make_scene(seed: int, n_points: int, n_cars: int,
             "det_scores": rng.uniform(0.6, 1.0, n_cars).astype(np.float32),
             "gt_boxes": np.array([[*c, *CAR_DIMS, h, 1.0] for c, h, _ in cars],
                                  np.float32).reshape(-1, 8)}
+
+
+# KITTI's calibration of a 375 x 1242 frame (training/calib/000000.txt's P2,
+# R0_rect and Tr_velo_to_cam, rounded), for the synthetic split
+KITTI_P2 = np.array([[721.5377, 0.0, 609.5593, 44.85728], [0.0, 721.5377, 172.854, 0.2163791],
+                     [0.0, 0.0, 1.0, 0.002745884]])
+KITTI_R0 = np.array([[0.9999239, 0.00983776, -0.007445048],
+                     [-0.009869795, 0.9999421, -0.004278459],
+                     [0.007402527, 0.004351614, 0.9999631]])
+KITTI_V2C = np.array([[7.533745e-03, -9.999714e-01, -6.166020e-04, -4.069766e-03],
+                      [1.480249e-02, 7.280733e-04, -9.998902e-01, -7.631618e-02],
+                      [9.998621e-01, 7.523790e-03, 1.480755e-02, -2.717806e-01]])
+KITTI_IMAGE_SHAPE = (375, 1242)
+
+
+def _kitti_frame_image(rng, depth_px):
+    """A camera image (uint8 RGB) with smooth gradients, noise and the
+    projected points brightened, and the points' depth map (uint16, metres
+    x 256, 0 where no point projects)."""
+    h, w = KITTI_IMAGE_SHAPE
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([(x * 0.2) % 256, (y * 0.6) % 256, (x + y) * 0.1 % 256], -1)
+    img = img + rng.randint(0, 24, img.shape)
+    depth = np.zeros((h, w), np.uint16)
+    u, v, d = depth_px
+    img[v, u] = 255
+    depth[v, u] = np.clip(np.round(d * 256), 1, 65535).astype(np.uint16)
+    return img.clip(0, 255).astype(np.uint8), depth
+
+
+def write_kitti_split(root: str, n_frames: int, seed: int = 0, n_points: int = 20_000,
+                      n_cars: int = 8) -> list:
+    """A synthetic KITTI split under ``root`` in OpenPCDet's layout, for the
+    data path: ``training/velodyne/%06d.bin`` (``make_scene``'s cloud, x y z
+    and an intensity), ``training/calib/%06d.txt`` (KITTI's P2, R0_rect,
+    Tr_velo_to_cam), ``training/image_2`` and ``training/depth_2`` PNGs
+    (375 x 1242, written by ``data/png.py``: the first 50 rows cycling
+    through the five filters, the rest Up), ``kitti_infos_{train,val}.pkl``
+    (the same frames; annos of the cars: camera boxes, image boxes,
+    gt_boxes_lidar, num_points_in_gt),
+    and a GT database of the frames' cars (``gt_database/*.bin``, points
+    about the box centre, and ``kitti_dbinfos_train.pkl``). -> the infos."""
+    from seevcn_torch.data.png import write_png
+    from seevcn_torch.geom import boxes as GB
+    from seevcn_torch.geom.calibration import KittiCalibration
+
+    calib = KittiCalibration({"P2": KITTI_P2, "R0": KITTI_R0, "Tr_velo2cam": KITTI_V2C})
+    h, w = KITTI_IMAGE_SHAPE
+    for sub in ("velodyne", "calib", "image_2", "depth_2"):
+        os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "gt_database"), exist_ok=True)
+    infos, db = [], {"Car": []}
+    filters = [r % 5 if r < 50 else 2 for r in range(h)]
+    pad4 = lambda m: np.vstack([m, [0, 0, 0, 1]]) if m.shape[0] == 3 else m   # noqa: E731
+    for i in range(n_frames):
+        idx = f"{i:06d}"
+        rng = np.random.RandomState(seed * 1000 + i)
+        scene = make_scene(seed * 1000 + i, n_points, n_cars)
+        pts = np.concatenate([scene["points"], rng.rand(n_points, 1).astype(np.float32)], 1)
+        pts.tofile(os.path.join(root, "training", "velodyne", f"{idx}.bin"))
+        with open(os.path.join(root, "training", "calib", f"{idx}.txt"), "w") as f:
+            for key, m in (("P0", KITTI_P2), ("P1", KITTI_P2), ("P2", KITTI_P2),
+                           ("P3", KITTI_P2), ("R0_rect", KITTI_R0),
+                           ("Tr_velo_to_cam", KITTI_V2C), ("Tr_imu_to_velo", KITTI_V2C)):
+                f.write(f"{key}: " + " ".join(f"{v:.12e}" for v in m.ravel()) + "\n")
+        uv, d = calib.lidar_to_img(pts[:, :3])
+        fov = (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h) & (d > 0)
+        img, depth = _kitti_frame_image(rng, (uv[fov, 0].astype(int), uv[fov, 1].astype(int),
+                                              d[fov]))
+        write_png(os.path.join(root, "training", "image_2", f"{idx}.png"), img,
+                  filters)
+        write_png(os.path.join(root, "training", "depth_2", f"{idx}.png"), depth,
+                  filters)
+        boxes = scene["gt_boxes"][:, :7].astype(np.float64)
+        cam = GB.boxes3d_lidar_to_kitti_camera(boxes, calib)
+        inside = GB.points_in_boxes(torch.from_numpy(pts[:, :3]),
+                                    torch.from_numpy(boxes).float()).numpy()
+        n = len(boxes)
+        annos = {"name": np.array(["Car"] * n), "truncated": np.zeros(n),
+                 "occluded": np.zeros(n, np.int64),
+                 "alpha": -np.arctan2(-boxes[:, 1], boxes[:, 0]) + cam[:, 6],
+                 "bbox": GB.boxes3d_kitti_camera_to_imageboxes(cam, calib, (h, w)),
+                 "dimensions": cam[:, 3:6], "location": cam[:, :3], "rotation_y": cam[:, 6],
+                 "score": -np.ones(n), "difficulty": np.zeros(n, np.int64),
+                 "index": np.arange(n), "gt_boxes_lidar": boxes,
+                 "num_points_in_gt": inside.sum(1)}
+        infos.append({"point_cloud": {"num_features": 4, "lidar_idx": idx},
+                      "image": {"image_idx": idx, "image_shape": np.array([h, w])},
+                      "calib": {"P2": pad4(KITTI_P2), "R0_rect": np.pad(KITTI_R0, (0, 1))
+                                + np.diag([0, 0, 0, 1.0]), "Tr_velo_to_cam": pad4(KITTI_V2C)},
+                      "annos": annos})
+        for j in range(n):
+            path = f"gt_database/{idx}_Car_{j}.bin"
+            obj = pts[inside[j]].copy()
+            obj[:, :3] -= boxes[j, :3]
+            obj.tofile(os.path.join(root, path))
+            db["Car"].append({"name": "Car", "path": path, "image_idx": idx, "gt_idx": j,
+                              "box3d_lidar": boxes[j], "num_points_in_gt": int(inside[j].sum()),
+                              "difficulty": 0, "bbox": annos["bbox"][j], "score": -1.0})
+    for name, obj in (("kitti_infos_train.pkl", infos), ("kitti_infos_val.pkl", infos),
+                      ("kitti_dbinfos_train.pkl", db)):
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump(obj, f)
+    return infos
 
 
 def seeded_vcn_state_dict(seed: int, model_name: str = "VCN_VC",
@@ -2377,17 +2492,24 @@ def check_tiny_pvrcnn_against_cpu(dev, cfg=None, label: str = "PV-RCNN") -> dict
 
 
 def tiny_pvrcnn_step(cfg, sd, inputs, device, dtype, pinned=None):
-    """One train step of the tiny PV-RCNN on ``device`` in ``dtype`` with
-    fixed RoI priorities, its ReLUs' signs recorded or, given ``pinned``,
-    taken from another run (relu_signs): -> (loss terms, gradients, updated
-    parameters, running statistics, the ReLUs' signs), f64 on the CPU."""
+    """One train step of the tiny PV-RCNN (or another tiny detector) on
+    ``device`` in ``dtype`` with fixed RoI priorities, its ReLUs' signs
+    recorded or, given ``pinned``, taken from another run (relu_signs):
+    -> (loss terms, gradients, updated parameters, running statistics, the
+    ReLUs' signs), f64 on the CPU. ``inputs``: points, validity, ground
+    truth and RoI priorities (None for a detector without an RoI head),
+    and for CaDDN images and P2 in place of the points and validity and a
+    fifth item, the loss's inputs (depth_maps, gt_boxes2d) by name."""
     model, _ = build_detector(cfg, sd, device=device)
     model.to(dtype)
     state = create_train_state(model, cfg.OPTIMIZATION, 100)
-    pts, valid, gt, u = (torch.from_numpy(np.asarray(a)).to(device) for a in inputs)
-    cast = lambda t: t.to(dtype)              # noqa: E731
+    to = lambda a: None if a is None else torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    pts, valid, gt, u = (to(a) for a in inputs[:4])
+    extra = {k: to(v) for k, v in (inputs[4] if len(inputs) > 4 else {}).items()}
+    cast = lambda t: t if t is None or not t.is_floating_point() else t.to(dtype)  # noqa: E731
     with torch.enable_grad(), relu_signs(model, pinned) as signs:
-        loss, tb, _ = train_forward(state, cast(pts), valid, cast(gt), roi_u=cast(u))
+        loss, tb, _ = train_forward(state, cast(pts), cast(valid), cast(gt), roi_u=cast(u),
+                                    **{k: cast(v) for k, v in extra.items()})
         apply_gradients(state, loss)
     grab = lambda d: {k: v.detach().double().cpu() for k, v in d}   # noqa: E731
     return (grab([("loss", loss), *tb.items()]),
@@ -2458,9 +2580,11 @@ def three_nn_own_distances(args, kwargs, pinned) -> tuple:
 #: choice that can fall the other way on the card: the ball query's members
 #: (a support at a sphere's edge), the three-NN picks (a Gram-form distance
 #: near a tie; the distances stay the run's own), the RoI point pool's
-#: indices and the roiaware cells (a point on a box face or a cell face)
+#: indices and the roiaware cells (a point on a box face or a cell face),
+#: and CaDDN's frustum cells (a projection at a pixel edge, a depth at a bin
+#: edge)
 SELECTIONS = ((PFE, "ball_query_multi"), (SMP, "three_nn", three_nn_own_distances),
-              (PRC, "roi_point_indices"), (RA, "roi_cells"))
+              (PRC, "roi_point_indices"), (RA, "roi_cells"), (CADDN, "frustum_indices"))
 
 
 def selection_choices(pinned=None):
@@ -4293,6 +4417,518 @@ def point_part(dev, card, s, vcn, seg, proj, l2c, image, g_pts, g_valid, g_gt) -
     return res
 
 
+# --- phase 19: CaDDN and the KITTI data path ------------------------------------------
+
+#: the tiny CaDDN's two image backbones (configs.tiny_caddn_cfg)
+CADDN_FORMS = {"image": "ImageBackbone", "resnet_tiny": "DeepLabV3 on ResNetTiny"}
+#: the eval outputs phase 19 holds card vs CPU
+CADDN_OUT = ("depth_logits", "batch_cls_preds", "batch_box_preds")
+#: the tiny checks' bounds (relative to the largest) that differ from 1e-6
+#: (eval outputs) and 1e-5 (loss terms), as POINT_PART_EVAL_TOLS: those of
+#: the output that the card's f32 run strays past the common bound in, set
+#: at twice its own f32 error, the CPU's f32 run against its f64 run on the
+#: same input, which the check prints beside (the ImageBackbone's depth
+#: logits 1.04e-6 off the CPU, their own error 7.3e-7)
+CADDN_EVAL_TOLS = {"image": {"depth_logits": 1.5e-6}}
+CADDN_LOSS_TOLS: dict = {}
+#: the KITTI split of phase 19 (write_kitti_split) and its loaders
+KITTI_FRAMES, KITTI_POINTS, KITTI_CARS = 8, 20_000, 8
+KITTI_CAMERA_KEYS = ("images", "trans_cam_to_img", "depth_maps", "gt_boxes2d", "gt_boxes",
+                     "gt_mask")
+
+
+def caddn_tiny_inputs(seed: int = 0):
+    """Two 96 x 320 images (the last 8 rows zero, as the dataset's pad), two
+    P2s, ground-truth cars, depth maps (a tenth of the pixels 0, the top
+    rows beyond the range) and 2D boxes, numpy from ``seed``: the tiny
+    CaDDN's inputs (tests/test_torch_caddn.py)."""
+    rng = np.random.RandomState(seed)
+    h, w = 96, 320
+    images = rng.rand(2, h, w, 3).astype(np.float32)
+    images[:, -8:] = 0.0
+    p2 = np.array([[[200, 0, 160, 0], [0, 200, 48, 0], [0, 0, 1, 0]],
+                   [[190, 0, 150, 4.5], [0, 195, 50, 0.2], [0, 0, 1, 0.003]]], np.float32)
+    gt = np.zeros((2, 3, 8), np.float32)
+    gt[0, 0] = [8, 0, 0, 4.2, 2.0, 1.6, 0.2, 1]
+    gt[0, 1] = [12, -3, -0.5, 3.9, 1.6, 1.5, -1.1, 1]
+    gt[1, 0] = [6, 2, -0.3, 4.0, 1.7, 1.5, 1.4, 1]
+    depth = rng.uniform(3, 25, (2, h, w)).astype(np.float32)
+    depth[rng.rand(2, h, w) < 0.1] = 0.0
+    depth[:, :4] = 40.0
+    boxes2d = np.zeros((2, 3, 4), np.float32)
+    boxes2d[0, 0] = [100, 20, 220, 90]
+    boxes2d[0, 1] = [10.5, 30.2, 60.7, 70.1]
+    boxes2d[1, 0] = [150, 10, 300, 80]
+    return images, p2, gt, depth, boxes2d
+
+
+def frustum_cell_flips(got: dict, ref: dict) -> int:
+    """The voxels whose frustum cell (row, column, bin, validity) differs
+    between two records of ``selection_choices``, over all calls."""
+    key = f"{CADDN.__name__}.frustum_indices"
+    n = 0
+    for a, b in zip(got[key], ref[key]):
+        ok = a[3] | b[3]
+        n += int((ok & ((a[0] != b[0]) | (a[1] != b[1]) | (a[2] != b[2])
+                        | (a[3] != b[3]))).sum())
+    return n
+
+
+@torch.no_grad()
+def check_tiny_caddn_against_cpu(dev) -> dict:
+    """The tiny CaDDN in both forms (weights from seed 7 with random
+    statistics, TF32 off) on the card against the port's CPU path (which
+    the tests hold against JAX), the frustum cells pinned to the CPU's
+    (``selection_choices``): the depth logits and the decoded boxes and
+    scores within 1e-6 of a tensor's largest |value| (``CADDN_EVAL_TOLS``
+    names others), the kept sets and labels after post-processing equal;
+    the CPU's f32 run against its f64 run printed beside, and the cells the
+    unpinned card chose otherwise."""
+    cpu = torch.device("cpu")
+    images, p2 = caddn_tiny_inputs(0)[:2]
+    rel = lambda r: r.abs().max().item() + 1e-30          # noqa: E731
+    worst, own, flips = {}, {}, {}
+    for form in CADDN_FORMS:
+        cfg = DC.tiny_caddn_cfg(form)
+        sd = seeded_state_dict(7, build_detector(cfg, device=cpu)[0], random_stats=True)
+
+        def run(w, pinned=None, dtype=torch.float32):
+            m, _ = build_detector(cfg, sd, device=w)
+            m.to(dtype)
+            with selection_choices(pinned) as chosen:
+                out = m(torch.from_numpy(images).to(w, dtype), torch.from_numpy(p2).to(w, dtype))
+            pp = post_processing(out, cfg.MODEL.POST_PROCESSING, 1, False)
+            return out, pp, chosen
+
+        out_c, pp_c, chosen = run(cpu)
+        out_d, pp_d, _ = run(dev, chosen)
+        out_64 = run(cpu, chosen, torch.float64)[0]
+        flips[form] = frustum_cell_flips(run(dev)[2], chosen)
+        worst[form] = {k: _worst({k: out_d[k].cpu()}, {k: out_c[k]}, rel)[0] for k in CADDN_OUT}
+        own[form] = {k: _worst({k: out_c[k]}, {k: out_64[k]}, rel)[0] for k in CADDN_OUT}
+        for k in ("pred_mask", "pred_labels"):
+            if not torch.equal(pp_d[k].cpu(), pp_c[k]):
+                raise AssertionError(f"tiny CaDDN ({CADDN_FORMS[form]}): {k} differs")
+        if not pp_c["pred_mask"].any():
+            raise AssertionError(f"tiny CaDDN ({CADDN_FORMS[form]}) kept no box")
+    print("tiny CaDDN eval, card vs CPU (TF32 off, the frustum cells pinned to the CPU's): "
+          f"|diff| / largest by output (bound 1e-6; otherwise {CADDN_EVAL_TOLS}): " + "; ".join(
+              f"{CADDN_FORMS[f]} " + ", ".join(f"{k} {v:.3g}" for k, v in w.items())
+              for f, w in worst.items())
+          + "; the CPU's own f32 run against its f64 run: " + "; ".join(
+              f"{CADDN_FORMS[f]} " + ", ".join(f"{k} {v:.3g}" for k, v in w.items())
+              for f, w in own.items())
+          + f"; kept boxes and labels equal; frustum cells the unpinned card chose "
+          f"otherwise {flips}")
+    over = [(f, k) for f in CADDN_FORMS for k in CADDN_OUT
+            if worst[f][k] > CADDN_EVAL_TOLS.get(f, {}).get(k, 1e-6)]
+    if over:
+        raise AssertionError("tiny CaDDN off the CPU: " + ", ".join(
+            f"{CADDN_FORMS[f]} {k} {worst[f][k]:.3g} (bound "
+            f"{CADDN_EVAL_TOLS.get(f, {}).get(k, 1e-6):g})" for f, k in over))
+    return {"worst": worst, "cpu_f32_vs_f64": own, "cell_flips": flips}
+
+
+def check_tiny_caddn_steps_against_cpu(dev) -> dict:
+    """One train step of the tiny CaDDN in both forms (weights from seed 8
+    with random statistics; depth maps, and 2D boxes for DDNLoss) held by
+    ``hold_tiny_step`` with the ReLU signs and the frustum cells pinned:
+    loss terms within 1e-5, gradients within 5e-4 of their tensor's
+    largest. ddn_loss, and with DDNLoss fg_loss, must be above 0."""
+    out = {}
+    images, p2, gt, depth, boxes2d = caddn_tiny_inputs(1)
+    for form, label in CADDN_FORMS.items():
+        cfg = DC.tiny_caddn_cfg(form)
+        sd = seeded_state_dict(8, build_detector(cfg, device="cpu")[0], random_stats=True)
+        extra = {"depth_maps": depth, **({"gt_boxes2d": boxes2d} if form == "resnet_tiny"
+                                         else {})}
+        out[form], terms = hold_tiny_step(dev, f"CaDDN ({label})", cfg, sd,
+                                          (images, p2, gt, None, extra), pin_queries=True,
+                                          loss_tols=CADDN_LOSS_TOLS.get(form))
+        if terms["ddn_loss"].item() <= 0 or (form == "resnet_tiny"
+                                             and terms["fg_loss"].item() <= 0):
+            raise AssertionError(f"tiny CaDDN ({label}) step: no depth or foreground loss")
+    return out
+
+
+def caddn_stages(model, cfg, images, p2) -> tuple:
+    """CaDDN's eval forward and post-processing stage by stage, each
+    between synchronizes: DeepLab backbone (the normalisation and the
+    ResNet), ASPP + upsample (the classifier and the logits' resize),
+    channel reduce, frustum -> voxel (the cells and the sample), collapse,
+    BEV backbone, head (the anchor head and the decode), post-processing.
+    -> ({stage: (CUDA-event ms, host ms)}, output, post-processed)."""
+    t = {}
+    ddn = model.ddn
+    f4, f8 = timed_stage(t, "deeplab_backbone", lambda: ddn.backbone(
+        ddn.normalize(images).permute(0, 3, 1, 2)))
+    logits = timed_stage(t, "aspp_upsample", lambda: torch.nn.functional.interpolate(
+        ddn.classifier(f8), size=f4.shape[-2:], mode="bilinear", align_corners=False))
+    feat = timed_stage(t, "channel_reduce", lambda: model.channel_reduce(f4))
+    feat, logits = feat.permute(0, 2, 3, 1), logits.permute(0, 2, 3, 1)
+    stride = images.shape[1] // feat.shape[1]
+    bev = timed_stage(t, "frustum_to_voxel", lambda: model.frustum_bev(feat, logits, p2, stride))
+    bev = timed_stage(t, "collapse", lambda: model.collapse(bev))
+    bev2d = timed_stage(t, "bev_backbone", lambda: model.backbone_2d(bev.permute(0, 2, 3, 1)))
+
+    def head():
+        h = model.dense_head(bev2d)
+        return (h, *model.cfg.head_logic.predict_boxes(h))
+
+    h, cls, box = timed_stage(t, "head", head)
+    out = {"head_out": h, "batch_cls_preds": cls, "batch_box_preds": box,
+           "depth_logits": logits}
+    pp = timed_stage(t, "post_processing", lambda: post_processing(
+        out, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES), False))
+    return t, out, pp
+
+
+def time_frustum_ops(model, images, p2) -> dict:
+    """The frustum sample (``frustum_to_voxels`` at the frame's cells) alone,
+    forward and forward + backward, and the collapse conv alone, each by
+    CUDA events (median of 5) beside its bound: the sample's bytes (the
+    features, the bin probabilities and the cells read once, the voxel
+    features written once; the backward's: the voxel features' gradient
+    and the cells read, the two inputs' gradients written) at 3.35 TB/s,
+    the conv's operations (2 x in x out x cells) at 67 TFLOP/s or its
+    bytes, the larger. The backward's device time by op names its
+    scatter-add."""
+    with torch.no_grad():
+        feat, logits = model.image_features(images)
+    b, h, w, c = feat.shape
+    ddist = torch.softmax(logits, dim=-1)[..., :model.num_bins].contiguous()
+    stride = images.shape[1] // h
+    hom = model.voxel_hom(images.device)
+    cells = CADDN.frustum_indices(p2, hom, (h, w), stride, model.depth_min, model.depth_max,
+                                  model.num_bins)
+    v = hom.shape[0]
+    cell_bytes = b * v * (4 + 4 + 8 + 1)
+    in_bytes = feat.numel() * 4 + ddist.numel() * 4 + cell_bytes
+    out_bytes = b * v * c * 4
+    with torch.no_grad():
+        fwd_ms = time_cuda(lambda: CADDN.frustum_to_voxels(feat, ddist, *cells), reps=5)
+    fl, dl = feat.clone().requires_grad_(True), ddist.clone().requires_grad_(True)
+    grad = torch.ones(b, v, c, device=images.device)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            CADDN.frustum_to_voxels(fl, dl, *cells).backward(grad)
+
+    both_ms = time_cuda(fwd_bwd, reps=5)
+    _, per_op = profile_ops((), fwd_bwd)
+    bwd_bytes = out_bytes + cell_bytes + feat.numel() * 4 + ddist.numel() * 4
+    fwd_bound = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    both_bound = fwd_bound + bwd_bytes / HBM_BYTES_PER_S * 1e3
+    conv = model.collapse[0]
+    with torch.no_grad():
+        x = model.frustum_bev(feat, logits, p2, stride)
+        conv_ms = time_cuda(lambda: conv(x), reps=5)
+    cells_n = x.shape[2] * x.shape[3]
+    conv_flop_ms = 2 * conv.in_channels * conv.out_channels * cells_n * b / FP32_FLOPS * 1e3
+    conv_byte_ms = (x.numel() + conv.weight.numel() + b * conv.out_channels * cells_n) * 4 \
+        / HBM_BYTES_PER_S * 1e3
+    conv_bound, conv_by = max((conv_flop_ms, "operations"), (conv_byte_ms, "bytes"))
+    scatter = {k: round(ms, 3) for k, ms in sorted(per_op.items(), key=lambda kv: -kv[1])[:4]}
+    return {"voxels": v, "channels": c, "valid_cells": int(cells[3].sum()),
+            "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound, "forward_bound_by": "bytes",
+            "forward_backward_ms": both_ms, "forward_backward_bound_ms": both_bound,
+            "backward_ops_ms": scatter,
+            "collapse_conv": {"shape": f"{conv.in_channels} -> {conv.out_channels} 1x1 over "
+                                       f"{x.shape[2]} x {x.shape[3]}",
+                              "ms": conv_ms, "bound_ms": conv_bound, "bound_by": conv_by}}
+
+
+def serve_caddn(dev, card, images, p2) -> dict:
+    """Phase 19 serving: CaDDN at caddn_detector_cfg (DeepLabV3-ResNet101,
+    weights from seed 0) on one 384 x 1280 frame of the KITTI split (the
+    dataset's pad) with its P2: the eval forward through post-processing
+    (outputs finite, boxes kept, peak memory), its stages (median of 3
+    runs after a warm-up), the whole (CUDA events, median of 3), device
+    busy and top kernels, the frustum sample and the collapse conv alone."""
+    cfg = DC.caddn_detector_cfg()
+    cpu_model, dcfg = build_detector(cfg, device="cpu")
+    model, _ = build_detector(cfg, seeded_state_dict(0, cpu_model), device=dev)
+    post = cfg.MODEL.POST_PROCESSING
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = model(images, p2)
+        pp = post_processing(out, post, 3, False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k in CADDN_OUT:
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"CaDDN output {k} is not finite")
+    n_anchors = dcfg.head_logic.anchors_flat.shape[0]
+    if out["batch_box_preds"].shape != (1, n_anchors, 7) or \
+            out["depth_logits"].shape != (1, 96, 320, 81):
+        raise AssertionError(f"CaDDN output shapes {out['batch_box_preds'].shape}, "
+                             f"{out['depth_logits'].shape}")
+    kept = int(pp["pred_mask"].sum())
+    if kept < 1:
+        raise AssertionError("CaDDN kept no box")
+    with torch.no_grad():
+        runs = [caddn_stages(model, cfg, images, p2)[0] for _ in range(4)][1:]
+        stages = {k: (statistics.median(r[k][0] for r in runs),
+                      statistics.median(r[k][1] for r in runs)) for k in runs[0]}
+        eval_ms = time_cuda(lambda: post_processing(model(images, p2), post, 3, False),
+                            reps=3, warmup=1)
+        busy, top = profile_kernels((images, p2), lambda i, q: post_processing(
+            model(i, q), post, 3, False))
+    ops = time_frustum_ops(model, images, p2)
+    print(f"CaDDN at full width (caddn_detector_cfg: DeepLabV3-ResNet101, {dcfg.grid_size} "
+          f"grid, {n_anchors} anchors) on a 384x1280 KITTI frame: {kept} boxes kept; eval "
+          f"forward + post-processing {eval_ms:.2f} ms (CUDA events, median of 3); peak device "
+          f"memory {peak:.2f} GiB; device busy {busy:.2f} ms; device time by kernel: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    print("CaDDN stages, CUDA-event / host ms (median of 3, each between synchronizes): "
+          + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in stages.items()))
+    cc = ops["collapse_conv"]
+    print(f"CaDDN ops alone (CUDA events, median of 5): frustum sample ({ops['voxels']} voxels "
+          f"x {ops['channels']} channels, {ops['valid_cells']} valid) forward "
+          f"{ops['forward_ms']:.3f} ms, bound {ops['forward_bound_ms']:.4f} ms (bytes); "
+          f"forward + backward {ops['forward_backward_ms']:.3f} ms, bound "
+          f"{ops['forward_backward_bound_ms']:.4f} ms, its ops by device ms "
+          f"{ops['backward_ops_ms']}; collapse conv ({cc['shape']}, cuDNN f32) {cc['ms']:.3f} "
+          f"ms, bound {cc['bound_ms']:.4f} ms ({cc['bound_by']})")
+    return {"kept": kept, "peak_gib": peak, "eval_ms": eval_ms, "stage_ms": stages,
+            "device_busy_ms": busy, "top_kernels": top, "ops": ops}
+
+
+def train_caddn(dev, card, batch: dict, steps: int = 3) -> dict:
+    """Phase 19 training: CaDDN at caddn_detector_cfg (batch 2, weights from
+    seed 0) on a loader batch of the KITTI split's camera items (images,
+    P2, depth maps, 2D boxes, ground truth): 1 + 1 + ``steps`` train steps
+    (step 1 checked: losses finite and above 0 where they must be, every
+    parameter moved, every gradient finite), one split by CUDA events, one
+    profiled, peak memory."""
+    cfg = DC.caddn_detector_cfg()
+    model, _ = build_detector(cfg, seeded_state_dict(0, build_detector(cfg, device="cpu")[0]),
+                              device=dev)
+    state = create_train_state(model, cfg.OPTIMIZATION, total_steps=1000)
+    args = (batch["images"], batch["trans_cam_to_img"], batch["gt_boxes"])
+    extra = {"depth_maps": batch["depth_maps"], "gt_boxes2d": batch["gt_boxes2d"]}
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, tb, _ = train_forward(state, *args, **extra)
+    apply_gradients(state, loss)
+    losses = [{"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}]
+    for n, p in model.named_parameters():
+        if not torch.isfinite(p.grad).all():
+            raise AssertionError(f"CaDDN: gradient of {n} is not finite")
+    if tb["ddn_loss"].item() <= 0 or tb["fg_loss"].item() <= 0:
+        raise AssertionError("CaDDN step 1: no depth or foreground loss")
+    idle = check_moved(model, start, (), "CaDDN train step 1")
+    train_step(state, *args, **extra)                       # warm-up
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(train_step(state, *args, **extra))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fwd = model(*args[:2])
+    ev[1].record()
+    loss, _ = model.loss(fwd, args[2], **extra)
+    ev[2].record()
+    apply_gradients(state, loss)
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {k: ev[i].elapsed_time(ev[i + 1])
+             for i, k in enumerate(("forward", "loss", "backward_update"))}
+    busy, top = profile_kernels((state, *args), lambda *a: train_step(*a, **extra))
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError("a CaDDN training loss is not finite")
+    step_ms = statistics.median(times)
+    summary = {"step_ms": step_ms, "frames_per_s": 2e3 / step_ms, "step_ms_all": times,
+               "split_ms": split, "peak_gib": peak, "device_busy_ms": busy, "top_kernels": top,
+               "losses": [m["loss"] for m in values], "last_terms": values[-1], "idle": idle}
+    print("CaDDN train steps at batch 2 (full width, f32) on the KITTI split's camera items: "
+          "losses " + ", ".join(f"{v:.4f}" for v in summary["losses"]) + "; last terms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in values[-1].items()))
+    print(f"CaDDN train step {step_ms:.2f} ms (host clock to a synchronize, median of {steps} "
+          f"after a warm-up) = {summary['frames_per_s']:.2f} frames/s; CUDA events: forward "
+          f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
+          f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; profiled "
+          f"step: device busy {busy:.2f} ms; device time by kernel: "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
+    return summary
+
+
+def kitti_cfg(root: str, **kw) -> Cfg:
+    """kitti_dataset.yaml's data config over the synthetic split at the
+    flagship's range, points x y z of x y z intensity, FOV points only, no
+    augmentation; ``kw`` overrides."""
+    cfg = {"DATASET": "KittiDataset", "DATA_PATH": root,
+           "POINT_CLOUD_RANGE": [0, -40, -3, 70.4, 40, 1],
+           "DATA_SPLIT": {"train": "train", "test": "val"},
+           "INFO_PATH": {"train": ["kitti_infos_train.pkl"], "test": ["kitti_infos_val.pkl"]},
+           "FOV_POINTS_ONLY": True,
+           "POINT_FEATURE_ENCODING": {"encoding_type": "absolute_coordinates_encoding",
+                                      "used_feature_list": ["x", "y", "z"],
+                                      "src_feature_list": ["x", "y", "z", "intensity"]},
+           "DATA_PROCESSOR": [{"NAME": "shuffle_points",
+                               "SHUFFLE_ENABLED": {"train": True, "test": False}}]}
+    cfg.update(kw)
+    return Cfg(cfg)
+
+
+#: kitti_dataset.yaml's DATA_AUGMENTOR with the split's own GT database
+KITTI_AUGMENTOR = {
+    "DISABLE_AUG_LIST": ["placeholder"],
+    "AUG_CONFIG_LIST": [
+        {"NAME": "gt_sampling", "DB_INFO_PATH": ["kitti_dbinfos_train.pkl"],
+         "PREPARE": {"filter_by_min_points": ["Car:5"]}, "SAMPLE_GROUPS": ["Car:15"],
+         "NUM_POINT_FEATURES": 4},
+        {"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x"]},
+        {"NAME": "random_world_rotation", "WORLD_ROT_ANGLE": [-0.78539816, 0.78539816]},
+        {"NAME": "random_world_scaling", "WORLD_SCALE_RANGE": [0.95, 1.05]}]}
+
+
+def kitti_data_path(dev, card, vcn, root: str, steps: int = 3) -> dict:
+    """Phase 19's data path on a synthetic KITTI split of ``KITTI_FRAMES``
+    frames under ``root``: GT completion of the split (K1 counted) into the
+    .pcd files SCKittiDataset reads; SCKittiDataset in training with
+    kitti_dataset.yaml's augmentor (the GT-database paste, world flip along
+    x, rotation, scaling) through BackgroundLoader (batch 4, uploaded to the
+    card) and ``augment_on_device`` (a generator a frame) into ``steps``
+    SECOND-IoU train steps at the flagship config; ``eval_one_epoch`` of the
+    flagship SECOND-IoU over the split with KITTI's AP and recall; the
+    camera items' loader batch for CaDDN. Times: the loader's wait a batch
+    (host clock), the augmentation a batch (CUDA events), eval s a frame."""
+    from seevcn_torch.data.kitti.dataset import KittiDataset, SCKittiDataset
+    from seevcn_torch.data.loader import BackgroundLoader
+    from seevcn_torch.geom.pcd_io import write_pcd
+    from seevcn_torch.train.eval import eval_one_epoch
+
+    t0 = time.time()
+    infos = write_kitti_split(root, KITTI_FRAMES, seed=0, n_points=KITTI_POINTS,
+                              n_cars=KITTI_CARS)
+    n_boxes = sum(len(i["annos"]["name"]) for i in infos)
+    write_s = time.time() - t0
+    base = KittiDataset(kitti_cfg(root), ["Car"], False, max_points=KITTI_POINTS,
+                        max_boxes=16)
+    frames = [base[i] for i in range(len(base))]
+    pts, valid, gt, gm = (torch.from_numpy(np.stack([f[k] for f in frames])).to(dev)
+                          for k in ("points", "points_valid", "gt_boxes", "gt_mask"))
+    K.reset_launches()
+    new_pts, new_valid, st = complete_gt_frames(vcn, pts, valid, gt[..., :7], gm, device=dev)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["min_sqdist_pruned"]
+    if launches < 1:
+        raise AssertionError("K1 was not launched by the KITTI split's GT completion")
+    os.makedirs(os.path.join(root, "training", "vcn"), exist_ok=True)
+    for info, p, v in zip(infos, new_pts, new_valid):
+        write_pcd(os.path.join(root, "training", "vcn",
+                               f"{info['point_cloud']['lidar_idx']}.pcd"), p[v].cpu().numpy())
+    spliced = int(st["inst_valid"].sum())
+
+    det_cfg = DC.flagship_detector_cfg()
+    cap = int(det_cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    sd = seeded_state_dict(0, build_detector(det_cfg, device="cpu")[0])
+    sc_cfg = kitti_cfg(root, DATA_AUGMENTOR=KITTI_AUGMENTOR, POINT_FEATURE_ENCODING={
+        "used_feature_list": ["x", "y", "z"], "src_feature_list": ["x", "y", "z"]})
+    sc = SCKittiDataset(sc_cfg, ["Car"], True, max_points=40_000, max_boxes=64)
+    if sc.gt_sampler is None or len(sc.aug_list) != 3:
+        raise AssertionError("SCKittiDataset did not take the augmentor's four entries")
+    model, _ = build_detector(det_cfg, sd, max_voxels=cap, device=dev)
+    state = create_train_state(model, det_cfg.OPTIMIZATION, total_steps=1000)
+    loader = BackgroundLoader(sc, batch_size=4, device=dev, seed=0)
+    waits, aug_ms, losses, pasted = [], [], [], []
+    it, epoch = iter(loader), 0
+    for step in range(steps):
+        t1 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            epoch += 1
+            sc.set_epoch(epoch)
+            it = iter(loader)
+            batch = next(it)
+        torch.cuda.synchronize()
+        waits.append((time.perf_counter() - t1) * 1e3)
+        pasted.append(int(batch["gt_mask"].sum()))
+        gens = [torch.Generator(device=dev).manual_seed(100 * step + b) for b in range(4)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        batch = sc.augment_on_device(batch, gens)
+        ev[1].record()
+        torch.cuda.synchronize()
+        aug_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(train_step(state, batch["points"], batch["points_valid"],
+                                 batch["gt_boxes"], torch.Generator(device=dev).manual_seed(
+                                     step)))
+    values = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(math.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError("a SECOND-IoU loss on the KITTI split is not finite")
+
+    eval_model, _ = build_detector(det_cfg, sd, device=dev)
+    val = KittiDataset(kitti_cfg(root), ["Car"], False, max_points=40_000, max_boxes=64)
+    logs = []
+    t1 = time.time()
+    report, ap, recall = eval_one_epoch(eval_model, det_cfg, val, batch_size=4,
+                                        logger=logs.append)
+    eval_s = (time.time() - t1) / len(val)
+    if report is None or "Car AP_R40" not in report or recall["num_gt"] != n_boxes:
+        raise AssertionError(f"eval_one_epoch over the KITTI split: num_gt "
+                             f"{recall['num_gt']} of {n_boxes} boxes written; report {report}")
+    ap_keys = sorted(f"{c}/{m}" for c in ap for m in ap[c])
+
+    cam_cfg = kitti_cfg(root, POINT_CLOUD_RANGE=DC.caddn_detector_cfg().DATA_CONFIG
+                        .POINT_CLOUD_RANGE,
+                        GET_ITEM_LIST=["points", "images", "depth_maps", "calib_matricies",
+                                       "gt_boxes2d"])
+    cam = KittiDataset(cam_cfg, ["Car", "Pedestrian", "Cyclist"], True, max_points=4096,
+                       max_boxes=16)
+    t1 = time.perf_counter()
+    cam_batch = next(iter(BackgroundLoader(cam, batch_size=2, keys=KITTI_CAMERA_KEYS,
+                                           device=dev, seed=0)))
+    torch.cuda.synchronize()
+    cam_ms = (time.perf_counter() - t1) * 1e3
+    summary = {"frames": len(infos), "boxes": n_boxes, "write_s": write_s,
+               "gt_completion_launches": launches, "spliced": spliced,
+               "loader_wait_ms": waits, "augment_ms": aug_ms, "gt_after_paste": pasted,
+               "train_losses": [m["loss"] for m in values], "eval_s_per_frame": eval_s,
+               "ap": ap, "ap_keys": ap_keys, "recall": recall, "camera_batch_ms": cam_ms}
+    print(f"KITTI split ({len(infos)} frames, {n_boxes} cars, written in {write_s:.1f} s): GT "
+          f"completion K1 launches {launches}, {spliced} completions spliced into the .pcds; "
+          f"SCKittiDataset (GT paste, flip, rotation, scaling) -> BackgroundLoader (batch 4, "
+          f"to the card) -> augment_on_device -> {steps} SECOND-IoU train steps: loader wait "
+          + ", ".join(f"{v:.1f}" for v in waits) + " ms a batch (host), augmentation "
+          + ", ".join(f"{v:.2f}" for v in aug_ms) + " ms a batch (CUDA events), ground truth "
+          f"a batch after the paste {pasted}, losses "
+          + ", ".join(f"{v['loss']:.4f}" for v in values)
+          + f"; eval_one_epoch {eval_s:.3f} s a frame, recall {recall}, AP keys {ap_keys}; "
+          f"the camera items' first batch of 2 in {cam_ms:.1f} ms (host) on {card}")
+    return summary, cam_batch
+
+
+def caddn_kitti(dev, card, vcn) -> dict:
+    """Phase 19: the tiny CaDDN card vs CPU (eval and one train step, both
+    forms), then the KITTI data path on a synthetic split, then CaDDN at
+    full width on one of its frames and in the train step on its camera
+    items."""
+    parts, t0 = {}, time.time()
+    res = {"tiny_vs_cpu": check_tiny_caddn_against_cpu(dev),
+           "tiny_steps_vs_cpu": check_tiny_caddn_steps_against_cpu(dev)}
+    parts["tiny"], t0 = time.time() - t0, time.time()
+    with tempfile.TemporaryDirectory(prefix="kitti_split_") as root:
+        res["kitti_data"], cam = kitti_data_path(dev, card, vcn, root)
+    parts["kitti_data"], t0 = time.time() - t0, time.time()
+    res["caddn"] = serve_caddn(dev, card, cam["images"][:1], cam["trans_cam_to_img"][:1])
+    parts["caddn_serve"], t0 = time.time() - t0, time.time()
+    res["caddn"]["train"] = train_caddn(dev, card, cam)
+    parts["caddn_train"] = time.time() - t0
+    res["part_s"] = parts
+    print("phase 19 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4692,6 +5328,14 @@ def main() -> int:
     print(f"phase 18 (PointRCNN, Part-A2) ran {points_parts['phase_s']:.0f} s; chip_smoke "
           f"ran {time.time() - t_start:.0f} s after start-up")
 
+    # --- 19. CaDDN and the KITTI data path ----------------------------------------
+    t19 = time.time()
+    caddn = caddn_kitti(dev, card, vcn)
+    kernels[0]["kitti_launches"] = caddn["kitti_data"]["gt_completion_launches"]
+    caddn["phase_s"] = time.time() - t19
+    print(f"phase 19 (CaDDN, KITTI data) ran {caddn['phase_s']:.0f} s; chip_smoke ran "
+          f"{time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -4717,7 +5361,10 @@ def main() -> int:
         "pointrcnn": points_parts["pointrcnn"], "parta2": points_parts["parta2"],
         "point_part_checks": {k: points_parts[k] for k in (
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "inverse_conv_vs_cpu", "part_s", "phase_s")},
-        "card": smi}))
+        "caddn": {**caddn["caddn"], **{k: caddn[k] for k in (
+            "tiny_vs_cpu", "tiny_steps_vs_cpu", "part_s", "phase_s")}},
+        "kitti_data": caddn["kitti_data"],
+        "card": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

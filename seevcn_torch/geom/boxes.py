@@ -1,5 +1,5 @@
-"""3D box geometry in torch (port of the detector's part of
-seevcn_tpu/geom/boxes.py).
+"""3D box geometry in torch, and the KITTI camera box conversions in numpy
+(port of seevcn_tpu/geom/boxes.py).
 
 Box convention (lidar frame): (x, y, z, dx, dy, dz, heading) with (x, y, z)
 the box centre and heading about +z increasing x -> y.
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .transforms import limit_period, rotate_points_along_z
@@ -93,3 +94,76 @@ def boxes3d_nearest_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> tor
     the anchor assigner's measure when MATCH_HEIGHT is off."""
     return boxes_iou_normal(boxes3d_to_aligned_bev(boxes_a),
                             boxes3d_to_aligned_bev(boxes_b))
+
+
+def mask_boxes_outside_range(boxes: torch.Tensor, limit_range,
+                             min_num_corners: int = 1) -> torch.Tensor:
+    """(N, 7+) boxes and [x0 y0 z0 x1 y1 z1] -> (N,) bool: at least
+    ``min_num_corners`` of a box's 8 corners inside the range."""
+    lr = boxes.new_tensor(limit_range)
+    corners = boxes_to_corners_3d(boxes[:, :7])
+    inside = ((corners >= lr[0:3]) & (corners <= lr[3:6])).all(2)
+    return inside.sum(1) >= min_num_corners
+
+
+# ---------------------------------------------------------------------------
+# KITTI camera <-> lidar box conversions, host-side numpy (reference
+# box_utils.py:129-283). A KITTI camera box is (x, y, z, l, h, w, ry), (x, y,
+# z) the bottom face's centre in rect coordinates.
+# ---------------------------------------------------------------------------
+
+def boxes3d_lidar_to_kitti_camera(boxes3d_lidar: np.ndarray, calib) -> np.ndarray:
+    """(N, 7) lidar boxes -> (N, 7) camera boxes (f64), ``calib`` a
+    ``geom.calibration.KittiCalibration``."""
+    b = np.array(boxes3d_lidar, dtype=np.float64, copy=True)
+    xyz, l, w, h, r = b[:, 0:3], b[:, 3:4], b[:, 4:5], b[:, 5:6], b[:, 6:7]
+    xyz[:, 2] -= h[:, 0] / 2                       # centre -> bottom
+    xyz_cam = calib.lidar_to_rect(xyz)
+    r = -r - np.pi / 2
+    return np.concatenate([xyz_cam, l, h, w, r], axis=-1)
+
+
+def boxes3d_kitti_camera_to_lidar(boxes3d_camera: np.ndarray, calib) -> np.ndarray:
+    """(N, 7) camera boxes -> (N, 7) lidar boxes (f64)."""
+    b = np.array(boxes3d_camera, dtype=np.float64, copy=True)
+    xyz_cam, r = b[:, 0:3], b[:, 6:7]
+    l, h, w = b[:, 3:4], b[:, 4:5], b[:, 5:6]
+    xyz = calib.rect_to_lidar(xyz_cam)
+    xyz[:, 2] += h[:, 0] / 2                       # bottom -> centre
+    return np.concatenate([xyz, l, w, h, -(r + np.pi / 2)], axis=-1)
+
+
+def boxes3d_to_corners3d_kitti_camera(boxes3d: np.ndarray,
+                                      bottom_center: bool = True) -> np.ndarray:
+    """(N, 7) camera boxes -> (N, 8, 3) corners in rect coordinates (f32)."""
+    n = boxes3d.shape[0]
+    l, h, w = boxes3d[:, 3], boxes3d[:, 4], boxes3d[:, 5]
+    x_c = np.stack([l / 2, l / 2, -l / 2, -l / 2, l / 2, l / 2, -l / 2, -l / 2], axis=1)
+    z_c = np.stack([w / 2, -w / 2, -w / 2, w / 2, w / 2, -w / 2, -w / 2, w / 2], axis=1)
+    if bottom_center:
+        y_c = np.zeros((n, 8), dtype=boxes3d.dtype)
+        y_c[:, 4:8] = -h[:, None]
+    else:
+        y_c = np.stack([h / 2] * 4 + [-h / 2] * 4, axis=1)
+    ry = boxes3d[:, 6]
+    zeros, ones = np.zeros_like(ry), np.ones_like(ry)
+    rot = np.stack([
+        np.stack([np.cos(ry), zeros, -np.sin(ry)], 1),
+        np.stack([zeros, ones, zeros], 1),
+        np.stack([np.sin(ry), zeros, np.cos(ry)], 1)], axis=1)  # (N, 3, 3)
+    corners = np.stack([x_c, y_c, z_c], axis=2) @ rot
+    return (corners + boxes3d[:, None, 0:3]).astype(np.float32)
+
+
+def boxes3d_kitti_camera_to_imageboxes(boxes3d: np.ndarray, calib,
+                                       image_shape=None) -> np.ndarray:
+    """(N, 7) camera boxes -> (N, 4) image boxes [x1 y1 x2 y2], the
+    projected corners' extent, clipped to ``image_shape`` (H, W) if given."""
+    corners3d = boxes3d_to_corners3d_kitti_camera(boxes3d)
+    pts_img, _ = calib.rect_to_img(corners3d.reshape(-1, 3))
+    uv = pts_img.reshape(-1, 8, 2)
+    boxes2d = np.concatenate([uv.min(axis=1), uv.max(axis=1)], axis=1)
+    if image_shape is not None:
+        boxes2d[:, [0, 2]] = np.clip(boxes2d[:, [0, 2]], 0, image_shape[1] - 1)
+        boxes2d[:, [1, 3]] = np.clip(boxes2d[:, [1, 3]], 0, image_shape[0] - 1)
+    return boxes2d

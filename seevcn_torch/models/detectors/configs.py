@@ -7,8 +7,9 @@ PV-RCNN++'s (``pvrcnn_plusplus_detector_cfg``, pv_rcnn_plusplus.yaml's PFE
 on PV-RCNN's config, and ``tiny_pvrcnn_plusplus_cfg``), the single-stage
 detectors' (PointPillar, SECONDNet), CenterPoint's
 (``centerpoint_detector_cfg``) and Voxel R-CNN's
-(``voxel_rcnn_detector_cfg``), PointRCNN's (``pointrcnn_detector_cfg``)
-and Part-A2's (``parta2_detector_cfg``), each with a tiny version."""
+(``voxel_rcnn_detector_cfg``), PointRCNN's (``pointrcnn_detector_cfg``),
+Part-A2's (``parta2_detector_cfg``) and CaDDN's (``caddn_detector_cfg``),
+each with a tiny version."""
 from __future__ import annotations
 
 from ...utils.config import Cfg
@@ -912,4 +913,102 @@ def tiny_parta2_cfg():
     roi.TARGET_CONFIG.REG_FG_THRESH = 0.55
     nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
     nms.NMS_PRE_MAXSIZE, nms.NMS_POST_MAXSIZE = 256, 16
+    return cfg
+
+
+# --- CaDDN, the camera-only detector ------------------------------------------
+
+def caddn_detector_cfg():
+    """CaDDN at OpenPCDet's tools/cfgs/kitti_models/CaDDN.yaml: the range [2,
+    -30.08, -3, 46.8, 30.08, 1] at 0.16 m (a 280 x 376 x 25 grid);
+    DDNDeepLabV3 on ResNet101 (layer1's 256 channels reduced to 64 by a 1x1
+    conv block); 80 LID bins over 2-46.8 m; DDNLoss (weight 3, alpha 0.25,
+    gamma 2, fg 13, bg 1); Conv2DCollapse to 64; BACKBONE_2D [10, 10, 10] x
+    [64, 128, 256] at strides 2, up by [1, 2, 4] to 3 x 128;
+    AnchorHeadSingle with the three KITTI classes at feature-map stride 2;
+    NMS 0.01 over 4,096 -> 500; adam_onecycle at LR 0.001, batch 2.
+
+    The yaml's grid block is calculate_grid_size; it stands here as
+    transform_points_to_voxels, the block the JAX package's DetectorConfig
+    reads its voxel size from (its caps are not read). Keys of the yaml the
+    JAX package does not read, and so neither does the port: the F2V
+    SAMPLER (mode bilinear, padding zeros: the port, as JAX, takes each
+    voxel's nearest pixel), the frame's ``trans_lidar_to_cam`` (the voxel
+    centres map to the camera by fixed axes; the dataset still returns the
+    matrix), the DDN's ``feat_extract_layer`` (layer1 always) and
+    ``pretrained_path`` (``utils/ckpt.py`` loads torchvision's weights),
+    the conv blocks' ``bias: False`` (they have none), CHANNEL_REDUCE's
+    ``in_channels``, DATA_AUGMENTOR's random_image_flip and the
+    downsample_depth_map processor (the loss strides the depth map)."""
+    head = _kitti_three_class_head(2)
+    return Cfg({
+        "CLASS_NAMES": ["Car", "Pedestrian", "Cyclist"],
+        "DATA_CONFIG": {
+            "DATASET": "KittiDataset",
+            "POINT_CLOUD_RANGE": [2, -30.08, -3.0, 46.8, 30.08, 1.0],
+            "GET_ITEM_LIST": ["images", "depth_maps", "calib_matricies", "gt_boxes2d"],
+            "FOV_POINTS_ONLY": True,
+            "POINT_FEATURE_ENCODING": {"used_feature_list": ["x", "y", "z", "intensity"],
+                                       "src_feature_list": ["x", "y", "z", "intensity"]},
+            "DATA_PROCESSOR": [
+                {"NAME": "transform_points_to_voxels", "VOXEL_SIZE": [0.16, 0.16, 0.16]}]},
+        "MODEL": {
+            "NAME": "CaDDN",
+            "VFE": {"NAME": "ImageVFE", "FFN": {
+                "NAME": "DepthFFN",
+                "DDN": {"NAME": "DDNDeepLabV3", "BACKBONE_NAME": "ResNet101",
+                        "ARGS": {"feat_extract_layer": "layer1"}},
+                "CHANNEL_REDUCE": {"in_channels": 256, "out_channels": 64, "kernel_size": 1,
+                                   "stride": 1, "bias": False},
+                "DISCRETIZE": {"mode": "LID", "num_bins": 80, "depth_min": 2.0,
+                               "depth_max": 46.8},
+                "LOSS": {"NAME": "DDNLoss", "ARGS": {"weight": 3.0, "alpha": 0.25,
+                                                     "gamma": 2.0, "fg_weight": 13,
+                                                     "bg_weight": 1}}},
+                "F2V": {"NAME": "FrustumToVoxel",
+                        "SAMPLER": {"mode": "bilinear", "padding_mode": "zeros"}}},
+            "MAP_TO_BEV": {"NAME": "Conv2DCollapse", "NUM_BEV_FEATURES": 64,
+                           "ARGS": {"kernel_size": 1, "stride": 1, "bias": False}},
+            "BACKBONE_2D": {"NAME": "BaseBEVBackbone", "LAYER_NUMS": [10, 10, 10],
+                            "LAYER_STRIDES": [2, 2, 2], "NUM_FILTERS": [64, 128, 256],
+                            "UPSAMPLE_STRIDES": [1, 2, 4],
+                            "NUM_UPSAMPLE_FILTERS": [128, 128, 128]},
+            "DENSE_HEAD": head,
+            "POST_PROCESSING": _single_stage_post(0.01, 4096, 500, False)},
+        "OPTIMIZATION": {**_kitti_optimization(), "BATCH_SIZE_PER_GPU": 2, "LR": 0.001}})
+
+
+def tiny_caddn_cfg(backbone: str = "image"):
+    """CaDDN at the JAX package's own tests' widths (tests/test_caddn.py's
+    ``_caddn_cfg``): SECOND-IoU's mini config without its RoI head, the
+    range [2, -8, -2, 18, 8, 2] at 0.5 x 0.5 x 0.25 m (32 x 32 x 16), 20
+    LID bins over 2-30 m, Conv2DCollapse to 32, BACKBONE_2D [2, 2] x [32,
+    64] up to 2 x 32, one Car class at feature-map stride 1. ``backbone``
+    "image": the three-conv ``ImageBackbone`` with a cross-entropy depth
+    loss; "resnet_tiny": DDNDeepLabV3 on ResNetTiny at width 8, CHANNEL_REDUCE
+    to 16 and DDNLoss (tests/test_ddn.py's ``test_caddn_with_deeplab_ddn``)."""
+    cfg = mini_detector_cfg()
+    cfg.MODEL.NAME = "CaDDN"
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [2, -8, -2, 18, 8, 2]
+    vox = cfg.DATA_CONFIG.DATA_PROCESSOR[0]
+    vox.VOXEL_SIZE = [0.5, 0.5, 0.25]
+    vox.MAX_NUMBER_OF_VOXELS = {"train": 512, "test": 512}
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS, b2.NUM_FILTERS, b2.NUM_UPSAMPLE_FILTERS = [2, 2], [32, 64], [32, 32]
+    ffn = {"DISCRETIZE": {"mode": "LID", "num_bins": 20, "depth_min": 2.0,
+                          "depth_max": 30.0}}
+    if backbone == "resnet_tiny":
+        ffn.update(DDN={"NAME": "DDNDeepLabV3", "BACKBONE_NAME": "ResNetTiny",
+                        "ARGS": {"width": 8}},
+                   CHANNEL_REDUCE={"out_channels": 16, "kernel_size": 1},
+                   LOSS={"NAME": "DDNLoss", "ARGS": {"weight": 3.0, "alpha": 0.25,
+                                                     "gamma": 2.0, "fg_weight": 13,
+                                                     "bg_weight": 1}})
+    elif backbone != "image":
+        raise ValueError(f"tiny CaDDN backbone {backbone}: image or resnet_tiny")
+    cfg.MODEL.VFE = Cfg({"NAME": "ImageVFE", "FFN": ffn})
+    cfg.MODEL.MAP_TO_BEV = Cfg({"NAME": "Conv2DCollapse", "NUM_BEV_FEATURES": 32})
+    # CaDDN's BEV canvas is at the voxel grid's resolution (no sparse stride)
+    cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG[0]["feature_map_stride"] = 1
+    del cfg.MODEL["ROI_HEAD"]
     return cfg

@@ -519,11 +519,12 @@ def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
                    device="cuda"):
     """cfg: a full pcdet config (MODEL / DATA_CONFIG / CLASS_NAMES) whose
     MODEL.NAME is SECONDNet, SECONDNetIoU, PointPillar, PVRCNN,
-    PVRCNNPlusPlus, CenterPoint, VoxelRCNN, PointRCNN or PartA2Net (or
-    PartA2, its other name in the JAX package) -> (model in eval mode on
-    ``device``, DetectorConfig). A given state dict (the port's key names:
+    PVRCNNPlusPlus, CenterPoint, VoxelRCNN, PointRCNN, PartA2Net (or
+    PartA2, its other name in the JAX package) or CaDDN -> (model in eval
+    mode on ``device``, DetectorConfig). A given state dict (the port's key names:
     the reference's where the modules match) is loaded with strict=True;
     ``max_voxels`` overrides the voxel cap (DetectorConfig)."""
+    from .caddn import CaDDN
     from .centerpoint import CenterPoint
     from .parta2 import PartA2
     from .pointrcnn import PointRCNN
@@ -535,7 +536,7 @@ def build_detector(cfg, state_dict: dict | None = None, *, max_voxels=None,
                  "PointPillar": PointPillar, "PVRCNN": PVRCNN,
                  "PVRCNNPlusPlus": PVRCNNPlusPlus, "CenterPoint": CenterPoint,
                  "VoxelRCNN": VoxelRCNN, "PointRCNN": PointRCNN, "PartA2Net": PartA2,
-                 "PartA2": PartA2}
+                 "PartA2": PartA2, "CaDDN": CaDDN}
     if cfg.MODEL.NAME not in detectors:
         raise NotImplementedError(
             f"detector {cfg.MODEL.NAME}: the port has {', '.join(detectors)}")

@@ -6,11 +6,10 @@ ground truth, the loss, the backward, then the scheduled update with the
 gradients clipped, for every ported detector (SECONDNetIoU, PVRCNN,
 PVRCNNPlusPlus and VoxelRCNN, which draw their RoI sample and dropout from
 the step's generator, PointRCNN and PartA2, which draw their RoI sample
-from it and no dropout, and SECONDNet, PointPillar and CenterPoint, which
-draw nothing: each model's ``loss`` gives its terms). It is single-device;
-the reference's
-sharded step (``shard_train_step``) maps to DDP, which the port has not
-taken up yet.
+from it and no dropout, and SECONDNet, PointPillar, CenterPoint and CaDDN
+(on images), which draw nothing: each model's ``loss`` gives its terms).
+It is single-device; the reference's sharded step (``shard_train_step``)
+maps to DDP, which the port has not taken up yet.
 """
 from __future__ import annotations
 
@@ -39,14 +38,17 @@ def create_train_state(model, opt_cfg, total_steps: int) -> TrainState:
 
 
 def train_forward(state: TrainState, points, valid, gt_boxes, generator=None,
-                  roi_u=None):
+                  roi_u=None, **loss_inputs):
     """The training forward and loss: -> (loss, loss terms, forward output).
     ``generator``, a generator of the points' device, draws the RoI sample's
     priorities (unless ``roi_u`` (B, R) gives them) and the dropout masks;
-    a detector without an RoI head draws nothing."""
+    a detector without an RoI head draws nothing. CaDDN takes its images
+    (B, H, W, 3) and their P2 (B, 3, 4) in place of ``points`` and
+    ``valid``, and its loss the ``loss_inputs`` depth_maps (B, H, W) and
+    gt_boxes2d (B, M, 4)."""
     out = state.model(points, valid, gt_boxes=gt_boxes, generator=generator,
                       roi_u=roi_u)
-    loss, tb = state.model.loss(out, gt_boxes)
+    loss, tb = state.model.loss(out, gt_boxes, **loss_inputs)
     return loss, tb, out
 
 
@@ -60,7 +62,7 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
 
 
 def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
-               roi_u=None) -> dict:
+               roi_u=None, **loss_inputs) -> dict:
     """One step on points (B, P, 3), valid (B, P), gt_boxes (B, M, 8) (zero
     rows padding). -> metrics, detached: loss and the model's loss terms
     (rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss, then SECOND-IoU's
@@ -70,7 +72,9 @@ def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
     loss_box_of_pts; CenterPoint's are hm_loss, loc_loss and rpn_loss, their
     weighted sum; PointRCNN's point_loss_cls, point_loss_box and the RCNN's
     four, no RPN's; Part-A2's the RPN's, seg_loss, part_loss and the RCNN's
-    four)."""
-    loss, tb, _ = train_forward(state, points, valid, gt_boxes, generator, roi_u)
+    four); CaDDN's the RPN's and ddn_loss (with DDNLoss and 2D boxes also
+    fg_loss and bg_loss). ``loss_inputs`` as ``train_forward``'s."""
+    loss, tb, _ = train_forward(state, points, valid, gt_boxes, generator, roi_u,
+                                **loss_inputs)
     apply_gradients(state, loss)
     return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}

@@ -25,7 +25,9 @@ its branches' BN and a ``heads_list``, and its VoxelRCNNHead its
 and the port's loader reads what the JAX importer reads. Nor is a
 PointRCNN or Part-A2 ``.pth``: ``ckpt_compat`` has no importer for either.
 Their weights come from the JAX package's flax trees
-(``utils/weights.py``).
+(``utils/weights.py``). CaDDN's image backbone reads torchvision's
+DeepLabV3 file (``deeplabv3_state_dict_from_torch``), the one file the JAX
+importer reads for it.
 """
 from __future__ import annotations
 
@@ -139,3 +141,32 @@ def save_detector_checkpoint(path: str, model, epoch: int = 0, it: int = 0):
                 "model_state": {k: v.detach().cpu().clone() for k, v in sd.items()},
                 "optimizer_state": None, "version": "seevcn_torch+0.1"},
                path, _use_new_zipfile_serialization=False)
+
+
+def deeplabv3_state_dict_from_torch(state_dict, num_classes: int) -> dict:
+    """A torchvision deeplabv3_resnet50 / 101 state dict (the file CaDDN's
+    DDN loads, ddn_template.py get_model) -> the port's ``DDNDeepLabV3``
+    state dict (the same names): ``module.`` stripped, ``aux_classifier.*``
+    dropped, and the last classifier conv ``classifier.4.*`` dropped when
+    its class count is not ``num_classes`` (ddn_template.py:86-106's
+    filter; the module then keeps its own init for it, as ckpt_compat's
+    ``deeplabv3_variables_from_torch`` leaves that leaf out). A batch-norm
+    counter the file lacks is written as 0."""
+    sd = state_dict_to_numpy(state_dict)
+    out = {k: v for k, v in sd.items() if not k.startswith("aux_classifier.")}
+    if out["classifier.4.weight"].shape[0] != num_classes:
+        out = {k: v for k, v in out.items() if not k.startswith("classifier.4.")}
+    for k in [k for k in out if k.endswith(".running_var")]:
+        out.setdefault(k.replace("running_var", "num_batches_tracked"), np.zeros((), np.int64))
+    return _tensors(out)
+
+
+def load_ddn_weights(ddn, state_dict) -> list:
+    """Load ``deeplabv3_state_dict_from_torch``'s dict into a DDNDeepLabV3
+    (``model.ddn`` of CaDDN): strictly, but for a dropped ``classifier.4``,
+    which keeps its init. -> the names that kept their init."""
+    missing, unexpected = ddn.load_state_dict(state_dict, strict=False)
+    kept = sorted(missing)
+    if unexpected or any(not k.startswith("classifier.4.") for k in kept):
+        raise KeyError(f"DeepLabV3 state dict: missing {kept}, unexpected {unexpected}")
+    return kept

@@ -4,7 +4,7 @@ Copies of the VCN and detector exports of seevcn_tpu/utils/ckpt_compat.py
 (``vcn_state_dict_from_variables``, ``detector_state_dict_from_variables``),
 kept here because the port imports nothing of the JAX package, and the
 PV-RCNN, single-stage (SECONDNet, PointPillar), CenterPoint, Voxel R-CNN,
-PointRCNN and Part-A2 exports, which the JAX package lacks. Each takes
+PointRCNN, Part-A2 and CaDDN exports, which the JAX package lacks. Each takes
 the flax variable tree as numpy arrays (``{"params": ..., "batch_stats":
 ...}``) and returns a state dict in the reference's key names, which the
 port's modules load with ``strict=True``. The reference has no seg2d
@@ -518,3 +518,64 @@ def seg2d_flax_from_state_dict(state_dict: dict) -> dict:
         else:                                             # Conv2d -> Conv
             put(params, path, "kernel", np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0))))
     return {"params": params, "batch_stats": stats}
+
+
+def _conv_block(sd: dict, key: str, leaf: dict, st: dict) -> None:
+    """A flax ConvBlock2d (``conv``, ``bn``) -> ``{key}.0`` and ``{key}.1``."""
+    _put(sd, f"{key}.0", {"weight": _conv_to_conv2d(leaf["conv"])["weight"]})
+    _put(sd, f"{key}.1", _bn_join(leaf["bn"], st["bn"]))
+
+
+def _conv_bn(sd: dict, conv_key: str, bn_key: str, p: dict, s: dict, conv: str,
+             bn: str) -> None:
+    _put(sd, conv_key, {"weight": _conv_to_conv2d(p[conv])["weight"]})
+    _put(sd, bn_key, _bn_join(p[bn], s[bn]))
+
+
+def ddn_state_dict_from_flax(p: dict, s: dict, prefix: str = "") -> dict:
+    """The JAX package's DDNDeepLabV3 subtree (params ``p``, batch stats
+    ``s``) -> torchvision's deeplabv3_resnet names under ``prefix``: the
+    inverse of ckpt_compat's ``deeplabv3_variables_from_torch``."""
+    sd = {}
+    bb, bbs = p["backbone"], s["backbone"]
+    _conv_bn(sd, f"{prefix}backbone.conv1", f"{prefix}backbone.bn1", bb, bbs, "conv1", "bn1")
+    for name in sorted(k for k in bb if k.startswith("layer")):
+        si, bi = name[len("layer"):].split("_")
+        key = f"{prefix}backbone.layer{si}.{bi}"
+        blk, blks = bb[name], bbs[name]
+        for c in (1, 2, 3):
+            _conv_bn(sd, f"{key}.conv{c}", f"{key}.bn{c}", blk, blks, f"conv{c}", f"bn{c}")
+        if "downsample_conv" in blk:
+            _conv_bn(sd, f"{key}.downsample.0", f"{key}.downsample.1", blk, blks,
+                     "downsample_conv", "downsample_bn")
+    a, as_ = p["aspp"], s["aspp"]
+    key = f"{prefix}classifier.0"
+    for i in range(4):
+        _conv_bn(sd, f"{key}.convs.{i}.0", f"{key}.convs.{i}.1", a, as_, f"conv{i}", f"bn{i}")
+    _conv_bn(sd, f"{key}.convs.4.1", f"{key}.convs.4.2", a, as_, "pool_conv", "pool_bn")
+    _conv_bn(sd, f"{key}.project.0", f"{key}.project.1", a, as_, "project", "project_bn")
+    _conv_bn(sd, f"{prefix}classifier.1", f"{prefix}classifier.2", p, s, "head_conv", "head_bn")
+    _put(sd, f"{prefix}classifier.4", _conv_to_conv2d(p["classifier"]))
+    return sd
+
+
+def caddn_state_dict_from_flax(variables: dict) -> dict:
+    """Flax CaDDN variables (numpy leaves) -> torch state dict of the port's
+    model: ``ddn`` in torchvision's DeepLabV3 names
+    (``ddn_state_dict_from_flax``), the conv blocks ``channel_reduce``,
+    ``image_backbone.c{1,2,3}`` and ``collapse`` as ``.0`` (conv) / ``.1``
+    (BN), ``depth_head`` a Conv2d with its bias, then ``backbone_2d`` and
+    ``dense_head`` as ``_rpn_state_dict`` gives them."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _rpn_state_dict(p, s)
+    _conv_block(sd, "collapse", p["collapse"], s["collapse"])
+    if "ddn" in p:
+        sd.update(ddn_state_dict_from_flax(p["ddn"], s["ddn"], "ddn."))
+    if "channel_reduce" in p:
+        _conv_block(sd, "channel_reduce", p["channel_reduce"], s["channel_reduce"])
+    if "image_backbone" in p:
+        for c in ("c1", "c2", "c3"):
+            _conv_block(sd, f"image_backbone.{c}", p["image_backbone"][c],
+                        s["image_backbone"][c])
+        _put(sd, "depth_head", _conv_to_conv2d(p["depth_head"]))
+    return sd

@@ -187,22 +187,39 @@ def _by_key(feats, coords, mask, dims):
     return key[order], feats[mask][order]
 
 
+@pytest.fixture(scope="module")
+def unet_jax():
+    """JAX's UNetV2 on the voxelised blob frames, weights from seed 4, for
+    every case of ``test_unetv2_matches_jax``: the sparse mode in eval and
+    in training from one jitted call (one compile), the hybrid mode in
+    eval. -> (voxels, dims, variables, {(mode, train): (output, new
+    batch stats)})."""
+    a, dims = _voxels(C.tiny_parta2_cfg())
+    st = lambda f, c, m: JSP.make_sparse_tensor(f, c, m, dims, 2)   # noqa: E731
+    runs, variables = {}, None
+    for mode in ("sparse", "hybrid"):
+        jm = JU.UNetV2(input_channels=3, mode=mode)
+        if variables is None:
+            shapes = jax.eval_shape(lambda *x: jm.init(jax.random.PRNGKey(0), st(*x)), *a)
+            variables = seeded_flax_variables(shapes, seed=4)
+        flags = (False, True) if mode == "sparse" else (False,)
+        outs = jax.jit(lambda v, *x: [jm.apply(v, st(*x), t, mutable=["batch_stats"])
+                                      for t in flags])(jax.tree.map(jnp.asarray, variables), *a)
+        runs.update({(mode, t): o for t, o in zip(flags, outs)})
+    return a, dims, variables, runs
+
+
 @pytest.mark.parametrize("mode,train", [("sparse", False), ("sparse", True),
                                         ("hybrid", False)],
                          ids=["sparse_eval", "sparse_train", "hybrid_eval"])
-def test_unetv2_matches_jax(mode, train):
+def test_unetv2_matches_jax(unet_jax, mode, train):
     """UNetV2 on two voxelised blob frames: the stride-1 point features,
     the stage-4 features and the stride-8 tensor held by voxel key (in
     hybrid mode JAX re-extracts each stage into round(1.5 x rows) key-sorted
     rows), their active sets equal; in training the running statistics.
     Every stage's active voxels stay under JAX's capacity."""
-    a, dims = _voxels(C.tiny_parta2_cfg())
-    jm = JU.UNetV2(input_channels=3, mode=mode)
-    st = lambda f, c, m: JSP.make_sparse_tensor(f, c, m, dims, 2)   # noqa: E731
-    shapes = jax.eval_shape(lambda *x: jm.init(jax.random.PRNGKey(0), st(*x)), *a)
-    variables = seeded_flax_variables(shapes, seed=4)
-    ref, new = jax.jit(lambda v, *x: jm.apply(v, st(*x), train, mutable=["batch_stats"]))(
-        jax.tree.map(jnp.asarray, variables), *a)
+    a, dims, variables, runs = unet_jax
+    ref, new = runs[(mode, train)]
 
     def export(stats):
         sd = {}
@@ -292,11 +309,51 @@ def _built():
                                                      p, v, train=False), pts, valid)
         variables = seeded_flax_variables(shapes, seed=0)
         model, dcfg = build_detector(cfg, W.parta2_state_dict_from_flax(variables), device="cpu")
-        _BUILT.update(cfg=cfg, dcfg=dcfg, jm=jm, variables=variables, model=model)
+        _BUILT.update(cfg=cfg, dcfg=dcfg, jm=jm, shapes=shapes, variables=variables,
+                      model=model)
     return _BUILT
 
 
-def test_parta2_eval_matches_jax():
+def _export(p, s):
+    return W.parta2_state_dict_from_flax(jax.tree.map(np.asarray, {"params": p,
+                                                                   "batch_stats": s}))
+
+
+@pytest.fixture(scope="module")
+def parta2_jax():
+    """JAX's side of the eval and the train-step tests from one jitted call
+    (one compile): the eval forward at ``_built``'s weights (seed 0) on the
+    blob frames, and the training loss, its terms, the new batch stats and
+    ``jax.value_and_grad``'s gradients at weights from seed 3 on the blob
+    frames with cars near two training proposals each, the RoI sample's
+    priorities JAX's own draws."""
+    b = _built()
+    cfg, jm = b["cfg"], b["jm"]
+    variables = jax.tree.map(jnp.asarray, seeded_flax_variables(b["shapes"], seed=3))
+    params, stats = variables["params"], variables["batch_stats"]
+    pts, valid, gt = pvrcnn_train_inputs(cfg, _export(params, stats))
+    rng = jax.random.PRNGKey(7)
+    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
+    u = np.asarray(jax.vmap(lambda r: jax.random.uniform(r, (n_rois,)))(
+        jax.random.split(rng, 2)))
+    p0, v0 = _frames()
+
+    def loss_fn(prm):
+        out, new = jm.apply({"params": prm, "batch_stats": stats}, pts, valid, gt_boxes=gt,
+                            train=True, rng=rng, mutable=["batch_stats"])
+        total, tb = jm.loss(out, jnp.asarray(gt))
+        return total, (tb, new["batch_stats"])
+
+    def both(ev, prm):
+        return jm.apply(ev, p0, v0, train=False), jax.value_and_grad(loss_fn, has_aux=True)(prm)
+
+    ref, ((loss, (tb, new_stats)), grads) = jax.jit(both)(
+        jax.tree.map(jnp.asarray, b["variables"]), params)
+    return {"eval": ref, "params": params, "stats": stats, "inputs": (pts, valid, gt, u),
+            "loss": loss, "terms": tb, "new_stats": new_stats, "grads": grads}
+
+
+def test_parta2_eval_matches_jax(parta2_jax):
     """The tiny Part-A2's eval forward (the anchor RPN on UNetV2's stride-8
     tensor, the part head on its stride-1 voxels, proposals, the roiaware
     pools and the FC head, the refined boxes) and its post-processing,
@@ -305,8 +362,7 @@ def test_parta2_eval_matches_jax():
     b = _built()
     cfg, model = b["cfg"], b["model"]
     pts, valid = _frames()
-    ref = jax.jit(lambda v, p, q: b["jm"].apply(v, p, q, train=False))(
-        jax.tree.map(jnp.asarray, b["variables"]), pts, valid)
+    ref = parta2_jax["eval"]
     with torch.no_grad():
         out = model(to_torch(pts), to_torch(valid))
     assert int(out["active_voxels"][1:5].max()) < 2 * b["dcfg"].max_voxels
@@ -325,7 +381,7 @@ def test_parta2_eval_matches_jax():
     assert int(out["roi_mask"].sum()) == 32 and int(pp["pred_mask"].sum()) > 0
 
 
-def test_parta2_train_step_matches_jax():
+def test_parta2_train_step_matches_jax(parta2_jax):
     """One training forward and loss of the tiny Part-A2 on two blob frames
     with cars near two training proposals each, the RoI sample's
     priorities JAX's own draws: JAX's loss terms (the RPN's, seg, part and
@@ -333,29 +389,11 @@ def test_parta2_train_step_matches_jax():
     f64; the running statistics it leaves. No RCNN gradient reaches the
     backbones or the part head (the pooled inputs are detached)."""
     cfg = C.tiny_parta2_cfg()
-    jm, _ = jax_build(cfg)
-    p0, v0 = _frames()
-    shapes = jax.eval_shape(lambda p, v: jm.init({"params": jax.random.PRNGKey(0)},
-                                                 p, v, train=False), p0, v0)
-    variables = jax.tree.map(jnp.asarray, seeded_flax_variables(shapes, seed=3))
-    params, stats = variables["params"], variables["batch_stats"]
-    export = lambda p, s: W.parta2_state_dict_from_flax(   # noqa: E731
-        jax.tree.map(np.asarray, {"params": p, "batch_stats": s}))
-    pts, valid, gt = pvrcnn_train_inputs(cfg, export(params, stats))
-    rng = jax.random.PRNGKey(7)
-    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
-    u = np.asarray(jax.vmap(lambda r: jax.random.uniform(r, (n_rois,)))(
-        jax.random.split(rng, 2)))
-
-    def loss_fn(prm):
-        out, new = jm.apply({"params": prm, "batch_stats": stats}, pts, valid, gt_boxes=gt,
-                            train=True, rng=rng, mutable=["batch_stats"])
-        total, tb = jm.loss(out, jnp.asarray(gt))
-        return total, (tb, new["batch_stats"])
-
-    (loss, (tb, new_stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    jax_grads, jax_after = export(grads, stats), export(params, new_stats)
-    model, _ = build_detector(cfg, export(params, stats), device="cpu")
+    r = parta2_jax
+    params, stats, (pts, valid, gt, u) = r["params"], r["stats"], r["inputs"]
+    loss, tb, new_stats, grads = r["loss"], r["terms"], r["new_stats"], r["grads"]
+    jax_grads, jax_after = _export(grads, stats), _export(params, new_stats)
+    model, _ = build_detector(cfg, _export(params, stats), device="cpu")
     state = create_train_state(model.double(), cfg.OPTIMIZATION, 100)
     dbl = lambda a: torch.from_numpy(np.array(a)).double()     # noqa: E731
     ploss, ptb, out = train_forward(state, dbl(pts), torch.from_numpy(valid), dbl(gt),

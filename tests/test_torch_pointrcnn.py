@@ -265,19 +265,59 @@ def _built():
                                                      p, v, train=False), pts, valid)
         variables = seeded_flax_variables(shapes, seed=0)
         model, _ = build_detector(cfg, W.pointrcnn_state_dict_from_flax(variables), device="cpu")
-        _BUILT.update(cfg=cfg, jm=jm, variables=variables, model=model)
+        _BUILT.update(cfg=cfg, jm=jm, shapes=shapes, variables=variables, model=model)
     return _BUILT
 
 
-def test_pointrcnn_eval_matches_jax():
+def _export(p, s):
+    return W.pointrcnn_state_dict_from_flax(jax.tree.map(np.asarray, {"params": p,
+                                                                      "batch_stats": s}))
+
+
+@pytest.fixture(scope="module")
+def pointrcnn_jax():
+    """JAX's side of the eval and the train-step tests, built once (the init
+    shapes shared): the eval forward at ``_built``'s weights (seed 0) on the
+    blob frames, and the training loss, its terms, the new batch stats and
+    ``jax.value_and_grad``'s gradients at weights from seed 3 on the blob
+    frames with cars near two training proposals each
+    (chip_smoke.pvrcnn_train_inputs), the RoI sample's priorities JAX's own
+    draws."""
+    b = _built()
+    cfg, jm = b["cfg"], b["jm"]
+    variables = jax.tree.map(jnp.asarray, seeded_flax_variables(b["shapes"], seed=3))
+    params, stats = variables["params"], variables["batch_stats"]
+    pts, valid, gt = pvrcnn_train_inputs(cfg, _export(params, stats))
+    rng = jax.random.PRNGKey(7)
+    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
+    u = np.asarray(jax.vmap(lambda r: jax.random.uniform(r, (n_rois,)))(
+        jax.random.split(rng, 2)))
+    p0, v0 = _frames()
+
+    def loss_fn(prm):
+        out, new = jm.apply({"params": prm, "batch_stats": stats}, pts, valid, gt_boxes=gt,
+                            train=True, rng=rng, mutable=["batch_stats"])
+        total, tb = jm.loss(out, jnp.asarray(gt))
+        return total, (tb, new["batch_stats"])
+
+    # two compiles: in one jitted call with the train step, XLA fuses the
+    # eval forward otherwise and its point_cls moves 2.9e-6 (1.3e-6 of the
+    # largest), past the eval test's bound
+    ref = jax.jit(lambda v, p, q: jm.apply(v, p, q, train=False))(
+        jax.tree.map(jnp.asarray, b["variables"]), p0, v0)
+    (loss, (tb, new_stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    return {"eval": ref, "params": params, "stats": stats, "inputs": (pts, valid, gt, u),
+            "loss": loss, "terms": tb, "new_stats": new_stats, "grads": grads}
+
+
+def test_pointrcnn_eval_matches_jax(pointrcnn_jax):
     """The tiny PointRCNN's eval forward (point logits and boxes, the
     proposals over the points, the RoI head, the refined boxes) and its
     post-processing (the RCNN branch), against JAX's."""
     b = _built()
     cfg, model = b["cfg"], b["model"]
     pts, valid = _frames()
-    ref = jax.jit(lambda v, p, q: b["jm"].apply(v, p, q, train=False))(
-        jax.tree.map(jnp.asarray, b["variables"]), pts, valid)
+    ref = pointrcnn_jax["eval"]
     with torch.no_grad():
         out = model(to_torch(pts), to_torch(valid))
     for k in ("point_cls", "point_reg", "batch_box_preds", "roi_scores", "rcnn_cls",
@@ -295,7 +335,7 @@ def test_pointrcnn_eval_matches_jax():
     assert int(out["roi_mask"].sum()) == 32 and int(pp["pred_mask"].sum()) > 0
 
 
-def test_pointrcnn_train_step_matches_jax():
+def test_pointrcnn_train_step_matches_jax(pointrcnn_jax):
     """One training forward and loss of the tiny PointRCNN on two blob
     frames with cars near two training proposals each
     (chip_smoke.pvrcnn_train_inputs), the RoI sample's priorities JAX's own
@@ -304,29 +344,11 @@ def test_pointrcnn_train_step_matches_jax():
     reaches the backbone or the point head (JAX's stop_gradient on the
     point features)."""
     cfg = C.tiny_pointrcnn_cfg()
-    jm = _jax_model(cfg)
-    p0, v0 = _frames()
-    shapes = jax.eval_shape(lambda p, v: jm.init({"params": jax.random.PRNGKey(0)},
-                                                 p, v, train=False), p0, v0)
-    variables = jax.tree.map(jnp.asarray, seeded_flax_variables(shapes, seed=3))
-    params, stats = variables["params"], variables["batch_stats"]
-    export = lambda p, s: W.pointrcnn_state_dict_from_flax(   # noqa: E731
-        jax.tree.map(np.asarray, {"params": p, "batch_stats": s}))
-    pts, valid, gt = pvrcnn_train_inputs(cfg, export(params, stats))
-    rng = jax.random.PRNGKey(7)
-    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
-    u = np.asarray(jax.vmap(lambda r: jax.random.uniform(r, (n_rois,)))(
-        jax.random.split(rng, 2)))
-
-    def loss_fn(prm):
-        out, new = jm.apply({"params": prm, "batch_stats": stats}, pts, valid, gt_boxes=gt,
-                            train=True, rng=rng, mutable=["batch_stats"])
-        total, tb = jm.loss(out, jnp.asarray(gt))
-        return total, (tb, new["batch_stats"])
-
-    (loss, (tb, new_stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    jax_grads, jax_after = export(grads, stats), export(params, new_stats)
-    model, _ = build_detector(cfg, export(params, stats), device="cpu")
+    r = pointrcnn_jax
+    params, stats, (pts, valid, gt, u) = r["params"], r["stats"], r["inputs"]
+    loss, tb, new_stats, grads = r["loss"], r["terms"], r["new_stats"], r["grads"]
+    jax_grads, jax_after = _export(grads, stats), _export(params, new_stats)
+    model, _ = build_detector(cfg, _export(params, stats), device="cpu")
     state = create_train_state(model.double(), cfg.OPTIMIZATION, 100)
     dbl = lambda a: torch.from_numpy(np.array(a)).double()     # noqa: E731
     ploss, ptb, out = train_forward(state, dbl(pts), torch.from_numpy(valid), dbl(gt),

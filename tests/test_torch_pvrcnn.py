@@ -137,15 +137,15 @@ def test_configs():
 
 
 def test_build_detector_dispatch():
-    """An unknown detector names the ten names the port has; SAMPLE_METHOD
+    """An unknown detector names the eleven names the port has; SAMPLE_METHOD
     SPC builds, but a plain PV-RCNN cannot feed it proposals and raises
     JAX's ValueError at its forward, while PV-RCNN++ builds and runs with
     it."""
     cfg = C.tiny_pvrcnn_cfg()
-    cfg.MODEL.NAME = "CaDDN"
+    cfg.MODEL.NAME = "NoSuchDetector"
     with pytest.raises(NotImplementedError,
                        match="SECONDNet, SECONDNetIoU, PointPillar, PVRCNN, PVRCNNPlusPlus, "
-                             "CenterPoint, VoxelRCNN, PointRCNN, PartA2Net, PartA2"):
+                             "CenterPoint, VoxelRCNN, PointRCNN, PartA2Net, PartA2, CaDDN"):
         build_detector(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
