@@ -71,7 +71,14 @@ through BackgroundLoader and ``augment_on_device`` into 3 SECOND-IoU train
 steps, ``eval_one_epoch`` with KITTI's AP, then CaDDN at CaDDN.yaml's
 widths on one of the split's frames (stages, the frustum sample and the
 collapse conv alone) and 1 + 1 + 3 train steps at batch 2 on its camera
-items. Every failed check raises, so the exit code is not 0. The last line of
+items. Then the KITTI SEE-VCN workflow through the port's CLIs (phase 20):
+a raw KITTI tree of 4 frames of 120,000 points, create_infos on it,
+generate_masks with the seeded Mask R-CNN at 384x1280, run_see's DET path
+at KIT-DET_VCN-VC's settings on masks from the cars' boxes (K1 counted, the
+native IO route asserted), a resumed run and the GT path, one frame of
+each path card vs CPU, train_detector at SECOND-IoU's flagship widths on
+the completed split (an epoch, then a resume) and test_detector on
+DATA_CONFIG_TAR. Every failed check raises, so the exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
 
@@ -80,6 +87,7 @@ It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -87,6 +95,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -207,12 +216,14 @@ def _visible_surface(rng, centre, heading, n):
 
 def make_scene(seed: int, n_points: int, n_cars: int,
                image_size=IMAGE_SIZE, proj=PROJ, lidar_to_cam=LIDAR_TO_CAM,
-               pts_per_car: int = 600):
+               pts_per_car: int = 600, occlude: bool = False):
     """A lidar scan in bench.py's layout (x 1..69, y -39..39, z -2.9..0.9 m)
     holding ``n_cars`` box-surface cars in the camera's view, and one
     detection per car: its projected 2D box, a 28x28 mask patch that covers
     the car's projection, and a score; and each car's ground-truth box
-    (n_cars, 8): centre, CAR_DIMS, heading, label 1. Returns numpy arrays."""
+    (n_cars, 8): centre, CAR_DIMS, heading, label 1. With ``occlude``, the
+    background holds no point that the cars hide from the sensor (at the
+    origin), as in a real scan. Returns numpy arrays."""
     rng = np.random.RandomState(seed)
     h, w = image_size
     cars, det_boxes, det_masks = [], [], []
@@ -258,11 +269,30 @@ def make_scene(seed: int, n_points: int, n_cars: int,
                       & (np.abs(rel[:, 2]) < CAR_DIMS[2] / 2 + 0.3))
         return keep
 
+    def seen(p):
+        """False where the sight line from the origin to a point crosses a
+        car's box (the slab test in the box's frame)."""
+        keep = np.ones(len(p), bool)
+        half = np.asarray(CAR_DIMS) / 2
+        for centre, heading, _ in cars:
+            cs, sn = np.cos(heading), np.sin(heading)
+            rot = np.array([[cs, -sn, 0], [sn, cs, 0], [0, 0, 1]])
+            o, d = -centre @ rot, p @ rot
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t1, t2 = (-half - o) / d, (half - o) / d
+            t_in = np.minimum(t1, t2).max(1)
+            t_out = np.maximum(t1, t2).min(1)
+            keep &= ~((t_in <= t_out) & (t_out >= 0) & (t_in <= 1))
+        return keep
+
     car_pts = np.concatenate([c[2] for c in cars])[: n_points // 2]
     n_bg = n_points - len(car_pts)
     bg = np.stack([rng.uniform(1, 69, 2 * n_bg), rng.uniform(-39, 39, 2 * n_bg),
                    rng.uniform(-2.9, 0.9, 2 * n_bg)], 1)
-    bg = bg[outside_cars(bg)][:n_bg]
+    keep = outside_cars(bg)
+    if occlude:
+        keep &= seen(bg)
+    bg = bg[keep][:n_bg]
     pts = np.concatenate([car_pts, bg])[rng.permutation(n_points)]
     return {"points": pts.astype(np.float32),
             "valid": np.ones(n_points, bool),
@@ -302,7 +332,7 @@ def _kitti_frame_image(rng, depth_px):
 
 
 def write_kitti_split(root: str, n_frames: int, seed: int = 0, n_points: int = 20_000,
-                      n_cars: int = 8) -> list:
+                      n_cars: int = 8, labels: bool = False, occlude: bool = False) -> list:
     """A synthetic KITTI split under ``root`` in OpenPCDet's layout, for the
     data path: ``training/velodyne/%06d.bin`` (``make_scene``'s cloud, x y z
     and an intensity), ``training/calib/%06d.txt`` (KITTI's P2, R0_rect,
@@ -312,7 +342,11 @@ def write_kitti_split(root: str, n_frames: int, seed: int = 0, n_points: int = 2
     (the same frames; annos of the cars: camera boxes, image boxes,
     gt_boxes_lidar, num_points_in_gt),
     and a GT database of the frames' cars (``gt_database/*.bin``, points
-    about the box centre, and ``kitti_dbinfos_train.pkl``). -> the infos."""
+    about the box centre, and ``kitti_dbinfos_train.pkl``). With ``labels``
+    it also writes the raw tree's labels, ``training/label_2/%06d.txt`` from
+    the annos (KITTI's 15 fields, the numbers at 9 significant digits), and
+    ``ImageSets/{train,val}.txt`` (every frame in each), which
+    ``create_infos`` reads. ``occlude`` is ``make_scene``'s. -> the infos."""
     from seevcn_torch.data.png import write_png
     from seevcn_torch.geom import boxes as GB
     from seevcn_torch.geom.calibration import KittiCalibration
@@ -328,7 +362,7 @@ def write_kitti_split(root: str, n_frames: int, seed: int = 0, n_points: int = 2
     for i in range(n_frames):
         idx = f"{i:06d}"
         rng = np.random.RandomState(seed * 1000 + i)
-        scene = make_scene(seed * 1000 + i, n_points, n_cars)
+        scene = make_scene(seed * 1000 + i, n_points, n_cars, occlude=occlude)
         pts = np.concatenate([scene["points"], rng.rand(n_points, 1).astype(np.float32)], 1)
         pts.tofile(os.path.join(root, "training", "velodyne", f"{idx}.bin"))
         with open(os.path.join(root, "training", "calib", f"{idx}.txt"), "w") as f:
@@ -362,6 +396,15 @@ def write_kitti_split(root: str, n_frames: int, seed: int = 0, n_points: int = 2
                       "calib": {"P2": pad4(KITTI_P2), "R0_rect": np.pad(KITTI_R0, (0, 1))
                                 + np.diag([0, 0, 0, 1.0]), "Tr_velo_to_cam": pad4(KITTI_V2C)},
                       "annos": annos})
+        if labels:
+            os.makedirs(os.path.join(root, "training", "label_2"), exist_ok=True)
+            with open(os.path.join(root, "training", "label_2", f"{idx}.txt"), "w") as f:
+                for j in range(n):
+                    h_, w_, l_ = annos["dimensions"][j, [1, 2, 0]]
+                    f.write(" ".join(["Car"] + [f"{v:.9g}" for v in (
+                        annos["truncated"][j], annos["occluded"][j], annos["alpha"][j],
+                        *annos["bbox"][j], h_, w_, l_, *annos["location"][j],
+                        annos["rotation_y"][j])]) + "\n")
         for j in range(n):
             path = f"gt_database/{idx}_Car_{j}.bin"
             obj = pts[inside[j]].copy()
@@ -370,6 +413,11 @@ def write_kitti_split(root: str, n_frames: int, seed: int = 0, n_points: int = 2
             db["Car"].append({"name": "Car", "path": path, "image_idx": idx, "gt_idx": j,
                               "box3d_lidar": boxes[j], "num_points_in_gt": int(inside[j].sum()),
                               "difficulty": 0, "bbox": annos["bbox"][j], "score": -1.0})
+    if labels:
+        os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+        for split in ("train", "val"):
+            with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
+                f.write("".join(f"{i:06d}\n" for i in range(n_frames)))
     for name, obj in (("kitti_infos_train.pkl", infos), ("kitti_infos_val.pkl", infos),
                       ("kitti_dbinfos_train.pkl", db)):
         with open(os.path.join(root, name), "wb") as f:
@@ -4929,6 +4977,441 @@ def caddn_kitti(dev, card, vcn) -> dict:
     return res
 
 
+# --- phase 20: the KITTI SEE-VCN workflow through the CLIs --------------------------
+
+#: phase 20's raw KITTI tree: frames of a 64-beam scan's size (make_scene, 8 cars,
+#: the background the cars hide left out, as a scan has it)
+WORKFLOW_FRAMES, WORKFLOW_POINTS, WORKFLOW_CARS = 4, 120_000, 8
+#: the isolation and completion settings of the reference's KIT-DET_VCN-VC.yaml
+#: (SURVEY.md §3.1), VCN_VC at 1,024 points; the masks shrink 3%
+KIT_DET_VCN_VC = {"PC_ISOLATION": {"MIN_LIDAR_PTS": 30, "EPS_SCALING": 4.0, "MIN_EPS": 0.3,
+                                   "MAX_EPS": 1.0},
+                  "SURFACE_COMPLETION": {"VRES": 0.4, "VCN": {
+                      "MODEL": "VCN_VC", "NORM_WITH_GT": False, "SEL_K_NEAREST": 30,
+                      "CLUSTER_EPS": 0.4, "BATCH_SIZE_LIMIT": 32}}}
+WORKFLOW_SHRINK = 3.0
+#: the points a box's num_points_in_gt from create_infos may differ from the
+#: writer's: the labels' text moves a box by about 2e-6 m, so a scan point on a
+#: face (make_scene's cars are box surfaces) can change sides
+NUM_POINTS_SLACK = 2
+#: generate_masks' score threshold on the seeded Mask R-CNN: low enough that
+#: detections of random weights come out
+MASK_SCORE_THRESH = 0.05
+#: run_see's DET path on the cars' masks: the scan points that each completed
+#: instance must replace at least (the GT path replaces about 80 a car), and
+#: the share of the isolated points that must lie on a car (its box + 0.2 m)
+WORKFLOW_MIN_DROPPED, WORKFLOW_IN_CAR = 25, 0.9
+#: phase 20's bounds, card vs CPU: the points of an isolated instance that may
+#: differ (DBSCAN's Gram-form adjacency at eps), the completed rows the two
+#: sides' counts may differ by, and the share of the rows that may lie
+#: farther than SEE_ROW_TOL from the other side's: a k-NN or cluster pick at
+#: a near tie, which the CPU's own f32 run against its f64 run shows too
+#: (the check prints both). An exact row count failed on the card once (GT
+#: frame 0: 3,820 rows against the CPU's 3,821, one row 0.049 m off)
+SEE_ISO_SLACK, SEE_ROW_SLACK, SEE_ROW_SHARE, SEE_ROW_TOL = 2, 2, 1e-3, 1e-3
+
+
+def car_box_detections(infos, image_shape=KITTI_IMAGE_SHAPE) -> list:
+    """generate_masks' detections made from the ground truth (as the JAX
+    package's tests/test_see_e2e.py makes them): one a car of each info,
+    the 2D hull of its box's corners projected with KITTI's calibration,
+    cut to the image, as its mask and box, score 0.9. -> [(file_name, (H,
+    W), detections)] for ``detections_to_coco``."""
+    from seevcn_torch.geom.calibration import KittiCalibration
+
+    calib = KittiCalibration({"P2": KITTI_P2, "R0": KITTI_R0, "Tr_velo2cam": KITTI_V2C})
+    h, w = image_shape
+    per_image = []
+    for info in infos:
+        dets = []
+        for box in info["annos"]["gt_boxes_lidar"]:
+            uv, _ = calib.lidar_to_img(_box_corners(box[:3], box[3:6], box[6]))
+            x0, y0 = np.maximum(uv.min(0), 0)
+            x1, y1 = np.minimum(uv.max(0), [w - 1, h - 1])
+            mask = np.zeros((h, w), bool)
+            mask[int(y0):int(y1) + 1, int(x0):int(x1) + 1] = True
+            dets.append({"mask": mask, "bbox": [x0, y0, x1 - x0, y1 - y0], "score": 0.9,
+                         "category_id": 3})
+        per_image.append((f"{info['point_cloud']['lidar_idx']}.png", (h, w), dets))
+    return per_image
+
+
+def convex_hull(p: np.ndarray) -> np.ndarray:
+    """(N, 2) -> the convex hull's vertices, counter-clockwise (Andrew's
+    monotone chain)."""
+    p = np.unique(p, axis=0)
+    if len(p) < 3:
+        return p
+
+    def chain(q):
+        out = []
+        for x in q:
+            while len(out) >= 2 and ((out[-1][0] - out[-2][0]) * (x[1] - out[-2][1])
+                                     - (out[-1][1] - out[-2][1]) * (x[0] - out[-2][0])) <= 0:
+                out.pop()
+            out.append(x)
+        return out[:-1]
+    return np.array(chain(p) + chain(p[::-1]))
+
+
+def car_hull_detections(root: str, infos, image_shape=KITTI_IMAGE_SHAPE) -> list:
+    """generate_masks' detections made from the scan, as a segmentation
+    model would outline each car: the convex hull of the car's own lidar
+    points (those in its box) projected with KITTI's calibration, filled
+    by ``polygons_to_mask``, as its mask, its extent as its box, score 0.9.
+    -> [(file_name, (H, W), detections)] for ``detections_to_coco``."""
+    from seevcn_torch.geom import boxes as GB
+    from seevcn_torch.geom.calibration import KittiCalibration
+    from seevcn_torch.see.masks import polygons_to_mask
+
+    calib = KittiCalibration({"P2": KITTI_P2, "R0": KITTI_R0, "Tr_velo2cam": KITTI_V2C})
+    h, w = image_shape
+    per_image = []
+    for info in infos:
+        idx = info["point_cloud"]["lidar_idx"]
+        pts = np.fromfile(os.path.join(root, "training", "velodyne", f"{idx}.bin"),
+                          np.float32).reshape(-1, 4)[:, :3]
+        boxes = info["annos"]["gt_boxes_lidar"]
+        inside = GB.points_in_boxes(torch.from_numpy(pts),
+                                    torch.from_numpy(boxes).float()).numpy()
+        dets = []
+        for j in range(len(boxes)):
+            uv, _ = calib.lidar_to_img(pts[inside[j]])
+            mask = polygons_to_mask([np.round(convex_hull(uv)).ravel().tolist()], h, w)
+            ys, xs = np.nonzero(mask)
+            dets.append({"mask": mask.astype(bool),
+                         "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()),
+                                  float(ys.max() - ys.min())], "score": 0.9,
+                         "category_id": 3})
+        per_image.append((f"{idx}.png", (h, w), dets))
+    return per_image
+
+
+def plain_tree(o):
+    """A Cfg tree -> plain dicts and lists (for yaml)."""
+    if isinstance(o, dict):
+        return {k: plain_tree(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [plain_tree(v) for v in o]
+    if isinstance(o, np.generic):
+        return o.item()
+    return o
+
+
+def write_yaml(path: str, cfg) -> str:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(plain_tree(cfg), f)
+    return path
+
+
+def rows_apart(got: np.ndarray, ref: np.ndarray, dev) -> np.ndarray:
+    """Each row's distance to the nearest row of the other cloud, both ways
+    (for two clouds of the same rows up to rounding), in f64 on ``dev``."""
+    a, b = (torch.from_numpy(x).to(dev, torch.float64) for x in (got, ref))
+    d = torch.cdist(a, b)
+    return torch.cat([d.amin(1), d.amin(0)]).cpu().numpy()
+
+
+def completed_f64(see, instances, boxes=None) -> np.ndarray:
+    """``see``'s completion of ``instances`` (its VCN list form, then the
+    rows made unique) with the VCN and the chain after it in f64 on its
+    device: the witness of which picks are near ties."""
+    from seevcn_torch.models.vcn.inference import forward_chain, resample_to_fixed
+
+    vcn = see.vcn
+    model = copy.deepcopy(vcn.model).double()
+    pc = torch.from_numpy(resample_to_fixed(instances, vcn.num_points)).to(vcn.device,
+                                                                             torch.float64)
+    gt = None
+    if vcn.norm_with_gt:
+        gt = torch.from_numpy(np.stack([np.asarray(b, np.float64)[:7] for b in boxes])
+                              ).to(vcn.device)
+    out = forward_chain(model, pc, gt, sel_k=vcn.sel_k, eps=vcn.cluster_eps)[3].cpu().numpy()
+    return np.unique(np.vstack(out).astype(np.float32), axis=0)
+
+
+def hold_see_frame_against_cpu(see, cpu, idx: int, path: str) -> dict:
+    """One frame of SEEVCN on the card against the port's CPU path (which
+    the tests hold against JAX), stage by stage, each stage fed the CPU's
+    inputs so that a difference cannot cascade: isolation (DET: the mask
+    points, then DBSCAN; GT: the box crop) with at most SEE_ISO_SLACK
+    points of an instance apart, and (DET) WORKFLOW_IN_CAR of the points on
+    a car; the completed clouds (the instances' np.unique rows, so a pick
+    that differs changes the count too) with row counts within
+    SEE_ROW_SLACK and at most SEE_ROW_SHARE of the rows farther than
+    SEE_ROW_TOL from the other side's, beside two witnesses
+    (``completed_f64``): the same numbers for the CPU's f32 run against
+    its f64 run, and for the card's f64 run against the CPU's; the
+    replacement's kept scan points equal but for points within 1e-5 r^2 of
+    r^2 of the completed cloud."""
+    from seevcn_torch.geom import boxes as GB
+
+    points = cpu.data_obj.get_pointcloud(idx)
+    boxes = cpu.data_obj.get_gt_boxes(idx)
+    labels = None
+    if path == "det":
+        proj = cpu.get_det_instances(idx)
+        inst_d, inst_c = see.isolate_det_pts(proj), cpu.isolate_det_pts(proj)
+        comp_d, comp_c = see.complete_det_pts(inst_c), cpu.complete_det_pts(inst_c)
+    else:
+        (inst_d, _), (inst_c, labels) = (see.isolate_gt_pts(points, boxes),
+                                         cpu.isolate_gt_pts(points, boxes))
+        comp_d, comp_c = see.complete_gt_pts(inst_c, labels), cpu.complete_gt_pts(inst_c, labels)
+    if len(inst_d) != len(inst_c) or not inst_c:
+        raise AssertionError(f"SEE {path} frame {idx}: {len(inst_d)} instances on the card, "
+                             f"{len(inst_c)} on the CPU")
+    iso_apart = [len({tuple(r) for r in a} ^ {tuple(r) for r in b})
+                 for a, b in zip(inst_d, inst_c)]
+    grown = np.asarray(boxes, np.float32)[:, :7].copy()
+    grown[:, 3:6] += 0.4
+    iso = np.concatenate(inst_d)
+    in_car = float(GB.points_in_boxes(torch.from_numpy(iso[:, :3].copy()),
+                                      torch.from_numpy(grown)).numpy().any(0).mean())
+    done_d, done_c = comp_d["all_instances"], comp_c["all_instances"]
+    done_64, done_d64 = completed_f64(cpu, inst_c, labels), completed_f64(see, inst_c, labels)
+    apart = rows_apart(done_d, done_c, see.device)
+    apart_64 = rows_apart(done_c, done_64, see.device)
+    apart_d64 = rows_apart(done_d64, done_64, see.device)
+    row_share, row_share_64, row_share_d64 = (float((a > SEE_ROW_TOL).mean())
+                                              for a in (apart, apart_64, apart_d64))
+    out_d = see.replace_with_completed_pts(points, done_c)
+    out_c = cpu.replace_with_completed_pts(points, done_c)
+    n = len(done_c)
+    kept_d, kept_c = ({tuple(r) for r in o[n:]} for o in (out_d, out_c))
+    d = MD.min_sqdist_plain(torch.from_numpy(points[:, :3].copy()).to(see.device),
+                            torch.from_numpy(done_c).to(see.device))
+    tie = ((d - RADIUS * RADIUS).abs() <= 1e-5 * RADIUS * RADIUS).cpu().numpy()
+    ties = {tuple(r) for r in points[tie, :3]}
+    stray = len((kept_d ^ kept_c) - ties)
+    res = {"instances": len(inst_c), "iso_apart_max": max(iso_apart),
+           "isolated_points": len(iso), "isolated_in_car": in_car,
+           "completed_rows": n, "completed_rows_card": len(done_d),
+           "completed_rows_f64": len(done_64),
+           "rows_apart_max": float(apart.max()), "rows_apart_share": row_share,
+           "rows_apart_max_f64": float(apart_64.max()), "rows_apart_share_f64": row_share_64,
+           "completed_rows_card_f64": len(done_d64),
+           "rows_apart_max_card_f64": float(apart_d64.max()),
+           "rows_apart_share_card_f64": row_share_d64,
+           "kept_apart": len(kept_d ^ kept_c), "ties": int(tie.sum()),
+           "dropped": see.last_stats["dropped"]}
+    if max(iso_apart) > SEE_ISO_SLACK or row_share > SEE_ROW_SHARE or stray \
+            or abs(len(done_d) - n) > SEE_ROW_SLACK \
+            or (path == "det" and in_car < WORKFLOW_IN_CAR):
+        raise AssertionError(f"SEE {path} frame {idx} on the card off the CPU path: {res}")
+    return res
+
+
+def kitti_workflow(dev, card) -> dict:
+    """Phase 20: the KITTI SEE-VCN workflow through the port's CLIs on a raw
+    tree of WORKFLOW_FRAMES frames of WORKFLOW_POINTS points: create_infos;
+    generate_masks with the seeded Mask R-CNN at 384 x 1280 (jax:<ckpt>,
+    images/s); a mask file from the cars' projected boxes; run_see's DET
+    path at KIT-DET_VCN-VC's settings (K1 counted, a second run that skips
+    every frame, the GT path), the native IO route asserted; one frame of
+    each path card vs CPU; train_detector at SECOND-IoU's flagship widths on
+    the completed split (batch 4, one epoch, then a resume for a second,
+    rotation to one checkpoint) and test_detector on DATA_CONFIG_TAR."""
+    from seevcn_torch.cli import create_infos as CI
+    from seevcn_torch.cli import generate_masks as GM
+    from seevcn_torch.cli import run_see as RS
+    from seevcn_torch.cli import test_detector as TD
+    from seevcn_torch.cli import train_detector as TR
+    from seevcn_torch.data.kitti.see_adapter import KittiObjects
+    from seevcn_torch.see.pipeline import SEEVCN
+    from seevcn_torch.utils import native_io as NIO
+    from seevcn_torch.utils.config import cfg_from_yaml_file
+
+    parts, res = {}, {}
+    on = ["--device", dev.type]
+    t_phase = t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="kitti_workflow_") as root:
+        # (a) the raw tree: velodyne, calib, image_2, label_2, ImageSets
+        infos = write_kitti_split(root, WORKFLOW_FRAMES, seed=20, n_points=WORKFLOW_POINTS,
+                                  n_cars=WORKFLOW_CARS, labels=True, occlude=True)
+        for name in ("kitti_infos_train.pkl", "kitti_infos_val.pkl", "kitti_dbinfos_train.pkl"):
+            os.remove(os.path.join(root, name))
+        shutil.rmtree(os.path.join(root, "gt_database"))
+        parts["raw_tree"], t0 = time.time() - t0, time.time()
+
+        # (b) create_infos, held against the writer's annos
+        paths = CI.main(["--dataset", "kitti", "--root", root, "--workers", "4"])
+        with open(paths["val"], "rb") as f:
+            made = pickle.load(f)
+        # the boxes come back from the labels' 9 digits (about 2e-6 m off), so
+        # a point on a face may fall on the other side: NUM_POINTS_SLACK a box
+        box_err = max(float(np.abs(m["annos"]["gt_boxes_lidar"]
+                                   - i["annos"]["gt_boxes_lidar"]).max())
+                      for m, i in zip(made, infos))
+        count_err = max(int(np.abs(m["annos"]["num_points_in_gt"]
+                                   - i["annos"]["num_points_in_gt"]).max())
+                        for m, i in zip(made, infos))
+        if len(made) != len(infos) or box_err > 1e-5 or count_err > NUM_POINTS_SLACK or any(
+                list(m["annos"]["name"]) != list(i["annos"]["name"]) for m, i in zip(made, infos)):
+            raise AssertionError(f"create_infos off the written annos: boxes {box_err} m, "
+                                 f"num_points_in_gt {count_err}")
+        res["create_infos"] = {"box_err_m": box_err, "num_points_in_gt_err": count_err,
+                               "boxes": sum(len(m["annos"]["name"]) for m in made)}
+        parts["create_infos"], t0 = time.time() - t0, time.time()
+
+        # (c) generate_masks with the seeded Mask R-CNN on the camera images
+        seg_cfg = SM.Seg2DConfig(image_size=IMAGE_SIZE)
+        ckpt = os.path.join(root, "seg2d.ckpt")
+        save_seg2d_checkpoint(ckpt, init_seg2d(SM.MaskRCNN(seg_cfg),
+                                               torch.Generator().manual_seed(0)), seg_cfg)
+        masks = GM.main(["--image_dir", os.path.join(root, "training", "image_2"),
+                         "--out", os.path.join(root, "masks_model.json"),
+                         "--backend", f"jax:{ckpt}", "--score_thresh", str(MASK_SCORE_THRESH)]
+                        + on)
+        with open(masks["out"]) as f:
+            coco = json.load(f)
+        n_polys = sum(len(a["segmentation"]) for a in coco["annotations"])
+        if not coco["annotations"] or n_polys < 1:
+            raise AssertionError("generate_masks wrote no polygon from the model's masks")
+        res["generate_masks"] = {"images": masks["images"], "detections": masks["detections"],
+                                 "annotations": len(coco["annotations"]), "polygons": n_polys,
+                                 "s": masks["s"], "images_per_s": masks["images"] / masks["s"]}
+        parts["generate_masks"], t0 = time.time() - t0, time.time()
+
+        # (d) the masks SEE reads: the hull of each car's own projected points
+        GM.detections_to_coco(car_hull_detections(root, infos),
+                              os.path.join(root, "masks_image_2.json"))
+        # (e) run_see's DET path, K1 counted, then a resumed run, then the GT path
+        vcn_path = os.path.join(root, "VCN_VC.pth")
+        torch.save({"base_model": seeded_vcn_state_dict(0)}, vcn_path)
+        see_cfg = {"DATA": {"DATASET": "kitti", "DATA_DIR": root,
+                            "INFO_PATHS": ["kitti_infos_val.pkl"],
+                            "MASK_PATHS": {"image_2": "masks_image_2.json"},
+                            "CAMERA_CHANNELS": ["image_2"], "TAG": "workflow",
+                            "CLASSES": ["Car"], "SHRINK_MASK_PERCENTAGE": WORKFLOW_SHRINK},
+                   **KIT_DET_VCN_VC}
+        see_cfg["SURFACE_COMPLETION"] = {**see_cfg["SURFACE_COMPLETION"], "VCN": {
+            **see_cfg["SURFACE_COMPLETION"]["VCN"], "CKPT_PATH": vcn_path}}
+        see_yaml = write_yaml(os.path.join(root, "KIT-DET_VCN-VC.yaml"), see_cfg)
+        K.reset_launches()
+        det = RS.main(["--cfg_file", see_yaml, "--path", "det"] + on)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = K.LAUNCHES["min_sqdist_pruned"]
+        frames = det["frames"]
+        if not NIO.native_available():
+            raise AssertionError("native_io took the numpy route: the library did not build")
+        if len(frames) != WORKFLOW_FRAMES or launches < WORKFLOW_FRAMES:
+            raise AssertionError(f"run_see: {len(frames)} frames written, K1 launched "
+                                 f"{launches} times")
+        if any(r["completed"] < 1 or r["dropped"] < WORKFLOW_MIN_DROPPED * r["completed"]
+               for r in frames.values()):
+            raise AssertionError(f"run_see did no real work in a frame: {frames}")
+        again = RS.main(["--cfg_file", see_yaml, "--path", "det"] + on)
+        if again["frames"]:
+            raise AssertionError("run_see's second run did not skip every frame")
+        gt = RS.main(["--cfg_file", see_yaml, "--path", "gt", "--save_dir",
+                      os.path.join(root, "vcn_gt")] + on)
+        if len(gt["frames"]) != WORKFLOW_FRAMES or any(
+                r["completed"] < 1 for r in gt["frames"].values()):
+            raise AssertionError(f"run_see --path gt: {gt['frames']}")
+        res["run_see"] = {"det": {i: {k: r[k] for k in ("s", "isolated", "completed",
+                                                        "dropped")} for i, r in frames.items()},
+                          "gt": {i: {k: r[k] for k in ("s", "isolated", "completed",
+                                                       "dropped")}
+                                 for i, r in gt["frames"].items()},
+                          "k1_launches": launches, "native_io": NIO.native_available()}
+        parts["run_see"], t0 = time.time() - t0, time.time()
+
+        # (f) one frame of each path on the card against the CPU path
+        cfg = cfg_from_yaml_file(see_yaml)
+        data_obj = KittiObjects(cfg.DATA)
+        card_see = SEEVCN(cfg, data_obj=data_obj, device=dev)
+        cpu_see = SEEVCN(cfg, data_obj=data_obj, device="cpu")
+        res["card_vs_cpu"] = {p: hold_see_frame_against_cpu(card_see, cpu_see, 0, p)
+                              for p in ("det", "gt")}
+        parts["card_vs_cpu"], t0 = time.time() - t0, time.time()
+
+        # (g) train_detector on the completed split, then a resume
+        det_cfg = DC.flagship_detector_cfg()
+        dc = kitti_cfg(root, DATASET="SCKittiDataset", PROCESSED_DATA_TAG="vcn_workflow",
+                       INFO_PATH={"train": [os.path.relpath(det["infos"], root)],
+                                  "test": [os.path.relpath(det["infos"], root)]},
+                       POINT_FEATURE_ENCODING={"used_feature_list": ["x", "y", "z"],
+                                               "src_feature_list": ["x", "y", "z"]},
+                       DATA_AUGMENTOR=KITTI_AUGMENTOR)
+        dc["DATA_PROCESSOR"] = list(dc.DATA_PROCESSOR) + list(det_cfg.DATA_CONFIG.DATA_PROCESSOR)
+        det_cfg["DATA_CONFIG"] = dc
+        det_cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 4
+        det_yaml = write_yaml(os.path.join(root, "second_iou_sc_kitti.yaml"), det_cfg)
+        out_dir = os.path.join(root, "output")
+        common = ["--cfg_file", det_yaml, "--output_dir", out_dir, "--max_ckpt_save_num", "1",
+                  "--fix_random_seed"] + on
+        first = TR.main(common + ["--epochs", "1"])
+        after_first = {k: v.detach().cpu().clone()
+                       for k, v in first["state"].model.state_dict().items()}
+        second = TR.main(common + ["--epochs", "2"])
+        resumed = second["resumed"]
+        if resumed is None or resumed["epoch"] != 0 or resumed["step"] != first["state"].step \
+                or any(not torch.equal(resumed["state_dict"][k], v)
+                       for k, v in after_first.items()):
+            raise AssertionError("train_detector's resume did not read epoch 0's weights "
+                                 "bit for bit")
+        names = [os.path.basename(c) for c in second["ckpts"]]
+        if names != ["checkpoint_epoch_1.pth"] or not all(
+                math.isfinite(v) for v in first["losses"] + second["losses"]):
+            raise AssertionError(f"train_detector: checkpoints {names}, losses "
+                                 f"{first['losses'] + second['losses']}")
+        res["train_detector"] = {"losses": first["losses"] + second["losses"],
+                                 "steps": second["state"].step,
+                                 "step_s": first["steps_s"] + second["steps_s"],
+                                 "ckpts": names, "resumed_step": resumed["step"]}
+        parts["train_detector"], t0 = time.time() - t0, time.time()
+
+        # (h) test_detector on the newest checkpoint with DATA_CONFIG_TAR
+        tar_yaml = write_yaml(os.path.join(root, "second_iou_sc_kitti_tar.yaml"), {
+            **plain_tree(det_cfg), "DATA_CONFIG_TAR": {**plain_tree(kitti_cfg(root)),
+                                                       "CLASS_NAMES": ["Car"]}})
+        report, ap, recall = TD.main(["--cfg_file", tar_yaml, "--ckpt", second["ckpts"][-1],
+                                      "--batch_size", "4"] + on)
+        n_gt = sum(len(i["annos"]["name"]) for i in infos)
+        if report is None or "Car AP_R40" not in report or recall["num_gt"] != n_gt:
+            raise AssertionError(f"test_detector: num_gt {recall['num_gt']} of {n_gt}; "
+                                 f"report {report}")
+        res["test_detector"] = {"ap_keys": sorted(f"{c}/{m}" for c in ap for m in ap[c]),
+                                "recall": recall}
+        parts["test_detector"] = time.time() - t0
+    res["part_s"], res["phase_s"] = parts, time.time() - t_phase
+    gm, rs = res["generate_masks"], res["run_see"]
+    print(f"generate_masks (seeded Mask R-CNN at {IMAGE_SIZE[0]}x{IMAGE_SIZE[1]}, score >= "
+          f"{MASK_SCORE_THRESH}): {gm['images']} images of 375x1242 in {gm['s']:.2f} s = "
+          f"{gm['images_per_s']:.2f} images/s, detections a image {gm['detections']}, "
+          f"{gm['annotations']} annotations, {gm['polygons']} polygons on {card}")
+    print("run_see --path det (KIT-DET_VCN-VC, VCN_VC at 1,024 points) by frame: " + "; ".join(
+        f"{i}: {r['s']:.3f} s, {r['isolated']} isolated, {r['completed']} completed, "
+        f"{r['dropped']} scan points dropped" for i, r in rs["det"].items())
+        + f"; K1 launches {rs['k1_launches']}; native IO route {rs['native_io']}; --path gt "
+        "by frame: " + "; ".join(f"{i}: {r['s']:.3f} s, {r['completed']} completed, "
+                                 f"{r['dropped']} dropped" for i, r in rs["gt"].items()))
+    print("SEE frame 0, card vs CPU stage by stage: " + "; ".join(
+        f"{p}: {r['instances']} instances, points apart <= {r['iso_apart_max']} an instance, "
+        f"{r['isolated_points']} isolated points, share on a car {r['isolated_in_car']:.4f}; "
+        f"{r['completed_rows']} / {r['completed_rows_card']} completed rows on the CPU / the card "
+        f"(max {r['rows_apart_max']:.3g} m apart, share past {SEE_ROW_TOL} m "
+        f"{r['rows_apart_share']:.6f}); the CPU's f64 witness {r['completed_rows_f64']} rows "
+        f"(max {r['rows_apart_max_f64']:.3g} m from the CPU's f32, share past {SEE_ROW_TOL} m "
+        f"{r['rows_apart_share_f64']:.6f}), the card's f64 {r['completed_rows_card_f64']} rows "
+        f"(max {r['rows_apart_max_card_f64']:.3g} m from the CPU's f64, share past "
+        f"{SEE_ROW_TOL} m {r['rows_apart_share_card_f64']:.6f}); kept points apart "
+        f"{r['kept_apart']} (ties "
+        f"{r['ties']})" for p, r in res["card_vs_cpu"].items()))
+    td = res["train_detector"]
+    print(f"train_detector (SECOND-IoU flagship widths, batch 4, SCKittiDataset with the GT "
+          f"paste): losses {', '.join(f'{v:.4f}' for v in td['losses'])}, step s "
+          f"{', '.join(f'{v:.3f}' for v in td['step_s'])}, resumed at step "
+          f"{td['resumed_step']} bit for bit, checkpoints kept {td['ckpts']}; test_detector on "
+          f"DATA_CONFIG_TAR: recall {res['test_detector']['recall']}, AP keys "
+          f"{res['test_detector']['ap_keys']}")
+    print("phase 20 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5336,6 +5819,12 @@ def main() -> int:
     print(f"phase 19 (CaDDN, KITTI data) ran {caddn['phase_s']:.0f} s; chip_smoke ran "
           f"{time.time() - t_start:.0f} s after start-up")
 
+    # --- 20. the KITTI SEE-VCN workflow through the CLIs ------------------------------
+    workflow = kitti_workflow(dev, card)
+    kernels[0]["see_cli_launches"] = workflow["run_see"]["k1_launches"]
+    print(f"phase 20 (KITTI workflow) ran {workflow['phase_s']:.0f} s; chip_smoke ran "
+          f"{time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -5363,7 +5852,7 @@ def main() -> int:
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "inverse_conv_vs_cpu", "part_s", "phase_s")},
         "caddn": {**caddn["caddn"], **{k: caddn[k] for k in (
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "part_s", "phase_s")}},
-        "kitti_data": caddn["kitti_data"],
+        "kitti_data": caddn["kitti_data"], "kitti_workflow": workflow,
         "card": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

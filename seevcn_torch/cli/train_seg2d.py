@@ -2,7 +2,9 @@
 seevcn_tpu/cli/train_seg2d.py).
 
 No pretrained HTC can be fetched, so the recipe trains from scratch on
-procedural synthetic driving scenes (models/seg2d/synthetic.py): AdamW
+procedural synthetic driving scenes (models/seg2d/synthetic.py), or on a
+COCO-format directory (``--coco_dir``: annotations.json and its PNGs, e.g.
+what generate_masks writes): AdamW
 with a warm-up and cosine decay, gradients clipped at a global norm of 10,
 f16 images and bit-packed masks on the wire, held-out mask and box AP every
 ``eval_every`` steps with a checkpoint at each eval point and at the end.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 
@@ -31,8 +34,8 @@ def parse_args(argv=None):
     p.add_argument("--size", choices=["tiny", "small", "base"], default="base",
                    help="backbone scale")
     p.add_argument("--coco_dir", default=None,
-                   help="COCO-format dataset root; not ported yet (the default "
-                        "is synthetic scenes)")
+                   help="COCO-format dataset root with annotations.json and PNG "
+                        "images (default: synthetic scenes)")
     p.add_argument("--eval_every", type=int, default=500)
     p.add_argument("--eval_scenes", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
@@ -84,6 +87,58 @@ def synthetic_stream(cfg, batch, seed, hard=False):
     rng = np.random.RandomState(seed)
     while True:
         yield synth_batch(rng, cfg.image_size, batch, max_gt=cfg.max_gt, hard=hard)
+
+
+def coco_stream(cfg, batch, root, seed):
+    """Endless batches from a COCO-format directory: <root>/annotations.json
+    with images [{file_name, id}] and annotations [{image_id, bbox xywh,
+    category_id, polygon segmentation}], the images with annotations drawn
+    by RandomState(seed). Each image (a PNG, ``data/png.py``) is resized to
+    cfg.image_size with cv2's uint8 INTER_LINEAR (``ops/resize``) and
+    normalised; each mask is rasterized at the image's size
+    (``see/masks.polygons_to_mask``), resized in f32 and thresholded at 0.5;
+    boxes scale with the image. -> (images, boxes x1y1x2y2, labels, valid,
+    masks) numpy, as ``synthetic_stream``'s."""
+    import numpy as np
+    import torch
+
+    from ..data.png import read_png
+    from ..models.seg2d.backend import IMAGENET_MEAN, IMAGENET_STD
+    from ..ops.resize import resize_linear
+    from ..see.masks import polygons_to_mask
+
+    with open(os.path.join(root, "annotations.json")) as f:
+        coco = json.load(f)
+    by_img = {}
+    for a in coco["annotations"]:
+        by_img.setdefault(a["image_id"], []).append(a)
+    images = [im for im in coco["images"] if by_img.get(im["id"])]
+    cat_ids = sorted({a["category_id"] for a in coco["annotations"]})
+    cat_to_label = {c: i for i, c in enumerate(cat_ids)}
+    h, w = cfg.image_size
+    rng = np.random.RandomState(seed)
+    while True:
+        idxs = rng.randint(0, len(images), batch)
+        imgs = np.zeros((batch, h, w, 3), np.float32)
+        gtb = np.zeros((batch, cfg.max_gt, 4), np.float32)
+        gtl = np.zeros((batch, cfg.max_gt), np.int32)
+        gtv = np.zeros((batch, cfg.max_gt), bool)
+        gtm = np.zeros((batch, cfg.max_gt, h, w), np.float32)
+        for bi, ii in enumerate(idxs):
+            im = images[ii]
+            raw = read_png(os.path.join(root, im["file_name"]))[..., :3]
+            h0, w0 = raw.shape[:2]
+            small = resize_linear(torch.from_numpy(np.ascontiguousarray(raw)), (h, w)).numpy()
+            imgs[bi] = (small.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+            sx, sy = w / w0, h / h0
+            for k, a in enumerate(by_img[im["id"]][:cfg.max_gt]):
+                x, y, bw, bh = a["bbox"]
+                gtb[bi, k] = [x * sx, y * sy, (x + bw) * sx, (y + bh) * sy]
+                gtl[bi, k] = cat_to_label[a["category_id"]]
+                gtv[bi, k] = True
+                m = polygons_to_mask(a["segmentation"], h0, w0).astype(np.float32)
+                gtm[bi, k] = resize_linear(torch.from_numpy(m), (h, w)).numpy() >= 0.5
+        yield imgs, gtb, gtl, gtv, gtm
 
 
 def pack(batch):
@@ -162,10 +217,6 @@ def train(args=None, cfg=None, stream=None, quiet=False):
     from ..models.seg2d.maskrcnn import MaskRCNN
 
     args = args or parse_args([])
-    if args.coco_dir:
-        raise NotImplementedError("--coco_dir is not ported yet (ROADMAP queue 1, "
-                                  "item 6: it needs see/masks.py's polygon "
-                                  "rasterizer and an image reader)")
     cfg = cfg or build_cfg(args)
     dev = resolve_device(args.device)
     model = init_seg2d(MaskRCNN(cfg), torch.Generator().manual_seed(0)).to(dev).train()
@@ -173,7 +224,9 @@ def train(args=None, cfg=None, stream=None, quiet=False):
                                 args.warmup_steps, max(args.steps, args.warmup_steps + 1))
     state = TrainState(model, opt)
     step_fn = make_seg2d_train_step(packed_masks=cfg.image_size[1] % 8 == 0)
-    if stream is None:
+    if stream is None and args.coco_dir:
+        stream = coco_stream(cfg, args.batch_size, args.coco_dir, args.seed)
+    elif stream is None:
         stream = synthetic_stream(cfg, args.batch_size, args.seed,
                                   hard=getattr(args, "hard", False))
 

@@ -217,11 +217,15 @@ class KittiDataset(DatasetTemplate):
 
     def evaluation(self, det_annos, class_names, device="cuda", **kw):
         """-> (report, {class: {metric: {difficulty: AP_R40}}}) against the
-        infos' annotations (with MIN_POINTS_OF_GT, the gts with fewer
-        points dropped), or (None, {}) without annotations."""
+        annotations of the frames predicted (each prediction's frame_id; with
+        MIN_POINTS_OF_GT, the gts with fewer points dropped), or (None, {})
+        without annotations. The JAX package scores every info's annotations,
+        so it fails when fewer frames were predicted (``--max_frames``)."""
         if not self.infos or "annos" not in self.infos[0]:
             return None, {}
-        gt_annos = [copy.deepcopy(info["annos"]) for info in self.infos]
+        by_id = {info["point_cloud"]["lidar_idx"]: info for info in self.infos}
+        infos = [by_id[d["frame_id"]] for d in det_annos]
+        gt_annos = [copy.deepcopy(info["annos"]) for info in infos]
         if self.min_points_of_gt:
             for annos in gt_annos:
                 keep = annos.get("num_points_in_gt",

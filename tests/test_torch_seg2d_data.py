@@ -355,13 +355,51 @@ def test_cli_defaults_are_the_references():
                                                     4, 1)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--coco_dir", "data/coco"], "ROADMAP queue 1, item 6"),
-])
-def test_cli_unported_options_raise(flags, match):
-    args = CLI.parse_args(["--device", "cpu", "--size", "tiny", "--steps", "1"] + flags)
-    with pytest.raises(NotImplementedError, match=match):
-        CLI.train(args, quiet=True)
+def _coco_dir(root):
+    """A COCO-format directory as generate_masks writes it: three PNGs of
+    70 x 90 (the port's writer) and annotations.json from
+    detections_to_coco, the masks discs and a box, categories 3 and 1."""
+    from seevcn_torch.cli.generate_masks import detections_to_coco
+    from seevcn_torch.data.png import write_png
+
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[:70, :90]
+    per_image = []
+    for i in range(3):
+        write_png(os.path.join(root, f"{i:06d}.png"),
+                  rng.randint(0, 256, (70, 90, 3)).astype(np.uint8))
+        dets = []
+        for k in range(1 + i):
+            cy, cx, r = rng.randint(10, 60), rng.randint(10, 80), rng.randint(4, 14)
+            mask = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            dets.append({"mask": mask, "bbox": [cx - r, cy - r, 2 * r, 2 * r],
+                         "score": 0.9, "category_id": 3 if k % 2 == 0 else 1})
+        box = np.zeros((70, 90), bool)
+        box[5:20, 60:85] = True
+        dets.append({"mask": box, "bbox": [60.0, 5.0, 25.0, 15.0], "score": 0.8})
+        per_image.append((f"{i:06d}.png", (70, 90), dets))
+    detections_to_coco(per_image, os.path.join(root, "annotations.json"))
+
+
+def test_cli_coco_dir_matches_jax(tmp_path):
+    """--coco_dir: the port's coco_stream batches equal JAX's on a directory
+    that generate_masks' detections_to_coco wrote (images through the PNG
+    reader and cv2's uint8 INTER_LINEAR, masks through the rasterizer and
+    the f32 resize), then the recipe trains one tiny step on them."""
+    root = str(tmp_path)
+    _coco_dir(root)
+    args = CLI.parse_args(["--device", "cpu", "--size", "tiny", "--image_size", "96", "128",
+                           "--steps", "1", "--batch_size", "2", "--eval_every", "0",
+                           "--out", "", "--coco_dir", root])
+    cfg = CLI.build_cfg(args)
+    got, ref = CLI.coco_stream(cfg, 2, root, 3), JCLI.coco_stream(cfg, 2, root, 3)
+    for _ in range(3):
+        for a, b in zip(next(got), next(ref)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    state, model, _ = CLI.train(args, quiet=True)
+    assert state.step == 1
+    assert all(torch.isfinite(p).all() for p in model.parameters())
 
 
 @pytest.mark.parametrize("flags", [["--cascade", "3"], ["--semantic"], ["--mask_info_flow"]],
