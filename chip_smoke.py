@@ -5170,7 +5170,12 @@ def hold_see_frame_against_cpu(see, cpu, idx: int, path: str) -> dict:
     in_car = float(GB.points_in_boxes(torch.from_numpy(iso[:, :3].copy()),
                                       torch.from_numpy(grown)).numpy().any(0).mean())
     done_d, done_c = comp_d["all_instances"], comp_c["all_instances"]
-    done_64, done_d64 = completed_f64(cpu, inst_c, labels), completed_f64(see, inst_c, labels)
+    completed = inst_c
+    if path == "det":                  # what complete_det_pts completes: merged, filtered
+        if len(cpu.data_obj.camera_channels) > 1:
+            completed = cpu.merge_multi_camera_detections(inst_c)
+        completed = [x for x in completed if x.shape[0] > cpu.min_lidar_pts]
+    done_64, done_d64 = (completed_f64(s_, completed, labels) for s_ in (cpu, see))
     apart = rows_apart(done_d, done_c, see.device)
     apart_64 = rows_apart(done_c, done_64, see.device)
     apart_d64 = rows_apart(done_d64, done_64, see.device)
@@ -5409,6 +5414,619 @@ def kitti_workflow(dev, card) -> dict:
           f"DATA_CONFIG_TAR: recall {res['test_detector']['recall']}, AP keys "
           f"{res['test_detector']['ap_keys']}")
     print("phase 20 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return res
+
+
+# --- phase 21: the other domains: Waymo -> nuScenes, Lyft and Baraja -----------------
+
+#: phase 21's trees, DOMAIN_FRAMES frames each of make_scene's layout (DOMAIN_CARS
+#: cars, the background the cars hide left out): Waymo's frame of its five lidars
+#: (150,000 points), a nuScenes / Lyft 32-beam sweep (34,700 points; 2 sweeps a
+#: sample), and a Baraja Spectrum-Scan frame (60,000 points: the repo holds no
+#: published count for it)
+DOMAIN_FRAMES, DOMAIN_CARS = 4, 8
+WAYMO_POINTS, NUS_POINTS, BARAJA_POINTS = 150_000, 34_700, 60_000
+#: nuScenes' six cameras (900 x 1600, CAM_FRONT's intrinsics) by yaw from the
+#: ego's heading, in degrees; the lidar's mount on the ego
+NUS_IMAGE = (900, 1600)
+NUS_K = np.array([[1266.0, 0.0, 816.0], [0.0, 1266.0, 491.0], [0.0, 0.0, 1.0]])
+NUS_CAMERAS = (("CAM_FRONT", 0.0), ("CAM_FRONT_RIGHT", -55.0), ("CAM_BACK_RIGHT", -110.0),
+               ("CAM_BACK", 180.0), ("CAM_BACK_LEFT", 110.0), ("CAM_FRONT_LEFT", 55.0))
+NUS_LIDAR_T = (0.94, 0.0, 1.84)
+#: Waymo's five cameras: yaw in degrees and image (H, W), a 2,000-pixel focal
+#: length, all at the lidar's origin
+WAYMO_CAMERAS = (("FRONT", 0.0, (1280, 1920)), ("FRONT_LEFT", 45.0, (1280, 1920)),
+                 ("FRONT_RIGHT", -45.0, (1280, 1920)), ("SIDE_LEFT", 90.0, (886, 1920)),
+                 ("SIDE_RIGHT", -90.0, (886, 1920)))
+WAYMO_FOCAL = 2000.0
+WAYMO_SEQ = "segment-0000000000000000021_000_000_000_000"
+#: the Baraja tree's front camera: json calibration, equidistant fisheye
+BARAJA_IMAGE = (1080, 1920)
+BARAJA_CALIB = {"intrinsic": [[900.0, 0.0, 960.0], [0.0, 900.0, 540.0], [0.0, 0.0, 1.0]],
+                "extrinsic": [[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, 0.0],
+                              [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]],
+                "distcoeff": [0.02, -0.01, 0.005, -0.002]}
+#: the projected points of a car a camera must hold for its mask
+HULL_MIN_POINTS = 10
+
+
+def quat_from_rotmat(r: np.ndarray) -> list:
+    """(3, 3) rotation -> nuScenes' (w, x, y, z) quaternion (Shepperd's
+    method: from the largest of the four squares)."""
+    t = np.trace(r)
+    sq = [1 + t, 1 + r[0, 0] - r[1, 1] - r[2, 2], 1 - r[0, 0] + r[1, 1] - r[2, 2],
+          1 - r[0, 0] - r[1, 1] + r[2, 2]]
+    k = int(np.argmax(sq))
+    s = 2 * np.sqrt(sq[k])
+    q = {0: (s / 4, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s, (r[1, 0] - r[0, 1]) / s),
+         1: ((r[2, 1] - r[1, 2]) / s, s / 4, (r[0, 1] + r[1, 0]) / s, (r[0, 2] + r[2, 0]) / s),
+         2: ((r[0, 2] - r[2, 0]) / s, (r[0, 1] + r[1, 0]) / s, s / 4, (r[1, 2] + r[2, 1]) / s),
+         3: ((r[1, 0] - r[0, 1]) / s, (r[0, 2] + r[2, 0]) / s, (r[1, 2] + r[2, 1]) / s, s / 4)}[k]
+    return [float(v) for v in q]
+
+
+def camera_rotation(yaw_deg: float) -> np.ndarray:
+    """The rotation of a camera looking along ``yaw_deg`` in the horizontal
+    plane: its columns are the camera's x (right), y (down) and z (forward)
+    axes in the frame it is mounted in."""
+    a = np.deg2rad(yaw_deg)
+    return np.array([[np.sin(a), 0.0, np.cos(a)], [-np.cos(a), 0.0, np.sin(a)],
+                     [0.0, -1.0, 0.0]])
+
+
+def hull_detection(uv: np.ndarray, image_shape, category_id: int = 2):
+    """A detection outlining one car's projected points ``uv`` (N, 2), as a
+    segmentation model would: the convex hull of those in the image as its
+    COCO polygon, its extent as its box, score 0.9; None with fewer than
+    HULL_MIN_POINTS in the image."""
+    h, w = image_shape
+    uv = uv[(uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)]
+    if len(uv) < HULL_MIN_POINTS:
+        return None
+    hull = convex_hull(np.round(uv))
+    if len(hull) < 3:
+        return None
+    (x0, y0), (x1, y1) = hull.min(0), hull.max(0)
+    return {"segmentation": [hull.ravel().tolist()],
+            "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+            "score": 0.9, "category_id": category_id}
+
+
+def cars_inside(points: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """(N, 3+), (M, 7+) -> (M, N) bool: each box's points."""
+    from seevcn_torch.geom import boxes as GB
+
+    return GB.points_in_boxes(
+        torch.from_numpy(np.ascontiguousarray(points[:, :3], np.float32)),
+        torch.from_numpy(np.ascontiguousarray(boxes[:, :7], np.float32))).numpy()
+
+
+def write_nuscenes_tree(root: str, n_samples: int, seed: int = 0, n_points: int = NUS_POINTS,
+                        n_cars: int = DOMAIN_CARS, layout: str = "nuscenes",
+                        cameras=NUS_CAMERAS) -> list:
+    """A raw tree of the nuScenes release (``layout="nuscenes"``: tables under
+    ``<root>/v1.0-trainval``, ``samples/`` and ``sweeps/``) or of Lyft's
+    (``"lyft"``: tables under ``<root>/trainval/data``, files under
+    ``trainval/``, ``ImageSets/train.txt``, no point counts in the
+    annotations) with one scene of ``n_samples`` samples. A sample is
+    ``make_scene(2 * n_points, n_cars, occlude=True)`` split into its LIDAR_TOP
+    keyframe and the sweep 50 ms before it (the ego 0.5 m behind; 5 floats a
+    point), each car a car annotation in the global frame, and ``cameras``
+    (name, yaw) of NUS_IMAGE with NUS_K at the lidar's position. With
+    the nuScenes layout, ``masks/<camera>.json`` holds a detection a car and
+    camera from the hull of its projected points (``hull_detection``), so a
+    car on the edge of two cameras is in both. -> a sample each: {"token",
+    "boxes" (n_cars, 7) in the keyframe's lidar frame, "num_points" (the
+    keyframe's points in each box)}."""
+    from seevcn_torch.cli.generate_masks import detections_to_coco
+
+    lyft = layout == "lyft"
+    base = os.path.join(root, "trainval") if lyft else root     # the files' root
+    tdir = os.path.join(base, "data") if lyft else os.path.join(root, "v1.0-trainval")
+    os.makedirs(tdir, exist_ok=True)
+    lidar_t = np.asarray(NUS_LIDAR_T)
+    sensors = [{"token": "sens_lidar", "channel": "LIDAR_TOP", "modality": "lidar"}]
+    cal = [{"token": "cs_lidar", "sensor_token": "sens_lidar", "translation": list(NUS_LIDAR_T),
+            "rotation": [1.0, 0.0, 0.0, 0.0], "camera_intrinsic": []}]
+    mounts = {}
+    for ch, yaw in cameras:
+        # at the lidar's position: make_scene leaves out what the cars hide
+        # from the lidar, which is then what they hide from each camera
+        mounts[ch] = (camera_rotation(yaw), lidar_t.copy())
+        sensors.append({"token": f"sens_{ch}", "channel": ch, "modality": "camera"})
+        cal.append({"token": f"cs_{ch}", "sensor_token": f"sens_{ch}",
+                    "translation": mounts[ch][1].tolist(),
+                    "rotation": quat_from_rotmat(mounts[ch][0]),
+                    "camera_intrinsic": NUS_K.tolist()})
+    scene_name = "host-a101-lidar0-1" if lyft else "scene-0001"
+    tables = {"scene": [{"token": "scene0", "name": scene_name, "first_sample_token": "sample00",
+                         "nbr_samples": n_samples}],
+              "sample": [], "sample_data": [], "ego_pose": [], "sample_annotation": [],
+              "instance": [], "category": [{"token": "cat_car",
+                                            "name": "car" if lyft else "vehicle.car"}],
+              "sensor": sensors, "calibrated_sensor": cal}
+    per_camera = {ch: [] for ch, _ in cameras}
+    out = []
+    t0 = 1_533_000_000_000_000
+    for i in range(n_samples):
+        tok = f"sample{i:02d}"
+        rng = np.random.RandomState(seed * 1000 + i)
+        scene = make_scene(seed * 1000 + i, 2 * n_points, n_cars, occlude=True)
+        key, boxes = scene["points"][:n_points], scene["gt_boxes"][:, :7].astype(np.float64)
+        ts, ego = t0 + i * 500_000, np.array([50.0 * i, 0.0, 0.0])
+        tables["sample"].append({"token": tok, "timestamp": ts, "scene_token": "scene0",
+                                 "prev": f"sample{i - 1:02d}" if i else "",
+                                 "next": f"sample{i + 1:02d}" if i < n_samples - 1 else ""})
+        # the sweep 50 ms earlier holds the other half of the points, in its
+        # own lidar frame (the ego 0.5 m behind: a static point sits 0.5 m
+        # farther ahead), then the keyframe
+        for name, pts, dt, shift in (("prev", scene["points"][n_points:] + [0.5, 0, 0],
+                                      -50_000, -0.5), ("key", key, 0, 0.0)):
+            sub = "lidar" if lyft else ("samples" if name == "key" else "sweeps") + "/LIDAR_TOP"
+            fn = f"{sub}/{tok}_{name}.bin" if lyft else f"{sub}/{tok}_{name}.pcd.bin"
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+            raw = np.zeros((len(pts), 5), np.float32)
+            raw[:, :3], raw[:, 3] = pts, rng.randint(0, 256, len(pts))
+            raw.tofile(os.path.join(base, fn))
+            sd = f"sd_{tok}_{name}"
+            tables["ego_pose"].append({"token": f"ego_{sd}", "timestamp": ts + dt,
+                                       "translation": (ego + [shift, 0, 0]).tolist(),
+                                       "rotation": [1.0, 0.0, 0.0, 0.0]})
+            tables["sample_data"].append({
+                "token": sd, "sample_token": tok, "ego_pose_token": f"ego_{sd}",
+                "calibrated_sensor_token": "cs_lidar", "timestamp": ts + dt,
+                "fileformat": "bin" if lyft else "pcd", "is_key_frame": name == "key",
+                "filename": fn, "prev": "" if name == "prev" else f"sd_{tok}_prev",
+                "next": f"sd_{tok}_key" if name == "prev" else ""})
+        for ch, _ in cameras:
+            sub = "images" if lyft else f"samples/{ch}"
+            fn = f"{sub}/{tok}_{ch}.jpeg" if lyft else f"{sub}/{tok}.jpg"
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+            with open(os.path.join(base, fn), "wb") as f:
+                f.write(b"\xff\xd8\xff\xe0")
+            tables["sample_data"].append({
+                "token": f"sd_{tok}_{ch}", "sample_token": tok,
+                "ego_pose_token": f"ego_sd_{tok}_key", "calibrated_sensor_token": f"cs_{ch}",
+                "timestamp": ts, "fileformat": "jpg", "is_key_frame": True, "filename": fn,
+                "width": NUS_IMAGE[1], "height": NUS_IMAGE[0], "prev": "", "next": ""})
+        inside = cars_inside(key, boxes)
+        for j, box in enumerate(boxes):
+            ann = {"token": f"ann_{tok}_{j}", "sample_token": tok,
+                   "instance_token": f"inst_{tok}_{j}",
+                   "translation": (ego + lidar_t + box[:3]).tolist(),
+                   "size": [box[4], box[3], box[5]],                       # w, l, h
+                   "rotation": [float(np.cos(box[6] / 2)), 0.0, 0.0, float(np.sin(box[6] / 2))],
+                   "prev": "", "next": "", "visibility_token": "4", "attribute_tokens": []}
+            if not lyft:
+                ann.update(num_lidar_pts=int(inside[j].sum()), num_radar_pts=0)
+            tables["sample_annotation"].append(ann)
+            tables["instance"].append({"token": f"inst_{tok}_{j}", "category_token": "cat_car",
+                                       "nbr_annotations": 1})
+        inside_all = cars_inside(scene["points"], boxes)
+        for ch, _ in ([] if lyft else cameras):
+            r, t = mounts[ch]
+            dets = []
+            for j in range(len(boxes)):
+                cam = (scene["points"][inside_all[j]] + lidar_t - t) @ r
+                front = cam[cam[:, 2] > 1.0]
+                uv = front[:, :2] / front[:, 2:] * NUS_K[[0, 1], [0, 1]] + NUS_K[[0, 1], 2]
+                d = hull_detection(uv, NUS_IMAGE)
+                if d is not None:
+                    dets.append(d)
+            per_camera[ch].append((tok, NUS_IMAGE, dets))
+        out.append({"token": tok, "boxes": boxes, "num_points": inside.sum(1)})
+    for name, rows in tables.items():
+        with open(os.path.join(tdir, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    if lyft:
+        os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+        with open(os.path.join(root, "ImageSets", "train.txt"), "w") as f:
+            f.write(scene_name + "\n")
+    else:
+        for ch, _ in cameras:
+            detections_to_coco(per_camera[ch], os.path.join(root, "masks", f"{ch}.json"))
+    return out
+
+
+def write_waymo_tree(root: str, n_frames: int, seed: int = 0, n_points: int = WAYMO_POINTS,
+                     n_cars: int = DOMAIN_CARS, seq: str = WAYMO_SEQ) -> list:
+    """A processed Waymo tree under ``root``, as the reference's preprocessing
+    leaves it (decoding the TFRecords needs the waymo_open_dataset SDK):
+    ``make_scene(n_points, n_cars, occlude=True)`` frames as 6-column points
+    (x y z intensity elongation, the no-label-zone flag -1) and Vehicle
+    labels, through ``process_single_sequence(frames=...)`` into
+    ``waymo_processed_data/<seq>/``; ``ImageSets/train.txt``; the five
+    cameras' precomputed projections
+    (``image_lidar_projections/{image_pc,fov_inds}/<camera>/<seq>_<idx:04d>.npy``)
+    and their masks (``image_lidar_projections/masks/<camera>.json``, the hull
+    of each car's projected points). -> the infos."""
+    from seevcn_torch.cli.generate_masks import detections_to_coco
+    from seevcn_torch.data.waymo_bootstrap import process_single_sequence
+
+    proj = os.path.join(root, "image_lidar_projections")
+    frames, per_camera = [], {c: [] for c, _, _ in WAYMO_CAMERAS}
+    for i in range(n_frames):
+        rng = np.random.RandomState(seed * 1000 + i)
+        scene = make_scene(seed * 1000 + i, n_points, n_cars, occlude=True)
+        pts, boxes = scene["points"], scene["gt_boxes"][:, :7]
+        feats = np.zeros((n_points, 6), np.float32)
+        feats[:, :3], feats[:, 3], feats[:, 4], feats[:, 5] = pts, rng.rand(n_points), \
+            rng.rand(n_points) * 0.1, -1.0
+        inside = cars_inside(pts, boxes)
+        frames.append({
+            "points": feats,
+            "labels": [{"name": "Vehicle", "box": boxes[j].tolist(),
+                        "difficulty": 1 if inside[j].sum() > 5 else 2, "tracking_difficulty": 1,
+                        "num_points_in_gt": int(inside[j].sum()), "obj_id": f"veh_{i}_{j}"}
+                       for j in range(len(boxes))],
+            "pose": np.eye(4, dtype=np.float32), "context_name": seq,
+            "timestamp_micros": 1_550_000_000_000_000 + i * 100_000,
+            "image_shapes": [shape for _, _, shape in WAYMO_CAMERAS],
+            "num_points_of_each_lidar": [n_points]})
+        stem = f"{seq}_{i:04d}"
+        for cam, yaw, (h, w) in WAYMO_CAMERAS:
+            c = pts.astype(np.float64) @ camera_rotation(yaw)
+            z = np.where(c[:, 2] > 0.5, c[:, 2], 1.0)
+            uv = np.stack([WAYMO_FOCAL * c[:, 0] / z + w / 2,
+                           WAYMO_FOCAL * c[:, 1] / z + h / 2], 1)
+            fov = (c[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) \
+                & (uv[:, 1] < h)
+            for sub, arr in (("image_pc", uv[fov]), ("fov_inds", fov)):
+                os.makedirs(os.path.join(proj, sub, cam), exist_ok=True)
+                np.save(os.path.join(proj, sub, cam, f"{stem}.npy"), arr)
+            dets = [d for d in (hull_detection(uv[fov & inside[j]], (h, w))
+                                for j in range(len(boxes))) if d is not None]
+            per_camera[cam].append((stem, (h, w), dets))
+    infos = process_single_sequence(f"{seq}_with_camera_labels.tfrecord",
+                                    os.path.join(root, "waymo_processed_data"), frames=frames)
+    for cam, _, _ in WAYMO_CAMERAS:
+        detections_to_coco(per_camera[cam], os.path.join(proj, "masks", f"{cam}.json"))
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    with open(os.path.join(root, "ImageSets", "train.txt"), "w") as f:
+        f.write(f"{seq}.tfrecord\n")
+    return infos
+
+
+def write_baraja_tree(root: str, n_frames: int, seed: int = 0, n_points: int = BARAJA_POINTS,
+                      n_cars: int = DOMAIN_CARS) -> list:
+    """A Baraja Spectrum-Scan tree (the reference's custom dataset) under
+    ``root``: ``test/pcd/<idx>.pcd`` (``make_scene(n_points, n_cars,
+    occlude=True)``), ``test/calib/<idx>.json`` (BARAJA_CALIB: the front
+    camera's intrinsics, extrinsics and equidistant-fisheye coefficients),
+    ``infos/baraja_infos_test.pkl`` (lidar_idx, image shape, Car annos with
+    num_points_in_gt) and ``test/masks/front.json`` (the hull of each car's
+    points projected through the fisheye). -> the infos."""
+    from seevcn_torch.cli.generate_masks import detections_to_coco
+    from seevcn_torch.geom.calibration import JsonCalibration
+    from seevcn_torch.geom.pcd_io import write_pcd
+
+    calib = JsonCalibration({**BARAJA_CALIB, "distortion_model": "fisheye"})
+    for sub in ("pcd", "calib"):
+        os.makedirs(os.path.join(root, "test", sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "infos"), exist_ok=True)
+    infos, per_image = [], []
+    for i in range(n_frames):
+        fid = f"{i:06d}"
+        scene = make_scene(seed * 1000 + i, n_points, n_cars, occlude=True)
+        pts, boxes = scene["points"], scene["gt_boxes"][:, :7]
+        write_pcd(os.path.join(root, "test", "pcd", f"{fid}.pcd"), pts)
+        with open(os.path.join(root, "test", "calib", f"{fid}.json"), "w") as f:
+            json.dump(BARAJA_CALIB, f)
+        inside = cars_inside(pts, boxes)
+        dets = []
+        for j in range(len(boxes)):
+            uv, depth = calib.lidar_to_img(pts[inside[j]])
+            d = hull_detection(uv[depth > 1.0], BARAJA_IMAGE)
+            if d is not None:
+                dets.append(d)
+        per_image.append((f"{fid}.jpg", BARAJA_IMAGE, dets))
+        infos.append({"point_cloud": {"lidar_idx": fid},
+                      "image": {"image_shape": np.array(BARAJA_IMAGE)},
+                      "annos": {"name": np.array(["Car"] * len(boxes)),
+                                "gt_boxes_lidar": boxes.astype(np.float32),
+                                "num_points_in_gt": inside.sum(1)}})
+    with open(os.path.join(root, "infos", "baraja_infos_test.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    detections_to_coco(per_image, os.path.join(root, "test", "masks", "front.json"))
+    return infos
+
+
+def domain_see_cfg(domain: str, root: str, tag: str, vcn_path: str) -> dict:
+    """Phase 21's SEE config of ``domain`` (the reference adapters' keys) at
+    KIT-DET_VCN-VC's isolation and completion settings."""
+    data = {"waymo": {"DATASET": "waymo", "CAMERA_CHANNELS": [c for c, _, _ in WAYMO_CAMERAS],
+                      "CLASSES": ["Car"], "SPLIT": "train"},
+            "nuscenes": {"DATASET": "nuscenes", "VERSION": "v1.0-trainval",
+                         "CAMERA_CHANNELS": [c for c, _ in NUS_CAMERAS], "CLASSES": ["car"],
+                         "LIDAR_NSWEEPS": 2, "SPLIT": "train",
+                         "INFO_PATHS": {"train": "nuscenes_infos_10sweeps_train.pkl"}},
+            "baraja": {"DATASET": "custom", "SPLIT": "test", "CAMERA_CHANNELS": ["front"],
+                       "CLASSES": ["Car"], "CAMERA_MODEL": "equidistant"}}[domain]
+    cfg = {"DATA": {**data, "DATA_DIR": root, "TAG": tag,
+                    "SHRINK_MASK_PERCENTAGE": WORKFLOW_SHRINK}, **KIT_DET_VCN_VC}
+    cfg["SURFACE_COMPLETION"] = {**cfg["SURFACE_COMPLETION"], "VCN": {
+        **cfg["SURFACE_COMPLETION"]["VCN"], "CKPT_PATH": vcn_path}}
+    return cfg
+
+
+def domain_data_cfg(name: str, root: str, info: str, src=("x", "y", "z"), **kw) -> Cfg:
+    """A dataset config of phase 21 at the flagship's range: points x y z of
+    ``src``, no augmentation; ``kw`` overrides."""
+    cfg = {"DATASET": name, "DATA_PATH": root, "POINT_CLOUD_RANGE": [0, -40, -3, 70.4, 40, 1],
+           "INFO_PATH": {"train": [info], "test": [info]},
+           "POINT_FEATURE_ENCODING": {"encoding_type": "absolute_coordinates_encoding",
+                                      "used_feature_list": ["x", "y", "z"],
+                                      "src_feature_list": list(src)},
+           "DATA_PROCESSOR": [{"NAME": "shuffle_points",
+                               "SHUFFLE_ENABLED": {"train": True, "test": False}}]}
+    cfg.update(kw)
+    return Cfg(cfg)
+
+
+#: the source's augmentations: kitti_dataset.yaml's but the GT paste (the
+#: Waymo database holds 6-feature points, the completed clouds 3)
+DOMAIN_AUGMENTOR = {"DISABLE_AUG_LIST": ["placeholder"],
+                    "AUG_CONFIG_LIST": KITTI_AUGMENTOR["AUG_CONFIG_LIST"][1:]}
+
+
+def flat_keys(ap: dict, prefix: str = "") -> dict:
+    """A nested AP dict -> {"a/b/c": value}."""
+    out = {}
+    for k, v in ap.items():
+        if isinstance(v, dict):
+            out.update(flat_keys(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def metric_keys(metric: str, classes) -> set:
+    """The keys of the JAX package's result dict of ``metric`` (the CPU tests
+    hold the port's equal to JAX's)."""
+    if metric == "waymo":
+        return {f"{c}/L{lv}/{m}" for c in classes for lv in (1, 2) for m in ("AP", "APH")}
+    if metric == "nuscenes":
+        per = ["mAP", "trans_err", "scale_err", "orient_err"] + \
+            [f"AP@{t}" for t in (0.5, 1.0, 2.0, 4.0)]
+        return {f"{c}/{k}" for c in classes for k in per} | {
+            "mAP", "NDS", "mtrans_err", "mscale_err", "morient_err"}
+    if metric == "lyft":
+        return set(classes) | {"mAP"}
+    return {f"{c}/{m}/{d}" for c in classes for m in ("bbox", "bev", "3d") for d in (0, 1, 2)}
+
+
+def domain_workflow(dev, card) -> dict:
+    """Phase 21: the paper's multi-target run through the port's CLIs. A
+    Waymo tree (the source) of DOMAIN_FRAMES frames of WAYMO_POINTS points,
+    its GT database; nuScenes and Lyft trees (2 sweeps of NUS_POINTS a
+    sample, six cameras) through create_infos, held against the writer's
+    boxes; a Baraja tree. run_see's GT path on Waymo, its DET path on
+    nuScenes, Waymo and Baraja (K1 counted: the replacement's, once a
+    frame, apart from the multi-camera merge's, one a pair tested), one DET
+    frame of each card vs CPU; train_detector (the flagship SECOND-IoU,
+    batch 4, an epoch) on SCWaymoDataset; test_detector on Waymo (its AP /
+    APH equal with the IoU on the card and on the CPU), SEE-completed
+    nuScenes and Baraja, and Lyft, each with its own metric."""
+    from seevcn_torch.cli import create_infos as CI
+    from seevcn_torch.cli import run_see as RS
+    from seevcn_torch.cli import test_detector as TD
+    from seevcn_torch.cli import train_detector as TR
+    from seevcn_torch.data import generic as GEN
+    from seevcn_torch.data import waymo_eval as WE
+    from seevcn_torch.data.see_adapters import SEE_ADAPTERS
+    from seevcn_torch.data.waymo_bootstrap import create_waymo_groundtruth_database
+    from seevcn_torch.see.pipeline import SEEVCN
+    from seevcn_torch.utils.config import cfg_from_yaml_file
+
+    parts, res = {}, {}
+    on = ["--device", dev.type]
+    n_gt = DOMAIN_FRAMES * DOMAIN_CARS
+    t_phase = t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="domain_workflow_") as base:
+        root = {k: os.path.join(base, k) for k in ("waymo", "nuscenes", "lyft", "baraja")}
+        # (a) the trees
+        write_waymo_tree(root["waymo"], DOMAIN_FRAMES, seed=21, n_points=WAYMO_POINTS)
+        parts["tree_waymo"], t0 = time.time() - t0, time.time()
+        written = {"nuscenes": write_nuscenes_tree(root["nuscenes"], DOMAIN_FRAMES, seed=22,
+                                                       n_points=NUS_POINTS),
+                   "lyft": write_nuscenes_tree(root["lyft"], DOMAIN_FRAMES, seed=23,
+                                               n_points=NUS_POINTS, layout="lyft")}
+        parts["tree_nuscenes_lyft"], t0 = time.time() - t0, time.time()
+        write_baraja_tree(root["baraja"], DOMAIN_FRAMES, seed=24, n_points=BARAJA_POINTS)
+        parts["tree_baraja"], t0 = time.time() - t0, time.time()
+
+        # (b) Waymo's GT database; nuScenes' and Lyft's infos through create_infos
+        with open(create_waymo_groundtruth_database(
+                os.path.join(root["waymo"], "waymo_processed_data"), save_path=root["waymo"],
+                sampled_interval=1), "rb") as f:
+            vehicles = len(pickle.load(f).get("Vehicle", []))
+        if vehicles != n_gt:
+            raise AssertionError(f"the Waymo GT database holds {vehicles} of {n_gt} cars")
+        res["infos"] = {"waymo_db_vehicles": vehicles}
+        for key, flags in (("nuscenes", []), ("lyft", ["--version", "trainval"])):
+            paths = CI.main(["--dataset", key, "--root", root[key], "--max_sweeps", "10",
+                             "--classes", "car"] + flags)
+            with open(paths["train"], "rb") as f:
+                made = pickle.load(f)
+            files = root[key] if key == "nuscenes" else os.path.join(root[key], "trainval")
+            box_err = count_err = sweep_err = 0.0
+            for m, w in zip(made, written[key]):
+                box_err = max(box_err, float(np.abs(m["gt_boxes"][:, :7] - w["boxes"]).max()))
+                pts = np.fromfile(os.path.join(files, m["lidar_path"]),
+                                  np.float32).reshape(-1, 5)
+                count_err = max(count_err, float(np.abs(cars_inside(pts, m["gt_boxes"]).sum(1)
+                                                        - w["num_points"]).max()))
+                sweep_err = max(sweep_err, float(np.abs(
+                    m["sweeps"][0]["transform_matrix"][:3, 3] - [-0.5, 0.0, 0.0]).max()))
+            if len(made) != DOMAIN_FRAMES or box_err > 1e-5 or count_err > NUM_POINTS_SLACK \
+                    or sweep_err > 1e-9 or any(list(m["gt_names"]) != ["car"] * DOMAIN_CARS
+                                               or len(m["sweeps"]) != 9 for m in made):
+                raise AssertionError(f"create_infos --dataset {key} off the written tree: boxes "
+                                     f"{box_err} m, points in boxes {count_err}, sweep "
+                                     f"{sweep_err} m")
+            res["infos"][key] = {"box_err_m": box_err, "num_points_err": count_err,
+                                 "sweep_err_m": sweep_err, "boxes": DOMAIN_CARS * len(made)}
+        parts["create_infos"], t0 = time.time() - t0, time.time()
+
+        # (c) run_see: GT on the source, DET on the targets; K1 counted
+        vcn_path = os.path.join(base, "VCN_VC.pth")
+        torch.save({"base_model": seeded_vcn_state_dict(0)}, vcn_path)
+        yamls, runs, launches = {}, {}, {}
+        for key, path in (("waymo", "gt"), ("nuscenes", "det"), ("waymo", "det"),
+                          ("baraja", "det")):
+            run = f"{key}_{path}"
+            yamls[run] = write_yaml(os.path.join(base, f"see_{run}.yaml"),
+                                    domain_see_cfg(key, root[key], path, vcn_path))
+            K.reset_launches()
+            t_run = time.time()
+            out = RS.main(["--cfg_file", yamls[run], "--path", path] + on)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            run_s = time.time() - t_run
+            frames = out["frames"]
+            merge = sum(r.get("merge_checks", 0) for r in frames.values())
+            merged = sum(r.get("merged", 0) for r in frames.values())
+            replace = K.LAUNCHES["min_sqdist_pruned"] - merge
+            launches[run] = {"replace": replace, "merge": merge, "merged_pairs": merged}
+            if len(frames) != DOMAIN_FRAMES or not os.path.exists(out["infos"]) or any(
+                    r["completed"] < 1 or r["dropped"] < WORKFLOW_MIN_DROPPED * r["completed"]
+                    for r in frames.values()):
+                raise AssertionError(f"run_see {run} did no real work in a frame: {frames}")
+            if dev.type == "cuda" and replace != DOMAIN_FRAMES:
+                raise AssertionError(f"run_see {run}: K1 launched {replace} times in the "
+                                     f"replacement of {DOMAIN_FRAMES} frames")
+            runs[run] = {"infos": out["infos"], "s": run_s, "frames": {
+                i: {k: r.get(k, 0) for k in ("s", "isolated", "merged", "completed", "dropped")}
+                for i, r in frames.items()}}
+        if launches["nuscenes_det"]["merged_pairs"] < 1 or (
+                dev.type == "cuda" and launches["nuscenes_det"]["merge"] < 1):
+            raise AssertionError(f"no multi-camera merge on nuScenes: {launches}")
+        res["run_see"], res["domain_see_launches"] = runs, launches
+        parts["run_see"], t0 = time.time() - t0, time.time()
+
+        # (d) one DET frame of each target dataset, card vs CPU
+        res["card_vs_cpu"] = {}
+        for key in ("nuscenes", "waymo", "baraja"):
+            cfg = cfg_from_yaml_file(yamls[f"{key}_det"])
+            data_obj = SEE_ADAPTERS[cfg.DATA.DATASET](cfg.DATA)
+            res["card_vs_cpu"][key] = hold_see_frame_against_cpu(
+                SEEVCN(cfg, data_obj=data_obj, device=dev),
+                SEEVCN(cfg, data_obj=data_obj, device="cpu"), 0, "det")
+        parts["card_vs_cpu"], t0 = time.time() - t0, time.time()
+
+        # (e) train_detector: the flagship SECOND-IoU on SEE-completed Waymo
+        det_cfg = DC.flagship_detector_cfg()
+
+        def named(cfg, classes):
+            """``cfg`` with the one-class head's anchors and CLASS_NAMES named
+            after ``classes`` (test_detector builds the model with the
+            target's names, as JAX's does; the weights do not depend on it)."""
+            cfg = Cfg(copy.deepcopy(plain_tree(cfg)))
+            cfg["CLASS_NAMES"] = list(classes)
+            cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG[0]["class_name"] = classes[0]
+            return cfg
+
+        det_cfg = named(det_cfg, ["Vehicle"])
+        dc = domain_data_cfg("SCWaymoDataset", root["waymo"],
+                             os.path.relpath(runs["waymo_gt"]["infos"], root["waymo"]),
+                             DATA_AUGMENTOR=DOMAIN_AUGMENTOR)
+        dc["DATA_PROCESSOR"] = list(dc.DATA_PROCESSOR) + list(det_cfg.DATA_CONFIG.DATA_PROCESSOR)
+        det_cfg["DATA_CONFIG"] = dc
+        det_cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 4
+        train_yaml = write_yaml(os.path.join(base, "second_iou_sc_waymo.yaml"), det_cfg)
+        trained = TR.main(["--cfg_file", train_yaml, "--output_dir",
+                           os.path.join(base, "output"), "--epochs", "1",
+                           "--fix_random_seed"] + on)
+        if not trained["ckpts"] or not trained["losses"] or not all(
+                math.isfinite(v) for v in trained["losses"]):
+            raise AssertionError(f"train_detector on SCWaymoDataset: {trained['losses']}, "
+                                 f"{trained['ckpts']}")
+        res["train_detector"] = {"losses": trained["losses"], "step_s": trained["steps_s"],
+                                 "steps": trained["state"].step}
+        parts["train_detector"], t0 = time.time() - t0, time.time()
+
+        # (f) test_detector on each target with its own metric
+        targets = {
+            "waymo": ("WaymoDataset", root["waymo"], runs["waymo_gt"]["infos"], ["Vehicle"],
+                      "waymo", ("x", "y", "z", "intensity")),
+            "nuscenes": ("SCNuScenesDataset", root["nuscenes"], runs["nuscenes_det"]["infos"],
+                         ["car"], "nuscenes", ("x", "y", "z")),
+            "baraja": ("SCCustomDataset", root["baraja"], runs["baraja_det"]["infos"], ["Car"],
+                       "kitti", ("x", "y", "z")),
+            "lyft": ("LyftDataset", os.path.join(root["lyft"], "trainval"),
+                     os.path.join(root["lyft"], "trainval", "lyft_infos_train.pkl"), ["car"],
+                     "lyft", ("x", "y", "z", "intensity"))}
+        res["test_detector"], test_s = {}, {}
+        captured = []
+        waymo_evaluation = GEN.WaymoDataset.evaluation
+
+        def recording(self, det_annos, class_names, device="cuda", **kw):
+            captured.append(det_annos)
+            return waymo_evaluation(self, det_annos, class_names, device=device, **kw)
+
+        for key, (name, data_root, info, classes, metric, src) in targets.items():
+            t_run = time.time()
+            tar = domain_data_cfg(name, data_root, os.path.relpath(info, data_root), src=src,
+                                  CLASS_NAMES=classes, **({"EVAL_METRIC": metric}
+                                                          if metric != "kitti" else {}))
+            tar_yaml = write_yaml(os.path.join(base, f"second_iou_tar_{key}.yaml"), {
+                **plain_tree(named(det_cfg, classes)), "DATA_CONFIG_TAR": plain_tree(tar)})
+            GEN.WaymoDataset.evaluation = recording
+            try:
+                report, ap, recall = TD.main(["--cfg_file", tar_yaml, "--ckpt",
+                                              trained["ckpts"][-1], "--batch_size", "4"] + on)
+            finally:
+                GEN.WaymoDataset.evaluation = waymo_evaluation
+            test_s[key] = time.time() - t_run
+            flat = flat_keys(ap)
+            keys = {k for k in flat if "/aos/" not in k}      # AOS with the boxes' alphas
+            if report is None or keys != metric_keys(metric, classes) or not all(
+                    math.isfinite(v) for v in flat.values()) or recall["num_gt"] != n_gt:
+                raise AssertionError(f"test_detector on {key}: keys {sorted(flat)}, recall "
+                                     f"{recall}")
+            res["test_detector"][key] = {"metric": metric, "ap": flat, "recall": recall}
+            if key == "waymo":
+                # the same predictions scored with the IoU on the CPU
+                ds = GEN.WaymoDataset(tar, classes, False)
+                cpu = ds.evaluation(captured[-1], classes, device="cpu")[1]
+                gt_annos, det = ds._metric_annos(captured[-1], classes)
+                near = {str(d): WE.near_threshold_pairs(det, gt_annos, classes, device=d)
+                        for d in (dev, "cpu")}
+                res["test_detector"][key].update(cpu_ap=cpu, near_threshold=near,
+                                                 detections=sum(len(d["name"]) for d in det))
+                if cpu != ap:
+                    raise AssertionError(f"Waymo AP / APH with the IoU on the card {ap} and on "
+                                         f"the CPU {cpu}; pairs within 1e-6 of a threshold "
+                                         f"{near}")
+        parts["test_detector"] = time.time() - t0
+    res["test_s"] = test_s
+    res["part_s"], res["phase_s"] = parts, time.time() - t_phase
+    print("phase 21 run_see by dataset and path: " + "; ".join(
+        f"{run} {r['s']:.2f} s ({', '.join(f'{v['s']:.3f}' for v in r['frames'].values())} s "
+        f"a frame; isolated {[v['isolated'] for v in r['frames'].values()]}, merged "
+        f"{[v['merged'] for v in r['frames'].values()]}, completed "
+        f"{[v['completed'] for v in r['frames'].values()]}, scan points dropped "
+        f"{[v['dropped'] for v in r['frames'].values()]}; K1 {res['domain_see_launches'][run]})"
+        for run, r in res["run_see"].items()) + f" on {card}")
+    print("phase 21 card vs CPU, one DET frame each: " + "; ".join(
+        f"{k}: {r['instances']} instances, points apart <= {r['iso_apart_max']}, share on a "
+        f"car {r['isolated_in_car']:.4f}, {r['completed_rows']} / {r['completed_rows_card']} "
+        f"completed rows CPU / card (share past {SEE_ROW_TOL} m {r['rows_apart_share']:.6f}; "
+        f"the CPU's f64 witness {r['completed_rows_f64']} rows, share "
+        f"{r['rows_apart_share_f64']:.6f}; the card's f64 {r['completed_rows_card_f64']}), "
+        f"kept points apart {r['kept_apart']} (ties {r['ties']})"
+        for k, r in res["card_vs_cpu"].items()))
+    td = res["test_detector"]
+    print(f"phase 21 train_detector (flagship SECOND-IoU on SCWaymoDataset, batch 4): losses "
+          f"{res['train_detector']['losses']}, step s {res['train_detector']['step_s']}; "
+          "test_detector: " + "; ".join(
+              f"{k} ({r['metric']}) {test_s[k]:.2f} s, recall {r['recall']}, "
+              f"{', '.join(f'{m} {v:.4f}' for m, v in sorted(r['ap'].items())[:4])}"
+              for k, r in td.items())
+          + f"; Waymo AP/APH equal with the IoU on the card and the CPU over "
+          f"{td['waymo']['detections']} detections, pairs within 1e-6 of a threshold "
+          f"{td['waymo']['near_threshold']}")
+    print("phase 21 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return res
 
 
@@ -5825,6 +6443,12 @@ def main() -> int:
     print(f"phase 20 (KITTI workflow) ran {workflow['phase_s']:.0f} s; chip_smoke ran "
           f"{time.time() - t_start:.0f} s after start-up")
 
+    # --- 21. the other domains: Waymo (source) -> nuScenes, Lyft, Baraja -------------
+    domains = domain_workflow(dev, card)
+    kernels[0]["domain_see_launches"] = domains["domain_see_launches"]
+    print(f"phase 21 (Waymo -> nuScenes, Lyft, Baraja) ran {domains['phase_s']:.0f} s; "
+          f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -5853,6 +6477,7 @@ def main() -> int:
         "caddn": {**caddn["caddn"], **{k: caddn[k] for k in (
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "part_s", "phase_s")}},
         "kitti_data": caddn["kitti_data"], "kitti_workflow": workflow,
+        "domain_workflow": domains,
         "card": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

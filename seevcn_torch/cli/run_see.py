@@ -8,9 +8,9 @@ completed and the scan points dropped. One process drives the device; with
 ``--workers N`` the frame loop is a thread pool (the reference's process
 pool), so host IO (cloud and mask load, projection, .pcd write) overlaps
 across frames while the device work queues on the card. The outputs are
-disjoint files, so resume by file still holds. The KITTI adapter runs;
-the demo adapter and the other datasets' raise (ROADMAP queue 1, items 3
-and 4).
+disjoint files, so resume by file still holds. The KITTI, nuScenes,
+Waymo and Custom (Baraja) adapters run; the demo adapter raises (ROADMAP
+queue 1, item 3).
 
 Usage:
   python -m seevcn_torch.cli.run_see --cfg_file <SEE yaml> [--frames N]
@@ -48,8 +48,11 @@ def build_data_obj(cfg):
     if name == "demo":
         raise NotImplementedError("run_see: the demo adapter is not ported yet (ROADMAP "
                                   "queue 1, item 3: it reads JPEGs with cv2)")
-    raise NotImplementedError(f"run_see: the {name} adapter is not ported yet (ROADMAP "
-                              "queue 1, item 4); the port has kitti")
+    from ..data.see_adapters import SEE_ADAPTERS
+
+    if name in SEE_ADAPTERS:
+        return SEE_ADAPTERS[name](cfg.DATA)
+    raise NotImplementedError(name)
 
 
 def main(argv=None) -> dict:

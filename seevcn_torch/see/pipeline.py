@@ -13,7 +13,8 @@ on the card launch the pruned min-distance kernel K1
 (``ops/sampling.within_radius_mask``).
 
 ``last_stats`` holds the last frame's counts: instances isolated and
-completed, and scan points dropped by the replacement.
+completed, scan points dropped by the replacement, and with more than one
+camera the pairs of instances the merge tested and joined.
 """
 from __future__ import annotations
 
@@ -158,11 +159,14 @@ class SEEVCN:
                                       min_dist_to_check: float = 3.0,
                                       radius: float = 0.1):
         """Merge the per-camera clusters of one physical object
-        (SEE_VCN.py:183-209)."""
+        (SEE_VCN.py:183-209). ``last_stats`` counts the pairs tested
+        (``merge_checks``: one within-radius test each, K1 on the card) and
+        the pairs joined (``merged``)."""
         inst = list(instances)
         dists = [np.linalg.norm(x.mean(axis=0)) for x in inst]
         joined = set()
         n0 = len(inst)
+        checks = merged = 0
         for i in range(n0):
             for j in range(n0):
                 if i == j or j in joined:
@@ -171,9 +175,12 @@ class SEEVCN:
                     continue
                 near = within_radius_mask(self._on_device(inst[j]), self._on_device(inst[i]),
                                           radius).cpu().numpy()
+                checks += 1
                 if near.sum() > min_overlap:
                     inst.append(np.vstack([inst[i], inst[j]]))
                     joined.update((i, j))
+                    merged += 1
+        self.last_stats.update(merge_checks=checks, merged=merged)
         return [inst[i] for i in range(len(inst)) if i not in joined]
 
     def complete_det_pts(self, instances):

@@ -131,5 +131,10 @@ def test_create_infos_cli_kitti_branch(trees):
 
 @pytest.mark.parametrize("dataset", ["nuscenes", "lyft", "waymo"])
 def test_create_infos_cli_other_datasets_raise(tmp_path, dataset):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        CLI.main(["--dataset", dataset, "--root", str(tmp_path)])
+    """The other datasets' branches on a root without their tree raise as
+    the JAX package's do (their outputs: test_torch_domain_cli.py)."""
+    from seevcn_tpu.cli.create_infos import main as jax_main
+
+    for main in (CLI.main, jax_main):
+        with pytest.raises(FileNotFoundError):
+            main(["--dataset", dataset, "--root", str(tmp_path)])

@@ -197,8 +197,8 @@ def test_kitti_dataset_matches_jax(split, kind):
         assert got["images"].shape == (384, 1280, 3) and (got["depth_maps"] > 0).sum() > 100
     assert isinstance(TR.build_dataset(Cfg({**cfg, "DATASET": kind}), ["Car"], False), getattr(
         TK, kind))
-    with pytest.raises(KeyError, match="WaymoDataset"):
-        TR.build_dataset(Cfg({**cfg, "DATASET": "WaymoDataset"}), ["Car"], False)
+    with pytest.raises(KeyError, match="NoSuchDataset"):
+        TR.build_dataset(Cfg({**cfg, "DATASET": "NoSuchDataset"}), ["Car"], False)
 
 
 def test_camera_items_match_jax(tmp_path):
