@@ -39,11 +39,11 @@ config, the CLI's ``main`` with them, one HTC + DCN step through the API).
 Then PV-RCNN (phase 14): the tiny model's eval and train step against the
 CPU, PV-RCNN at OpenPCDet's pv_rcnn.yaml widths on the SEE frame's
 completed cloud (``see_and_detect``, K1 counted) and through ``run_frame``,
-its stages timed, and 1 + 10 train steps at batch 2. Then PV-RCNN++
+its stages timed, and 1 + 3 train steps at batch 2. Then PV-RCNN++
 (phase 15): the tiny model (SPC + VectorPool) against the CPU, PV-RCNN++ at
 pv_rcnn_plusplus.yaml's PFE on the same cloud and through ``run_frame`` (K1
 counted in each), its stages timed (the proposal filter and the sector FPS
-among them), and 1 + 5 train steps at batch 2. Then the single-stage
+among them), and 1 + 3 train steps at batch 2. Then the single-stage
 detectors (phase 16): the tiny PointPillar, multi-head residual SECONDNet and
 focal SECONDNet against the CPU in eval and in a train step, the ATSS
 assigner against the CPU, PointPillar at pointpillar.yaml's widths and the
@@ -54,7 +54,7 @@ and Voxel R-CNN (phase 17): the tiny models against the CPU in eval and in
 a train step, each at full width (centerpoint.yaml's model on the flagship's
 grid, voxel_rcnn_car.yaml) on the SEE frame's completed cloud and through
 ``run_frame`` (K1 counted), their stages, first BEV conv and Voxel R-CNN's
-pools timed, and 1 + 1 + 5 train steps (batch 4 and 2). Then PointRCNN and
+pools timed, and 1 + 1 + 3 train steps (batch 4 and 2). Then PointRCNN and
 Part-A2 (phase 18): the tiny models against the CPU in eval and in a train
 step (their f32 selections pinned to the CPU's), the inverse sparse conv
 against the CPU forward and backward, each at full width (pointrcnn.yaml,
@@ -78,7 +78,15 @@ at KIT-DET_VCN-VC's settings on masks from the cars' boxes (K1 counted, the
 native IO route asserted), a resumed run and the GT path, one frame of
 each path card vs CPU, train_detector at SECOND-IoU's flagship widths on
 the completed split (an epoch, then a resume) and test_detector on
-DATA_CONFIG_TAR. Every failed check raises, so the exit code is not 0. The last line of
+DATA_CONFIG_TAR. Then the paper's other domains (phase 21: Waymo as the
+source, nuScenes, Lyft and Baraja as targets, through the same CLIs). Then
+the demo and the JPEG inputs (phase 22): the committed JPEG fixtures
+decoded on this host against cv2's hashes, generate_masks on JPEGs and on
+PNGs of the same pixels, ``cli/demo.py`` end to end inside
+``profiling.trace()`` (K1 counted) and its SEE on the CPU, the flagship
+with a bf16 BEV backbone beside its f32 run, two spinning-lidar DA frames
+and the paired BEV IoU against the CPU. Every failed check raises, so the
+exit code is not 0. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernel summary.
 
@@ -174,6 +182,7 @@ CAR_DIMS = (4.2, 1.8, 1.5)
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores and HBM3 bandwidth
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12                 # dense, on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 RADIUS = 0.1
 # K1's bound counts the pairs (i, j) where query row i lies within r of the
@@ -2029,7 +2038,7 @@ def check_moved(model, start: dict, excused: tuple, what: str) -> list:
 
 
 def train_seg2d(dev, card, steps: int = 10, flags=(), tiny_cfg=None, cli_steps: int = 3,
-                roi_px=(1e-4,), eval_scenes: int = 8):
+                roi_px=(1e-4,), eval_scenes: int = 4):
     """Mask R-CNN training at the CLI's defaults (``--size base``, 384x512,
     batch 8, AdamW lr 1e-3 with the warm-up of 200 over 2,000 steps,
     synthetic scenes from seed 0, the packed wire format) and the CLI
@@ -2990,7 +2999,7 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
             "buckets": buckets, **alone}
 
 
-def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 10, cfg=None, tiny_cfg=None,
+def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 3, cfg=None, tiny_cfg=None,
                  label: str = "PV-RCNN", tiny_grad_tol: float = 1e-3) -> dict:
     """Phase 14 training (phase 15's with PV-RCNN++'s configs): the tiny step
     at ``tiny_cfg`` card vs the CPU's f64 step, then 1 + ``steps`` train
@@ -3850,7 +3859,7 @@ def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
             "device_busy_ms": busy, "top_ops": top}
 
 
-def train_center_rcnn(dev, card, key, pts, valid, gt, steps: int = 5) -> dict:
+def train_center_rcnn(dev, card, key, pts, valid, gt, steps: int = 3) -> dict:
     """Phase 17 training of ``key`` at full width (f32, the config's batch:
     CenterPoint 4, Voxel R-CNN 2; the train voxel cap; weights from seed 0)
     on the GT-completed frames: 1 + 1 + ``steps`` train steps (step 1
@@ -5731,6 +5740,56 @@ def write_baraja_tree(root: str, n_frames: int, seed: int = 0, n_points: int = B
     return infos
 
 
+#: the demo (phase 22): a frame of make_scene's cloud with occluded cars, one
+#: front camera at the lidar (no distortion) of the demo's default 720 x 1260
+#: image, which is the committed JPEG fixture of that size. 56,000 points so
+#: that the completed frame (about 3,400 rows more: 8 cars' completions less
+#: the points they replace) fits the demo detector's 60,000-row pad
+DEMO_POINTS, DEMO_CARS = 56_000, 8
+DEMO_IMAGE = (720, 1260)
+DEMO_CALIB = {"intrinsic": [[640.0, 0.0, 630.0], [0.0, 640.0, 360.0], [0.0, 0.0, 1.0]],
+              "extrinsic": [[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, 0.0],
+                            [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]]}
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+DEMO_JPEG = os.path.join(JPEG_FIXTURES, "demo_720x1260_420.jpg")
+
+
+def write_demo_tree(root: str, n_frames: int = 1, seed: int = 0, n_points: int = DEMO_POINTS,
+                    n_cars: int = DEMO_CARS) -> list:
+    """The demo's tree under ``root`` (``data/demo_dataset.py``):
+    ``pcd/<idx>.pcd`` (``make_scene(n_points, n_cars, occlude=True)``),
+    ``calib/<idx>.json`` (DEMO_CALIB), ``image/front/<idx>.jpg`` (the
+    720 x 1260 JPEG fixture) and ``masks/front.json`` (the hull of each car's
+    points projected into the image). -> each frame's car boxes (n_cars, 7)."""
+    from seevcn_torch.cli.generate_masks import detections_to_coco
+    from seevcn_torch.geom.calibration import JsonCalibration
+    from seevcn_torch.geom.pcd_io import write_pcd
+
+    calib = JsonCalibration(DEMO_CALIB)
+    for sub in ("pcd", "calib", os.path.join("image", "front"), "masks"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    per_image, boxes_out = [], []
+    for i in range(n_frames):
+        fid = f"{i:06d}"
+        scene = make_scene(seed * 1000 + i, n_points, n_cars, occlude=True)
+        pts, boxes = scene["points"], scene["gt_boxes"][:, :7]
+        write_pcd(os.path.join(root, "pcd", f"{fid}.pcd"), pts)
+        with open(os.path.join(root, "calib", f"{fid}.json"), "w") as f:
+            json.dump(DEMO_CALIB, f)
+        shutil.copyfile(DEMO_JPEG, os.path.join(root, "image", "front", f"{fid}.jpg"))
+        inside = cars_inside(pts, boxes)
+        dets = []
+        for j in range(len(boxes)):
+            uv, depth = calib.lidar_to_img(pts[inside[j]])
+            d = hull_detection(uv[depth > 1.0], DEMO_IMAGE)
+            if d is not None:
+                dets.append(d)
+        per_image.append((f"{fid}.jpg", DEMO_IMAGE, dets))
+        boxes_out.append(boxes)
+    detections_to_coco(per_image, os.path.join(root, "masks", "front.json"))
+    return boxes_out
+
+
 def domain_see_cfg(domain: str, root: str, tag: str, vcn_path: str) -> dict:
     """Phase 21's SEE config of ``domain`` (the reference adapters' keys) at
     KIT-DET_VCN-VC's isolation and completion settings."""
@@ -6027,6 +6086,448 @@ def domain_workflow(dev, card) -> dict:
           f"{td['waymo']['detections']} detections, pairs within 1e-6 of a threshold "
           f"{td['waymo']['near_threshold']}")
     print("phase 21 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return res
+
+
+#: phase 22's sizes: generate_masks' images a route, the pairs of the paired
+#: BEV IoU, the beams of the two DA frames
+DEMO_MASK_IMAGES, IOU_PAIRS, DA_BEAMS = 2, 4096, (64, 16)
+#: the bf16 tolerances of tests/test_torch_bev_bf16.py: elementwise, and the
+#: share of bf16's own distance from f32 within which an output must lie
+BF16_ATOL, BF16_RTOL, NOISE_SHARE = 2e-3, 1e-3, 0.75
+
+
+def _phase_ms(dev, fn, reps: int = 3) -> float:
+    """Median ms of ``fn()``: CUDA events on the card, the host clock on the
+    CPU (a dry run of phase 22 here)."""
+    if dev.type == "cuda":
+        return time_cuda(fn, reps=reps, warmup=1)
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_jpeg_fixtures(dev) -> dict:
+    """Phase 22 (a): every committed JPEG fixture decoded on this host against
+    the sha256 of the array cv2 read where it was written; the progressive
+    one must raise. The 900 x 1600 decode timed (host clock, median of 5)."""
+    import hashlib
+
+    from seevcn_torch.data import jpeg as JPG
+
+    t0 = time.time()
+    JPG.build()
+    build_s = time.time() - t0
+    with open(os.path.join(JPEG_FIXTURES, "fixtures.json")) as f:
+        table = json.load(f)
+    matched = []
+    for name, rec in sorted(table.items()):
+        path = os.path.join(JPEG_FIXTURES, name)
+        if rec["progressive"]:
+            try:
+                JPG.read_jpeg(path)
+            except NotImplementedError as e:
+                if "SOF2" not in str(e):
+                    raise
+                continue
+            raise AssertionError(f"{name}: a progressive JPEG decoded")
+        arr = JPG.read_jpeg(path)
+        if list(arr.shape) != rec["shape"] or \
+                hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"]:
+            raise AssertionError(f"{name}: the decode is not cv2's array")
+        matched.append(name)
+    with open(os.path.join(JPEG_FIXTURES, "nuscenes_900x1600_420.jpg"), "rb") as f:
+        blob = f.read()
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        JPG.decode_jpeg(blob)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times[1:])
+    return {"build_s": build_s, "matched": matched, "progressive_raises": True,
+            "ms_900x1600": ms, "mp_per_s": 900 * 1600 / 1e6 / (ms / 1e3)}
+
+
+def masks_jpeg_vs_png(dev, base: str) -> dict:
+    """Phase 22 (b): generate_masks with the seeded Mask R-CNN (as phase 20)
+    on DEMO_MASK_IMAGES copies of the 900 x 1600 fixture, once as JPEGs and
+    once as PNGs of the same pixels (a warm-up image first): images/s of
+    each route and the detections of each, which must agree in number. Two
+    images a route are a liveness check, not a rate: the model's time swamps
+    the read and swings run to run. What the routes differ in, the read
+    (``data/image.read_image_bgr``) of one image, is timed alone on the host
+    clock (median of 7 after a first read)."""
+    from seevcn_torch.cli import generate_masks as GM
+    from seevcn_torch.data.image import read_image_bgr
+    from seevcn_torch.data.jpeg import read_jpeg
+    from seevcn_torch.data.png import write_png
+
+    fixture = os.path.join(JPEG_FIXTURES, "nuscenes_900x1600_420.jpg")
+    rgb = np.ascontiguousarray(read_jpeg(fixture)[..., ::-1])
+    dirs = {k: os.path.join(base, f"images_{k}") for k in ("warm", "jpg", "png")}
+    for k, d in dirs.items():
+        os.makedirs(d)
+        for i in range(1 if k == "warm" else DEMO_MASK_IMAGES):
+            if k == "png":
+                write_png(os.path.join(d, f"{i:06d}.png"), rgb)
+            else:
+                shutil.copyfile(fixture, os.path.join(d, f"{i:06d}.jpg"))
+    read_ms = {}
+    for k, ext in (("jpg", "jpg"), ("png", "png")):
+        path = os.path.join(dirs[k], f"000000.{ext}")
+        if not np.array_equal(read_image_bgr(path), rgb[..., ::-1]):
+            raise AssertionError(f"the {k} route reads other pixels")
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            read_image_bgr(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        read_ms[k] = statistics.median(times)
+    seg_cfg = SM.Seg2DConfig(image_size=IMAGE_SIZE)
+    ckpt = os.path.join(base, "seg2d.ckpt")
+    save_seg2d_checkpoint(ckpt, init_seg2d(SM.MaskRCNN(seg_cfg),
+                                           torch.Generator().manual_seed(0)), seg_cfg)
+    out = {}
+    for k, d in dirs.items():
+        r = GM.main(["--image_dir", d, "--out", os.path.join(base, f"masks_{k}.json"),
+                     "--backend", f"jax:{ckpt}", "--score_thresh", str(MASK_SCORE_THRESH),
+                     "--device", dev.type])
+        out[k] = {"images": r["images"], "detections": r["detections"], "s": r["s"],
+                  "images_per_s": r["images"] / r["s"]}
+    if out["jpg"]["detections"] != out["png"]["detections"] or out["jpg"]["images"] != \
+            DEMO_MASK_IMAGES:
+        raise AssertionError(f"generate_masks: JPEG route {out['jpg']}, PNG route {out['png']}")
+    out["read_ms"] = read_ms
+    return out
+
+
+def demo_cli(dev, base: str) -> dict:
+    """Phase 22 (c): the demo end to end (``cli/demo.py``) on a demo tree
+    (``write_demo_tree``) with VCN_VC and SECOND-IoU ``.pth`` files from
+    seeded weights: a first run, a timed run, then a run with the launch
+    counts set to 0 just before it, inside ``profiling.trace()`` (its spans
+    and K1's kernel read from the trace file); the PNG read back; the same
+    demo's SEE on the CPU held to phase 20's row bounds."""
+    from seevcn_torch.cli import demo as DEMO
+    from seevcn_torch.data.png import read_png
+    from seevcn_torch.geom.pcd_io import read_pcd
+    from seevcn_torch.utils.ckpt import save_detector_checkpoint
+    from seevcn_torch.utils.profiling import trace
+
+    write_demo_tree(base, n_points=DEMO_POINTS, n_cars=DEMO_CARS)
+    torch.save({"base_model": seeded_vcn_state_dict(0)}, os.path.join(base, "vcn.pth"))
+    cpu_det, _ = build_detector(DC.mini_detector_cfg(), device="cpu")
+    save_detector_checkpoint(os.path.join(base, "det.pth"),
+                             seeded_state_dict(0, cpu_det, random_stats=True))
+    see_args = ["--root", base, "--masks", f"front={os.path.join(base, 'masks', 'front.json')}",
+                "--vcn_ckpt", os.path.join(base, "vcn.pth")]
+    args = see_args + ["--det_ckpt", os.path.join(base, "det.pth"), "--device", dev.type]
+    res, runs = {}, []
+    for i in range(2):
+        t0 = time.time()
+        DEMO.main(args + ["--out", os.path.join(base, f"out{i}")])
+        _sync(dev)
+        runs.append(time.time() - t0)
+    tdir = os.path.join(base, "trace")
+    K.reset_launches()
+    t0 = time.time()
+    with trace(tdir):
+        got = DEMO.main(args + ["--out", os.path.join(base, "out_traced")])
+        _sync(dev)
+    traced_s = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    with open(glob_one(os.path.join(tdir, "trace_*.json"))) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    spans = sorted(n for n in names if n.startswith("demo/"))
+    if spans != ["demo/detector", "demo/plots", "demo/see"]:
+        raise AssertionError(f"the demo's trace holds the spans {spans}")
+    if dev.type == "cuda" and launches["min_sqdist_pruned"] < 1:
+        raise AssertionError("kernel K1 was not launched by the demo")
+    if got["rows_cut"]:
+        raise AssertionError(f"the demo's detector pad cut {got['rows_cut']} rows")
+    png = read_png(got["png"])
+    boxes, scores = got["boxes"], got["scores"]
+    if png.shape != (1500, 1500, 3) or not np.isfinite(boxes).all() or len(boxes) < 1 \
+            or not (scores > 0.3).all() or got["completed_pts"] is None:
+        raise AssertionError(f"the demo: png {png.shape}, {len(boxes)} detections")
+    res.update(instances=got["instances"], completed_rows=len(got["completed_pts"]),
+               dropped=got["dropped"], detections=len(boxes), rows_cut=got["rows_cut"],
+               frame_rows=len(got["frame_points"]), first_s=runs[0], s=runs[1],
+               traced_s=traced_s, demo_launches=launches["min_sqdist_pruned"], spans=spans,
+               trace_kernels=len(kernels),
+               k1_in_trace=sorted(n[:40] for n in kernels if "k1_" in n), png=list(png.shape))
+    # the same demo's SEE on the CPU, against the card's frame
+    cpu = DEMO.main(see_args + ["--device", "cpu", "--out", os.path.join(base, "out_cpu")])
+    n_d, n_c = len(got["completed_pts"]), len(cpu["completed_pts"])
+    apart = rows_apart(got["completed_pts"], cpu["completed_pts"], dev)
+    share = float((apart > SEE_ROW_TOL).mean())
+    points = read_pcd(os.path.join(base, "pcd", "000000.pcd"))
+    kept_d, kept_c = ({tuple(r) for r in f[n:]} for f, n in (
+        (got["frame_points"], n_d), (cpu["frame_points"], n_c)))
+    d = MD.min_sqdist_plain(torch.from_numpy(points[:, :3].copy()),
+                            torch.from_numpy(cpu["completed_pts"]))
+    tie = ((d - RADIUS * RADIUS).abs() <= 1e-5 * RADIUS * RADIUS).numpy()
+    stray = len((kept_d ^ kept_c) - {tuple(r) for r in points[tie, :3]})
+    res["card_vs_cpu"] = {"instances": [got["instances"], cpu["instances"]],
+                          "completed_rows": [n_d, n_c], "rows_apart_share": share,
+                          "kept_apart": stray}
+    if got["instances"] != cpu["instances"] or abs(n_d - n_c) > SEE_ROW_SLACK \
+            or share > SEE_ROW_SHARE or stray > 2 * SEE_ROW_SLACK:
+        raise AssertionError(f"the demo's frame on the card off the CPU's: {res['card_vs_cpu']}")
+    return res
+
+
+def glob_one(pattern: str) -> str:
+    import glob
+
+    found = glob.glob(pattern)
+    if len(found) != 1:
+        raise AssertionError(f"{pattern}: {len(found)} files")
+    return found[0]
+
+
+@torch.no_grad()
+def hold_bev_bf16(det, det_cfg, det16, cfg16, bev) -> dict:
+    """The flagship's bf16 BEV stage (``bev_head``: the BEV backbone and the
+    dense head) on the card against the same stage on the CPU, all fed the
+    card's BEV map ``bev``; each of its outputs (the BEV features and the
+    head's raw pre-NMS class, box and direction logits) held two ways, by
+    the two bf16 tolerances of tests/test_torch_bev_bf16.py:
+    - elementwise, atol BF16_ATOL, rtol BF16_RTOL;
+    - within the bf16 noise: mean |card - CPU| at most NOISE_SHARE of the
+      mean |difference| of the CPU's bf16 stage from its f32 one.
+    The first alone cannot tell bf16 from f32 where the outputs are small
+    (the seeded flagship's are about 1e-3), so the card's f32 stage
+    (``det``) must fail the second: an f32 fallback cannot pass. The
+    decoded boxes take the direction bins' argmax, which a tie of the held
+    direction logits may turn: those are counted. -> per output the max
+    |card - CPU|, its mean over the noise's, and the same for the card's f32
+    stage; the direction bins that differ; the CPU stages' seconds."""
+    cpu = torch.device("cpu")
+    models = {name: build_detector(c, {k: v.cpu() for k, v in m.state_dict().items()},
+                                   device=cpu)[0]
+              for name, m, c in (("bf16", det16, cfg16), ("f32", det, det_cfg))}
+    t0 = time.time()
+    ref, ref32 = (models[n].bev_head(bev.cpu()) for n in ("bf16", "f32"))
+    cpu_s = time.time() - t0
+    got, f32 = det16.bev_head(bev), det.bev_head(bev)
+
+    def parts(o):
+        return {"bev2d": o[0], **{k: o[1][k] for k in ("cls_preds", "box_preds",
+                                                        "dir_cls_preds") if k in o[1]}}
+
+    ref_p, ref32_p, got_p, f32_p = (parts(o) for o in (ref, ref32, got, f32))
+    out, bad = {"cpu_s": cpu_s}, []
+    for k, r in ref_p.items():
+        r = r.float()
+        noise = (ref32_p[k].float() - r).abs().mean().item()
+        d16, d32 = ((x[k].float().cpu() - r).abs() for x in (got_p, f32_p))
+        out[k] = {"max_abs": d16.max().item(), "share": d16.mean().item() / noise,
+                  "f32_max_abs": d32.max().item(), "f32_share": d32.mean().item() / noise}
+        if (d16 > BF16_ATOL + BF16_RTOL * r.abs()).any() or out[k]["share"] > NOISE_SHARE:
+            bad.append(k)
+        if out[k]["f32_share"] <= NOISE_SHARE:
+            bad.append(f"{k} (f32)")
+    if "dir_cls_preds" in ref_p:
+        nb = det16.cfg.head_logic.num_dir_bins
+        out["direction_flips"] = int((ref_p["dir_cls_preds"].reshape(-1, nb).argmax(-1) !=
+                                      got_p["dir_cls_preds"].reshape(-1, nb).cpu().argmax(-1)).sum())
+    if bad:
+        raise AssertionError(f"flagship bf16 BEV stage, card vs CPU, fails on {bad}: {out}")
+    return out
+
+
+def bev_bf16(dev, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt) -> dict:
+    """Phase 22 (d): BACKBONE_2D.DTYPE bfloat16. The tiny SECOND-IoU card vs
+    CPU (pre-NMS outputs at the CPU test's bf16 tolerance); the flagship with
+    the f32 detector's weights on the SEE frame's output: its BEV stage card
+    vs CPU on the card's BEV map (``hold_bev_bf16``), detect_stage and
+    the BEV backbone alone beside the f32 run's (CUDA events, median of 3),
+    one finite train step; the 256 -> 128 3x3 conv at 200 x 176 alone in
+    bf16 and f32."""
+    cpu = torch.device("cpu")
+    tiny = DC.tiny_detector_cfg()
+    tiny.MODEL.BACKBONE_2D["DTYPE"] = "bfloat16"
+    sd = seeded_state_dict(2, build_detector(tiny, device=cpu)[0], random_stats=True)
+    pts, valid = blob_points(3)
+    outs = {}
+    for w in (dev, cpu):
+        m, _ = build_detector(tiny, sd, device=w)
+        outs[w] = F.detect_stage(m, tiny, torch.from_numpy(pts), torch.from_numpy(valid),
+                                 device=w)[1]
+    tiny_err = {}
+    for k in ("batch_cls_preds", "batch_box_preds"):
+        got, ref = outs[dev][k].cpu(), outs[cpu][k]
+        tiny_err[k] = (got - ref).abs().max().item()
+        if not ((got - ref).abs() <= BF16_ATOL + BF16_RTOL * ref.abs()).all():
+            raise AssertionError(f"tiny bf16 BEV: {k} off the CPU by {tiny_err[k]}")
+    cfg16 = copy.deepcopy(det_cfg)
+    cfg16.MODEL.BACKBONE_2D["DTYPE"] = "bfloat16"
+    det16, _ = build_detector(cfg16, det.state_dict(), device=dev)
+    pp16, out16 = F.detect_stage(det16, cfg16, new_pts, new_valid, device=dev)
+    for k in ("batch_cls_preds", "batch_box_preds", "rcnn_iou"):
+        if not torch.isfinite(out16[k]).all():
+            raise AssertionError(f"bf16 BEV detector output {k} is not finite")
+    kept16 = int(pp16["pred_mask"].sum())
+    seen = {}
+    hook = det.backbone_2d.register_forward_pre_hook(
+        lambda mod, a: seen.setdefault("bev", a[0].detach()))
+    _, out32 = F.detect_stage(det, det_cfg, new_pts, new_valid, device=dev)
+    hook.remove()
+    bev = seen["bev"]
+    hold = hold_bev_bf16(det, det_cfg, det16, cfg16, bev)
+    bev_gap = ((out16["spatial_features_2d"] - out32["spatial_features_2d"]).abs().max()
+               / out32["spatial_features_2d"].abs().max()).item()
+    with torch.no_grad():
+        ms = {"detect_stage_bf16": _phase_ms(dev, lambda: F.detect_stage(
+                  det16, cfg16, new_pts, new_valid, device=dev)),
+              "detect_stage_f32": _phase_ms(dev, lambda: F.detect_stage(
+                  det, det_cfg, new_pts, new_valid, device=dev)),
+              "bev_bf16": _phase_ms(dev, lambda: det16.backbone_2d(bev)),
+              "bev_f32": _phase_ms(dev, lambda: det.backbone_2d(bev))}
+        top = {k: profile_kernels((m.backbone_2d, bev), lambda bb, x: bb(x))[1][:3]
+               for k, m in (("bf16", det16), ("f32", det))} if dev.type == "cuda" else {}
+    # one train step at the flagship's train cap, bf16 BEV
+    cap = int(det_cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    model, _ = build_detector(cfg16, det.state_dict(), max_voxels=cap, device=dev)
+    state = create_train_state(model, cfg16.OPTIMIZATION, total_steps=1000)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.time()
+    loss, _, _ = train_forward(state, g_pts, g_valid, g_gt, gen)
+    apply_gradients(state, loss)
+    _sync(dev)
+    step_s = time.time() - t0
+    if not torch.isfinite(loss) or any(not torch.isfinite(p.grad).all()
+                                       for p in model.parameters() if p.grad is not None):
+        raise AssertionError("the bf16 BEV train step is not finite")
+    # the conv shape cuDNN runs slowly in f32, alone
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(1, 256, 200, 176, generator=g, device=dev)
+    wt = torch.randn(128, 256, 3, 3, generator=g, device=dev) * 0.02
+    conv = {"f32": _phase_ms(dev, lambda: torch.nn.functional.conv2d(x, wt, padding=1), 5),
+            "bf16": _phase_ms(dev, lambda: torch.nn.functional.conv2d(
+                x.bfloat16(), wt.bfloat16(), padding=1), 5)}
+    flops = 2 * 128 * 256 * 9 * 200 * 176
+    return {"tiny_vs_cpu": tiny_err, "hold": hold, "kept": kept16, "bev_gap_vs_f32": bev_gap,
+            "ms": ms,
+            "bev_top_kernels": top,
+            "train_step_s": step_s, "train_loss": loss.item(), "conv_ms": conv,
+            "conv_bound_ms": {"bf16": flops / BF16_FLOPS * 1e3, "f32": flops / FP32_FLOPS * 1e3}}
+
+
+def synth_da_frames(dev, det, det_cfg) -> dict:
+    """Phase 22 (e): one spinning-lidar DA frame a beam count of DA_BEAMS
+    (``data/synth_da.py``, host numpy): s a frame and its points; the
+    flagship detector (f32) on each."""
+    from seevcn_torch.data.synth_da import spinning_lidar_frame
+
+    out = {}
+    for beams in DA_BEAMS:
+        t0 = time.time()
+        f = spinning_lidar_frame(np.random.RandomState(beams), n_beams=beams)
+        s_ = time.time() - t0
+        pp, o = F.detect_stage(det, det_cfg, torch.from_numpy(f["points"]),
+                               torch.from_numpy(f["valid"]), device=dev)
+        if not torch.isfinite(o["batch_box_preds"]).all() or f["n_pts"] < 1000:
+            raise AssertionError(f"the {beams}-beam DA frame: {f['n_pts']} points")
+        out[beams] = {"s": s_, "points": int(f["n_pts"]), "cars": len(f["gt_boxes"]),
+                      "kept": int(pp["pred_mask"].sum())}
+    return out
+
+
+def iou_pairs(dev) -> dict:
+    """Phase 22 (f): ``boxes_iou_bev_aligned_pair`` on IOU_PAIRS jittered
+    pairs, card vs CPU."""
+    from seevcn_torch.ops.iou3d import boxes_iou_bev_aligned_pair
+
+    rng = np.random.RandomState(22)
+    a = np.concatenate([rng.uniform(-40, 40, (IOU_PAIRS, 2)), rng.uniform(-1, 1, (IOU_PAIRS, 1)),
+                        rng.uniform(1, 5, (IOU_PAIRS, 3)),
+                        rng.uniform(-np.pi, np.pi, (IOU_PAIRS, 1))], 1).astype(np.float32)
+    b = (a + rng.uniform(-1, 1, a.shape) * [1, 1, 0.2, 0.3, 0.3, 0.2, 0.5]).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ref = boxes_iou_bev_aligned_pair(ta, tb)
+    got = boxes_iou_bev_aligned_pair(ta.to(dev), tb.to(dev)).cpu()
+    err = (got - ref).abs().max().item()
+    if err > 1e-5 or not (ref > 0).float().mean() > 0.5:
+        raise AssertionError(f"paired BEV IoU off the CPU by {err}")
+    return {"pairs": IOU_PAIRS, "max_abs_diff": err, "mean_iou": ref.mean().item()}
+
+
+def demo_jpeg(dev, card, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt) -> dict:
+    """Phase 22: the demo and the JPEG inputs, the bf16 BEV backbone, the DA
+    frames and the paired BEV IoU (each part's docstring says what it
+    holds). Prints one line a part and returns the summary."""
+    t_phase = time.time()
+    parts, res = {}, {}
+    t0 = time.time()
+    res["jpeg"] = check_jpeg_fixtures(dev)
+    j = res["jpeg"]
+    print(f"phase 22 JPEG: {len(j['matched'])} fixtures equal cv2's arrays (sha256), the "
+          f"progressive one raises; 900x1600 4:2:0 decode {j['ms_900x1600']:.2f} ms = "
+          f"{j['mp_per_s']:.1f} MP/s (host clock, median of 5; g++ build {j['build_s']:.1f} s)")
+    parts["jpeg"], t0 = time.time() - t0, time.time()
+    with tempfile.TemporaryDirectory(prefix="demo_jpeg_") as base:
+        res["generate_masks"] = masks_jpeg_vs_png(dev, os.path.join(base, "masks"))
+        g = res["generate_masks"]
+        print(f"phase 22 generate_masks (seeded Mask R-CNN, 900x1600, score "
+              f">= {MASK_SCORE_THRESH}, {DEMO_MASK_IMAGES} images a route, a liveness "
+              f"check): JPEG {g['jpg']['images_per_s']:.3f} images/s, PNG "
+              f"{g['png']['images_per_s']:.3f} images/s on the same pixels, detections "
+              f"{g['jpg']['detections']} / {g['png']['detections']}; one image read "
+              f"(host clock, median of 7): JPEG {g['read_ms']['jpg']:.2f} ms, PNG "
+              f"{g['read_ms']['png']:.2f} ms on {card}")
+        parts["generate_masks"], t0 = time.time() - t0, time.time()
+        res["demo"] = demo_cli(dev, os.path.join(base, "demo"))
+        d = res["demo"]
+        print(f"phase 22 demo ({DEMO_POINTS} points, {DEMO_CARS} cars, 720x1260 JPEG): "
+              f"{d['instances']} instances completed into {d['completed_rows']} rows, "
+              f"{d['dropped']} scan points dropped, a frame of {d['frame_rows']} rows "
+              f"({d['rows_cut']} cut by the detector's pad), {d['detections']} detections; "
+              f"demo_launches (K1) {d['demo_launches']}; first run {d['first_s']:.2f} s, "
+              f"then {d['s']:.2f} s, traced {d['traced_s']:.2f} s; spans {d['spans']}, "
+              f"{d['trace_kernels']} kernel names in the trace, K1's {d['k1_in_trace']}; PNG "
+              f"{d['png']}; card vs CPU "
+              f"{d['card_vs_cpu']} on {card}")
+        parts["demo"], t0 = time.time() - t0, time.time()
+    res["bev_bf16"] = bev_bf16(dev, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt)
+    b = res["bev_bf16"]
+    print(f"phase 22 bf16 BEV (flagship SECOND-IoU, BACKBONE_2D.DTYPE bfloat16): "
+          f"detect_stage {b['ms']['detect_stage_bf16']:.2f} ms (f32 "
+          f"{b['ms']['detect_stage_f32']:.2f}), BEV backbone {b['ms']['bev_bf16']:.2f} ms "
+          f"(f32 {b['ms']['bev_f32']:.2f}), {b['kept']} boxes kept, BEV features "
+          f"{b['bev_gap_vs_f32']:.3g} of their largest off f32; BEV stage card vs CPU's "
+          f"bf16 on the card's BEV map (max |diff|, mean |diff| as a share of the CPU's "
+          f"bf16 off its f32, limit {NOISE_SHARE}; the card's bf16 and f32 stages) "
+          f"{b['hold']}; BEV kernels by device time "
+          f"{b['bev_top_kernels']}; tiny card vs CPU {b['tiny_vs_cpu']}; one train "
+          f"step {b['train_step_s']:.2f} s, loss {b['train_loss']:.4f}; conv 256->128 3x3 at "
+          f"200x176 alone: bf16 {b['conv_ms']['bf16']:.3f} ms (bound "
+          f"{b['conv_bound_ms']['bf16']:.4f}), f32 {b['conv_ms']['f32']:.3f} ms (bound "
+          f"{b['conv_bound_ms']['f32']:.4f}) on {card}")
+    parts["bev_bf16"], t0 = time.time() - t0, time.time()
+    res["synth_da"] = synth_da_frames(dev, det, det_cfg)
+    print("phase 22 synth_da: " + "; ".join(
+        f"{k} beams {v['s']:.2f} s a frame, {v['points']} points, {v['cars']} cars, "
+        f"{v['kept']} boxes kept by the flagship" for k, v in res["synth_da"].items()))
+    parts["synth_da"], t0 = time.time() - t0, time.time()
+    res["iou_pairs"] = iou_pairs(dev)
+    print(f"phase 22 boxes_iou_bev_aligned_pair: {IOU_PAIRS} pairs, card vs CPU max |diff| "
+          f"{res['iou_pairs']['max_abs_diff']:.3g}")
+    parts["iou_pairs"] = time.time() - t0
+    res["part_s"], res["phase_s"] = parts, time.time() - t_phase
+    print("phase 22 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return res
 
 
@@ -6388,7 +6889,7 @@ def main() -> int:
     kernels[0]["pvrcnn_plusplus_launches"] = {
         "see_and_detect": plusplus["launches"]["min_sqdist_pruned"],
         "run_frame": plusplus["fused_launches"]["min_sqdist_pruned"]}
-    plusplus["train"] = train_pvrcnn(dev, card, g_pts, g_valid, g_gt, steps=5,
+    plusplus["train"] = train_pvrcnn(dev, card, g_pts, g_valid, g_gt, steps=3,
                                      cfg=DC.pvrcnn_plusplus_detector_cfg(),
                                      tiny_cfg=DC.tiny_pvrcnn_plusplus_cfg(),
                                      label="PV-RCNN++", tiny_grad_tol=PLUSPLUS_F32_GRAD)
@@ -6449,6 +6950,12 @@ def main() -> int:
     print(f"phase 21 (Waymo -> nuScenes, Lyft, Baraja) ran {domains['phase_s']:.0f} s; "
           f"chip_smoke ran {time.time() - t_start:.0f} s after start-up")
 
+    # --- 22. the demo, the JPEG inputs, bf16 BEV, the DA frames, paired IoU ----------
+    demo = demo_jpeg(dev, card, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt)
+    kernels[0]["demo_launches"] = demo["demo"]["demo_launches"]
+    print(f"phase 22 (demo, JPEG, bf16 BEV) ran {demo['phase_s']:.0f} s; chip_smoke ran "
+          f"{time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -6477,7 +6984,7 @@ def main() -> int:
         "caddn": {**caddn["caddn"], **{k: caddn[k] for k in (
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "part_s", "phase_s")}},
         "kitti_data": caddn["kitti_data"], "kitti_workflow": workflow,
-        "domain_workflow": domains,
+        "domain_workflow": domains, "demo_jpeg": demo,
         "card": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

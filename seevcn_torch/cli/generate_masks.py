@@ -16,9 +16,9 @@ the SEE stage reads (``see/masks.CocoMasks``). The model is pluggable:
     torchvision is not installed where the port runs, and the JAX
     package's branch downloads its weights.
 
-Images are PNGs read by ``data/png.py`` (RGB, flipped to BGR as cv2 reads
-them); a JPEG raises, as the port has no JPEG reader yet (ROADMAP queue 1,
-item 3, the demo slice). ``mask_to_polygons`` is ``cv2.findContours``'s
+Images are PNGs or JPEGs read by ``data/image.read_image_bgr`` (BGR, as
+cv2 reads them; the JPEG decoder is libjpeg's arithmetic in the port's own
+C++). ``mask_to_polygons`` is ``cv2.findContours``'s
 external border following (``see/masks.external_contours``), so the JSON
 is the JAX package's byte for byte on the same detections.
 
@@ -37,6 +37,7 @@ import time
 
 import numpy as np
 
+from ..data.image import read_image_bgr
 from ..see.masks import external_contours
 
 CAR_CATEGORY_ID = 3  # COCO 'car' (generate_masks.py keeps COCO ids)
@@ -85,17 +86,6 @@ def detections_to_coco(per_image, out_path: str, score_thresh: float = 0.5):
 def _import_backend(spec: str):
     mod_name, fn_name = spec.split(":", 1)
     return getattr(importlib.import_module(mod_name), fn_name)
-
-
-def read_image_bgr(path: str) -> np.ndarray:
-    """A PNG -> uint8 (H, W, 3) BGR, as ``cv2.imread`` gives it."""
-    from ..data.png import read_png
-
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: the port reads PNG images only; a JPEG "
-                                  "reader comes with the demo slice (ROADMAP queue 1, "
-                                  "item 3)")
-    return np.ascontiguousarray(read_png(path)[..., 2::-1])
 
 
 def parse_args(argv=None):

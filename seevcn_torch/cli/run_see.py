@@ -8,9 +8,8 @@ completed and the scan points dropped. One process drives the device; with
 ``--workers N`` the frame loop is a thread pool (the reference's process
 pool), so host IO (cloud and mask load, projection, .pcd write) overlaps
 across frames while the device work queues on the card. The outputs are
-disjoint files, so resume by file still holds. The KITTI, nuScenes,
-Waymo and Custom (Baraja) adapters run; the demo adapter raises (ROADMAP
-queue 1, item 3).
+disjoint files, so resume by file still holds. The demo, KITTI,
+nuScenes, Waymo and Custom (Baraja) adapters run.
 
 Usage:
   python -m seevcn_torch.cli.run_see --cfg_file <SEE yaml> [--frames N]
@@ -41,13 +40,16 @@ def parse_args(argv=None):
 
 def build_data_obj(cfg):
     name = cfg.DATA.get("DATASET", "demo").lower()
+    if name == "demo":
+        from ..data.demo_dataset import DemoObjects
+
+        masks = {c: p for c, p in cfg.DATA.get("MASKS", {}).items()}
+        return DemoObjects(cfg.DATA.ROOT, camera_channels=cfg.DATA.get(
+            "CAMERA_CHANNELS", ["front"]), masks=masks)
     if name == "kitti":
         from ..data.kitti.see_adapter import KittiObjects
 
         return KittiObjects(cfg.DATA)
-    if name == "demo":
-        raise NotImplementedError("run_see: the demo adapter is not ported yet (ROADMAP "
-                                  "queue 1, item 3: it reads JPEGs with cv2)")
     from ..data.see_adapters import SEE_ADAPTERS
 
     if name in SEE_ADAPTERS:

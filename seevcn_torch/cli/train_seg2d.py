@@ -93,7 +93,9 @@ def coco_stream(cfg, batch, root, seed):
     """Endless batches from a COCO-format directory: <root>/annotations.json
     with images [{file_name, id}] and annotations [{image_id, bbox xywh,
     category_id, polygon segmentation}], the images with annotations drawn
-    by RandomState(seed). Each image (a PNG, ``data/png.py``) is resized to
+    by RandomState(seed). Each image (a PNG or a JPEG,
+``data/image.read_image_bgr``, flipped to RGB as the JAX package's cv2
+read is) is resized to
     cfg.image_size with cv2's uint8 INTER_LINEAR (``ops/resize``) and
     normalised; each mask is rasterized at the image's size
     (``see/masks.polygons_to_mask``), resized in f32 and thresholded at 0.5;
@@ -102,7 +104,7 @@ def coco_stream(cfg, batch, root, seed):
     import numpy as np
     import torch
 
-    from ..data.png import read_png
+    from ..data.image import read_image_bgr
     from ..models.seg2d.backend import IMAGENET_MEAN, IMAGENET_STD
     from ..ops.resize import resize_linear
     from ..see.masks import polygons_to_mask
@@ -126,7 +128,7 @@ def coco_stream(cfg, batch, root, seed):
         gtm = np.zeros((batch, cfg.max_gt, h, w), np.float32)
         for bi, ii in enumerate(idxs):
             im = images[ii]
-            raw = read_png(os.path.join(root, im["file_name"]))[..., :3]
+            raw = read_image_bgr(os.path.join(root, im["file_name"]))[..., ::-1]
             h0, w0 = raw.shape[:2]
             small = resize_linear(torch.from_numpy(np.ascontiguousarray(raw)), (h, w)).numpy()
             imgs[bi] = (small.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD

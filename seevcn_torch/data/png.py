@@ -1,11 +1,12 @@
 """A small PNG reader and writer (stdlib zlib and numpy), for KITTI's camera
 images and depth maps where OpenCV is not installed.
 
-``read_png`` reads the two kinds a KITTI split holds: 8-bit RGB (colour
-type 2) or RGBA (6), and 16-bit grayscale (0), non-interlaced, with any of
-the five row filters. It returns what ``cv2.imread`` gives in RGB order:
-uint8 (H, W, 3) or (H, W, 4), or uint16 (H, W) for ``cv2.IMREAD_UNCHANGED``
-on a depth map. Any other PNG raises. Rows filtered Sub or Up decode as
+``read_png`` reads the kinds a KITTI split and the port's plots hold: 8-bit
+RGB (colour type 2) or RGBA (6), and 8- or 16-bit grayscale (0),
+non-interlaced, with any of the five row filters. It returns what
+``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` gives, in RGB order: uint8 (H, W,
+3) or (H, W, 4), or uint8 or uint16 (H, W) for a grayscale image (a depth
+map). Any other PNG raises. Rows filtered Sub or Up decode as
 whole-row numpy operations; Average and Paeth, whose every byte depends on
 the one before it, decode byte by byte in Python (a few hundred ms for a
 KITTI image filtered so throughout).
@@ -22,7 +23,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: (bit depth, colour type) -> channels
-_KINDS = {(8, 2): 3, (8, 6): 4, (16, 0): 1}
+_KINDS = {(8, 2): 3, (8, 6): 4, (8, 0): 1, (16, 0): 1}
 
 
 def _unfilter_rows(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
@@ -65,7 +66,8 @@ def _unfilter_rows(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray
 
 
 def read_png(path: str) -> np.ndarray:
-    """A PNG file -> uint8 (H, W, 3 or 4) RGB(A), or uint16 (H, W) grayscale."""
+    """A PNG file -> uint8 (H, W, 3 or 4) RGB(A), or uint8 or uint16 (H, W)
+    grayscale."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
@@ -88,13 +90,13 @@ def read_png(path: str) -> np.ndarray:
     if (depth, colour) not in _KINDS or interlace:
         raise ValueError(f"{path}: PNG of bit depth {depth}, colour type {colour}, "
                          f"interlace {interlace}: read_png takes 8-bit RGB or RGBA and "
-                         "16-bit grayscale, not interlaced")
+                         "8- or 16-bit grayscale, not interlaced")
     channels = _KINDS[(depth, colour)]
     bpp = channels * depth // 8
     rows = _unfilter_rows(zlib.decompress(b"".join(idat)), height, width * bpp, bpp)
     if depth == 16:
         return rows.view(">u2").astype(np.uint16).reshape(height, width)
-    return rows.reshape(height, width, channels)
+    return rows.reshape(height, width, channels) if channels > 1 else rows
 
 
 def _filter_row(kind: int, cur: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
@@ -126,15 +128,18 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, image: np.ndarray, filters=0) -> None:
-    """uint8 (H, W, 3 or 4) RGB(A) or uint16 (H, W) -> a PNG file, row y
-    filtered with ``filters`` (an int, or a sequence of one a row)."""
+    """uint8 (H, W, 3 or 4) RGB(A), or uint8 or uint16 (H, W) grayscale -> a
+    PNG file, row y filtered with ``filters`` (an int, or a sequence of one a
+    row)."""
     image = np.ascontiguousarray(image)
     if image.dtype == np.uint16 and image.ndim == 2:
         depth, colour, data = 16, 0, image.astype(">u2").view(np.uint8)
+    elif image.dtype == np.uint8 and image.ndim == 2:
+        depth, colour, data = 8, 0, image
     elif image.dtype == np.uint8 and image.ndim == 3 and image.shape[2] in (3, 4):
         depth, colour, data = 8, 2 if image.shape[2] == 3 else 6, image
     else:
-        raise ValueError("write_png takes uint8 (H, W, 3 or 4) or uint16 (H, W)")
+        raise ValueError("write_png takes uint8 (H, W, 3 or 4), or uint8 or uint16 (H, W)")
     height, width = image.shape[:2]
     bpp = _KINDS[(depth, colour)] * depth // 8
     rows = data.reshape(height, width * bpp)

@@ -84,20 +84,25 @@ class DetectorConfig:
         return (int(g[2]) + 1, int(g[1]), int(g[0]))
 
 
-def _bev_backbone(b2, input_channels: int) -> BaseBEVBackbone:
-    if b2.get("DTYPE", None) is not None:
-        raise NotImplementedError("BACKBONE_2D.DTYPE")
+def _bev_backbone(b2, input_channels: int, dtype: str | None = None) -> BaseBEVBackbone:
     return BaseBEVBackbone(
         input_channels, b2.LAYER_NUMS, b2.LAYER_STRIDES, b2.NUM_FILTERS,
-        b2.get("UPSAMPLE_STRIDES", ()), b2.get("NUM_UPSAMPLE_FILTERS", ()))
+        b2.get("UPSAMPLE_STRIDES", ()), b2.get("NUM_UPSAMPLE_FILTERS", ()), dtype=dtype)
 
 
 class _AnchorRPN(nn.Module):
     """The BEV backbone and the anchor head over a BEV map, and the anchor
-    loss: what every anchor detector ends with."""
+    loss: what every anchor detector ends with. A detector whose class sets
+    ``BEV_DTYPE`` runs its BEV convs in BACKBONE_2D.DTYPE; the others ignore
+    it, as their JAX builders do (only SECOND-IoU's, SECONDNet's and
+    PointPillar's pass it on, seevcn_tpu/models/detectors/second.py)."""
+
+    BEV_DTYPE = False
 
     def _init_head(self, cfg: DetectorConfig, bev_channels: int) -> None:
-        self.backbone_2d = _bev_backbone(cfg.model_cfg.BACKBONE_2D, bev_channels)
+        b2 = cfg.model_cfg.BACKBONE_2D
+        self.backbone_2d = _bev_backbone(b2, bev_channels,
+                                         b2.get("DTYPE", None) if self.BEV_DTYPE else None)
         self.dense_head = build_anchor_head(
             cfg.model_cfg.DENSE_HEAD, cfg.head_logic, self.backbone_2d.num_bev_features,
             cfg.num_class, cfg.class_names)
@@ -105,8 +110,9 @@ class _AnchorRPN(nn.Module):
     def bev_head(self, bev: torch.Tensor):
         """A BEV map (B, H, W, C) -> (BEV features, the dense head's output,
         batch_cls_preds, batch_box_preds)."""
-        # a bf16 backbone hands a bf16 BEV over; the 2D convs run in the
-        # dense head's dtype (f32)
+        # a bf16 3D backbone hands a bf16 BEV over; it enters the 2D backbone
+        # in the dense head's dtype (f32), whose convs cast to their compute
+        # dtype where BACKBONE_2D.DTYPE sets one
         bev2d = self.backbone_2d(bev.to(next(self.dense_head.parameters()).dtype))
         head_out = self.dense_head(bev2d)
         cls_preds, box_preds = self.cfg.head_logic.predict_boxes(head_out)
@@ -238,6 +244,8 @@ class SECONDNet(AnchorDetector):
     """Plain SECOND (second_net.py:4-34): the dense head only, over any of
     the three 3D backbones and either anchor head."""
 
+    BEV_DTYPE = True
+
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
                 gt_boxes: torch.Tensor | None = None, generator=None,
                 roi_u: torch.Tensor | None = None) -> dict:
@@ -270,6 +278,8 @@ class PointPillar(_AnchorRPN):
     the last frame's; in training its batch norms take their statistics
     over every point row of the batch (the reference's
     DynamicPillarVFE)."""
+
+    BEV_DTYPE = True
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
@@ -330,6 +340,8 @@ class PointPillar(_AnchorRPN):
 
 class SECONDNetIoU(AnchorDetector):
     """SECOND + IoU rcnn head: the rotated BEV RoI-grid pool -> SECONDHead."""
+
+    BEV_DTYPE = True
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__(cfg)

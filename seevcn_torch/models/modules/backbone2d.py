@@ -6,12 +6,19 @@ of kernel and stride s; s < 1 a conv of kernel and stride round(1 / s),
 unpadded; with one more upsample stride than levels, a final transposed
 conv over the concat follows (``deblocks.{levels}``); with none, the
 levels' own outputs are joined. Keys as the reference's
-(``blocks.0.1.weight`` after its ZeroPad2d at index 0)."""
+(``blocks.0.1.weight`` after its ZeroPad2d at index 0).
+
+``dtype`` (BACKBONE_2D.DTYPE, e.g. "bfloat16") is the convs' compute dtype
+only, as flax's ``nn.Conv(dtype=...)`` in the JAX package: each conv and
+transposed conv casts its input and weight to it and gives its output in
+it; the batch norms run in f32 on f32 parameters and statistics, so every
+block's output is f32 again. The parameters stay f32."""
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .common import conv_block2d, deconv_block2d
@@ -21,8 +28,9 @@ class BaseBEVBackbone(nn.Module):
     def __init__(self, input_channels: int, layer_nums: Sequence[int],
                  layer_strides: Sequence[int], num_filters: Sequence[int],
                  upsample_strides: Sequence[float] = (),
-                 num_upsample_filters: Sequence[int] = ()):
+                 num_upsample_filters: Sequence[int] = (), dtype: str | None = None):
         super().__init__()
+        self.compute_dtype = None if dtype is None else getattr(torch, str(dtype))
         levels = len(layer_nums)
         self.blocks = nn.ModuleList()
         self.deblocks = nn.ModuleList()
@@ -59,9 +67,24 @@ class BaseBEVBackbone(nn.Module):
         x = x.permute(0, 3, 1, 2)
         ups = []
         for i, block in enumerate(self.blocks):
-            x = block(x)
-            ups.append(self.deblocks[i](x) if len(self.deblocks) else x)
+            x = self._run(block, x)
+            ups.append(self._run(self.deblocks[i], x) if len(self.deblocks) else x)
         out = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
         if len(self.deblocks) > len(self.blocks):
-            out = self.deblocks[-1](out)
+            out = self._run(self.deblocks[-1], out)
         return out.permute(0, 2, 3, 1)
+
+    def _run(self, seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        """The layers of ``seq`` in order, each conv in the compute dtype."""
+        dt = self.compute_dtype
+        if dt is None:
+            return seq(x)
+        for layer in seq:
+            if isinstance(layer, nn.ConvTranspose2d):
+                x = F.conv_transpose2d(x.to(dt), layer.weight.to(dt), None, layer.stride)
+            elif isinstance(layer, nn.Conv2d):
+                x = F.conv2d(x.to(dt), layer.weight.to(dt), None, layer.stride,
+                             layer.padding)
+            else:
+                x = layer(x)
+        return x

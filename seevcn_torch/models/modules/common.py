@@ -42,9 +42,12 @@ def _update_running(bn, mean: torch.Tensor, var: torch.Tensor) -> None:
 
 
 class _FlaxStatsBatchNorm:
-    """Training forward of a BatchNorm{1,2}d with flax's running update."""
+    """Training forward of a BatchNorm{1,2}d with flax's running update; an
+    input of a narrower dtype than the parameters (a bf16 conv's output) is
+    normalised in theirs, as flax promotes it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]

@@ -86,3 +86,16 @@ def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
     vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
     return inter_3d / (vol_a + vol_b - inter_3d).clamp_min(1e-6)
+
+
+def boxes_iou_bev_aligned_pair(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(N,) rotated BEV IoU of the pairs (boxes_a[i], boxes_b[i]), each pair
+    in coordinates centred on its first box."""
+    ca, cb = corners_bev(boxes_a), corners_bev(boxes_b)
+    offset = ca.mean(1, keepdim=True)
+    pa, pb = ca - offset, cb - offset
+    inter = (_edges_in_poly_area(pa, pb, 0.0)
+             + _edges_in_poly_area(pb, pa, 4 * _EPS)).clamp_min(0.0)
+    area_a = boxes_a[:, 3] * boxes_a[:, 4]
+    area_b = boxes_b[:, 3] * boxes_b[:, 4]
+    return inter / (area_a + area_b - inter).clamp_min(1e-7)

@@ -14,46 +14,28 @@ says which route the module takes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
 from ..geom.pcd_io import read_pcd as _np_read_pcd
+from . import cxx_build
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "seevcn_io.cpp"
-BUILD_DIR = _ROOT / "seevcn_torch" / "_build"
+BUILD_DIR = cxx_build.BUILD_DIR
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 _lib = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libseevcn_io-{digest[:12]}.so"
+    return cxx_build.library_path(SOURCE, CXX_FLAGS, "libseevcn_io")
 
 
 def build() -> Path:
-    """Compile the library unless its current build exists (a temporary
-    file, then os.replace, so concurrent builders never load half a file).
-    Raises if the source or g++ is missing or the compile fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None:
-        raise RuntimeError("no C++ compiler for native/seevcn_io.cpp")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile the library unless its current build exists; raises if the
+    source or g++ is missing or the compile fails."""
+    return cxx_build.build_shared(SOURCE, CXX_FLAGS, "libseevcn_io")
 
 
 def _load():

@@ -1,9 +1,9 @@
-"""Interactive 3D scene viewer as one self-contained HTML file (the port's
-copy of ``save_scene_html`` and what it needs from seevcn_tpu/utils/viz3d.py).
+"""Interactive 3D scene viewer as one self-contained HTML file, and a
+``.ply`` exporter (port of seevcn_tpu/utils/viz3d.py).
 
 The point cloud and boxes are embedded as base64 Float32 buffers and drawn
 with vanilla-JS canvas orbit/zoom/pan controls: open in any browser, no
-server, no CDN.
+server, no CDN. ``export_ply`` writes the JAX package's file byte for byte.
 """
 from __future__ import annotations
 
@@ -11,6 +11,40 @@ import base64
 import json
 
 import numpy as np
+
+
+def export_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None,
+               binary: bool = True):
+    """points (N, 3[+]) -> .ply; colors (N, 3) uint8 optional."""
+    pts = np.asarray(points, np.float32)[:, :3]
+    n = len(pts)
+    has_c = colors is not None
+    header = ["ply",
+              "format binary_little_endian 1.0" if binary else "format ascii 1.0",
+              f"element vertex {n}",
+              "property float x", "property float y", "property float z"]
+    if has_c:
+        header += ["property uchar red", "property uchar green",
+                   "property uchar blue"]
+    header.append("end_header")
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode())
+        if binary:
+            if has_c:
+                rec = np.zeros(n, dtype=[("xyz", np.float32, 3),
+                                         ("rgb", np.uint8, 3)])
+                rec["xyz"] = pts
+                rec["rgb"] = np.asarray(colors, np.uint8)
+                f.write(rec.tobytes())
+            else:
+                f.write(pts.tobytes())
+        else:
+            c = np.asarray(colors, np.uint8) if has_c else None
+            for i in range(n):
+                row = "%g %g %g" % tuple(pts[i])
+                if has_c:
+                    row += " %d %d %d" % tuple(c[i])
+                f.write((row + "\n").encode())
 
 
 def _box_edges(boxes: np.ndarray) -> np.ndarray:

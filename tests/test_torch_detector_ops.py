@@ -6,6 +6,7 @@ rotated BEV IoU and NMS. Inputs are made with numpy from a seed.
 Tolerances: integer and boolean outputs (coords, masks, indices, kept sets)
 must be equal; float outputs of the same f32 formula agree to 1e-5
 relative (only the order of sums differs)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -233,6 +234,28 @@ def test_boxes_iou_bev_matches_jax(row_chunk):
     assert abs(t[0, 0] - 1) < 1e-5 and abs(t[1, 1] - 1 / 16) < 1e-5
     assert t[2, 2] == 0
     assert 0.05 < (t > 0).mean() < 0.9          # rotated overlaps and misses
+
+
+def test_boxes_iou_bev_aligned_pair_matches_jax():
+    """The element-wise IoU of paired boxes: the same special pairs as the
+    matrix test, then jittered pairs (each b a moved and turned copy of its
+    a, so most overlap); the diagonal of the matrix IoU agrees too."""
+    a, b = _boxes(9, 40, spread=6.0), _boxes(10, 40, spread=6.0)
+    b[4:] = a[4:] + np.random.RandomState(3).uniform(-1, 1, (36, 7)).astype(np.float32) \
+        * [1, 1, 0.2, 0.3, 0.3, 0.2, 0.5]
+    a[0], b[0] = [1, 1, 0, 4, 2, 1, 0.3], [1, 1, 0, 4, 2, 1, 0.3]
+    a[1], b[1] = [0, 0, 0, 4, 4, 1, 0.0], [0, 0, 0, 1, 1, 1, 0.7]
+    a[2], b[2] = [-50, -50, 0, 2, 2, 1, 0.1], [50, 50, 0, 2, 2, 1, 0.1]
+    a[3], b[3] = [10, 0, 0, 2, 2, 1, 0.0], [12, 0, 0, 2, 2, 1, 0.0]
+    ja = jax.jit(JI.boxes_iou_bev_aligned_pair)(jnp.asarray(a), jnp.asarray(b))
+    ta = TI.boxes_iou_bev_aligned_pair(to_torch(a), to_torch(b))
+    assert ta.shape == (40,)
+    assert_close(ta, _np(ja), atol=1e-6, name="paired iou")
+    assert_close(ta, TI.boxes_iou_bev(to_torch(a), to_torch(b)).diagonal(), atol=1e-6,
+                 name="the matrix's diagonal")
+    t = ta.numpy()
+    assert abs(t[0] - 1) < 1e-6 and abs(t[1] - 1 / 16) < 1e-6 and t[2] == 0
+    assert (t[4:] > 0).mean() > 0.8
 
 
 @pytest.mark.parametrize("variant", ["plain", "ties", "thresholds", "aligned",

@@ -103,10 +103,18 @@ def test_run_see_writes_the_pipelines_frames(split, capsys):
     assert 1000 < item["points_valid"].sum() != len(raw)
 
 
-@pytest.mark.parametrize("name,match", [("demo", "item 3"), ("lidar_only", "lidar_only")])
-def test_run_see_unported_adapters_raise(name, match):
-    """The demo adapter is not ported yet; a name no package has raises as
-    JAX's build_data_obj does (the other adapters: test_torch_see_adapters.py)."""
+@pytest.mark.parametrize("name,match", [("demo", None), ("lidar_only", "lidar_only")])
+def test_run_see_unported_adapters_raise(name, match, tmp_path):
+    """The demo adapter builds now (its frames: test_torch_demo.py); a name
+    no package has raises as JAX's build_data_obj does (the other adapters:
+    test_torch_see_adapters.py)."""
+    if match is None:
+        from seevcn_torch.data.demo_dataset import DemoObjects
+
+        obj = RS.build_data_obj(Cfg({"DATA": {"DATASET": name, "ROOT": str(tmp_path)}}))
+        assert isinstance(obj, DemoObjects) and len(obj) == 0
+        assert obj.camera_channels == ["front"] and obj.masks == {}
+        return
     with pytest.raises(NotImplementedError, match=match):
         RS.build_data_obj(Cfg({"DATA": {"DATASET": name}}))
 
@@ -138,11 +146,22 @@ def test_generate_masks_matches_jax_byte_for_byte(split, tmp_path):
     with pytest.raises(SystemExit, match="torchvision"):
         GM.main(["--image_dir", image_dir, "--out", str(tmp_path / "x.json"),
                  "--backend", "torchvision"])
+    # JPEGs: the port's decoder reads what cv2 reads, so the JSON is JAX's
+    # byte for byte again; a truncated file raises
+    import cv2
+
     (tmp_path / "jpg").mkdir()
-    (tmp_path / "jpg" / "a.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        GM.main(["--image_dir", str(tmp_path / "jpg"), "--out", str(tmp_path / "y.json"),
-                 "--backend", f"import:{__name__}:_backend"])
+    for i, png in enumerate(sorted(os.listdir(image_dir))):
+        cv2.imwrite(str(tmp_path / "jpg" / f"{i:06d}.jpg"), cv2.imread(os.path.join(image_dir, png)))
+    args = ["--image_dir", str(tmp_path / "jpg"), "--backend", f"import:{__name__}:_backend"]
+    got = GM.main(args + ["--out", str(tmp_path / "port_jpg.json"), "--device", "cpu"])
+    JGM.main(args + ["--out", str(tmp_path / "jax_jpg.json")])
+    assert (tmp_path / "port_jpg.json").read_bytes() == (tmp_path / "jax_jpg.json").read_bytes()
+    assert got["images"] == 4
+    blob = (tmp_path / "jpg" / "000000.jpg").read_bytes()
+    (tmp_path / "jpg" / "000000.jpg").write_bytes(blob[:len(blob) // 2])
+    with pytest.raises(ValueError, match="premature end"):
+        GM.main(args + ["--out", str(tmp_path / "y.json"), "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")

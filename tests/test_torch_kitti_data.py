@@ -139,8 +139,10 @@ def test_png_reader_matches_cv2(tmp_path, case):
         np.testing.assert_array_equal(read_png(ip)[..., :3], img)
         np.testing.assert_array_equal(read_png(dp), depth)
     cv2.imwrite(str(tmp_path / "gray8.png"), img[..., 0])
-    with pytest.raises(ValueError, match="colour type 0"):
-        read_png(str(tmp_path / "gray8.png"))
+    np.testing.assert_array_equal(read_png(str(tmp_path / "gray8.png")), img[..., 0])
+    cv2.imwrite(str(tmp_path / "rgb16.png"), depth[..., None].repeat(3, -1))
+    with pytest.raises(ValueError, match="bit depth 16, colour type 2"):
+        read_png(str(tmp_path / "rgb16.png"))
 
 
 # --------------------------------------------------------------------------- #

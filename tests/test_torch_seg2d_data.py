@@ -355,9 +355,9 @@ def test_cli_defaults_are_the_references():
                                                     4, 1)
 
 
-def _coco_dir(root):
+def _coco_dir(root, ext="png"):
     """A COCO-format directory as generate_masks writes it: three PNGs of
-    70 x 90 (the port's writer) and annotations.json from
+    70 x 90 (the port's writer; or JPEGs, cv2's) and annotations.json from
     detections_to_coco, the masks discs and a box, categories 3 and 1."""
     from seevcn_torch.cli.generate_masks import detections_to_coco
     from seevcn_torch.data.png import write_png
@@ -366,8 +366,11 @@ def _coco_dir(root):
     yy, xx = np.mgrid[:70, :90]
     per_image = []
     for i in range(3):
-        write_png(os.path.join(root, f"{i:06d}.png"),
-                  rng.randint(0, 256, (70, 90, 3)).astype(np.uint8))
+        pixels = rng.randint(0, 256, (70, 90, 3)).astype(np.uint8)
+        if ext == "png":
+            write_png(os.path.join(root, f"{i:06d}.png"), pixels)
+        else:
+            cv2.imwrite(os.path.join(root, f"{i:06d}.jpg"), pixels)
         dets = []
         for k in range(1 + i):
             cy, cx, r = rng.randint(10, 60), rng.randint(10, 80), rng.randint(4, 14)
@@ -377,7 +380,7 @@ def _coco_dir(root):
         box = np.zeros((70, 90), bool)
         box[5:20, 60:85] = True
         dets.append({"mask": box, "bbox": [60.0, 5.0, 25.0, 15.0], "score": 0.8})
-        per_image.append((f"{i:06d}.png", (70, 90), dets))
+        per_image.append((f"{i:06d}.{ext}", (70, 90), dets))
     detections_to_coco(per_image, os.path.join(root, "annotations.json"))
 
 
@@ -400,6 +403,21 @@ def test_cli_coco_dir_matches_jax(tmp_path):
     state, model, _ = CLI.train(args, quiet=True)
     assert state.step == 1
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def test_cli_coco_dir_of_jpegs_matches_jax(tmp_path):
+    """--coco_dir over JPEGs (cv2 wrote them; the port decodes them itself,
+    JAX with cv2): the same batches."""
+    root = str(tmp_path)
+    _coco_dir(root, ext="jpg")
+    args = CLI.parse_args(["--device", "cpu", "--size", "tiny", "--image_size", "96", "128",
+                           "--coco_dir", root])
+    cfg = CLI.build_cfg(args)
+    got, ref = CLI.coco_stream(cfg, 2, root, 5), JCLI.coco_stream(cfg, 2, root, 5)
+    for _ in range(3):
+        for a, b in zip(next(got), next(ref)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("flags", [["--cascade", "3"], ["--semantic"], ["--mask_info_flow"]],
