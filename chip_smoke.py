@@ -85,10 +85,23 @@ decoded on this host against cv2's hashes, generate_masks on JPEGs and on
 PNGs of the same pixels, ``cli/demo.py`` end to end inside
 ``profiling.trace()`` (K1 counted) and its SEE on the CPU, the flagship
 with a bf16 BEV backbone beside its f32 run, two spinning-lidar DA frames
-and the paired BEV IoU against the CPU. Every failed check raises, so the
-exit code is not 0. The last line of
-standard output is one JSON object naming the device; the line before it
-holds the kernel summary.
+and the paired BEV IoU against the CPU. Then data parallelism on the one
+card (phase 23): NCCL at world size 1 (collectives on CUDA tensors, and
+train_detector and test_detector with --launcher jax against --launcher
+none, their predictions held frame by frame), then two ranks spawned over
+gloo on the same card: the flagship's ``shard_train_step`` against
+``train_step`` on the global batch, a tiny step of each other detector
+against its world-1 step, the frames-over-ranks GT completion (K1 counted
+on each rank) with a witness of its batch independence, and
+``eval_one_epoch`` at world 2 against world 1, predictions and recall;
+NCCL at world size 2 or more needs a card a rank. Every failed check
+raises, so the exit code is not 0. The last line of standard output is one
+JSON object naming the device; the line before it holds the kernel
+summary.
+
+    python3 chip_smoke.py --phase 23
+
+runs phase 23 alone, after the set-up it needs, and prints no result line.
 
 It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
 """
@@ -117,6 +130,7 @@ from seevcn_torch.models.detectors import caddn as CADDN
 from seevcn_torch.models.detectors import configs as DC
 from seevcn_torch.models.detectors import pointrcnn as PRC
 from seevcn_torch.models.detectors import pvrcnn as PV
+from seevcn_torch.models.detectors import second as SECOND_MODULE
 from seevcn_torch.models.detectors.second import (PointPillar, build_detector,
                                                   post_processing)
 from seevcn_torch.models.modules.dense_heads import AnchorHeadLogic
@@ -2585,6 +2599,8 @@ BIAS_BEFORE_BN = "dense_head.shared_conv.bias"
 def _to_device(x, dev):
     if isinstance(x, torch.Tensor):
         return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
     return type(x)(_to_device(v, dev) for v in x)
 
 
@@ -6531,7 +6547,754 @@ def demo_jpeg(dev, card, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt)
     return res
 
 
-def main() -> int:
+# --- phase 23: data parallelism on one card -------------------------------------
+
+#: phase 23's bounds, set from the first readings on the card (PERF.md §5, with
+#: the readings that led to them). The train steps are held with the proposals
+#: pinned to the world-1 run's (``proposal_pins``): with random weights the
+#: RPN's scores nearly tie, so the last rounding of any sum moves proposals in
+#: or out of the NMS's 512 (256 of them a rank apart, unpinned) and with them
+#: the RoI sample. The world-2 steps are held with the 3D backbone in f32: in
+#: the flagship's bf16 a statistic summed in another order moves activations
+#: across a bf16 rounding step, about 1e-3 of a loss term. The flagship's own
+#: bf16 step, unpinned, is held loosely (bf16_*: read 1.26e-2 of a loss term
+#: and 0.062 of the largest gradient), clear of that noise but not of a
+#: gradient left unsummed (about half the largest) or a normalizer counted a
+#: rank (a term 2x). NCCL at world 1 against --launcher none is the same
+#: single-process step (the card's run-to-run rounding). Losses and running
+#: statistics relative (the statistics to 1 + their largest); gradients as a
+#: share of the largest gradient (``grads_apart``); step 2 starts from
+#: weights that Adam's first step may have moved by lr where a gradient is
+#: rounding noise, so its loss terms are held looser, as the CPU test holds
+#: its second step, and its gradients are printed beside. The merged
+#: predictions of the evals match box for box (anno_unmatched: read bit for
+#: bit equal). The sharded completion against the 4-frame batch's: the same
+#: instances, the rows by ``hold_see_frame_against_cpu``'s measure (nearest
+#: row, at SEE_ROW_SHARE; read 1e-4) and at most completion_4f_stray scan
+#: points kept apart (read 0 and 2): the VCN's batch of 128 or 64 instances
+#: rounds apart in f32, which ``completion_batch_witness`` shows in f64.
+DP_TOLS = {"cli_loss": 1e-3, "cli_stats": 1e-3, "cli_ap": 1e-4,
+           "step1_loss": 1e-5, "step1_grad": 5e-3, "step2_loss": 1e-2, "stats": 5e-3,
+           "bf16_loss": 0.1, "bf16_grad": 0.2, "anno_unmatched": 0.0,
+           "completion_4f_stray": 16}
+#: the eval's batch a rank: 8 frames at 3 pad a tail at world 1 and at world 2
+DP_EVAL_BATCH = 3
+#: the tiny detectors' world-2 steps against world 1 on the card, in f64, by
+#: the rules of tests/test_torch_parallel.py: loss terms relative, gradients
+#: as a share of their tensor's largest, the updated parameters where the
+#: gradient is sure (absolute) and everywhere (in lr), the running statistics
+#: relative to 1 + their largest
+DP_TINY_TOLS = {"loss": 1e-12, "grad": 2e-6, "params_sure": 1e-8, "params_lr": 2.0,
+                "buffers": 1e-12}
+DP_TINY_RPN = {"second_multihead": DC.tiny_second_multihead_cfg,
+               "second_focal": DC.tiny_second_focal_cfg,
+               "pointpillar": DC.tiny_pointpillar_cfg,
+               "centerpoint": DC.tiny_centerpoint_cfg}
+DP_TINY_RCNN = {"pvrcnn": DC.tiny_pvrcnn_cfg, "pvrcnn_plusplus": DC.tiny_pvrcnn_plusplus_cfg,
+                "voxel_rcnn": DC.tiny_voxel_rcnn_cfg, "pointrcnn": DC.tiny_pointrcnn_cfg,
+                "parta2": DC.tiny_parta2_cfg}
+#: the ten detectors other than the flagship, CaDDN in both its forms
+DP_TINY_DETECTORS = [*DP_TINY_RPN, *DP_TINY_RCNN, "caddn_image", "caddn_resnet_tiny"]
+
+
+def dp_tiny_case(key: str, device: str = "cpu") -> dict:
+    """``seevcn_torch.testing.step_case``'s case of a tiny detector on
+    ``device``: the step inputs as the tiny-step checks make them
+    (check_tiny_*_steps_against_cpu), two frames, the RoI sample and dropout
+    left to the step's generator."""
+    if key.startswith("caddn"):
+        form = key[len("caddn_"):]
+        cfg = DC.tiny_caddn_cfg(form)
+        images, p2, gt, depth, boxes2d = caddn_tiny_inputs(1)
+        inputs = (images, p2, gt, None)
+        extra = {"depth_maps": depth, **({"gt_boxes2d": boxes2d} if form == "resnet_tiny"
+                                         else {})}
+    else:
+        cfg = {**DP_TINY_RPN, **DP_TINY_RCNN}[key]()
+        extra = {}
+    sd = seeded_state_dict(8, build_detector(cfg, device="cpu")[0], random_stats=True)
+    if key in DP_TINY_RPN:
+        inputs = (*single_stage_train_inputs(), None)
+    elif key in DP_TINY_RCNN:
+        if key == "pointrcnn":      # box-shaped proposals (check_tiny_point_part_steps_...)
+            last = max(int(k.split(".")[2]) for k in sd
+                       if k.startswith("point_head.box_layers."))
+            for leaf in ("weight", "bias"):
+                sd[f"point_head.box_layers.{last}.{leaf}"] *= 0.1
+        inputs = (*pvrcnn_train_inputs(cfg, sd, relative=key in ("pointrcnn", "parta2")),
+                  None)
+    return {"cfg": cfg, "sd": sd, "inputs": inputs, "extra": extra, "seed": 5,
+            "device": device}
+
+
+def hold_tiny_dp_steps(cases: list, ref: list, ranks: list, fails: list) -> dict:
+    """Each tiny detector's world-2 step (``ranks``: each rank's
+    ``step_case`` results) against its world-1 step ``ref`` at
+    DP_TINY_TOLS; the ranks' weights and statistics bit for bit equal, and
+    a foreground loss term above 0. -> the worst readings a detector."""
+    out = {}
+    for i, key in enumerate(DP_TINY_DETECTORS):
+        r, g = ref[i], ranks[0][i]
+        same = all(torch.equal(v, ranks[1][i][name][n])
+                   for name in ("params", "buffers") for n, v in g[name].items())
+        loss = max(abs(float(g["terms"][k]) - float(v)) / (abs(float(v)) + 1e-30)
+                   for k, v in r["terms"].items())
+        scale = {n: t.abs().max().item() + 1e-30 for n, t in r["grads"].items()}
+        if BIAS_BEFORE_BN in scale:    # the conv bias that its batch norm cancels: noise
+            scale[BIAS_BEFORE_BN] = scale[BIAS_BEFORE_BN.replace("bias", "weight")]
+        grad = max((g["grads"][n] - t).abs().max().item() / scale[n]
+                   for n, t in r["grads"].items())
+        lr = build_lr_schedule(cases[i]["cfg"].OPTIMIZATION, 100)(0)
+        sure_off = all_off = 0.0
+        for n, t in r["params"].items():
+            gr = r["grads"][n].abs()
+            sure = (gr >= 0.05 * gr.max()) & (gr >= 1e-6)
+            d = (g["params"][n] - t).abs()
+            if sure.any():
+                sure_off = max(sure_off, d[sure].max().item())
+            all_off = max(all_off, d.max().item() / lr)
+        bufs = max(((g["buffers"][n] - t).abs().max().item() / (1.0 + t.abs().max().item())
+                    for n, t in r["buffers"].items()), default=0.0)
+        fg = next(k for k in ("rcnn_loss_reg", "loc_loss", "rpn_loss_loc") if k in r["terms"])
+        out[key] = {"loss": loss, "grad": grad, "params_sure": sure_off, "params_lr": all_off,
+                    "buffers": bufs, "ranks_bit_equal": same,
+                    "terms_equal": set(g["terms"]) == set(r["terms"]),
+                    "foreground": float(r["terms"][fg])}
+        bad = [k for k, v in DP_TINY_TOLS.items() if out[key][k] > v]
+        if bad or not same or not out[key]["terms_equal"] or not out[key]["foreground"] > 0:
+            fails.append(f"tiny {key} world 2 vs world 1 on the card ({bad}): {out[key]}")
+    return out
+
+
+def proposal_pins(pinned=None, rank: int = 0, world: int = 1):
+    """``pinned_calls`` of the detector's ``proposal_layer``: recording, or
+    replaying ``pinned`` (a world-1 run's) with this rank's block of rows."""
+    def rows(args, kwargs, res):
+        n = args[0].shape[0]
+        return {k: v[rank * n:(rank + 1) * n] for k, v in res.items()}
+
+    return pinned_calls([(SECOND_MODULE, "proposal_layer", rows)], pinned)
+
+
+def rois_apart(got: list, ref: list, rank: int = 0) -> int:
+    """RoIs of ``got``'s proposal calls (this rank's rows) that no RoI of
+    ``ref``'s same rows matches within 1e-3."""
+    apart = 0
+    for g, r in zip(got, ref):
+        n = g["rois"].shape[0]
+        for a, b in zip(g["rois"], r["rois"][rank * n:(rank + 1) * n]):
+            apart += int(((a[:, None, :7] - b[None, :, :7]).abs().amax(-1) > 1e-3)
+                         .all(1).sum())
+    return apart
+
+
+def dp_det_cfg(root: str | None = None, dtype: str | None = None):
+    """The flagship SECOND-IoU (its 3D backbone in ``dtype`` where one is
+    given), over the KITTI split at ``root`` (no augmentation, batch 4)
+    where one is given."""
+    cfg = DC.flagship_detector_cfg()
+    if dtype is not None:
+        cfg.MODEL.BACKBONE_3D.DTYPE = dtype
+    if root is not None:
+        dc = kitti_cfg(root)
+        dc["DATA_PROCESSOR"] = list(dc.DATA_PROCESSOR) + list(cfg.DATA_CONFIG.DATA_PROCESSOR)
+        cfg["DATA_CONFIG"] = dc
+        cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU = 4
+    return cfg
+
+
+def flagship_weights(det_cfg) -> dict:
+    """The flagship's seeded weights (seed 0)."""
+    return seeded_state_dict(0, build_detector(det_cfg, device="cpu")[0])
+
+
+def dp_flagship_steps(det_cfg, sd, frames, dev, world: int = 1, steps: int = 2,
+                      pinned=None) -> dict:
+    """``steps`` flagship SECOND-IoU train steps from ``sd`` on ``frames``
+    (points, valid, gt_boxes of the global batch, CPU tensors), the step's
+    generator seeded 0 on ``dev``: ``train_step`` at world 1,
+    ``shard_train_step`` on this rank's rows in a group of ``world``; the
+    proposals recorded, or replayed from ``pinned`` (``proposal_pins``). ->
+    per step the loss terms (the global batch's), the gradients before
+    clipping (summed over the ranks) and the ms (host clock to a
+    synchronize); the parameters and buffers after; the proposals; at world
+    2 the gradient all-reduce of one step timed alone (ms)."""
+    from seevcn_torch.parallel.mesh import make_mesh, shard_batch
+    from seevcn_torch.train.train import all_reduce_grads, shard_train_step
+
+    cap = int(det_cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
+    model, _ = build_detector(det_cfg, sd, max_voxels=cap, device=dev)
+    state = create_train_state(model, det_cfg.OPTIMIZATION, total_steps=1000)
+    step, rank = train_step, 0
+    if world > 1:
+        mesh = make_mesh(device=dev)
+        step, rank = shard_train_step(model, mesh)[0], mesh.rank
+        frames = shard_batch(mesh, frames)
+    pts, valid, gt = (t.to(dev) for t in frames)
+    grads = {}
+    update = state.optimizer.step
+
+    def recorded(count):
+        grads.update({n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+        update(count)
+
+    state.optimizer.step = recorded
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"steps": []}
+    with proposal_pins(pinned, rank, world) as props:
+        for _ in range(steps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            terms = step(state, pts, valid, gt, gen)
+            _sync(dev)
+            out["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "grads": dict(grads),
+                                 "terms": {k: float(v) for k, v in terms.items()}})
+    out["proposals"] = props
+    out["params"] = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+    out["buffers"] = {n: b.detach().cpu() for n, b in model.named_buffers()
+                      if not n.endswith("num_batches_tracked")}
+    if world > 1:
+        _sync(dev)
+        t0 = time.perf_counter()
+        all_reduce_grads(state.optimizer.params)
+        _sync(dev)
+        out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def dp_eval(det_cfg, sd, dev, batch: int) -> dict:
+    """``eval_one_epoch`` of the detector at ``sd`` over ``det_cfg``'s KITTI
+    split at ``batch`` frames a rank (the group's ranks, or one): -> AP
+    report, AP dict, recall counts, log lines, s."""
+    from seevcn_torch.data.kitti.dataset import KittiDataset
+    from seevcn_torch.train.eval import eval_one_epoch
+
+    model, _ = build_detector(det_cfg, sd, device=dev)
+    val = KittiDataset(det_cfg.DATA_CONFIG, ["Car"], False, max_points=40_000, max_boxes=64)
+    logs = []
+    t0 = time.time()
+    with recorded_annos() as annos:
+        report, ap, recall = eval_one_epoch(model.eval(), det_cfg, val, batch_size=batch,
+                                            logger=logs.append)
+    return {"report": report, "ap": ap, "recall": recall, "logs": logs, "annos": annos[0],
+            "s": time.time() - t0}
+
+
+@contextlib.contextmanager
+def recorded_annos():
+    """Every prediction list handed to ``KittiDataset.evaluation`` while
+    open (each anno's frame_id, name, score, boxes_lidar), in order."""
+    from seevcn_torch.data.kitti.dataset import KittiDataset
+
+    seen, evaluation = [], KittiDataset.evaluation
+
+    def recording(self, det_annos, *args, **kw):
+        seen.append([{k: a[k] for k in ("frame_id", "name", "score", "boxes_lidar")}
+                     for a in det_annos])
+        return evaluation(self, det_annos, *args, **kw)
+
+    KittiDataset.evaluation = recording
+    try:
+        yield seen
+    finally:
+        KittiDataset.evaluation = evaluation
+
+
+def annos_apart(got: list, ref: list) -> dict:
+    """Two merged prediction lists of one split: whether their frames come
+    in the same order, the boxes both hold, and those of either that no box
+    of the other's same frame matches (its name, the score within 1e-5, the
+    box within 1e-4), with the largest |score - score| and |box - box| of
+    the matched pairs."""
+    boxes = unmatched = 0
+    score_off = box_off = 0.0
+    for g, r in zip(got, ref):
+        for a, b in ((g, r), (r, g)):
+            boxes += len(a["score"])
+            if not len(a["score"]):
+                continue
+            if not len(b["score"]):
+                unmatched += len(a["score"])
+                continue
+            d_box = np.abs(a["boxes_lidar"][:, None, :7] - b["boxes_lidar"][None, :, :7]).max(-1)
+            d_score = np.abs(a["score"][:, None] - b["score"][None, :])
+            close = (d_box <= 1e-4) & (d_score <= 1e-5) & (a["name"][:, None] == b["name"][None])
+            unmatched += int((~close.any(1)).sum())
+            if close.any():
+                box_off, score_off = max(box_off, float(d_box[close].max())), \
+                    max(score_off, float(d_score[close].max()))
+    return {"frames_equal": [a["frame_id"] for a in got] == [a["frame_id"] for a in ref],
+            "boxes": boxes, "unmatched": unmatched,
+            "unmatched_share": unmatched / max(boxes, 1), "box_off": box_off,
+            "score_off": score_off}
+
+
+def hold_annos(got: list, ref: list, fails: list, label: str) -> dict:
+    """``annos_apart`` of two merged prediction lists, held: the same frames
+    in order, boxes to hold, and at most DP_TOLS["anno_unmatched"] of them
+    unmatched."""
+    out = annos_apart(got, ref)
+    if not out["frames_equal"] or not out["boxes"] \
+            or out["unmatched_share"] > DP_TOLS["anno_unmatched"]:
+        fails.append(f"{label}: predictions apart {out}")
+    return out
+
+
+def dp_frame_recalls(det_cfg, sd, dev) -> list:
+    """Each frame's recall counts alone (``eval_step`` at batch 1)."""
+    from seevcn_torch.data.kitti.dataset import KittiDataset
+    from seevcn_torch.train.eval import eval_step
+
+    model, _ = build_detector(det_cfg, sd, device=dev)
+    val = KittiDataset(det_cfg.DATA_CONFIG, ["Car"], False, max_points=40_000, max_boxes=64)
+    out = []
+    for i in range(len(val)):
+        f = val[i]
+        batch = {k: torch.from_numpy(f[k][None]).to(dev)
+                 for k in ("points", "points_valid", "gt_boxes", "gt_mask")}
+        out.append({k: int(v) for k, v in eval_step(model.eval(), det_cfg, batch)[1].items()})
+    return out
+
+
+def strided_pad_recall(per_frame: list, world: int, batch: int) -> dict:
+    """The recall counts of ``eval_one_epoch`` at ``world`` ranks and
+    ``batch`` frames a rank, by JAX's rule: rank r takes the frames
+    range(r, n, world), each tail batch padded with its last frame, and
+    every padded repeat is counted."""
+    total = {k: 0 for k in per_frame[0]}
+    for r in range(world):
+        mine = list(range(r, len(per_frame), world))
+        for s in range(0, len(mine), batch):
+            idx = mine[s:s + batch]
+            idx += [idx[-1]] * (batch - len(idx))
+            for i in idx:
+                for k in total:
+                    total[k] += per_frame[i][k]
+    return total
+
+
+def dp_rank(rank: int, world: int, det_cfg, held_cfg, eval_cfg, frames, gt_frames,
+            batch: int, pinned, tiny_cases, device: str = "cuda:0") -> dict:
+    """One rank of phase 23 (b), on ``device`` (cuda:0: every rank on the one
+    card) over gloo: ``held_cfg``'s steps with the proposals pinned to the
+    world-1 run's, one step of ``det_cfg`` without, a step of each tiny
+    detector of ``tiny_cases``, the sharded GT completion (K1 counted) and
+    the eval at ``eval_cfg`` (``det_cfg``'s model over the KITTI split)."""
+    from seevcn_torch.parallel import distributed as PD
+    from seevcn_torch.parallel.mesh import make_mesh
+    from seevcn_torch.see.sharded import make_sharded_completion
+    from seevcn_torch.testing import step_case
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        K.build(K.KERNELS)
+    PD.init_distributed("jax", device=dev, backend="gloo")
+    try:
+        sd = flagship_weights(det_cfg)
+        out = {"group": (torch.distributed.get_rank(), torch.distributed.get_world_size(),
+                         torch.distributed.get_backend()),
+               "train": dp_flagship_steps(held_cfg, sd, frames, dev, world=world,
+                                          pinned=pinned),
+               "unpinned": dp_flagship_steps(det_cfg, sd, frames, dev, world=world, steps=1)}
+        t0 = time.perf_counter()
+        out["tiny_steps"] = [step_case(c, world) for c in tiny_cases]
+        out["tiny_s"] = time.perf_counter() - t0
+        vcn = VCNInference("VCN_VC", seeded_vcn_state_dict(0), device=dev)
+        fn = make_sharded_completion(make_mesh(), vcn)
+        fn(*gt_frames)                                     # warm-up
+        K.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        new_pts, new_valid, inst_ok = fn(*gt_frames)
+        _sync(dev)
+        out["completion"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                             "launches": K.LAUNCHES["min_sqdist_pruned"],
+                             "new_pts": new_pts.cpu(), "new_valid": new_valid.cpu(),
+                             "inst_ok": inst_ok.cpu()}
+        out["eval"] = dp_eval(eval_cfg, sd, dev, batch)
+    finally:
+        PD.destroy_distributed()
+    return out
+
+
+def worst_of(got: dict, ref: dict, scale) -> tuple:
+    """(the largest |got - ref| / scale(ref) over the keys, its key)."""
+    return max((((got[k] - ref[k]).abs().max().item() if isinstance(ref[k], torch.Tensor)
+                 else abs(got[k] - ref[k])) / scale(ref[k]), k) for k in ref)
+
+
+def grads_apart(got: dict, ref: dict) -> tuple:
+    """(the largest |got - ref| of any gradient element as a share of the
+    largest |ref| of any, the tensor it is in): a gradient that is rounding
+    noise around 0 (a bias whose batch norm downstream cancels it) has no
+    scale of its own to be held to."""
+    scale = max(r.abs().max().item() for r in ref.values()) + 1e-30
+    return worst_of(got, ref, lambda r: scale)
+
+
+def hold_dp_steps(got: dict, ref: dict, fails: list, label: str) -> dict:
+    """The steps of ``got`` against ``ref`` (``dp_flagship_steps``) at
+    DP_TOLS (a reading without a bound there is printed only): -> the worst
+    readings."""
+    rel = lambda r: abs(r) + 1e-30                                     # noqa: E731
+    out = {}
+    for i, s in enumerate(got["steps"]):
+        r = ref["steps"][i]
+        out[f"step{i + 1}_loss"] = worst_of(s["terms"], r["terms"], rel)
+        out[f"step{i + 1}_grad"] = grads_apart(s["grads"], r["grads"])
+    out["stats"] = worst_of(got["buffers"], ref["buffers"], lambda r: 1.0 + r.abs().max().item())
+    for k, (v, name) in out.items():
+        if k in DP_TOLS and v > DP_TOLS[k]:
+            fails.append(f"{label}: {k} {v:.3g} ({name}) past {DP_TOLS[k]}")
+    return {k: [v[0], v[1]] for k, v in out.items()}
+
+
+def completion_apart(got: tuple, ref: tuple, n_scan: int, dev) -> dict:
+    """Two GT completions of the same frames (new_pts, new_valid, inst_ok):
+    whether the instances are the same; the completed rows' largest
+    distance from the same row and the share past SEE_ROW_TOL
+    (``rows_apart_*``); the share of the rows of the instances both kept
+    farther than SEE_ROW_TOL from the nearest row of the same instance on
+    the other side, both ways (``rows_nearest_share``, the measure of
+    ``hold_see_frame_against_cpu``); and the scan points kept by one and not
+    the other but for points within 1e-5 r^2 of r^2 of ``ref``'s cloud."""
+    g_pts, g_valid, g_ok = (t.to(dev) for t in got)
+    r_pts, r_valid, r_ok = (t.to(dev) for t in ref)
+    apart = (g_pts[:, n_scan:] - r_pts[:, n_scan:]).norm(dim=-1)
+    live = g_valid[:, n_scan:] | r_valid[:, n_scan:]
+    both = (g_ok & r_ok).flatten()
+    inst = lambda p: p[:, n_scan:].reshape(both.shape[0], -1, 3)[both].double()  # noqa: E731
+    d = torch.cdist(inst(g_pts), inst(r_pts))
+    near = torch.cat([d.amin(2), d.amin(1)])
+    stray = 0
+    for i in range(g_pts.shape[0]):
+        d = MD.min_sqdist_plain(r_pts[i, :n_scan], r_pts[i, n_scan:], r_valid[i, n_scan:])
+        tie = (d - RADIUS * RADIUS).abs() <= 1e-5 * RADIUS * RADIUS
+        stray += int(((g_valid[i, :n_scan] != r_valid[i, :n_scan]) & ~tie).sum())
+    return {"inst_equal": bool(torch.equal(g_ok, r_ok)),
+            "rows_apart_max": float(apart.max()),
+            "rows_apart_share": float((apart[live] > SEE_ROW_TOL).float().mean())
+            if live.any() else 0.0,
+            "rows_nearest_share": float((near > SEE_ROW_TOL).float().mean())
+            if near.numel() else 0.0, "kept_stray": stray}
+
+
+def completion_batch_witness(vcn, iso: torch.Tensor, inst_valid: torch.Tensor,
+                             completed: torch.Tensor) -> dict:
+    """Whether a frame's GT completion depends on the frames batched with
+    it. ``iso`` (F, D, n, 3): F frames' isolated instances; ``completed``
+    the card's completion of all F in one batch of F D instances (phase 9).
+    The VCN and the chain after it (``forward_chain``) are run again at F D
+    instances and in two batches of F D / 2 (a rank's), in f32 and in f64:
+    -> for each pair, over the ``inst_valid`` instances, the share of
+    completed rows farther than SEE_ROW_TOL from the same row and the
+    largest such distance (``rows``), and the same for each row's nearest
+    row of the same instance on the other side (``nearest``, order
+    ignored)."""
+    from seevcn_torch.models.vcn.inference import forward_chain
+
+    flat = iso.flatten(0, 1)
+    h = flat.shape[0] // 2
+    model64 = copy.deepcopy(vcn.model).double()
+
+    def run(model, x):
+        return forward_chain(model, x, sel_k=vcn.sel_k, eps=vcn.cluster_eps)[3]
+
+    with torch.no_grad():
+        c = {"f32_full": run(vcn.model, flat),
+             "f32_half": torch.cat([run(vcn.model, flat[:h]), run(vcn.model, flat[h:])]),
+             "f64_full": run(model64, flat.double()),
+             "f64_half": torch.cat([run(model64, flat[:h].double()),
+                                    run(model64, flat[h:].double())])}
+    live = inst_valid.flatten()
+
+    def apart(a, b):
+        a, b = a[live].double(), b[live].double()
+        rows = (a - b).norm(dim=-1)
+        d = torch.cdist(a, b)
+        near = torch.cat([d.amin(2), d.amin(1)])
+        return {"rows": [float((rows > SEE_ROW_TOL).float().mean()), float(rows.max())],
+                "nearest": [float((near > SEE_ROW_TOL).float().mean()), float(near.max())]}
+
+    return {"f32_full_is_phase9": bool(torch.equal(c["f32_full"],
+                                                   completed.flatten(0, 1))),
+            "f32_full_vs_half": apart(c["f32_full"], c["f32_half"]),
+            "f64_full_vs_half": apart(c["f64_full"], c["f64_half"]),
+            "f32_vs_f64_full": apart(c["f32_full"], c["f64_full"]),
+            "f32_vs_f64_half": apart(c["f32_half"], c["f64_half"])}
+
+
+def gloo_world2(dev, flag_cfg, det_cfg, frames, gt_frames, completed, fails: list,
+                parts: dict) -> dict:
+    """Phase 23 (b): two ranks spawned over gloo, both on ``dev``'s card (or
+    the CPU, for a dry run), each running ``dp_rank``; the references here:
+    ``dp_flagship_steps`` at world 1 on ``frames`` (``flag_cfg`` with its 3D
+    backbone in f32, the proposals recorded; ``flag_cfg`` itself, one step
+    unpinned), the tiny detectors' world-1 steps, the GT completion of each
+    rank's block of ``gt_frames`` in this process, and ``completed`` (the
+    4-frame batch's new_pts, new_valid and stats) with
+    ``completion_batch_witness`` on its instances, and ``dp_eval`` at world
+    1 with ``det_cfg`` (``flag_cfg``'s model over a KITTI split), whose
+    predictions the ranks' merged lists must match and whose recall must
+    follow JAX's strided-pad rule at either world. A failed check goes into
+    ``fails``."""
+    from seevcn_torch.see.gt_completion import complete_gt_frames
+    from seevcn_torch.testing import spawn_ranks, step_case
+
+    t0, res = time.time(), {}
+    sd = flagship_weights(flag_cfg)
+    held_cfg = copy.deepcopy(flag_cfg)
+    held_cfg.MODEL.BACKBONE_3D.DTYPE = "float32"
+    ref = dp_flagship_steps(held_cfg, sd, frames, dev)
+    ref_own = dp_flagship_steps(flag_cfg, sd, frames, dev, steps=1)
+    key = f"{SECOND_MODULE.__name__}.proposal_layer"
+    parts["world1_steps"], t0 = time.time() - t0, time.time()
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    tiny_cases = [dp_tiny_case(k, device) for k in DP_TINY_DETECTORS]
+    tiny_ref = [step_case(c) for c in tiny_cases]
+    parts["tiny_world1_steps"], t0 = time.time() - t0, time.time()
+    ranks = spawn_ranks(dp_rank, 2, flag_cfg, held_cfg, det_cfg, frames, gt_frames,
+                        DP_EVAL_BATCH, ref["proposals"], tiny_cases, device, threads=4,
+                        timeout=600)
+    parts["gloo_world2_spawned"], t0 = time.time() - t0, time.time()
+    res["tiny_steps"] = hold_tiny_dp_steps(tiny_cases, tiny_ref, [r["tiny_steps"]
+                                                                  for r in ranks], fails)
+    res["tiny_s"] = [r["tiny_s"] for r in ranks]
+    res["groups"] = [r["group"] for r in ranks]
+    same = all(torch.equal(v, ranks[1]["train"][name][k])
+               for name in ("params", "buffers") for k, v in ranks[0]["train"][name].items())
+    if not same:
+        fails.append("world 2: the ranks' weights or statistics differ after the steps")
+    res["steps_vs_world1"] = hold_dp_steps(ranks[0]["train"], ref, fails, "world-2 steps")
+    res["unpinned_step1"] = {
+        "loss": worst_of(ranks[0]["unpinned"]["steps"][0]["terms"],
+                         ref_own["steps"][0]["terms"], lambda r: abs(r) + 1e-30),
+        "grad": grads_apart(ranks[0]["unpinned"]["steps"][0]["grads"],
+                            ref_own["steps"][0]["grads"]),
+        "rois_apart": [rois_apart(r["unpinned"]["proposals"][key], ref_own["proposals"][key],
+                                  i) for i, r in enumerate(ranks)]}
+    if res["unpinned_step1"]["loss"][0] > DP_TOLS["bf16_loss"] \
+            or res["unpinned_step1"]["grad"][0] > DP_TOLS["bf16_grad"]:
+        fails.append(f"the flagship's bf16 world-2 step, unpinned, vs world 1: "
+                     f"{res['unpinned_step1']}")
+    res["step_ms"] = {"world1": [s["ms"] for s in ref["steps"]],
+                      "world2": [[s["ms"] for s in r["train"]["steps"]] for r in ranks]}
+    res["all_reduce_ms"] = [r["train"]["all_reduce_ms"] for r in ranks]
+    res["ranks_bit_equal"] = same
+    vcn = VCNInference("VCN_VC", seeded_vcn_state_dict(0), device=dev)
+    n, n_scan = gt_frames[0].shape[0] // 2, gt_frames[0].shape[1]
+    c_pts, c_valid, c_stats = completed
+    four = (c_pts, c_valid, c_stats["inst_valid"])
+    res["completion"], res["completion_vs_4_frames"] = [], []
+    for i, r in enumerate(ranks):
+        c = r["completion"]
+        got = (c["new_pts"], c["new_valid"], c["inst_ok"])
+        block = [t[n * i:n * (i + 1)] for t in gt_frames]
+        one = complete_gt_frames(vcn, *block, device=dev)
+        held = completion_apart(got, (one[0], one[1], one[2]["inst_valid"]), n_scan, dev)
+        held["launches"] = c["launches"]
+        res["completion"].append(held)
+        vs4 = completion_apart(got, tuple(t[n * i:n * (i + 1)] for t in four), n_scan, dev)
+        res["completion_vs_4_frames"].append(vs4)
+        if not held["inst_equal"] or held["rows_apart_share"] > SEE_ROW_SHARE \
+                or held["kept_stray"] or c["launches"] < n:
+            fails.append(f"rank {i}: sharded completion off the one-process completion of "
+                         f"its frames: {held}")
+        if not vs4["inst_equal"] or vs4["rows_nearest_share"] > SEE_ROW_SHARE \
+                or vs4["kept_stray"] > DP_TOLS["completion_4f_stray"]:
+            fails.append(f"rank {i}: sharded completion off the 4-frame batch's: {vs4}")
+    witness = completion_batch_witness(vcn, c_stats["isolated"], c_stats["inst_valid"],
+                                       c_stats["completed"])
+    res["completion_batch_witness"] = witness
+    if not witness["f32_full_is_phase9"] \
+            or witness["f64_full_vs_half"]["rows"][0] > SEE_ROW_SHARE:
+        fails.append(f"the GT completion depends on the frames batched with it: {witness}")
+    res["completion_ms"] = [r["completion"]["ms"] for r in ranks]
+    res["sharded_completion_launches"] = [r["completion"]["launches"] for r in ranks]
+    parts["completion_checks"], t0 = time.time() - t0, time.time()
+    w1 = dp_eval(det_cfg, sd, dev, DP_EVAL_BATCH)
+    per_frame = dp_frame_recalls(det_cfg, sd, dev)
+    expect = {w: strided_pad_recall(per_frame, w, DP_EVAL_BATCH) for w in (1, 2)}
+    ev = [r["eval"] for r in ranks]
+    ap_off = max((abs(e["ap"][c][m][d] - v) for e in ev for c in w1["ap"]
+                  for m in w1["ap"][c] for d, v in w1["ap"][c][m].items()), default=0.0)
+    res["eval"] = {"ap_off": ap_off, "recall_world1": w1["recall"],
+                   "recall_world2": [e["recall"] for e in ev], "expected": expect,
+                   "frames": [e["logs"][0] for e in ev], "s": [e["s"] for e in ev],
+                   "world1_s": w1["s"],
+                   "annos_vs_world1": [hold_annos(e["annos"], w1["annos"], fails,
+                                                  f"eval_one_epoch rank {i} vs world 1")
+                                       for i, e in enumerate(ev)]}
+    if ap_off > DP_TOLS["cli_ap"] or w1["recall"] != expect[1] \
+            or any(e["recall"] != expect[2] for e in ev) \
+            or set(ev[0]["ap"]) != set(w1["ap"]) or not w1["recall"]["num_gt"]:
+        fails.append(f"eval_one_epoch world 2 vs world 1: {res['eval']}")
+    parts["eval_checks"] = time.time() - t0
+    return res
+
+
+def data_parallel(dev, card, gt_scenes, g_pts, g_valid, g_gt, g_stats) -> dict:
+    """Phase 23: data parallelism on one card. (a) NCCL at world size 1 on
+    cuda:0 (the ``jax`` launcher, its coordinator on a free local port):
+    all_reduce, all_gather and merge_results_dist on CUDA tensors, then
+    train_detector (one epoch, flagship SECOND-IoU, batch 4; the proposals
+    pinned to the --launcher none run's) and test_detector with --launcher
+    jax against --launcher none on an 8-frame KITTI split. (b) World size 2
+    over gloo, both ranks on cuda:0, spawned here (``gloo_world2``). Two
+    ranks share one card: their times are liveness numbers, not a
+    speed-up. Every failed check is collected and raised at the end."""
+    from seevcn_torch.cli import test_detector as TD
+    from seevcn_torch.cli import train_detector as TR
+    from seevcn_torch.parallel import collectives as COL
+    from seevcn_torch.parallel import distributed as PD
+    from seevcn_torch.testing import free_port
+
+    t_phase = time.time()
+    fails, res, parts = [], {}, {}
+    with tempfile.TemporaryDirectory(prefix="dp_kitti_") as root:
+        t0 = time.time()
+        write_kitti_split(root, KITTI_FRAMES, seed=0, n_points=KITTI_POINTS, n_cars=KITTI_CARS)
+        det_cfg = dp_det_cfg(root)
+        det_yaml = write_yaml(os.path.join(root, "second_iou_kitti.yaml"), det_cfg)
+        parts["split"], t0 = time.time() - t0, time.time()
+
+        # (a) NCCL at world size 1
+        os.environ.update(JAX_COORDINATOR_ADDRESS=f"localhost:{free_port()}",
+                          JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0")
+        group = PD.init_distributed("jax", device="cuda:0")
+        try:
+            backend = torch.distributed.get_backend()
+            t = torch.arange(4.0, device=dev)
+            red = t.clone()
+            torch.distributed.all_reduce(red)
+            gathered = [torch.empty_like(t)]
+            torch.distributed.all_gather(gathered, t)
+            objects = [None]
+            torch.distributed.all_gather_object(objects, {"frame": 0})
+            merged = COL.merge_results_dist([{"frame": 0}, {"frame": 1}], total_size=1)
+            avg = COL.average_reduce_value(2.5)
+            ok = (group == (0, 1) and backend == "nccl" and torch.equal(red, t)
+                  and torch.equal(gathered[0], t) and objects == [{"frame": 0}]
+                  and merged == [{"frame": 0}] and avg == 2.5)
+        finally:
+            PD.destroy_distributed()
+        res["nccl_collectives"] = {"group": group, "backend": backend, "ok": ok}
+        if not ok:
+            fails.append(f"NCCL world 1 collectives: {res['nccl_collectives']}")
+        common = ["--cfg_file", det_yaml, "--epochs", "1", "--fix_random_seed",
+                  "--max_ckpt_save_num", "1", "--device", "cuda"]
+        with proposal_pins() as props:
+            none = TR.main(common + ["--output_dir", os.path.join(root, "out_none")])
+        os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{free_port()}"
+        with proposal_pins(props):
+            nccl = TR.main(common + ["--output_dir", os.path.join(root, "out_jax"),
+                                     "--launcher", "jax"])
+        sd_none, sd_nccl = (r["state"].model.state_dict() for r in (none, nccl))
+        lr = build_lr_schedule(det_cfg.OPTIMIZATION, nccl["state"].step)
+        lr_sum = sum(lr(k) for k in range(nccl["state"].step))
+        params = {n for n, _ in none["state"].model.named_parameters()}
+        w_off = max(((sd_nccl[k].float() - v.float()).abs().max().item(), k)
+                    for k, v in sd_none.items() if k in params)
+        s_off = max(((sd_nccl[k].float() - v.float()).abs().max().item()
+                     / (1.0 + v.float().abs().max().item()), k)
+                    for k, v in sd_none.items()
+                    if k not in params and not k.endswith("num_batches_tracked"))
+        loss_off = max(abs(a - b) / abs(b) for a, b in zip(nccl["losses"], none["losses"]))
+        saved = torch.load(nccl["ckpts"][-1], weights_only=False)["model_state"]
+        file_ok = all(torch.equal(saved[k].cpu(), v.cpu()) for k, v in sd_nccl.items()
+                      if k in saved)
+        res["train_detector"] = {"losses_none": none["losses"], "losses_nccl": nccl["losses"],
+                                 "loss_off": loss_off, "weights_off": list(w_off),
+                                 "weights_bound": 2 * lr_sum, "stats_off": list(s_off),
+                                 "steps": nccl["state"].step, "file_equal": file_ok}
+        if loss_off > DP_TOLS["cli_loss"] or w_off[0] > 2 * lr_sum \
+                or s_off[0] > DP_TOLS["cli_stats"] or not file_ok:
+            fails.append(f"train_detector --launcher jax (NCCL, world 1) vs none: "
+                         f"{res['train_detector']}")
+        test = ["--cfg_file", det_yaml, "--ckpt", none["ckpts"][-1], "--batch_size", "4",
+                "--device", "cuda"]
+        with recorded_annos() as annos:
+            t_none = TD.main(test)
+            os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{free_port()}"
+            t_nccl = TD.main(test + ["--launcher", "jax"])
+        ap_off = max(abs(t_nccl[1][c][m][d] - v) for c in t_none[1] for m in t_none[1][c]
+                     for d, v in t_none[1][c][m].items()) if t_none[1] else 0.0
+        res["test_detector"] = {"ap_off": ap_off, "recall_none": t_none[2],
+                                "recall_nccl": t_nccl[2],
+                                "annos": hold_annos(annos[1], annos[0], fails,
+                                                    "test_detector --launcher jax vs none")}
+        if ap_off > DP_TOLS["cli_ap"] or t_nccl[2] != t_none[2] or not t_none[2]["num_gt"]:
+            fails.append(f"test_detector --launcher jax (NCCL, world 1) vs none: "
+                         f"{res['test_detector']}")
+        parts["nccl_world1"], t0 = time.time() - t0, time.time()
+
+        # (b) world size 2 over gloo, both ranks on cuda:0
+        frames = tuple(t.cpu() for t in (g_pts, g_valid, g_gt))
+        gt_frames = tuple(torch.from_numpy(np.stack([sc[k] for sc in gt_scenes]))
+                          for k in ("points", "valid", "gt_boxes"))
+        gt_frames += (torch.ones(gt_frames[2].shape[:2], dtype=torch.bool),)
+        res.update(gloo_world2(dev, dp_det_cfg(), det_cfg, frames, gt_frames,
+                               (g_pts, g_valid, g_stats), fails, parts))
+    res["part_s"], res["phase_s"] = parts, time.time() - t_phase
+    print(f"phase 23 (a) NCCL world 1 (--launcher jax, cuda:0): collectives "
+          f"{res['nccl_collectives']}; train_detector (flagship SECOND-IoU, 8 frames, batch 4, "
+          f"one epoch, proposals pinned to --launcher none's) vs --launcher none: "
+          f"{res['train_detector']}; test_detector: {res['test_detector']} on {card}")
+    print(f"phase 23 (b) gloo world 2, both ranks on cuda:0 (groups {res['groups']}): "
+          f"flagship steps (3D backbone f32) vs train_step at 4 frames, proposals pinned "
+          f"(worst, bounds {DP_TOLS}) {res['steps_vs_world1']}; ranks bit-equal "
+          f"{res['ranks_bit_equal']}; the flagship's bf16 step 1 unpinned (bounds "
+          f"bf16_loss, bf16_grad): loss terms "
+          f"{res['unpinned_step1']['loss']}, gradients {res['unpinned_step1']['grad']}, RoIs "
+          f"apart from world 1's a rank {res['unpinned_step1']['rois_apart']}; step ms (3D "
+          f"backbone f32) world 1 "
+          f"{res['step_ms']['world1']}, world 2 (2 frames a rank) {res['step_ms']['world2']}, "
+          f"gradient all-reduce alone {res['all_reduce_ms']} ms (two ranks sharing one card "
+          f"over gloo: liveness, not a speed-up) on {card}")
+    print(f"phase 23 (b) the ten other detectors' tiny steps (f64) at world 2 vs world 1 "
+          f"on the card (worst, bounds {DP_TINY_TOLS}): {res['tiny_steps']}; "
+          f"{res['tiny_s']} s a rank")
+    print(f"phase 23 (b) sharded GT completion, 2 frames a rank at VCN_VC's full width, vs "
+          f"the one-process completion of the same 2 frames: {res['completion']}; vs the "
+          f"4-frame batch of phase 9 (bounds rows_nearest_share SEE_ROW_SHARE "
+          f"{SEE_ROW_SHARE}, kept_stray completion_4f_stray): "
+          f"{res['completion_vs_4_frames']}; the batch witness (VCN and chain at 128 "
+          f"instances and at 2 x 64, f32 and f64; [share past {SEE_ROW_TOL} m, max m]): "
+          f"{res['completion_batch_witness']}; ms a rank {res['completion_ms']}; "
+          f"eval_one_epoch world 2 vs world 1 (batch {DP_EVAL_BATCH} a rank): {res['eval']}")
+    print("phase 23 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    if fails:
+        raise AssertionError("phase 23: " + "; ".join(fails))
+    return res
+
+
+def phase23_alone(dev, card) -> int:
+    """``--phase 23``: phase 23 after the set-up it needs (the kernels built,
+    VCN_VC at seeded weights, phase 9's 4 GT frames completed in one
+    process); no other phase runs and no result line is printed."""
+    t0 = time.time()
+    K.build(K.KERNELS)
+    vcn = VCNInference("VCN_VC", seeded_vcn_state_dict(0), device=dev)
+    scenes = [make_scene(seed, 150_000, 32) for seed in range(4)]
+    g_pts, g_valid, g_gt, g_stats, _, _ = check_gt_completion(vcn, scenes, dev)
+    print(f"set-up {time.time() - t0:.1f} s", flush=True)
+    dp = data_parallel(dev, card, scenes, g_pts, g_valid, g_gt, g_stats)
+    print(f"sharded_completion_launches {dp['sharded_completion_launches']}; phase 23 "
+          f"{dp['phase_s']:.1f} s, {time.time() - t0:.1f} s with its set-up")
+    return 0
+
+
+def main(argv=None) -> int:
+    """Every phase, then the kernels line and the result line; with
+    ``--phase 23``, that phase alone (``phase23_alone``)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase", type=int, choices=[23], default=None,
+                    help="run only this phase, after the set-up it needs")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -6546,6 +7309,8 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.phase == 23:
+        return phase23_alone(dev, card)
     t_start = time.time()
 
     # --- 1. build every kernel, one nvcc per source, all at once ----------
@@ -6956,6 +7721,12 @@ def main() -> int:
     print(f"phase 22 (demo, JPEG, bf16 BEV) ran {demo['phase_s']:.0f} s; chip_smoke ran "
           f"{time.time() - t_start:.0f} s after start-up")
 
+    # --- 23. data parallelism on one card: NCCL at world 1, gloo at world 2 ----------
+    dp = data_parallel(dev, card, gt_scenes, g_pts, g_valid, g_gt, g_stats)
+    kernels[0]["sharded_completion_launches"] = dp["sharded_completion_launches"]
+    print(f"phase 23 (data parallelism) ran {dp['phase_s']:.0f} s; chip_smoke ran "
+          f"{time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -6984,7 +7755,7 @@ def main() -> int:
         "caddn": {**caddn["caddn"], **{k: caddn[k] for k in (
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "part_s", "phase_s")}},
         "kitti_data": caddn["kitti_data"], "kitti_workflow": workflow,
-        "domain_workflow": domains, "demo_jpeg": demo,
+        "domain_workflow": domains, "demo_jpeg": demo, "data_parallel": dp,
         "card": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

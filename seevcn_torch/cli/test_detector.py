@@ -1,5 +1,5 @@
-"""Detector evaluation CLI on one device (port of
-seevcn_tpu/cli/test_detector.py; reference tools/test.py:21-209).
+"""Detector evaluation CLI (port of seevcn_tpu/cli/test_detector.py;
+reference tools/test.py:21-209).
 
 ``--ckpt`` takes a detector ``.pth`` of either package. Evaluation runs on
 DATA_CONFIG_TAR when the config has one (test.py:184-190, the
@@ -7,7 +7,9 @@ domain-adaptation entry point: a source-trained checkpoint on the target's
 completed clouds), its voxelizer inherited from DATA_CONFIG when it has
 none. ``--eval_all`` watches the run's checkpoint directory for
 ``checkpoint_epoch_*.pth`` and evaluates each new one (test.py:86-132).
-``--launcher`` other than ``none`` raises (ROADMAP queue 1, item 6).
+``--launcher`` (jax, slurm or auto; ``parallel/distributed.py``) spreads the
+frames over the ranks of a process group, one card a rank, and merges
+their predictions before every rank's evaluation (``train/eval.py``).
 
 Usage:
   python -m seevcn_torch.cli.test_detector --cfg_file <yaml> --ckpt <pth> [--device cuda]
@@ -32,7 +34,7 @@ def parse_args(argv=None):
     p.add_argument("--output_dir", default="output")
     p.add_argument("--launcher", default="none",
                    choices=["none", "jax", "slurm", "auto"],
-                   help="multi-process bring-up; the port evaluates on one device")
+                   help="multi-process bring-up (parallel/distributed.py)")
     p.add_argument("--device", default="cuda", help="the device to run on (cuda, or cpu)")
     p.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
@@ -63,6 +65,7 @@ def evaluate_ckpt(cfg, ckpt_path, args):
     from .. import resolve_device
     from ..data.registry import build_dataset
     from ..models.detectors.second import build_detector
+    from ..parallel import distributed as D
     from ..train.eval import eval_one_epoch
     from .train_detector import load_weights
 
@@ -71,7 +74,7 @@ def evaluate_ckpt(cfg, ckpt_path, args):
                             max_points=args.max_points)
     if len(dataset) == 0:
         raise ValueError("the eval dataset is empty: check INFO_PATH")
-    model, _ = build_detector(ecfg, device=resolve_device(args.device))
+    model, _ = build_detector(ecfg, device=D.DEVICE or resolve_device(args.device))
     load_weights(model, ckpt_path)
     return eval_one_epoch(model.eval(), ecfg, dataset, batch_size=args.batch_size,
                           max_frames=args.max_frames)
@@ -80,13 +83,22 @@ def evaluate_ckpt(cfg, ckpt_path, args):
 def main(argv=None):
     """One checkpoint: -> (AP report, AP dict, recall counts). With
     ``--eval_all``: -> {checkpoint path: its AP dict} of those evaluated."""
+    from ..parallel import distributed as D
+
+    args = parse_args(argv)
+    D.init_distributed(args.launcher, device=args.device)
+    try:
+        return _main(args)
+    finally:
+        if args.launcher != "none":
+            D.destroy_distributed()
+
+
+def _main(args):
+    from ..parallel.collectives import get_rank, merge_results_dist
     from ..utils.config import cfg_from_list, cfg_from_yaml_file
     from .train_detector import list_checkpoints
 
-    args = parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(f"--launcher {args.launcher}: multi-GPU evaluation is not "
-                                  "ported yet (ROADMAP queue 1, item 6)")
     cfg = cfg_from_yaml_file(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs, cfg)
@@ -105,19 +117,24 @@ def main(argv=None):
             evaluated = set(f.read().split())
     waited = 0.0
     while waited < args.max_waiting_mins * 60:
-        todo = [c for c in list_checkpoints(ckpt_dir) if c not in evaluated]
+        # rank 0's list on every rank, so each evaluates the same checkpoints
+        todo = merge_results_dist([[c for c in list_checkpoints(ckpt_dir)
+                                    if c not in evaluated]])[0]
         if not todo:
             time.sleep(30)
             waited += 30
             continue
         waited = 0.0
         for c in todo:
-            print(f"evaluating {c}")
+            if get_rank() == 0:
+                print(f"evaluating {c}")
             results[c] = evaluate_ckpt(cfg, c, args)[1]
             evaluated.add(c)
-            with open(record, "a") as f:
-                f.write(c + "\n")
-    print("eval_all: no new checkpoints, exiting")
+            if get_rank() == 0:
+                with open(record, "a") as f:
+                    f.write(c + "\n")
+    if get_rank() == 0:
+        print("eval_all: no new checkpoints, exiting")
     return results
 
 

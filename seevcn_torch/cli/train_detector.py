@@ -1,5 +1,5 @@
-"""Detector training CLI on one device (port of
-seevcn_tpu/cli/train_detector.py; reference tools/train.py:21-203).
+"""Detector training CLI (port of seevcn_tpu/cli/train_detector.py;
+reference tools/train.py:21-203).
 
 The reference's flags (--cfg_file, --batch_size, --epochs, --ckpt,
 --extra_tag, --set, --fix_random_seed, --max_ckpt_save_num), and auto-resume
@@ -14,12 +14,18 @@ has no meaning without flax. A resume restores the weights, the epoch and
 the step from the newest one, with a fresh optimizer, as the JAX package's
 resume does; the oldest are removed past ``--max_ckpt_save_num``. The
 random draws (augmentation, RoI sampling, dropout) come from
-``torch.Generator``s seeded from the epoch. ``--launcher`` other than
-``none`` raises: multi-GPU training is not ported yet (ROADMAP queue 1,
-item 6).
+``torch.Generator``s seeded from the epoch.
+
+``--launcher`` (jax, slurm or auto; ``parallel/distributed.py``) trains on
+every rank of a process group, one card a rank: the global batch is
+``--batch_size``, or BATCH_SIZE_PER_GPU times the world size, each rank
+loads its rows of it and ``shard_train_step`` makes the step the global
+batch's. Rank 0 alone prints and writes the checkpoints; every rank waits
+for them and resumes from the same file.
 
 Usage:
   python -m seevcn_torch.cli.train_detector --cfg_file <pcdet yaml> [--device cuda]
+  torchrun --nproc_per_node N -m seevcn_torch.cli.train_detector --launcher auto ...
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ def parse_args(argv=None):
     p.add_argument("--output_dir", default="output")
     p.add_argument("--launcher", default="none",
                    choices=["none", "jax", "slurm", "auto"],
-                   help="multi-process bring-up; the port trains on one device")
+                   help="multi-process bring-up (parallel/distributed.py)")
     p.add_argument("--device", default="cuda", help="the device to train on (cuda, or cpu)")
     p.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
@@ -86,29 +92,40 @@ def main(argv=None) -> dict:
     run's checkpoints after rotation, "losses": the mean loss of each epoch
     trained, "steps_s": seconds a step, "resumed": None, or {"path", "epoch",
     "step", "state_dict": the weights as read, on the CPU}}."""
+    from ..parallel import distributed as D
+
+    args = parse_args(argv)
+    D.init_distributed(args.launcher, device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if args.launcher != "none":
+            D.destroy_distributed()
+
+
+def _train(args) -> dict:
     from .. import resolve_device
     from ..data.loader import BackgroundLoader
     from ..data.registry import build_dataset
     from ..models.detectors.second import build_detector
-    from ..train.train import create_train_state, train_step
+    from ..parallel import distributed as D
+    from ..parallel.collectives import get_rank, get_world_size
+    from ..train.train import create_train_state, shard_train_step, train_step
     from ..utils.ckpt import save_detector_checkpoint
     from ..utils.config import cfg_from_list, cfg_from_yaml_file
 
-    args = parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(f"--launcher {args.launcher}: multi-GPU training is not "
-                                  "ported yet (ROADMAP queue 1, item 6)")
+    rank, world = get_rank(), get_world_size()
     cfg = cfg_from_yaml_file(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs, cfg)
-    dev = resolve_device(args.device)
+    dev = D.DEVICE or resolve_device(args.device)
     if args.fix_random_seed:
         np.random.seed(666)
         torch.manual_seed(666)
 
     ckpt_dir = os.path.join(args.output_dir, cfg.TAG, args.extra_tag, "ckpt")
     os.makedirs(ckpt_dir, exist_ok=True)
-    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU) * world
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
 
     dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=True,
@@ -130,10 +147,15 @@ def main(argv=None) -> dict:
         resumed = {"path": path, "epoch": start_epoch - 1, "step": state.step,
                    "state_dict": {k: v.detach().cpu().clone()
                                   for k, v in model.state_dict().items()}}
-        print(f"resumed from {path} at epoch {start_epoch}")
+        if rank == 0:
+            print(f"resumed from {path} at epoch {start_epoch}")
 
+    step = train_step
+    if world > 1:
+        step = shard_train_step(model)[0]
     loader = BackgroundLoader(dataset, batch_size, num_workers=4, seed=start_epoch,
-                              device=dev)
+                              device=dev, rank=rank, world=world)
+    rows = slice(1 + rank * (batch_size // world), 1 + (rank + 1) * (batch_size // world))
     losses, step_s = [], []
     for ep in range(start_epoch, epochs):
         dataset.set_epoch(ep)
@@ -143,23 +165,27 @@ def main(argv=None) -> dict:
         for it, batch in enumerate(loader):
             t0 = time.perf_counter()
             if dataset.aug_list:
-                gens = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds[it, 1:]]
+                gens = [torch.Generator(device=dev).manual_seed(int(s))
+                        for s in seeds[it, rows]]
                 batch = dataset.augment_on_device(batch, gens)
-            metrics = train_step(state, batch["points"], batch["points_valid"],
-                                 batch["gt_boxes"],
-                                 torch.Generator(device=dev).manual_seed(int(seeds[it, 0])))
+            metrics = step(state, batch["points"], batch["points_valid"], batch["gt_boxes"],
+                           torch.Generator(device=dev).manual_seed(int(seeds[it, 0])))
             ep_losses.append(float(metrics["loss"]))
             step_s.append(time.perf_counter() - t0)
-            if it % 50 == 0:
+            if it % 50 == 0 and rank == 0:
                 print(f"epoch {ep} it {it}: " + " ".join(
                     f"{k}={float(v):.4f}" for k, v in metrics.items()), flush=True)
         losses.append(float(np.mean(ep_losses)) if ep_losses else float("nan"))
-        path = os.path.join(ckpt_dir, f"checkpoint_epoch_{ep}.pth")
-        save_detector_checkpoint(path, model, epoch=ep, it=state.step)
-        # rotate old checkpoints (train_utils.py:123-135)
-        for old in list_checkpoints(ckpt_dir)[:-args.max_ckpt_save_num]:
-            os.remove(old)
-    print("training done")
+        if rank == 0:
+            path = os.path.join(ckpt_dir, f"checkpoint_epoch_{ep}.pth")
+            save_detector_checkpoint(path, model, epoch=ep, it=state.step)
+            # rotate old checkpoints (train_utils.py:123-135)
+            for old in list_checkpoints(ckpt_dir)[:-args.max_ckpt_save_num]:
+                os.remove(old)
+        if world > 1:
+            torch.distributed.barrier()
+    if rank == 0:
+        print("training done")
     return {"state": state, "start_epoch": start_epoch, "epochs": epochs,
             "ckpts": list_checkpoints(ckpt_dir), "losses": losses, "steps_s": step_s,
             "resumed": resumed}

@@ -9,6 +9,11 @@ worker's error reaches the consumer. Given a ``device``, each worker
 uploads its batch as tensors: on a CUDA device through pinned memory with
 non-blocking copies on the device's current stream, which the consumer's
 work then follows.
+
+Across the ranks of a data-parallel group (``rank``, ``world``) the batch
+size is the global batch's: every rank shuffles with the same seed and
+assembles only its block of each global batch's frames (rows [r B / W,
+(r + 1) B / W)), the rows ``parallel.mesh.shard_batch`` takes.
 """
 from __future__ import annotations
 
@@ -35,12 +40,18 @@ def upload(batch: dict, device) -> dict:
 class BackgroundLoader:
     """Iterate fixed-shape batches assembled on worker threads. ``dataset``
     is indexable and returns per-frame dicts of numpy arrays; batches are
-    numpy, or tensors on ``device`` when one is given."""
+    numpy, or tensors on ``device`` when one is given. ``batch_size`` is the
+    global batch, which must divide by ``world``; this rank's batches hold
+    its ``batch_size / world`` rows of each."""
 
     def __init__(self, dataset, batch_size: int,
                  keys=("points", "points_valid", "gt_boxes", "gt_mask"),
                  shuffle: bool = True, prefetch: int = 2, num_workers: int = 2,
-                 seed: int = 0, drop_last: bool = True, device=None):
+                 seed: int = 0, drop_last: bool = True, device=None, rank: int = 0,
+                 world: int = 1):
+        if batch_size % world or (world > 1 and not drop_last):
+            raise ValueError(f"a global batch of {batch_size} (drop_last={drop_last}) does "
+                             f"not divide over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.keys = keys
@@ -49,6 +60,7 @@ class BackgroundLoader:
         self.num_workers = num_workers
         self.drop_last = drop_last
         self.device = device
+        self.rank, self.world = rank, world
         self.rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -72,8 +84,10 @@ class BackgroundLoader:
         cv = threading.Condition()
         state = {"next": 0, "errors": []}
         window = max(1, self.prefetch)
+        n = self.batch_size // self.world
         for bi, s in enumerate(starts):
-            jobs.put((bi, order[s:s + self.batch_size]))
+            rows = order[s:s + self.batch_size]
+            jobs.put((bi, rows[self.rank * n:(self.rank + 1) * n]))
 
         def worker():
             while not done.is_set():

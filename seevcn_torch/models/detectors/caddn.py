@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import global_count
 from ..losses import weighted_cross_entropy
 from ..modules.common import conv_block2d
 from ..modules.ddn import DDNDeepLabV3, ddn_focal_loss
@@ -248,7 +249,7 @@ class CaDDN(_AnchorRPN):
         one_hot = F.one_hot(bins, nb + 1).to(depth_logits.dtype)
         ddn = weighted_cross_entropy(depth_logits.reshape(b, -1, nb + 1),
                                      one_hot.reshape(b, -1, nb + 1), valid.reshape(b, -1))
-        ddn_loss = ddn.sum() / valid.sum().clamp_min(1.0)
+        ddn_loss = ddn.sum() / global_count(valid.sum()).clamp_min(1.0)
         return ddn_loss, {"ddn_loss": ddn_loss}
 
     def loss(self, out: dict, gt_boxes: torch.Tensor, depth_maps: torch.Tensor | None = None,

@@ -36,6 +36,7 @@ from torch import nn
 from ...geom.boxes import points_in_boxes
 from ...geom.transforms import rotate_points_along_z
 from ...ops.roiaware import roiaware_pool3d
+from ...parallel.mesh import global_count
 from ..losses import binary_cross_entropy_with_logits
 from ..modules.common import BatchNorm1d
 from ..modules.pfe import voxel_centres
@@ -179,9 +180,10 @@ class PartA2(AnchorDetector):
         dt = out["seg_logits"].dtype
         valid = pf.mask.to(dt)
         seg = binary_cross_entropy_with_logits(out["seg_logits"], fg.to(dt))
-        seg_loss = (seg * valid).sum() / valid.sum().clamp_min(1.0)
+        seg_loss = (seg * valid).sum() / global_count(valid.sum()).clamp_min(1.0)
         part_bce = binary_cross_entropy_with_logits(out["part_reg"], part_t.to(dt))
-        part_loss = (part_bce.sum(-1) * fg.to(dt)).sum() / fg.sum().to(dt).clamp_min(1.0)
+        part_loss = (part_bce.sum(-1) * fg.to(dt)).sum() \
+            / global_count(fg.sum()).to(dt).clamp_min(1.0)
         tb.update(seg_loss=seg_loss, part_loss=part_loss)
         rcnn_loss, rtb = pvrcnn_rcnn_loss(out["rcnn_cls"], out["rcnn_reg"],
                                           out["rcnn_targets"],

@@ -35,6 +35,7 @@ from torch import nn
 
 from ...geom.boxes import enlarge_box3d, points_in_boxes
 from ...geom.transforms import rotate_points_along_z
+from ...parallel.mesh import global_batch
 from ..losses import sigmoid_focal_loss, weighted_smooth_l1
 from ..modules.common import BatchNorm1d
 from ..modules.pointnet2_backbone import PointNet2MSG, PointResidualCoder
@@ -242,7 +243,7 @@ class PointRCNN(nn.Module):
         the residuals of the foreground points), rcnn_loss_cls,
         rcnn_loss_reg, rcnn_loss_corner, rcnn_loss, loss)."""
         points, valid = out["_points"], out["_points_valid"]
-        b = points.shape[0]
+        b = global_batch(points.shape[0])      # the per-frame means' divisor
         cls_t, box_id, fg = self.point_targets(points, valid, gt_boxes)
         one_hot = F.one_hot(cls_t, self.cfg.num_class + 1)[..., 1:].to(points.dtype)
         n_fg = fg.sum(-1, keepdim=True).clamp_min(1).to(points.dtype)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ...geom.boxes import points_in_boxes
+from ...parallel.mesh import global_batch
 from ..modules.pfe import VoxelSetAbstraction
 from ..modules.pvrcnn_head import (PVRCNNHead, PointHeadSimple, decode_rcnn_boxes,
                                    point_head_loss, pvrcnn_rcnn_loss)
@@ -94,7 +95,8 @@ class PVRCNN(AnchorDetector):
         and the keypoints go into ``out``."""
         vsa = self.pfe(points, points_valid, out["spatial_features_2d"], BEV_STRIDE,
                        bb["multi_scale_3d_features"],
-                       jax_stage_width(self.cfg, points.shape[0]), rois, roi_mask)
+                       jax_stage_width(self.cfg, global_batch(points.shape[0])), rois,
+                       roi_mask)
         point_logits = self.point_head(
             vsa["point_features_before_fusion"] if self.before_fusion
             else vsa["point_features"])

@@ -35,6 +35,7 @@ from ...ops import sparse as SP
 from ...ops.nms import nms_bev
 from ...ops.voxelize import grid_size as compute_grid_size
 from ...ops.voxelize import voxelize, voxelize_batch
+from ...parallel.mesh import global_count
 from ..modules.backbone2d import BaseBEVBackbone
 from ..modules.unet3d import BACKBONES  # VoxelBackBone8x and the rest, and UNetV2
 from ..modules.dense_heads import AnchorHeadLogic, build_anchor_head
@@ -236,7 +237,7 @@ def focal_importance_loss(focal_aux, gt_boxes: torch.Tensor, pcr, vs) -> torch.T
         t = target.to(imp.dtype)
         bce = -(t * torch.log(imp) + (1 - t) * torch.log(1 - imp))
         w = mask.to(imp.dtype)
-        total = total + (bce * w).sum() / w.sum().clamp_min(1.0)
+        total = total + (bce * w).sum() / global_count(w.sum()).clamp_min(1.0)
     return total / max(len(focal_aux), 1)
 
 

@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from ...ops import sparse as SP
+from ...parallel.mesh import dp_world, global_batch, global_count, global_sum
 from ..modules.common import BatchNorm1d, MaskedBatchNorm, _update_running
 from ..modules.pfe import STAGE_STRIDES, SALayer, voxel_centres
 from ..modules.pvrcnn_head import decode_rcnn_boxes, pvrcnn_rcnn_loss, roi_grid_points
@@ -57,12 +58,20 @@ def stage_channels(backbone: nn.Module) -> dict:
 
 def padded_batch_norm(bn: BatchNorm1d, x: torch.Tensor, rows: int) -> torch.Tensor:
     """``bn`` over x (N, C); in training its statistics (and the running
-    update) over ``rows`` >= N rows, the ones past x zeros."""
+    update) over ``rows`` >= N rows, the ones past x zeros. Under a
+    data-parallel mesh ``rows`` is the global batch's and the sums and N
+    are every rank's."""
     if not bn.training:
         return bn(x)
-    rows = max(int(rows), x.shape[0])
-    mean = x.sum(0) / rows
-    var = (((x - mean) ** 2).sum(0) + (rows - x.shape[0]) * mean ** 2) / rows
+    if dp_world() > 1:
+        n = global_count(x.new_tensor(x.shape[0]))
+        rows = torch.clamp_min(n, int(rows))
+        mean = global_sum(x.sum(0)) / rows
+        var = (global_sum(((x - mean) ** 2).sum(0)) + (rows - n) * mean ** 2) / rows
+    else:
+        rows = max(int(rows), x.shape[0])
+        mean = x.sum(0) / rows
+        var = (((x - mean) ** 2).sum(0) + (rows - x.shape[0]) * mean ** 2) / rows
     _update_running(bn, mean, var)
     return (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
 
@@ -180,7 +189,8 @@ class VoxelRCNN(AnchorDetector):
             out.update(props)
             rois = props["rois"]
         rcnn_cls, rcnn_reg = self.roi_head(rois[..., :7], ms3d,
-                                           jax_stage_width(self.cfg, points.shape[0]),
+                                           jax_stage_width(self.cfg,
+                                                           global_batch(points.shape[0])),
                                            generator)
         out.update(rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg)
         if not self.training:

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ...ops import sparse as SP
+from ...parallel.mesh import global_count, global_top
 from .common import MaskedBatchNorm
 
 
@@ -127,14 +128,16 @@ class FocalSparseConv(nn.Module):
 
         nz, ny, nx = st.spatial_shape
         score = torch.where(st.mask, center_imp, -1.0)
-        k = min(self.topk, score.shape[0])
-        top = torch.sort(score, descending=True, stable=True).indices[:k]
+        # the batch's top k: under a data-parallel mesh the global batch's,
+        # each rank spawning from its own picks
+        k = min(self.topk, int(global_count(torch.tensor(score.shape[0], device=dev))))
+        top, mine = global_top(score, k)
         offs = SP._offsets((3, 3, 3), dev)
         noncenter = torch.cat([torch.arange(13, device=dev), torch.arange(14, 27, device=dev)])
         p_coords = st.coords[top].long()
         p_feats = feats[top]
         p_imps = torch.sigmoid(imps[top][:, noncenter])                    # (K, 26)
-        p_ok = st.mask[top] & (score[top] > self.threshold)
+        p_ok = mine & st.mask[top] & (score[top] > self.threshold)
         n_zyx = p_coords[:, None, 1:4] + offs[noncenter][None]
         dims = torch.tensor([nz, ny, nx], device=dev)
         inb = ((n_zyx >= 0) & (n_zyx < dims)).all(-1)

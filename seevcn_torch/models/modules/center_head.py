@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import global_mean
 from .common import BatchNorm2d
 
 #: the head's targets and their channels, the class heatmap first
@@ -169,7 +170,7 @@ def center_head_loss(preds: dict, gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
         l1 = (maps[yx[:, 0].long(), yx[:, 1].long()] - reg).abs().sum(-1)
         okf = ok.to(l1.dtype)
         reg_l.append((l1 * okf).sum() / okf.sum().clamp_min(1.0))
-    return torch.stack(hm_l).mean(), torch.stack(reg_l).mean()
+    return global_mean(torch.stack(hm_l)), global_mean(torch.stack(reg_l))
 
 
 def decode_center_boxes(preds: dict, point_cloud_range, voxel_size, stride: int,

@@ -6,6 +6,12 @@ the batch's mean and biased variance, as torch does, and moves the running
 statistics by flax's rule, ``ra = 0.99 ra + 0.01 batch`` with the **biased**
 variance. torch's own update uses the unbiased one; the forward and the
 gradients are the same either way, only the running variance would differ.
+
+While a data-parallel mesh is active (``parallel.mesh.set_active_mesh``),
+training takes the statistics over every rank's rows, as JAX's step over
+the global batch does: the counts and sums are all-reduced for the mean,
+then the sums of squared deviations for the variance (the same two passes),
+with the gradient carried back through both reductions.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.dcn import modulated_deform_conv2d
+from ...parallel.mesh import dp_world, global_count, global_sum
 
 
 # flax's truncated_normal draws a standard normal cut at +-2; this is its
@@ -41,6 +48,26 @@ def _update_running(bn, mean: torch.Tensor, var: torch.Tensor) -> None:
     bn.num_batches_tracked.add_(1)
 
 
+def global_moments(x: torch.Tensor, dims, mask: torch.Tensor | None = None):
+    """(mean, biased variance) of ``x`` over ``dims`` and every rank's rows
+    of the active mesh, in two passes; ``mask`` (x's shape over ``dims``,
+    1 where a row counts) restricts them to the valid rows."""
+    keep = [1 if d in dims else n for d, n in enumerate(x.shape)]
+    w = 1.0 if mask is None else mask
+    n = x.new_tensor(x.numel() / math.prod(keep)) if mask is None else mask.sum()
+    cnt = global_count(n).clamp_min(1.0)
+    mean = global_sum((x * w).sum(dims)) / cnt
+    var = global_sum(((x - mean.view(keep)) ** 2 * w).sum(dims)) / cnt
+    return mean, var
+
+
+def _normalize(x, mean, var, eps, weight, bias):
+    """The batch norm of channels-second ``x`` at these statistics."""
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    return (x - mean.view(shape)) * torch.rsqrt(var + eps).view(shape) * weight.view(shape) \
+        + bias.view(shape)
+
+
 class _FlaxStatsBatchNorm:
     """Training forward of a BatchNorm{1,2}d with flax's running update; an
     input of a narrower dtype than the parameters (a bf16 conv's output) is
@@ -51,6 +78,10 @@ class _FlaxStatsBatchNorm:
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]
+        if dp_world() > 1:
+            mean, var = global_moments(x, dims)
+            _update_running(self, mean, var)
+            return _normalize(x, mean, var, self.eps, self.weight, self.bias)
         _update_running(self, x.mean(dims), x.var(dims, unbiased=False))
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
@@ -77,7 +108,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
-        if self.training:
+        if self.training and dp_world() > 1:
+            mean, var = global_moments(x, [0], mask.to(x.dtype)[:, None])
+            _update_running(self, mean, var)
+        elif self.training:
             m = mask.to(x.dtype)[:, None]
             cnt = m.sum().clamp_min(1.0)
             mean = (x * m).sum(0) / cnt

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BatchNorm2d
+from ...parallel.mesh import dp_world, global_mean
+from .common import BatchNorm2d, global_moments
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -121,8 +122,11 @@ class _PoolBatchNorm(BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean((0, 2, 3))
-        var = x.var((0, 2, 3), unbiased=False)
+        if dp_world() > 1:
+            mean, var = global_moments(x, [0, 2, 3])
+        else:
+            mean = x.mean((0, 2, 3))
+            var = x.var((0, 2, 3), unbiased=False)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(mean.detach() * m)
@@ -235,12 +239,12 @@ def ddn_focal_loss(depth_logits: torch.Tensor, depth_targets: torch.Tensor,
     if gt_boxes2d is not None:
         fg = fg_mask_from_boxes2d(gt_boxes2d, loss.shape, downsample_factor)
         wloss = loss * torch.where(fg, fg_weight, bg_weight)
-        n = float(loss.numel())
+        n = float(loss.numel() * dp_world())
         fg_loss = torch.where(fg, wloss, 0.0).sum() / n
         bg_loss = torch.where(fg, 0.0, wloss).sum() / n
         total = (fg_loss + bg_loss) * weight
         tb.update(fg_loss=fg_loss * weight, bg_loss=bg_loss * weight)
     else:
-        total = loss.mean() * weight
+        total = global_mean(loss) * weight
     tb["ddn_loss"] = total
     return total, tb

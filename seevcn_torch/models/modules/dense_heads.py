@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...geom.transforms import limit_period
+from ...parallel.mesh import global_batch
 from ..losses import sigmoid_focal_loss, weighted_cross_entropy, weighted_smooth_l1
 from .anchors import (ATSSTargetAssigner, AxisAlignedTargetAssigner, generate_anchors,
                       get_direction_targets)
@@ -179,6 +180,7 @@ class AnchorHeadLogic:
         {rpn_loss_cls, rpn_loss_loc, rpn_loss_dir, rpn_loss})."""
         cls_preds = preds["cls_preds"]
         b = cls_preds.shape[0]
+        nb = global_batch(b)                  # the per-frame means' divisor
         cls_preds = cls_preds.reshape(b, -1, self.num_class)
         box_preds = preds["box_preds"].reshape(b, -1, self.box_coder.code_size)
         labels = targets["box_cls_labels"]
@@ -195,7 +197,7 @@ class AnchorHeadLogic:
         if self.num_class == 1:
             cls_targets = positives.long()
         one_hot = F.one_hot(cls_targets, self.num_class + 1)[..., 1:].to(cls_preds.dtype)
-        cls_loss = sigmoid_focal_loss(cls_preds, one_hot, cls_weights).sum() / b
+        cls_loss = sigmoid_focal_loss(cls_preds, one_hot, cls_weights).sum() / nb
         cls_loss = cls_loss * float(self.loss_weights["cls_weight"])
 
         # sin-difference angle encoding (anchor_head_template.py:137-144)
@@ -205,7 +207,7 @@ class AnchorHeadLogic:
         bt = torch.cat([reg_targets[..., :6], sin_t, reg_targets[..., 7:]], -1)
         loc_loss = weighted_smooth_l1(
             bp, bt, reg_weights,
-            code_weights=self.loss_weights["code_weights"]).sum() / b
+            code_weights=self.loss_weights["code_weights"]).sum() / nb
         loc_loss = loc_loss * float(self.loss_weights["loc_weight"])
         tb = {"rpn_loss_cls": cls_loss, "rpn_loss_loc": loc_loss}
         total = cls_loss + loc_loss
@@ -219,7 +221,7 @@ class AnchorHeadLogic:
             w = w / w.sum(-1, keepdim=True).clamp_min(1.0)
             dir_loss = weighted_cross_entropy(
                 dir_logits, F.one_hot(dir_t, self.num_dir_bins).to(dir_logits.dtype),
-                w).sum() / b
+                w).sum() / nb
             dir_loss = dir_loss * float(self.loss_weights["dir_weight"])
             tb["rpn_loss_dir"] = dir_loss
             total = total + dir_loss

@@ -27,6 +27,7 @@ from torch import nn
 
 from ...geom.boxes import boxes_to_corners_3d, enlarge_box3d, points_in_boxes
 from ...geom.transforms import rotate_points_along_z
+from ...parallel.mesh import global_count
 from ..losses import binary_cross_entropy_with_logits, weighted_smooth_l1
 from .box_coder import ResidualCoder
 from .common import BatchNorm1d
@@ -63,7 +64,7 @@ def point_head_loss(logits, keypoints, gt_boxes, gt_mask, extra_width=(0.2, 0.2,
          & gm[:, None]).any(0)
         for kp, gb, gm in zip(keypoints, gt_boxes, gt_mask)])
     per = binary_cross_entropy_with_logits(logits, targets.to(logits.dtype))
-    return per.sum() / targets.sum().clamp_min(1.0)
+    return per.sum() / global_count(targets.sum()).clamp_min(1.0)
 
 
 def roi_grid_points(rois: torch.Tensor, grid_size: int) -> torch.Tensor:
@@ -182,14 +183,14 @@ def pvrcnn_rcnn_loss(rcnn_cls, rcnn_reg, targets: dict, loss_cfg,
     labels = targets["rcnn_cls_labels"]
     valid = (labels >= 0).to(rcnn_cls.dtype)
     cls_per = binary_cross_entropy_with_logits(rcnn_cls, labels.clamp(0, 1))
-    cls_loss = (cls_per * valid).sum() / valid.sum().clamp_min(1.0) \
+    cls_loss = (cls_per * valid).sum() / global_count(valid.sum()).clamp_min(1.0) \
         * float(w["rcnn_cls_weight"])
 
     rois = targets["rois"][..., :7]
     gt = targets["gt_of_rois"][..., :7]
     reg_targets = coder.encode(canonical_gt_of_rois(rois, gt), _roi_anchor(rois))
     fg = targets["reg_valid_mask"].to(rcnn_reg.dtype)
-    n_fg = fg.sum().clamp_min(1.0)
+    n_fg = global_count(fg.sum()).clamp_min(1.0)
     reg_per = weighted_smooth_l1(rcnn_reg, reg_targets, fg,
                                  code_weights=w["code_weights"])
     reg_loss = reg_per.sum() / n_fg * float(w["rcnn_reg_weight"])

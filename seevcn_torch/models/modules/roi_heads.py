@@ -18,6 +18,7 @@ from torch import nn
 
 from ...ops.iou3d import boxes_iou3d
 from ...ops.nms import nms_bev
+from ...parallel.mesh import draw_rows, global_count
 from ..losses import binary_cross_entropy_with_logits
 from .common import BatchNorm1d
 
@@ -104,8 +105,10 @@ def _fc_layers(cin: int, widths: Sequence[int], dp_ratio: float,
 
 def uniform(shape, generator, device) -> torch.Tensor:
     """U[0, 1) draws on ``device`` from ``generator``, a generator of that
-    device (None: its default one)."""
-    return torch.rand(shape, generator=generator, device=device)
+    device (None: its default one); ``shape`` leads with this rank's
+    batch-major rows, drawn as the global batch draws them under a
+    data-parallel mesh."""
+    return draw_rows(shape, lambda s: torch.rand(s, generator=generator, device=device))
 
 
 def dropout(x: torch.Tensor, p: float, generator=None) -> torch.Tensor:
@@ -233,4 +236,4 @@ def rcnn_iou_loss(rcnn_iou: torch.Tensor, rcnn_cls_labels: torch.Tensor,
     else:
         raise NotImplementedError(loss_type)
     valid = (lab >= 0).float()
-    return (per * valid).sum() / valid.sum().clamp_min(1.0) * weight
+    return (per * valid).sum() / global_count(valid.sum()).clamp_min(1.0) * weight

@@ -47,13 +47,14 @@ def isolate_stage(points, valid, det_boxes, det_masks, det_scores, proj,
                                    out_pts=out_pts, core_membership=core)
 
 
-def vcn_stage(vcn, iso):
-    """VCN completion + partial mesh + largest cluster, then the 2 m guard
-    against completions that left their object: -> ((D, n, 3), (D,) sane)."""
+def vcn_stage(vcn, iso, max_dist: float = 2.0):
+    """VCN completion + partial mesh + largest cluster, then the guard
+    (``max_dist``, 2 m) against completions that left their object: -> ((D,
+    n, 3), (D,) sane)."""
     completed = vcn(iso)[3]
     sane = DP.completion_sanity_mask(
         iso, completed, torch.ones(completed.shape[0], dtype=torch.bool,
-                                   device=completed.device))
+                                   device=completed.device), max_dist=max_dist)
     return completed, sane
 
 

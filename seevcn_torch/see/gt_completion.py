@@ -11,9 +11,10 @@ stages (``see/frame.py``): isolation (DBSCAN, largest cluster, the first
 cluster (eps 0.4), the 2 m sanity guard, and the replacement, whose
 within-radius test is the pruned min-distance kernel K1 on the card.
 
-The reference spreads frames over its mesh's data-parallel axis; on one
-card the frames are a batch: isolation and replacement run frame by frame,
-the VCN once on every frame's instances.
+On one card the frames are a batch: isolation and replacement run frame
+by frame, the VCN once on every frame's instances. ``see/sharded.py``
+spreads the frames over the ranks of a data-parallel group, as the
+reference spreads them over its mesh's dp axis.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ def gt_membership(points: torch.Tensor, valid: torch.Tensor, gt_boxes: torch.Ten
 @torch.no_grad()
 def complete_gt_frames(vcn, points: torch.Tensor, valid: torch.Tensor,
                        gt_boxes: torch.Tensor, gt_mask: torch.Tensor, *,
-                       device="cuda"):
+                       device="cuda", sanity_max_dist: float = 2.0):
     """GT-path completion of a batch of F frames on ``device``.
 
     points (F, P, 3), valid (F, P), gt_boxes (F, D, >=7), gt_mask (F, D);
@@ -47,8 +48,9 @@ def complete_gt_frames(vcn, points: torch.Tensor, valid: torch.Tensor,
     each frame's scan with the points near a completed car dropped and the
     completed surfaces appended; stats holds, each (F, D, ...), the isolated
     and completed instances and their validity (``ok``, ``sane``,
-    ``inst_valid = ok & sane``, the reference's returned ``ok``). TF32 is
-    off, as in ``complete_frame``."""
+    ``inst_valid = ok & sane``, the reference's returned ``ok``; ``sane``
+    the guard at ``sanity_max_dist``). TF32 is off, as in
+    ``complete_frame``."""
     dev = resolve_device(device)
     tf32_off()
     points, valid, gt_boxes, gt_mask = (t.to(dev) for t in (points, valid,
@@ -58,7 +60,7 @@ def complete_gt_frames(vcn, points: torch.Tensor, valid: torch.Tensor,
         points[i], gt_membership(points[i], valid[i], gt_boxes[i], gt_mask[i]),
         out_pts=vcn.num_points) for i in range(f)))
     iso, ok = torch.stack(iso), torch.stack(ok)
-    completed, sane = vcn_stage(vcn, iso.flatten(0, 1))
+    completed, sane = vcn_stage(vcn, iso.flatten(0, 1), sanity_max_dist)
     completed, sane = completed.view(iso.shape), sane.view(f, d)
     inst_valid = ok & sane
     new_pts, new_valid = zip(*(replace_stage(points[i], valid[i], completed[i],

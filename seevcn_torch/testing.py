@@ -3,12 +3,18 @@ conversion, an ``assert_close`` that names the worst element, the cases at
 the edges of kernel K2's tiling, the tiny Mask R-CNN and HTC configs, a
 single-thread switch for the CPU, a switch to the sparse conv's plain
 backward, seeded Mask R-CNN weights with a recorder of its ReLUs' signs,
-and the VCN gradient comparison with the recorders of the VCN's discrete
-choices, which the tests and chip_smoke.py all use."""
+the VCN gradient comparison with the recorders of the VCN's discrete
+choices, and W local ranks of a process group spawned on a free port with
+the data-parallel workers they run, which the tests and chip_smoke.py all
+use."""
 from __future__ import annotations
 
 import contextlib
+import os
 import re
+import socket
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -375,3 +381,244 @@ def seeded_flax_variables(shapes: dict, seed: int = 0) -> dict:
         return out
 
     return {col: fill(dict(tree)) for col, tree in shapes.items()}
+
+
+# --------------------------------------------------------------------------- #
+# local process groups: W spawned ranks and the data-parallel workers
+# --------------------------------------------------------------------------- #
+
+def free_port() -> int:
+    """A TCP port of this host that is free now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank, fn, world, port, out_dir, threads):
+    torch.set_num_threads(threads)
+    os.environ.update(JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                      JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(rank))
+    args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
+    torch.save(fn(rank, world, *args), os.path.join(out_dir, f"{rank}.pt"))
+
+
+def spawn_ranks(fn, world: int, *args, threads: int = 1, timeout: float = 600.0) -> list:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes, each with
+    ``threads`` CPU threads and JAX's launcher environment for a group on a
+    free local port (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID; ``init_distributed("jax", device=...)`` reads it). ->
+    each rank's return value, in rank order. A rank's exception is raised
+    here; past ``timeout`` seconds every rank is ended and TimeoutError
+    raised. The arguments reach the ranks through a file: handed to the
+    processes directly, torch would move every tensor among them into
+    shared memory in place, under any array that aliases its storage
+    (a numpy view, or a JAX array made from one without a copy)."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.save(args, os.path.join(out_dir, "args.pt"))
+        ctx = mp.start_processes(_rank_entry, args=(fn, world, free_port(), out_dir, threads),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{world} ranks of {fn.__name__} ran past {timeout} s")
+        return [torch.load(os.path.join(out_dir, f"{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def step_case(case: dict, world: int = 1) -> dict:
+    """One train step of a detector case on ``case["device"]`` (the CPU by
+    default): ``train_step`` at one rank, ``shard_train_step`` on this
+    rank's rows of the global batch in a group of ``world``. ``case``: cfg,
+    sd (its state dict), dtype, inputs
+    (points or CaDDN's images, validity or P2, gt_boxes, RoI priorities or
+    None: the global batch, numpy), extra (the loss inputs by name), seed
+    (of the step's generator: the RoI sample and dropout draw from it where
+    the priorities are None), build (``build_detector``'s keywords). -> the
+    loss terms (the global batch's), the
+    gradients before clipping (summed over the ranks), the parameters and
+    buffers after the step, f64."""
+    from .models.detectors.second import build_detector
+    from .parallel.mesh import make_mesh, shard_batch
+    from .train.train import create_train_state, shard_train_step, train_step
+
+    dtype = case.get("dtype", torch.float64)
+    dev = torch.device(case.get("device", "cpu"))
+    model, _ = build_detector(case["cfg"], case["sd"], device=dev, **case.get("build", {}))
+    model.to(dtype)
+    state = create_train_state(model, case["cfg"].OPTIMIZATION, 100)
+    grads = {}
+    step = state.optimizer.step
+
+    def recorded(count):
+        grads.update({n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                      .to("cpu", torch.float64, copy=True)
+                      for n, p in model.named_parameters()})
+        step(count)
+
+    state.optimizer.step = recorded
+    cast = lambda a: None if a is None else (                     # noqa: E731
+        lambda t: (t.to(dtype) if t.is_floating_point() else t).to(dev))(
+        torch.from_numpy(np.asarray(a)))
+    inputs = [cast(a) for a in case["inputs"]]
+    extra = {k: cast(v) for k, v in case.get("extra", {}).items()}
+    if world > 1:
+        fn = shard_train_step(model)[0]
+        inputs, extra = shard_batch(make_mesh(), (inputs, extra))
+    else:
+        fn = train_step
+    pts, valid, gt, u = inputs
+    gen = None if case.get("seed") is None else \
+        torch.Generator(device=dev).manual_seed(case["seed"])
+    terms = fn(state, pts, valid, gt, gen, roi_u=u, **extra)
+    grab = lambda d: {k: v.detach().to("cpu", torch.float64, copy=True)   # noqa: E731
+                      for k, v in d}
+    return {"terms": grab(terms.items()), "grads": grads,
+            "params": grab(model.named_parameters()), "buffers": grab(model.named_buffers())}
+
+
+def dp_steps_worker(rank: int, world: int, cases: list, device: str = "cpu") -> list:
+    """``step_case`` of every case on this rank of a gloo group of
+    ``world`` (the ``jax`` launcher's environment) on ``device``: the CPU,
+    or one card that every rank shares."""
+    from .parallel import distributed as D
+
+    D.init_distributed("jax", device=device, backend="gloo")
+    try:
+        return [step_case(c, world) for c in cases]
+    finally:
+        D.destroy_distributed()
+
+
+def bn_case(case: dict, world: int = 1, rank: int = 0) -> dict:
+    """A training batch norm (``kind`` BatchNorm2d or MaskedBatchNorm) on
+    this rank's rows of ``x`` (the global batch, numpy; ``mask`` the masked
+    one's rows), its parameters and running statistics from ``case``,
+    under a data-parallel mesh of ``world`` ranks: -> the output, the input
+    gradient of sum(output * ``g``), the parameter gradients (this rank's
+    share) and the running statistics, f64."""
+    from .models.modules.common import BatchNorm2d, MaskedBatchNorm
+    from .parallel.mesh import make_mesh, set_active_mesh, shard_batch
+
+    c = case["weight"].shape[0]
+    bn = BatchNorm2d(c, eps=1e-3, momentum=0.01) if case["kind"] == "BatchNorm2d" \
+        else MaskedBatchNorm(c)
+    with torch.no_grad():
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            getattr(bn, k).copy_(torch.from_numpy(case[k]))
+    bn.train()
+    rows = {k: torch.from_numpy(case[k]) for k in ("x", "g", "mask") if k in case}
+    mesh = make_mesh()
+    if world > 1:
+        rows = shard_batch(mesh, rows)
+    x = rows["x"].clone().requires_grad_(True)
+    prev = set_active_mesh(mesh)
+    try:
+        y = bn(x) if "mask" not in rows else bn(x, rows["mask"])
+        (y * rows["g"]).sum().backward()
+    finally:
+        set_active_mesh(prev)
+    return {"y": y.detach().double(), "x_grad": x.grad.double(),
+            "weight_grad": bn.weight.grad.double(), "bias_grad": bn.bias.grad.double(),
+            "running_mean": bn.running_mean.double().clone(),
+            "running_var": bn.running_var.double().clone()}
+
+
+def parallel_checks_worker(rank: int, world: int, auto_port: int, bn_cases: list) -> dict:
+    """On each rank of a CPU group: the collectives at world 2 (the JAX
+    package's tests/test_multihost.py cases), the mesh, ``bn_case`` of each
+    case, then a second group through torchrun's environment (``auto``) on
+    ``auto_port``."""
+    from .parallel import distributed as D
+    from .parallel.collectives import (average_reduce_value, get_rank, get_world_size,
+                                       merge_results_dist, reduce_dict)
+    from .parallel.mesh import make_mesh, shard_batch
+
+    out = {"jax": D.init_distributed("jax", device="cpu")}
+    try:
+        local = [{"frame": f"{rank}_{i}", "score": rank * 10 + i} for i in range(2 + rank)]
+        out.update(
+            rank=get_rank(), world=get_world_size(),
+            merged=[m["frame"] for m in merge_results_dist(local)],
+            average=average_reduce_value(float(rank + 1)),
+            reduced=reduce_dict({"loss": rank * 2.0}),
+            truncated=merge_results_dist([rank], total_size=1),
+            mesh=(make_mesh().rank, make_mesh().world),
+            rows=shard_batch(make_mesh(), {"a": np.arange(8).reshape(4, 2)})["a"].tolist(),
+            bn=[bn_case(c, world, rank) for c in bn_cases])
+    finally:
+        D.destroy_distributed()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(auto_port))
+    out["auto"] = D.init_distributed("auto", device="cpu")
+    try:
+        t = torch.tensor([float(rank + 1)])
+        torch.distributed.all_reduce(t)
+        out["auto_sum"] = float(t)
+    finally:
+        D.destroy_distributed()
+    return out
+
+
+def sharded_completion_worker(rank: int, world: int, vcn_sd: dict, frames: tuple,
+                              out_pts: int, model_name: str = "VCN_VC") -> tuple:
+    """``see.sharded.make_sharded_completion`` on this rank of a CPU group of
+    ``world``: VCN ``model_name`` at ``vcn_sd`` completing ``out_pts``
+    points, over ``frames`` (points, valid, gt_boxes, gt_mask of the global
+    batch, numpy). -> this rank's (new_pts, new_valid, inst_ok)."""
+    from .models.vcn.inference import VCNInference
+    from .parallel import distributed as D
+    from .parallel.mesh import make_mesh
+    from .see.sharded import make_sharded_completion
+
+    D.init_distributed("jax", device="cpu")
+    try:
+        vcn = VCNInference(model_name, vcn_sd, num_points=out_pts, device="cpu")
+        fn = make_sharded_completion(make_mesh(), vcn, out_pts=out_pts)
+        return fn(*(torch.from_numpy(np.asarray(a)) for a in frames))
+    finally:
+        D.destroy_distributed()
+
+
+def eval_worker(rank: int, world: int, det_cfg, sd: dict, dataset: tuple,
+                batch_size: int) -> tuple:
+    """``train.eval.eval_one_epoch`` on this rank of a CPU group of
+    ``world``: the detector at ``det_cfg`` and ``sd`` over ``dataset``
+    (a class, its arguments and keywords), at ``batch_size``. -> (AP
+    report, AP dict, recall counts, the log lines)."""
+    from .models.detectors.second import build_detector
+    from .parallel import distributed as D
+    from .train.eval import eval_one_epoch
+
+    D.init_distributed("jax", device="cpu")
+    try:
+        model, _ = build_detector(det_cfg, sd, device="cpu")
+        cls, args, kwargs = dataset
+        logs = []
+        out = eval_one_epoch(model.eval(), det_cfg, cls(*args, **kwargs),
+                             batch_size=batch_size, logger=logs.append)
+        return (*out, logs)
+    finally:
+        D.destroy_distributed()
+
+
+def cli_worker(rank: int, world: int, train_argv: list, test_argv: list,
+               test_port: int) -> dict:
+    """On this rank: ``cli.train_detector`` with ``train_argv`` and ``--launcher
+    jax`` (its group on the spawned environment's port), then
+    ``cli.test_detector`` with ``test_argv`` and ``--launcher jax`` on
+    ``test_port``. -> {"train": the mean loss of each epoch, the run's
+    checkpoints and the weights after it; "test": (AP report, AP dict,
+    recall counts)}."""
+    from .cli import test_detector as TD
+    from .cli import train_detector as TR
+
+    out = TR.main(train_argv + ["--launcher", "jax"])
+    train = {"losses": out["losses"], "ckpts": out["ckpts"], "step": out["state"].step,
+             "state_dict": {k: v.detach().clone()
+                            for k, v in out["state"].model.state_dict().items()}}
+    os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{test_port}"
+    return {"train": train, "test": TD.main(test_argv + ["--launcher", "jax"])}

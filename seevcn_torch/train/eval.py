@@ -1,10 +1,13 @@
-"""The detector evaluation loop on one device (port of
-seevcn_tpu/train/eval.py; reference tools/eval_utils/eval_utils.py:22-121):
-batched eval forwards, post-processing and recall records, then the
-dataset's prediction dicts and its official evaluation.
+"""The detector evaluation loop (port of seevcn_tpu/train/eval.py; reference
+tools/eval_utils/eval_utils.py:22-121): batched eval forwards,
+post-processing and recall records, then the dataset's prediction dicts
+and its official evaluation.
 
-Single-process: the JAX package's multi-process merge of frames and recall
-(its process_allgather) waits for the port's multi-GPU work.
+Across the ranks of a process group each rank takes the frames
+``range(rank, n, world)`` (the reference's DistributedSampler), and the
+(frame, prediction) pairs and the recall counts are merged over the ranks
+(``parallel.collectives.merge_results_dist``, the reference's
+merge_results_dist) before every rank runs the evaluation.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from ..models.detectors.caddn import CaDDN
 from ..models.detectors.second import post_processing
 from ..ops.iou3d import boxes_iou3d
+from ..parallel.collectives import get_rank, get_world_size, merge_results_dist
 
 
 def recall_record(pred_boxes, pred_mask, gt_boxes, gt_mask, thresh_list) -> dict:
@@ -56,7 +60,10 @@ def eval_one_epoch(model, cfg, dataset, batch_size: int = 1, logger=print,
     default), which implements __getitem__, __len__,
     generate_prediction_dicts and evaluation. The tail batch is padded
     with its last frame, whose repeats are not counted twice in the
-    predictions (the recall counts them, as the JAX package's do)."""
+    predictions (the recall counts them, as the JAX package's do). In a
+    process group each rank evaluates every world-th frame from its rank,
+    and the predictions and recall counts of every rank are merged, sorted
+    by frame, before the evaluation, which every rank runs."""
     dev = next(model.parameters()).device
     post_cfg = cfg.MODEL.POST_PROCESSING
     thresh_list = [float(t) for t in post_cfg.get("RECALL_THRESH_LIST", [0.3, 0.5, 0.7])]
@@ -67,8 +74,10 @@ def eval_one_epoch(model, cfg, dataset, batch_size: int = 1, logger=print,
     recall["num_gt"] = 0
     n = len(dataset) if max_frames is None else min(max_frames, len(dataset))
     t_start = time.time()
-    for s in range(0, n, batch_size):
-        idx = list(range(s, min(s + batch_size, n)))
+    rank, world = get_rank(), get_world_size()
+    my_frames = list(range(rank, n, world))
+    for s in range(0, len(my_frames), batch_size):
+        idx = my_frames[s:s + batch_size]
         while len(idx) < batch_size:
             idx.append(idx[-1])                      # pad the tail batch
         frames = [dataset[i] for i in idx]
@@ -91,6 +100,12 @@ def eval_one_epoch(model, cfg, dataset, batch_size: int = 1, logger=print,
            f"{dt / max(len(frame_indices), 1):.4f} sec_per_example")
     annos = dataset.generate_prediction_dicts(frame_indices, det_annos, cfg.CLASS_NAMES,
                                               device=dev)
+    if world > 1:
+        pairs = sorted(merge_results_dist(list(zip(frame_indices, annos))),
+                       key=lambda p: p[0])[:n]
+        annos = [p[1] for p in pairs]
+        merged = merge_results_dist([recall])
+        recall = {k: sum(r[k] for r in merged) for k in recall}
     for t in thresh_list:
         logger(f"recall_{t}: {recall[f'recalled_{t}'] / max(recall['num_gt'], 1):.4f}")
     result = dataset.evaluation(annos, cfg.CLASS_NAMES, device=dev)

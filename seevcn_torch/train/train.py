@@ -8,15 +8,23 @@ PVRCNNPlusPlus and VoxelRCNN, which draw their RoI sample and dropout from
 the step's generator, PointRCNN and PartA2, which draw their RoI sample
 from it and no dropout, and SECONDNet, PointPillar, CenterPoint and CaDDN
 (on images), which draw nothing: each model's ``loss`` gives its terms).
-It is single-device; the reference's sharded step (``shard_train_step``)
-maps to DDP, which the port has not taken up yet.
+
+``shard_train_step`` is the data-parallel step over a process group (the
+JAX package's ``shard_train_step`` with the batch over its mesh's dp
+axis): each rank takes its rows of the global batch, and the step equals
+the one-process step on the global batch, as JAX's one program over the
+global batch does (batch-norm statistics, loss normalizers and draws of
+the global batch; ``parallel/mesh.py``). It is not OpenPCDet's DDP step,
+which keeps each GPU's own statistics and normalizers.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import broadcast_, make_mesh, set_active_mesh
 from .optim import Optimizer, build_optimizer
 
 
@@ -78,3 +86,60 @@ def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
                                 **loss_inputs)
     apply_gradients(state, loss)
     return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}
+
+
+def all_reduce_grads(params) -> None:
+    """Sum every parameter's gradient over the ranks (a missing one taken
+    as zero), one all-reduce a dtype."""
+    by_dtype = {}
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+
+
+def shard_train_step(model, mesh=None):
+    """The data-parallel train step of ``model`` over the process group ->
+    (step_fn, mesh). Rank 0's weights and statistics are broadcast to every
+    rank once, here. ``step_fn(state, points, valid, gt_boxes, generator,
+    *, roi_u=None, **loss_inputs)`` takes this rank's rows of the global
+    batch (``mesh.shard_batch``; ``roi_u`` its rows of the priorities, and
+    CaDDN its image rows and their loss inputs) and ``generator`` the same
+    on every rank. Under the active mesh it runs ``train_forward``, whose
+    loss is this rank's share of the global batch's; the gradients are then
+    summed over the ranks, clipped by their global norm and stepped, so the
+    weights stay the same on every rank. -> the metrics of the global
+    batch (every rank's shares summed), the same on every rank."""
+    mesh = mesh or make_mesh()
+    if mesh.world > 1:
+        for t in [*model.parameters(), *model.buffers()]:
+            broadcast_(t)
+
+    def step_fn(state: TrainState, points, valid, gt_boxes, generator=None, *,
+                roi_u=None, **loss_inputs) -> dict:
+        prev = set_active_mesh(mesh)
+        try:
+            loss, tb, _ = train_forward(state, points, valid, gt_boxes, generator, roi_u,
+                                        **loss_inputs)
+            state.optimizer.zero_grad()
+            loss.backward()
+        finally:
+            set_active_mesh(prev)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}
+        if mesh.world > 1:
+            all_reduce_grads(state.optimizer.params)
+            vals = torch.stack([v.to(loss.dtype) for v in metrics.values()])
+            dist.all_reduce(vals)
+            metrics = dict(zip(metrics, vals.unbind()))
+        state.optimizer.step(state.step)
+        state.step += 1
+        return metrics
+
+    return step_fn, mesh

@@ -10,12 +10,15 @@ Tolerances: the same instances are completed (equal ``inst_ok``); new_pts,
 the completed clouds among them, agree to 1e-3 m (f32 sums in another
 order); ``new_valid`` is equal, given that no scan point's distance to the
 completed cloud lies within twice the clouds' difference of the 0.1 m
-radius.
+radius. The frames-over-ranks completion (``see.sharded``) at world 2, one
+frame a rank over two spawned gloo ranks, is held to the same tolerances
+against the same JAX frames.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from chip_smoke import make_scene
 from seevcn_tpu.models.vcn.nets import build_vcn as jax_build_vcn
@@ -24,7 +27,8 @@ from seevcn_tpu.see import device_pipeline as JDP
 from seevcn_tpu.see.sharded import _complete_one_frame
 from seevcn_torch.models.vcn.inference import VCNInference
 from seevcn_torch.see.gt_completion import complete_gt_frames, gt_membership
-from seevcn_torch.testing import assert_close, to_numpy, to_torch
+from seevcn_torch.testing import (assert_close, sharded_completion_worker, spawn_ranks,
+                                  to_numpy, to_torch)
 from seevcn_torch.utils.weights import vcn_state_dict_from_flax
 
 F, P, D, OUT = 2, 4096, 5, 128
@@ -47,13 +51,19 @@ def _frames():
 
 
 @pytest.fixture(scope="module")
-def runs():
+def jax_vcn():
+    """JAX's VCN_VC at num_coarse OUT and its variables."""
+    model = jax_build_vcn("VCN_VC", num_coarse=OUT)
+    return model, jax.tree.map(np.asarray, model.init(
+        jax.random.PRNGKey(1), {"input": jnp.zeros((D, OUT, 3))}))
+
+
+@pytest.fixture(scope="module")
+def runs(jax_vcn):
     mp = pytest.MonkeyPatch()
     mp.setattr(JDP, "within_radius_mask", _pallas_within_radius)
     pts, valid, gt, gt_mask = _frames()
-    model = jax_build_vcn("VCN_VC", num_coarse=OUT)
-    variables = jax.tree.map(np.asarray, model.init(
-        jax.random.PRNGKey(1), {"input": jnp.zeros((D, OUT, 3))}))
+    model, variables = jax_vcn
     one = jax.jit(lambda p, v, g, m: _complete_one_frame(
         model, variables, p, v, g, m, out_pts=OUT, sanity_max_dist=2.0))
     ref = [jax.tree.map(np.asarray, one(pts[i], valid[i], gt[i], gt_mask[i]))
@@ -80,9 +90,8 @@ def test_gt_membership_lifts_the_boxes():
     assert inside.tolist() == [[False, True]]
 
 
-def test_gt_completion_matches_jax(runs):
-    (pts, valid, gt, gt_mask), ref, (new_pts, new_valid, stats) = runs
-    inst_ok = stats["inst_valid"]
+def _hold_against_jax(frames, ref, new_pts, new_valid, inst_ok):
+    pts, valid, gt, gt_mask = frames
     assert new_pts.shape == (F, P + D * OUT, 3)
     for i, (r_pts, r_valid, r_ok) in enumerate(ref):
         assert_close(inst_ok[i], r_ok, name=f"inst_ok[{i}]")
@@ -96,3 +105,18 @@ def test_gt_completion_matches_jax(runs):
         assert not (np.abs(dist - 0.1) <= 2 * shift + 1e-6).any()
         assert_close(new_valid[i], r_valid, name=f"new_valid[{i}]")
         assert int((valid[i] & ~to_numpy(new_valid[i])[:P]).sum()) > 0
+
+
+def test_gt_completion_matches_jax(runs):
+    frames, ref, (new_pts, new_valid, stats) = runs
+    _hold_against_jax(frames, ref, new_pts, new_valid, stats["inst_valid"])
+
+
+def test_sharded_completion_at_world_2_matches_jax(runs, jax_vcn):
+    """make_sharded_completion at world 2: each rank completes its frame;
+    the ranks' blocks, in rank order, hold as the one-process batch does."""
+    frames, ref, _ = runs
+    sd = vcn_state_dict_from_flax(jax_vcn[1], "VCN_VC")
+    got = spawn_ranks(sharded_completion_worker, 2, sd, frames, OUT)
+    assert all(g[0].shape == (1, P + D * OUT, 3) for g in got)
+    _hold_against_jax(frames, ref, *(torch.cat([g[i] for g in got]) for i in range(3)))

@@ -13,7 +13,15 @@ random world flip.
 Tolerances: run_see's .pcds equal the port's own SEEVCN frame by frame;
 generate_masks' JSON is JAX's ``main``'s byte for byte on the same PNGs
 and detections; test_detector's AP is JAX's evaluation of the same .pth
-within 1e-4 and its recall counts equal.
+within 1e-4 and its recall counts equal. With ``--launcher jax`` over two
+spawned gloo ranks at the same global batch and initial weights,
+train_detector's epoch loss (the mean of its two steps) is ``--launcher
+none``'s within 1e-4 (relative) and its checkpoint's weights within 2 lr a
+step (its running statistics within 1e-4): Adam's first step moves an
+element whose gradient is f32 rounding noise by lr either way, and the
+second step starts from there, as tests/test_torch_train_step.py holds
+its second step; the ranks' weights are bit for bit equal; test_detector over the two
+ranks gives ``--launcher none``'s AP within 1e-4 and its recall counts.
 """
 import json
 import os
@@ -35,6 +43,8 @@ from seevcn_torch.geom.pcd_io import read_pcd
 from seevcn_torch.models.detectors.configs import tiny_detector_cfg, tiny_pointpillar_cfg
 from seevcn_torch.models.detectors.second import build_detector
 from seevcn_torch.see.pipeline import SEEVCN
+from seevcn_torch.testing import cli_worker, free_port, spawn_ranks
+from seevcn_torch.train.optim import build_lr_schedule
 from seevcn_torch.utils.ckpt import save_detector_checkpoint
 from seevcn_torch.utils.config import Cfg, cfg_from_yaml_file
 
@@ -198,7 +208,8 @@ def test_train_detector_resumes_and_rotates(trained):
     np.testing.assert_array_equal(
         np.asarray(kernel)[0, 0],
         second["state"].model.state_dict()["dense_head.conv_cls.weight"][:, :, 0, 0].numpy().T)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # --launcher slurm reads SLURM_PROCID first, as JAX's does
+    with pytest.raises(KeyError, match="SLURM_PROCID"):
         TR.main(["--cfg_file", "unused.yaml", "--launcher", "slurm"])
 
 
@@ -222,15 +233,23 @@ def test_load_weights_round_trips(tmp_path, make):
         assert torch.equal(got[k], v), k
 
 
-def test_test_detector_matches_jax(split, trained):
+@pytest.fixture(scope="module")
+def tested(split, trained):
+    """test_detector on the CPU on ``trained``'s last checkpoint at batch 2:
+    its argv (without --device) and (AP report, AP dict, recall counts)."""
+    root, _ = split
+    argv = ["--cfg_file", str(root / "tiny.yaml"), "--ckpt", trained[2]["ckpts"][0],
+            "--max_points", "4096", "--batch_size", "2"]
+    return argv, TD.main(argv + ["--device", "cpu"])
+
+
+def test_test_detector_matches_jax(split, trained, tested):
     from seevcn_tpu.cli import test_detector as JTD
     from seevcn_tpu.utils.config import cfg_from_yaml_file as jax_cfg
 
     root, _ = split
     ckpt = trained[2]["ckpts"][0]
-    argv = ["--cfg_file", str(root / "tiny.yaml"), "--ckpt", ckpt, "--max_points", "4096",
-            "--batch_size", "2"]
-    report, ap, recall = TD.main(argv + ["--device", "cpu"])
+    argv, (report, ap, recall) = tested
     jreport, jap, jrecall = JTD.evaluate_ckpt(jax_cfg(str(root / "tiny.yaml")), ckpt,
                                               JTD.parse_args(argv))
     assert "Car" in report and recall == jrecall and recall["num_gt"] > 0
@@ -253,3 +272,59 @@ def test_test_detector_matches_jax(split, trained):
                                              + argv[2:] + ["--device", "cpu", "--max_frames",
                                                            "3", "--batch_size", "1"])
     assert "Car" in report_tar and 0 < recall_tar["num_gt"] < recall["num_gt"]
+
+
+@pytest.fixture(scope="module")
+def launched(split, trained, tmp_path_factory):
+    """train_detector (one epoch at the global batch of 2, the initial
+    weights from --fix_random_seed) with --launcher none here, then with
+    --launcher jax over two spawned ranks (one frame a rank), which also run
+    test_detector on ``trained``'s last checkpoint."""
+    root, _ = split
+
+    def train(tag):
+        return ["--cfg_file", str(root / "tiny.yaml"), "--max_points", "4096",
+                "--output_dir", str(tmp_path_factory.mktemp(tag)), "--device", "cpu",
+                "--epochs", "1", "--batch_size", "2", "--fix_random_seed"]
+
+    single = TR.main(train("runs_w1"))
+    single_sd = {k: v.detach().clone() for k, v in single["state"].model.state_dict().items()}
+    test = ["--cfg_file", str(root / "tiny.yaml"), "--ckpt", trained[2]["ckpts"][0],
+            "--max_points", "4096", "--batch_size", "2", "--device", "cpu"]
+    return (single, single_sd), spawn_ranks(cli_worker, 2, train("runs_w2"), test, free_port())
+
+
+def test_launcher_jax_at_world_2_reproduces_launcher_none(split, trained, launched, tested):
+    root, _ = split
+    (first, state0), launched = launched
+    got = launched[0]["train"]
+    assert got["step"] == first["state"].step == 2
+    np.testing.assert_allclose(got["losses"], first["losses"], rtol=1e-4)
+    assert [os.path.basename(p) for p in got["ckpts"]] == ["checkpoint_epoch_0.pth"]
+    saved = torch.load(got["ckpts"][0], weights_only=False)["model_state"]
+    cfg = cfg_from_yaml_file(str(root / "tiny.yaml"))
+    lr = build_lr_schedule(cfg.OPTIMIZATION, 2)
+    params = {n for n, _ in first["state"].model.named_parameters()}
+    for k, v in state0.items():
+        assert torch.equal(got["state_dict"][k], launched[1]["train"]["state_dict"][k]), k
+        if k.endswith("num_batches_tracked"):
+            continue
+        tol = 2 * (lr(0) + lr(1)) if k in params else 1e-4
+        np.testing.assert_allclose(got["state_dict"][k].numpy(), v.numpy(), atol=tol,
+                                   rtol=0 if k in params else 1e-4, err_msg=k)
+    # the saved file is the weights the ranks hold
+    model, _ = build_detector(tiny_detector_cfg(), device="cpu")
+    TR.load_weights(model, got["ckpts"][0])
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, got["state_dict"][k]), k
+    assert set(saved) >= {k for k in state0 if not k.endswith("num_batches_tracked")}
+
+    report, ap, recall = tested[1]
+    for rank in launched:
+        w_report, w_ap, w_recall = rank["test"]
+        assert w_recall == recall and recall["num_gt"] > 0 and "Car" in w_report
+        assert set(w_ap) == set(ap)
+        for c in ap:
+            for m in ap[c]:
+                np.testing.assert_allclose([w_ap[c][m][d] for d in sorted(ap[c][m])],
+                                           [ap[c][m][d] for d in sorted(ap[c][m])], atol=1e-4)

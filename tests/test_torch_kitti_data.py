@@ -471,36 +471,92 @@ def test_official_eval_matches_jax():
         assert got[1] == ref[1]
 
 
-def test_eval_one_epoch_matches_jax(split):
+@pytest.mark.parametrize("world", [1, 2])
+def test_eval_one_epoch_matches_jax(split, world, monkeypatch):
     """eval_one_epoch of a tiny SECOND-IoU (seeded weights, the JAX model's
     through its importer) over the split's 3 frames at batch 2 (the tail
     padded): the same AP dict and recall counts as JAX's eval_one_epoch.
     With random weights this is the path's check, not the model's: the
-    APs are near 0."""
+    APs are near 0. At world 2 the port runs on two spawned gloo ranks,
+    and JAX's reference is its multi-process path run once for each rank
+    here, process_index and process_count patched in its module and
+    merge_results_dist fed rank 1's recorded lists: rank 0 takes frames 0 and 2, rank 1 frame
+    1 padded with itself (counted twice in the recall, by JAX's rule)."""
     from chip_smoke import seeded_state_dict
     from seevcn_tpu.models.detectors.second import build_detector as jax_build
+    from seevcn_tpu.parallel import collectives as JCOL
+    from seevcn_tpu.train import eval as JEV
     from seevcn_tpu.train.eval import eval_one_epoch as jax_eval
     from seevcn_tpu.utils.ckpt_compat import detector_variables_from_torch
     from seevcn_torch.models.detectors import configs as DC
     from seevcn_torch.models.detectors.second import build_detector
+    from seevcn_torch.testing import eval_worker, spawn_ranks
     from seevcn_torch.train.eval import eval_one_epoch
 
     root, _ = split
     det_cfg = DC.tiny_detector_cfg()
     det_cfg.MODEL.POST_PROCESSING.SCORE_THRESH = 0.0
     sd = seeded_state_dict(0, build_detector(det_cfg, device="cpu")[0], random_stats=True)
-    model, _ = build_detector(det_cfg, sd, device="cpu")
     variables = jax.tree.map(jnp.asarray, detector_variables_from_torch(sd, "SECONDNetIoU"))
     ds_cfg = _ds_cfg(root)
-    logs = []
-    got = eval_one_epoch(model, det_cfg, TK.KittiDataset(ds_cfg, ["Car"], False,
-                                                         max_points=1024, max_boxes=8),
-                         batch_size=2, logger=logs.append)
-    ref = jax_eval(jax_build(det_cfg)[0], det_cfg, variables,
-                   JK.KittiDataset(ds_cfg, ["Car"], False, max_points=1024, max_boxes=8),
-                   batch_size=2, logger=lambda s: None)
-    assert got[1] == ref[1]
-    assert got[2] == ref[2]
-    # 3 cars a frame; the padded tail repeats frame 2, counted twice, as JAX's
+    ds_kw = {"max_points": 1024, "max_boxes": 8}
+    if world == 1:
+        logs = []
+        model, _ = build_detector(det_cfg, sd, device="cpu")
+        got = eval_one_epoch(model, det_cfg, TK.KittiDataset(ds_cfg, ["Car"], False, **ds_kw),
+                             batch_size=2, logger=logs.append)
+        ranks = [(*got, logs)]
+    else:
+        ranks = spawn_ranks(eval_worker, 2, det_cfg, sd,
+                            (TK.KittiDataset, (ds_cfg, ["Car"], False), ds_kw), 2)
+        got, logs = ranks[0][:3], ranks[0][3]
+    jm = jax_build(det_cfg)[0]
+
+    jitted = {}
+
+    class RankJax:
+        """jax, as JAX's eval loop sees it, on process r of world: patched
+        there only (JAX's own calls of the two, under the test's eight host
+        devices, would see them too). Its step, jitted anew by each call of
+        the loop, is compiled once for the two ranks: the same closure over
+        the same model and config."""
+        def __init__(self, r):
+            self.process_index, self.process_count = (lambda: r), (lambda: world)
+
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+        def jit(self, fn):
+            if fn.__code__ not in jitted:
+                jitted[fn.__code__] = jax.jit(fn)
+            return jitted[fn.__code__]
+
+    def jax_rank(r, merge):
+        monkeypatch.setattr(JEV, "jax", RankJax(r))
+        monkeypatch.setattr(JCOL, "merge_results_dist", merge)
+        return jax_eval(jm, det_cfg, variables,
+                        JK.KittiDataset(ds_cfg, ["Car"], False, **ds_kw),
+                        batch_size=2, logger=lambda s: None)
+
+    if world == 1:
+        ref = jax_eval(jm, det_cfg, variables, JK.KittiDataset(ds_cfg, ["Car"], False, **ds_kw),
+                       batch_size=2, logger=lambda s: None)
+    else:
+        rank1 = []
+
+        def record(local, total_size=None):
+            rank1.append(local)
+            if len(rank1) == 2:            # the pairs, then the recall: enough
+                raise StopIteration
+            return local
+
+        with pytest.raises(StopIteration):
+            jax_rank(1, record)
+        ref = jax_rank(0, lambda local, total_size=None: local + rank1.pop(0))
+        assert not rank1
+    for r in ranks:                    # every rank evaluates the merged frames
+        assert r[1] == ref[1]
+        assert r[2] == ref[2]
+    # 3 cars a frame; the padded tail repeats a frame, counted twice, as JAX's
     assert got[2]["num_gt"] == 12 and "Car AP_R40" in got[0]
-    assert logs[0].startswith("eval: 3 frames")
+    assert logs[0].startswith(f"eval: {2 if world == 2 else 3} frames")

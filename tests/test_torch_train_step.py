@@ -30,6 +30,12 @@ Tolerances, each stated at its assertion:
 The second step starts from weights that differ by those noise steps, so
 its loss terms are held to 1e-4, its gradients to 5e-3 of the largest and
 its running statistics to 1e-4.
+
+The data-parallel step (``shard_train_step``) at world 2, one frame a rank
+over two spawned gloo ranks, each given its rows of JAX's priorities, is
+held to the first step's tolerances against the same JAX step on both
+frames, its gradients summed over the ranks; the ranks' weights and
+statistics after it equal bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -45,7 +51,7 @@ from seevcn_tpu.train.train import make_train_step
 from seevcn_tpu.utils.ckpt_compat import detector_variables_from_torch
 from seevcn_torch.models.detectors import configs as C
 from seevcn_torch.models.detectors.second import build_detector
-from seevcn_torch.testing import assert_close, to_numpy
+from seevcn_torch.testing import assert_close, dp_steps_worker, spawn_ranks, to_numpy
 from seevcn_torch.train.train import (apply_gradients, create_train_state,
                                       train_forward, train_step)
 from seevcn_torch.utils.weights import detector_state_dict_from_flax
@@ -159,6 +165,23 @@ def runs(request):
     return steps
 
 
+@pytest.fixture(scope="module")
+def sharded_step():
+    """Each rank's first step of ``shard_train_step`` at world 2 from the
+    ``runs`` weights, on its frame of the inputs and its rows of JAX's
+    first-step priorities."""
+    ref_sd = seeded_state_dict(0, build_detector(_cfg(), device="cpu")[0],
+                               random_stats=True)
+    cfg = _tiny_detector_cfg()
+    n_rois = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE)
+    sample_rng = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(7), 0))[0]
+    u = np.asarray(jax.vmap(lambda r: jax.random.uniform(r, (n_rois,)))(
+        jax.random.split(sample_rng, B)))
+    case = {"cfg": _cfg(), "sd": ref_sd, "inputs": (*_inputs(), u), "dtype": torch.float32,
+            "build": {"max_voxels": VOXELS}}
+    return [r[0] for r in spawn_ranks(dp_steps_worker, 2, [case])]
+
+
 def _sure(steps, n):
     """Elements of parameter n whose gradient was sure in every step."""
     sure = True
@@ -251,3 +274,16 @@ def test_gradients_are_clipped_to_the_global_norm():
     assert float(norm) > 10
     for g, p in zip(grads, model.parameters()):
         assert_close(p.grad, g * (10 / norm), atol=1e-9, rtol=1e-6, name="clipped")
+
+
+def test_shard_train_step_at_world_2_matches_jax(runs, sharded_step):
+    """The world-2 step against JAX's step on the global batch, by the
+    first step's rule, and the two ranks' weights bit for bit equal."""
+    got = sharded_step[0]
+    for name in ("params", "buffers"):
+        for n, v in got[name].items():
+            assert torch.equal(v, sharded_step[1][name][n]), f"rank 1's {n}"
+    step = dict(runs[0], metrics=got["terms"], grads=got["grads"],
+                after={**got["params"], **got["buffers"]})
+    assert step["samples"] > 0 and float(got["terms"]["rcnn_loss_iou"]) > 0
+    _check_steps([step], 1e-5, 5e-4, 1e-5)
