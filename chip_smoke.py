@@ -94,14 +94,22 @@ gloo on the same card: the flagship's ``shard_train_step`` against
 against its world-1 step, the frames-over-ranks GT completion (K1 counted
 on each rank) with a witness of its batch independence, and
 ``eval_one_epoch`` at world 2 against world 1, predictions and recall;
-NCCL at world size 2 or more needs a card a rank. Every failed check
-raises, so the exit code is not 0. The last line of standard output is one
-JSON object naming the device; the line before it holds the kernel
+NCCL at world size 2 or more needs a card a rank. Then model parallelism on
+the one card (phase 24): gloo ranks on the same card at (dp 1, mp 2) and
+(dp 2, mp 2), the flagship's BEV map split over W between the mp ranks
+(halo exchanges, the gather before the heads): its BEV backbone on the
+slabs and its eval forward against the whole map, its steps against the
+world-1 step, the tiny sharded detectors and PointPillar (replicated over
+mp) against theirs, every rank bit-equal, the exchanges timed. Every failed
+check raises, so the exit code is not 0. The last line of standard output
+is one JSON object naming the device; the line before it holds the kernel
 summary.
 
     python3 chip_smoke.py --phase 23
+    python3 chip_smoke.py --phase 24
 
-runs phase 23 alone, after the set-up it needs, and prints no result line.
+runs phase 23 or 24 alone, after the set-up it needs, and prints no result
+line.
 
 It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
 """
@@ -121,6 +129,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -6597,11 +6606,23 @@ DP_TINY_RCNN = {"pvrcnn": DC.tiny_pvrcnn_cfg, "pvrcnn_plusplus": DC.tiny_pvrcnn_
 DP_TINY_DETECTORS = [*DP_TINY_RPN, *DP_TINY_RCNN, "caddn_image", "caddn_resnet_tiny"]
 
 
+#: the tiny detectors that shard their BEV map over the mp axis (JAX's
+#: constrain_bev callers), and one that runs replicated over it
+MP_TINY_DETECTORS = ["second_iou", "second_focal", "second_multihead"]
+MP_TINY_REPLICATED = "pointpillar"
+
+
 def dp_tiny_case(key: str, device: str = "cpu") -> dict:
     """``seevcn_torch.testing.step_case``'s case of a tiny detector on
     ``device``: the step inputs as the tiny-step checks make them
     (check_tiny_*_steps_against_cpu), two frames, the RoI sample and dropout
-    left to the step's generator."""
+    left to the step's generator; ``second_iou`` is the tiny SECOND-IoU
+    with cars near two of its proposals a frame (``pvrcnn_train_inputs``)."""
+    if key == "second_iou":
+        cfg = DC.tiny_detector_cfg()
+        sd = seeded_state_dict(8, build_detector(cfg, device="cpu")[0], random_stats=True)
+        return {"cfg": cfg, "sd": sd, "inputs": (*pvrcnn_train_inputs(cfg, sd), None),
+                "extra": {}, "seed": 5, "device": device}
     if key.startswith("caddn"):
         form = key[len("caddn_"):]
         cfg = DC.tiny_caddn_cfg(form)
@@ -6627,15 +6648,17 @@ def dp_tiny_case(key: str, device: str = "cpu") -> dict:
             "device": device}
 
 
-def hold_tiny_dp_steps(cases: list, ref: list, ranks: list, fails: list) -> dict:
-    """Each tiny detector's world-2 step (``ranks``: each rank's
-    ``step_case`` results) against its world-1 step ``ref`` at
-    DP_TINY_TOLS; the ranks' weights and statistics bit for bit equal, and
-    a foreground loss term above 0. -> the worst readings a detector."""
+def hold_tiny_dp_steps(cases: list, ref: list, ranks: list, fails: list,
+                       keys=DP_TINY_DETECTORS, label: str = "world 2") -> dict:
+    """Each tiny detector's step over the ranks (``ranks``: each rank's
+    ``step_case`` results, in the order of ``keys``) against its world-1
+    step ``ref`` at DP_TINY_TOLS; every rank's weights and statistics bit
+    for bit rank 0's, and a foreground loss term above 0. -> the worst
+    readings a detector."""
     out = {}
-    for i, key in enumerate(DP_TINY_DETECTORS):
+    for i, key in enumerate(keys):
         r, g = ref[i], ranks[0][i]
-        same = all(torch.equal(v, ranks[1][i][name][n])
+        same = all(torch.equal(v, other[i][name][n]) for other in ranks[1:]
                    for name in ("params", "buffers") for n, v in g[name].items())
         loss = max(abs(float(g["terms"][k]) - float(v)) / (abs(float(v)) + 1e-30)
                    for k, v in r["terms"].items())
@@ -6662,7 +6685,7 @@ def hold_tiny_dp_steps(cases: list, ref: list, ranks: list, fails: list) -> dict
                     "foreground": float(r["terms"][fg])}
         bad = [k for k, v in DP_TINY_TOLS.items() if out[key][k] > v]
         if bad or not same or not out[key]["terms_equal"] or not out[key]["foreground"] > 0:
-            fails.append(f"tiny {key} world 2 vs world 1 on the card ({bad}): {out[key]}")
+            fails.append(f"tiny {key} {label} vs world 1 on the card ({bad}): {out[key]}")
     return out
 
 
@@ -6709,26 +6732,28 @@ def flagship_weights(det_cfg) -> dict:
 
 
 def dp_flagship_steps(det_cfg, sd, frames, dev, world: int = 1, steps: int = 2,
-                      pinned=None) -> dict:
+                      pinned=None, mp: int = 1, exchanges: list | None = None) -> dict:
     """``steps`` flagship SECOND-IoU train steps from ``sd`` on ``frames``
     (points, valid, gt_boxes of the global batch, CPU tensors), the step's
     generator seeded 0 on ``dev``: ``train_step`` at world 1,
-    ``shard_train_step`` on this rank's rows in a group of ``world``; the
-    proposals recorded, or replayed from ``pinned`` (``proposal_pins``). ->
-    per step the loss terms (the global batch's), the gradients before
-    clipping (summed over the ranks) and the ms (host clock to a
-    synchronize); the parameters and buffers after; the proposals; at world
-    2 the gradient all-reduce of one step timed alone (ms)."""
+    ``shard_train_step`` on this rank's rows in a group of ``world`` over a
+    mesh of ``mp`` ranks a dp row; the proposals recorded, or replayed from
+    ``pinned`` (``proposal_pins``). -> per step the loss terms (the global
+    batch's), the gradients before clipping (summed over the ranks), the ms
+    (host clock to a synchronize) and, where ``exchanges`` collects
+    ``timed_exchanges``' records, the ms of the step's halo and gather
+    exchanges; the parameters and buffers after; the proposals; at world
+    2 or more the gradient all-reduce of one step timed alone (ms)."""
     from seevcn_torch.parallel.mesh import make_mesh, shard_batch
     from seevcn_torch.train.train import all_reduce_grads, shard_train_step
 
     cap = int(det_cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS["train"])
     model, _ = build_detector(det_cfg, sd, max_voxels=cap, device=dev)
     state = create_train_state(model, det_cfg.OPTIMIZATION, total_steps=1000)
-    step, rank = train_step, 0
+    step, rank, mesh = train_step, 0, None
     if world > 1:
-        mesh = make_mesh(device=dev)
-        step, rank = shard_train_step(model, mesh)[0], mesh.rank
+        mesh = make_mesh(device=dev, mp=mp)
+        step, rank, world = shard_train_step(model, mesh)[0], mesh.dp_rank, mesh.dp
         frames = shard_batch(mesh, frames)
     pts, valid, gt = (t.to(dev) for t in frames)
     grads = {}
@@ -6749,11 +6774,13 @@ def dp_flagship_steps(det_cfg, sd, frames, dev, world: int = 1, steps: int = 2,
             _sync(dev)
             out["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "grads": dict(grads),
                                  "terms": {k: float(v) for k, v in terms.items()}})
+            if exchanges is not None:
+                out["steps"][-1]["exchange_ms"] = exchange_ms(exchanges)
     out["proposals"] = props
     out["params"] = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
     out["buffers"] = {n: b.detach().cpu() for n, b in model.named_buffers()
                       if not n.endswith("num_batches_tracked")}
-    if world > 1:
+    if mesh is not None:
         _sync(dev)
         t0 = time.perf_counter()
         all_reduce_grads(state.optimizer.params)
@@ -7270,16 +7297,265 @@ def data_parallel(dev, card, gt_scenes, g_pts, g_valid, g_gt, g_stats) -> dict:
     return res
 
 
-def phase23_alone(dev, card) -> int:
-    """``--phase 23``: phase 23 after the set-up it needs (the kernels built,
-    VCN_VC at seeded weights, phase 9's 4 GT frames completed in one
-    process); no other phase runs and no result line is printed."""
+# --- phase 24: the mp axis on one card -------------------------------------------
+
+#: phase 24's bounds. ``bev``: the flagship's BEV backbone (training, batch
+#: norms over both ranks' slabs) on W slabs against the whole map, the
+#: largest |diff| over the largest |output| (f32, TF32 off; read 3.3e-6 at
+#: its first run, the slabs' cuDNN convs summing in another order; set at
+#: three times that). ``eval_box``:
+#: the eval forward's batch_box_preds at mp 2 against unsharded, absolute
+#: (JAX's test_train_step_dp_mp_mesh's 1e-3). The train steps are held by
+#: DP_TOLS, the tiny ones by DP_TINY_TOLS.
+MP_TOLS = {"bev": 1e-5, "eval_box": 1e-3}
+
+
+@contextlib.contextmanager
+def timed_exchanges(records: list):
+    """Within the block, each all-reduce of ``parallel.spatial`` is timed into
+    ``records`` as (kind, ms): CUDA events on the card (read when
+    ``exchange_ms`` sums them), the host clock on the CPU; "halo" for a
+    conv's halo exchange (forward or backward), "gather" for a gather of the
+    slabs (``gather_w`` forward, ``scatter_w`` backward)."""
+    from seevcn_torch.parallel import spatial as S
+
+    real = S._exchange
+
+    def timed(m, buf):
+        kind = "gather" if sys._getframe(1).f_code.co_name == "_gather" else "halo"
+        if not buf.is_cuda:
+            t0 = time.perf_counter()
+            out = real(m, buf)
+            records.append((kind, lambda dt=(time.perf_counter() - t0) * 1e3: dt))
+            return out
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(m, buf)
+        end.record()
+        records.append((kind, lambda: start.elapsed_time(end)))
+        return out
+
+    S._exchange = timed
+    try:
+        yield records
+    finally:
+        S._exchange = real
+
+
+def exchange_ms(records: list) -> dict:
+    """The ms and count of each kind of the ``timed_exchanges`` records,
+    which are then cleared."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out = {}
+    for kind, ms_of in records:
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + ms_of(), n + 1)
+    records.clear()
+    return {k: {"ms": ms, "calls": n} for k, (ms, n) in out.items()}
+
+
+def mp_rank(rank: int, world: int, mp: int, held_cfg, sd: dict, frames, pinned,
+            bev, tiny_cases: list, device: str = "cuda:0", t_spawn: float = 0.0) -> dict:
+    """One rank of phase 24 on ``device`` (cuda:0: every rank on the one
+    card) over gloo, ``mp`` ranks a dp row: two flagship steps of
+    ``held_cfg`` (3D backbone f32) with the proposals pinned to the world-1
+    run's and the halo and gather exchanges timed, each tiny case's step;
+    given the BEV map ``bev``, the BEV backbone (training) on this rank's
+    slab and the eval forward under the mesh, with the width that the
+    backbone took; the s of each part (``start``: from ``t_spawn``, the
+    parent's clock before the spawn, to this function)."""
+    from seevcn_torch.parallel import distributed as PD
+    from seevcn_torch.parallel.mesh import make_mesh, set_active_mesh
+    from seevcn_torch.parallel.spatial import gather_w, scatter_w
+    from seevcn_torch.testing import step_case
+
+    t0 = time.time()
+    parts = {"start": t0 - t_spawn}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    PD.init_distributed("jax", device=dev, backend="gloo")
+    try:
+        out = {"group": (torch.distributed.get_rank(), torch.distributed.get_world_size(),
+                         torch.distributed.get_backend()), "part_s": parts}
+        parts["group"], t0 = time.time() - t0, time.time()
+        with timed_exchanges([]) as records:
+            out["train"] = dp_flagship_steps(held_cfg, sd, frames, dev, world=world,
+                                             pinned=pinned, mp=mp, exchanges=records)
+        parts["flagship"], t0 = time.time() - t0, time.time()
+        out["tiny_steps"] = [step_case(dict(c, mp=mp), world) for c in tiny_cases]
+        parts["tiny"], t0 = time.time() - t0, time.time()
+        if bev is not None:
+            model, _ = build_detector(held_cfg, sd, device=dev)
+            mesh = make_mesh(device=dev, mp=mp)
+            bb = copy.deepcopy(model.backbone_2d).train()
+            widths = []
+            model.backbone_2d.register_forward_pre_hook(
+                lambda m, a: widths.append(a[0].shape[2]))
+            prev = set_active_mesh(mesh)
+            try:
+                with torch.no_grad():
+                    out["bev_out"] = gather_w(bb(scatter_w(bev.to(dev)), w_slabs=True)).cpu()
+                    out["eval_preds"] = model.eval()(frames[0].to(dev), frames[1].to(dev))[
+                        "batch_box_preds"].cpu()
+            finally:
+                set_active_mesh(prev)
+            out["bev_w"] = widths
+            parts["bev_eval"] = time.time() - t0
+    finally:
+        PD.destroy_distributed()
+    return out
+
+
+def ranks_apart(ranks: list) -> list:
+    """The flagship weights and statistics after the steps that some rank
+    holds otherwise than rank 0, bit for bit: (rank, name, largest
+    |diff|), at most 5."""
+    ref = ranks[0]["train"]
+    return [(i, k, (v.float() - r["train"][name][k].float()).abs().max().item())
+            for i, r in enumerate(ranks[1:], 1) for name in ("params", "buffers")
+            for k, v in ref[name].items() if not torch.equal(v, r["train"][name][k])][:5]
+
+
+def model_parallel(dev, card, g_pts, g_valid, g_gt) -> dict:
+    """Phase 24: the mp axis on one card, ranks spawned over gloo and all on
+    cuda:0 (NCCL refuses two ranks on one card). References here, at world
+    1: two flagship SECOND-IoU steps (3D backbone f32, the proposals
+    recorded) on the first 2 of phase 9's completed frames, its BEV
+    backbone (training) on their BEV map and its eval forward, and the
+    tiny detectors' steps (f64). (a) World 2, (dp 1, mp 2): the flagship's
+    steps with the proposals pinned, its BEV backbone on W slabs, the eval
+    forward, and PointPillar's tiny step (replicated over mp). (b) World 4,
+    (dp 2, mp 2): the flagship's steps (a frame a dp row) and the tiny
+    SECOND-IoU's, focal and multi-head SECONDNet's steps. Holds at MP_TOLS,
+    DP_TOLS and DP_TINY_TOLS, every rank bit-equal; every failed check is
+    collected and raised at the end. The ranks share one card: their times
+    are liveness numbers, not a speed-up."""
+    from seevcn_torch.testing import spawn_ranks, step_case
+
+    t_phase = t0 = time.time()
+    fails, res, parts = [], {}, {}
+    frames = tuple(t[:2].cpu() for t in (g_pts, g_valid, g_gt))
+    held_cfg = dp_det_cfg(dtype="float32")
+    sd = flagship_weights(held_cfg)
+    ref = dp_flagship_steps(held_cfg, sd, frames, dev)
+    model, _ = build_detector(held_cfg, sd, device=dev)
+    model.eval()
+    pts, valid = frames[0].to(dev), frames[1].to(dev)
+    with torch.no_grad():
+        ref_preds = model(pts, valid)["batch_box_preds"].cpu()
+        bev = height_compression(model.voxel_backbone(pts, valid)[1][
+            "encoded_spconv_tensor"]).float()
+        ref_bev = copy.deepcopy(model.backbone_2d).train()(bev).cpu()
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    replicated = [dp_tiny_case(MP_TINY_REPLICATED, device)]
+    sharded = [dp_tiny_case(k, device) for k in MP_TINY_DETECTORS]
+    parts["world1_refs"], t0 = time.time() - t0, time.time()
+    # the tiny world-1 steps while the ranks of (a) start up
+    tiny_ref, errors = [], []
+
+    def tiny_refs():
+        try:
+            tiny_ref.extend(step_case(c) for c in replicated + sharded)
+        except Exception as e:            # raised again below, in this thread
+            errors.append(e)
+
+    refs = threading.Thread(target=tiny_refs)
+    refs.start()
+    a = spawn_ranks(mp_rank, 2, 2, held_cfg, sd, frames, ref["proposals"], bev.cpu(),
+                    replicated, device, time.time(), threads=4, timeout=300)
+    refs.join()
+    if errors:
+        raise errors[0]
+    parts["world2_mp2_spawned"], t0 = time.time() - t0, time.time()
+    b = spawn_ranks(mp_rank, 4, 2, held_cfg, sd, frames, ref["proposals"], None, sharded,
+                    device, time.time(), threads=2, timeout=300)
+    parts["world4_dp2_mp2_spawned"], t0 = time.time() - t0, time.time()
+
+    bev_off = max((r["bev_out"] - ref_bev).abs().max().item() for r in a) \
+        / (ref_bev.abs().max().item() + 1e-30)
+    box_off = max((r["eval_preds"] - ref_preds).abs().max().item() for r in a)
+    res["a"] = {"groups": [r["group"] for r in a], "bev_w": [r["bev_w"] for r in a],
+                "full_w": int(bev.shape[2]), "bev_rel_off": bev_off, "eval_box_off": box_off,
+                "steps_vs_world1": hold_dp_steps(a[0]["train"], ref, fails, "mp-2 steps"),
+                "ranks_apart": ranks_apart(a),
+                "tiny_steps": hold_tiny_dp_steps(replicated, tiny_ref[:1],
+                                                 [r["tiny_steps"] for r in a], fails,
+                                                 [MP_TINY_REPLICATED], "(dp 1, mp 2)")}
+    res["b"] = {"groups": [r["group"] for r in b],
+                "steps_vs_world1": hold_dp_steps(b[0]["train"], ref, fails,
+                                                 "(dp 2, mp 2) steps"),
+                "ranks_apart": ranks_apart(b),
+                "tiny_steps": hold_tiny_dp_steps(sharded, tiny_ref[1:],
+                                                 [r["tiny_steps"] for r in b], fails,
+                                                 MP_TINY_DETECTORS, "(dp 2, mp 2)")}
+    if bev_off > MP_TOLS["bev"]:
+        fails.append(f"the BEV backbone on W slabs vs the whole map: {bev_off:.3g}")
+    if box_off > MP_TOLS["eval_box"]:
+        fails.append(f"the eval forward at mp 2 vs unsharded: batch_box_preds {box_off:.3g}")
+    if any(w != [bev.shape[2] // 2] for w in res["a"]["bev_w"]):
+        fails.append(f"the BEV backbone's widths at mp 2: {res['a']['bev_w']}")
+    for label, ranks, r in (("(dp 1, mp 2)", a, res["a"]), ("(dp 2, mp 2)", b, res["b"])):
+        if r["ranks_apart"]:
+            fails.append(f"{label}: the ranks' weights or statistics differ after the steps: "
+                         f"{r['ranks_apart']}")
+        if not all(s["exchange_ms"].get("halo", {}).get("calls") for r in ranks
+                   for s in r["train"]["steps"]):
+            fails.append(f"{label}: a flagship step made no halo exchange")
+    res["step_ms"] = {"world1": [s["ms"] for s in ref["steps"]],
+                      "dp1_mp2": [[s["ms"] for s in r["train"]["steps"]] for r in a],
+                      "dp2_mp2": [[s["ms"] for s in r["train"]["steps"]] for r in b]}
+    res["exchange_ms_step2"] = {"dp1_mp2": [r["train"]["steps"][-1]["exchange_ms"] for r in a],
+                                "dp2_mp2": [r["train"]["steps"][-1]["exchange_ms"] for r in b]}
+    res["all_reduce_ms"] = {"dp1_mp2": [r["train"]["all_reduce_ms"] for r in a],
+                            "dp2_mp2": [r["train"]["all_reduce_ms"] for r in b]}
+    res["rank_s"] = {"dp1_mp2": [r["part_s"] for r in a], "dp2_mp2": [r["part_s"] for r in b]}
+    parts["checks"] = time.time() - t0
+    res["part_s"], res["phase_s"] = parts, time.time() - t_phase
+    print(f"phase 24 (a) gloo world 2 (dp 1, mp 2), both ranks on cuda:0 (groups "
+          f"{res['a']['groups']}): the flagship's BEV backbone (training) on W slabs of "
+          f"{res['a']['bev_w']} of {res['a']['full_w']} columns vs the whole map, largest "
+          f"|diff| / largest |output| {bev_off:.3g} (bound {MP_TOLS['bev']}); eval "
+          f"batch_box_preds vs unsharded {box_off:.3g} (bound {MP_TOLS['eval_box']}); steps "
+          f"(3D backbone f32, proposals pinned) vs world 1 (worst, bounds {DP_TOLS}) "
+          f"{res['a']['steps_vs_world1']}; tensors apart between ranks "
+          f"{res['a']['ranks_apart']}; "
+          f"PointPillar's tiny step (replicated over mp, f64): {res['a']['tiny_steps']} "
+          f"on {card}")
+    print(f"phase 24 (b) gloo world 4 (dp 2, mp 2) on cuda:0: flagship steps vs world 1 "
+          f"{res['b']['steps_vs_world1']}; tensors apart between ranks "
+          f"{res['b']['ranks_apart']}; "
+          f"the tiny sharded detectors' steps (f64, bounds {DP_TINY_TOLS}): "
+          f"{res['b']['tiny_steps']} on {card}")
+    print(f"phase 24 timings (ranks sharing one card over gloo: liveness, not a speed-up): "
+          f"flagship step ms world 1 {res['step_ms']['world1']}, (dp 1, mp 2) "
+          f"{res['step_ms']['dp1_mp2']}, (dp 2, mp 2) {res['step_ms']['dp2_mp2']}; step 2's "
+          f"halo and gather exchanges (CUDA events, ms and calls a rank) "
+          f"{res['exchange_ms_step2']}; the gradient all-reduce alone {res['all_reduce_ms']} "
+          f"ms on {card}")
+    print(f"phase 24 by rank and part, s: {res['rank_s']}")
+    print("phase 24 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    if fails:
+        raise AssertionError("phase 24: " + "; ".join(fails))
+    return res
+
+
+def phase_alone(dev, card, phase: int) -> int:
+    """``--phase 23`` / ``--phase 24``: that phase after the set-up it needs
+    (the kernels built, VCN_VC at seeded weights, phase 9's 4 GT frames
+    completed in one process); no other phase runs and no result line is
+    printed."""
     t0 = time.time()
     K.build(K.KERNELS)
     vcn = VCNInference("VCN_VC", seeded_vcn_state_dict(0), device=dev)
     scenes = [make_scene(seed, 150_000, 32) for seed in range(4)]
     g_pts, g_valid, g_gt, g_stats, _, _ = check_gt_completion(vcn, scenes, dev)
     print(f"set-up {time.time() - t0:.1f} s", flush=True)
+    if phase == 24:
+        mpr = model_parallel(dev, card, g_pts, g_valid, g_gt)
+        print(f"phase 24 {mpr['phase_s']:.1f} s, {time.time() - t0:.1f} s with its set-up")
+        return 0
     dp = data_parallel(dev, card, scenes, g_pts, g_valid, g_gt, g_stats)
     print(f"sharded_completion_launches {dp['sharded_completion_launches']}; phase 23 "
           f"{dp['phase_s']:.1f} s, {time.time() - t0:.1f} s with its set-up")
@@ -7288,11 +7564,11 @@ def phase23_alone(dev, card) -> int:
 
 def main(argv=None) -> int:
     """Every phase, then the kernels line and the result line; with
-    ``--phase 23``, that phase alone (``phase23_alone``)."""
+    ``--phase 23`` or ``--phase 24``, that phase alone (``phase_alone``)."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", type=int, choices=[23], default=None,
+    ap.add_argument("--phase", type=int, choices=[23, 24], default=None,
                     help="run only this phase, after the set-up it needs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -7309,8 +7585,8 @@ def main(argv=None) -> int:
           f"CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.phase == 23:
-        return phase23_alone(dev, card)
+    if args.phase is not None:
+        return phase_alone(dev, card, args.phase)
     t_start = time.time()
 
     # --- 1. build every kernel, one nvcc per source, all at once ----------
@@ -7727,6 +8003,11 @@ def main(argv=None) -> int:
     print(f"phase 23 (data parallelism) ran {dp['phase_s']:.0f} s; chip_smoke ran "
           f"{time.time() - t_start:.0f} s after start-up")
 
+    # --- 24. the mp axis on one card: gloo at (dp 1, mp 2) and (dp 2, mp 2) ----------
+    mpr = model_parallel(dev, card, g_pts, g_valid, g_gt)
+    print(f"phase 24 (model parallelism) ran {mpr['phase_s']:.0f} s; chip_smoke ran "
+          f"{time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -7756,7 +8037,7 @@ def main(argv=None) -> int:
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "part_s", "phase_s")}},
         "kitti_data": caddn["kitti_data"], "kitti_workflow": workflow,
         "domain_workflow": domains, "demo_jpeg": demo, "data_parallel": dp,
-        "card": smi}, default=str))
+        "model_parallel": mpr, "card": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

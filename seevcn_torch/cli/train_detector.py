@@ -150,12 +150,13 @@ def _train(args) -> dict:
         if rank == 0:
             print(f"resumed from {path} at epoch {start_epoch}")
 
-    step = train_step
+    step, dp_rank, dp = train_step, 0, 1
     if world > 1:
-        step = shard_train_step(model)[0]
+        step, mesh = shard_train_step(model)
+        dp_rank, dp = mesh.dp_rank, mesh.dp
     loader = BackgroundLoader(dataset, batch_size, num_workers=4, seed=start_epoch,
-                              device=dev, rank=rank, world=world)
-    rows = slice(1 + rank * (batch_size // world), 1 + (rank + 1) * (batch_size // world))
+                              device=dev, rank=dp_rank, world=dp)
+    rows = slice(1 + dp_rank * (batch_size // dp), 1 + (dp_rank + 1) * (batch_size // dp))
     losses, step_s = [], []
     for ep in range(start_epoch, epochs):
         dataset.set_epoch(ep)

@@ -36,6 +36,7 @@ from ...ops.nms import nms_bev
 from ...ops.voxelize import grid_size as compute_grid_size
 from ...ops.voxelize import voxelize, voxelize_batch
 from ...parallel.mesh import global_count
+from ...parallel.spatial import gather_w, scatter_w, w_sharded
 from ..modules.backbone2d import BaseBEVBackbone
 from ..modules.unet3d import BACKBONES  # VoxelBackBone8x and the rest, and UNetV2
 from ..modules.dense_heads import AnchorHeadLogic, build_anchor_head
@@ -96,9 +97,15 @@ class _AnchorRPN(nn.Module):
     loss: what every anchor detector ends with. A detector whose class sets
     ``BEV_DTYPE`` runs its BEV convs in BACKBONE_2D.DTYPE; the others ignore
     it, as their JAX builders do (only SECOND-IoU's, SECONDNet's and
-    PointPillar's pass it on, seevcn_tpu/models/detectors/second.py)."""
+    PointPillar's pass it on, seevcn_tpu/models/detectors/second.py). A
+    detector whose class sets ``SHARD_BEV`` runs its BEV backbone on W
+    slabs under an active mesh of mp > 1 (``parallel.spatial``), the map
+    scattered before it and gathered after it, where JAX's SECONDNetIoU
+    and SECONDNet call ``constrain_bev``; the others run it replicated over
+    mp, as JAX's do."""
 
     BEV_DTYPE = False
+    SHARD_BEV = False
 
     def _init_head(self, cfg: DetectorConfig, bev_channels: int) -> None:
         b2 = cfg.model_cfg.BACKBONE_2D
@@ -114,7 +121,11 @@ class _AnchorRPN(nn.Module):
         # a bf16 3D backbone hands a bf16 BEV over; it enters the 2D backbone
         # in the dense head's dtype (f32), whose convs cast to their compute
         # dtype where BACKBONE_2D.DTYPE sets one
-        bev2d = self.backbone_2d(bev.to(next(self.dense_head.parameters()).dtype))
+        bev = bev.to(next(self.dense_head.parameters()).dtype)
+        if self.SHARD_BEV and w_sharded():
+            bev2d = gather_w(self.backbone_2d(scatter_w(bev), w_slabs=True))
+        else:
+            bev2d = self.backbone_2d(bev)
         head_out = self.dense_head(bev2d)
         cls_preds, box_preds = self.cfg.head_logic.predict_boxes(head_out)
         return bev2d, head_out, cls_preds, box_preds
@@ -246,6 +257,7 @@ class SECONDNet(AnchorDetector):
     the three 3D backbones and either anchor head."""
 
     BEV_DTYPE = True
+    SHARD_BEV = True
 
     def forward(self, points: torch.Tensor, points_valid: torch.Tensor,
                 gt_boxes: torch.Tensor | None = None, generator=None,
@@ -343,6 +355,7 @@ class SECONDNetIoU(AnchorDetector):
     """SECOND + IoU rcnn head: the rotated BEV RoI-grid pool -> SECONDHead."""
 
     BEV_DTYPE = True
+    SHARD_BEV = True
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__(cfg)

@@ -39,7 +39,7 @@ import torch
 from torch import nn
 
 from ...ops import sparse as SP
-from ...parallel.mesh import dp_world, global_batch, global_count, global_sum
+from ...parallel.mesh import dp_world, global_batch, stats_count, stats_sum, stats_world
 from ..modules.common import BatchNorm1d, MaskedBatchNorm, _update_running
 from ..modules.pfe import STAGE_STRIDES, SALayer, voxel_centres
 from ..modules.pvrcnn_head import decode_rcnn_boxes, pvrcnn_rcnn_loss, roi_grid_points
@@ -58,16 +58,17 @@ def stage_channels(backbone: nn.Module) -> dict:
 
 def padded_batch_norm(bn: BatchNorm1d, x: torch.Tensor, rows: int) -> torch.Tensor:
     """``bn`` over x (N, C); in training its statistics (and the running
-    update) over ``rows`` >= N rows, the ones past x zeros. Under a
-    data-parallel mesh ``rows`` is the global batch's and the sums and N
-    are every rank's."""
+    update) over ``rows`` >= N rows, the ones past x zeros. Under a mesh
+    ``rows`` is the global batch's and the sums and N are every rank's, as
+    a batch norm's (``parallel.mesh.stats_sum``: each of the mp ranks of a
+    dp row adds the row's rows, so ``rows`` is taken mp times too)."""
     if not bn.training:
         return bn(x)
-    if dp_world() > 1:
-        n = global_count(x.new_tensor(x.shape[0]))
-        rows = torch.clamp_min(n, int(rows))
-        mean = global_sum(x.sum(0)) / rows
-        var = (global_sum(((x - mean) ** 2).sum(0)) + (rows - n) * mean ** 2) / rows
+    if stats_world() > 1:
+        n = stats_count(x.new_tensor(x.shape[0]))
+        rows = torch.clamp_min(n, int(rows) * (stats_world() // dp_world()))
+        mean = stats_sum(x.sum(0)) / rows
+        var = (stats_sum(((x - mean) ** 2).sum(0)) + (rows - n) * mean ** 2) / rows
     else:
         rows = max(int(rows), x.shape[0])
         mean = x.sum(0) / rows

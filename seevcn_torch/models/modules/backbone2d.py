@@ -12,7 +12,20 @@ levels' own outputs are joined. Keys as the reference's
 only, as flax's ``nn.Conv(dtype=...)`` in the JAX package: each conv and
 transposed conv casts its input and weight to it and gives its output in
 it; the batch norms run in f32 on f32 parameters and statistics, so every
-block's output is f32 again. The parameters stay f32."""
+block's output is f32 again. The parameters stay f32.
+
+On W slabs (``forward(x, w_slabs=True)``, under an active mesh of mp > 1:
+each rank holds W / mp columns of the map, ``parallel.spatial``) every conv
+takes its W padding from its neighbours' edge columns (``halo_w``) and keeps
+its H padding: a 3x3 conv padded 1 at stride 1 takes one column from each
+side, at stride 2 (output column j reads input columns 2j - 1 .. 2j + 1)
+one from the left and none from the right; the transposed-conv upsamples
+(kernel = stride), the k-strided downsamples and the channel concat are
+local. The batch norms take their statistics over every rank, as they do
+under any mesh (``mesh.stats_sum``). W must split into whole,
+stride-aligned slabs at every level, W divisible by mp times the product
+of the strides, where XLA would pad an uneven shard: any other W raises
+ValueError."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -21,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import active_mesh
+from ...parallel.spatial import halo_w
 from .common import conv_block2d, deconv_block2d
 
 
@@ -31,6 +46,8 @@ class BaseBEVBackbone(nn.Module):
                  num_upsample_filters: Sequence[int] = (), dtype: str | None = None):
         super().__init__()
         self.compute_dtype = None if dtype is None else getattr(torch, str(dtype))
+        self.layer_strides = [int(s) for s in layer_strides]
+        self.upsample_strides = [float(s) for s in upsample_strides]
         levels = len(layer_nums)
         self.blocks = nn.ModuleList()
         self.deblocks = nn.ModuleList()
@@ -61,30 +78,61 @@ class BaseBEVBackbone(nn.Module):
         self.num_bev_features = int(sum(num_upsample_filters)) if num_upsample_filters \
             else int(num_filters[-1])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w_slabs: bool = False) -> torch.Tensor:
         """(B, H, W, C) -> (B, H', W', num_bev_features), NHWC at both ends
-        as in the reference; NCHW inside."""
+        as in the reference; NCHW inside. ``w_slabs``: ``x`` is this rank's
+        W slab of the map under the active mesh's mp axis, and so is the
+        output."""
+        if w_slabs:
+            self._check_slabs(x.shape[2])
         x = x.permute(0, 3, 1, 2)
         ups = []
         for i, block in enumerate(self.blocks):
-            x = self._run(block, x)
-            ups.append(self._run(self.deblocks[i], x) if len(self.deblocks) else x)
+            x = self._run(block, x, w_slabs)
+            ups.append(self._run(self.deblocks[i], x, w_slabs) if len(self.deblocks) else x)
         out = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
         if len(self.deblocks) > len(self.blocks):
-            out = self._run(self.deblocks[-1], out)
+            out = self._run(self.deblocks[-1], out, w_slabs)
         return out.permute(0, 2, 3, 1)
 
-    def _run(self, seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-        """The layers of ``seq`` in order, each conv in the compute dtype."""
+    def _check_slabs(self, w: int) -> None:
+        """ValueError unless a slab of ``w`` columns splits at every level's
+        stride (and every k-strided downsample's k) into whole columns."""
+        mp = active_mesh().mp
+        for i, s in enumerate(self.layer_strides):
+            if w % s:
+                raise ValueError(f"BaseBEVBackbone level {i}: a W slab of {w} columns (W "
+                                 f"{w * mp} over mp {mp}) does not divide by its stride {s}")
+            w //= s
+            if self.upsample_strides and self.upsample_strides[i] < 1:
+                k = int(round(1 / self.upsample_strides[i]))
+                if w % k:
+                    raise ValueError(f"BaseBEVBackbone level {i}: a W slab of {w} columns "
+                                     f"(W {w * mp} over mp {mp}) does not divide by its "
+                                     f"downsample {k}")
+
+    def _run(self, seq: nn.Sequential, x: torch.Tensor, w_slabs: bool = False) -> torch.Tensor:
+        """The layers of ``seq`` in order, each conv in the compute dtype;
+        on W slabs each conv's W padding from the neighbours."""
         dt = self.compute_dtype
-        if dt is None:
+        if dt is None and not w_slabs:
             return seq(x)
+        cast = (lambda t: t) if dt is None else (lambda t: t.to(dt))     # noqa: E731
+        pad_w = None                  # the W padding of a ZeroPad2d before a conv
         for layer in seq:
             if isinstance(layer, nn.ConvTranspose2d):
-                x = F.conv_transpose2d(x.to(dt), layer.weight.to(dt), None, layer.stride)
+                x = F.conv_transpose2d(cast(x), cast(layer.weight), None, layer.stride)
             elif isinstance(layer, nn.Conv2d):
-                x = F.conv2d(x.to(dt), layer.weight.to(dt), None, layer.stride,
-                             layer.padding)
+                padding = layer.padding
+                if w_slabs:
+                    (kw, sw), pw = (layer.kernel_size[1], layer.stride[1]), \
+                        layer.padding[1] if pad_w is None else pad_w
+                    x = halo_w(x, pw, max(0, kw - sw - pw), dim=3)
+                    padding, pad_w = (layer.padding[0], 0), None
+                x = F.conv2d(cast(x), cast(layer.weight), None, layer.stride, padding)
+            elif w_slabs and isinstance(layer, nn.ZeroPad2d):
+                left, _, top, bottom = layer.padding
+                x, pad_w = F.pad(x, (0, 0, top, bottom)), left
             else:
                 x = layer(x)
         return x

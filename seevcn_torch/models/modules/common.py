@@ -7,11 +7,13 @@ statistics by flax's rule, ``ra = 0.99 ra + 0.01 batch`` with the **biased**
 variance. torch's own update uses the unbiased one; the forward and the
 gradients are the same either way, only the running variance would differ.
 
-While a data-parallel mesh is active (``parallel.mesh.set_active_mesh``),
-training takes the statistics over every rank's rows, as JAX's step over
-the global batch does: the counts and sums are all-reduced for the mean,
-then the sums of squared deviations for the variance (the same two passes),
-with the gradient carried back through both reductions.
+While a mesh is active (``parallel.mesh.set_active_mesh``), training takes
+the statistics over the global batch's rows, as JAX's step over the global
+batch does: the counts and sums are all-reduced over every rank for the
+mean, then the sums of squared deviations for the variance (the same two
+passes), with the gradient carried back through both reductions
+(``parallel.mesh.stats_sum``: the mp ranks of a dp row add their W slabs,
+or the same rows mp times to the sums and the count alike).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.dcn import modulated_deform_conv2d
-from ...parallel.mesh import dp_world, global_count, global_sum
+from ...parallel.mesh import stats_count, stats_sum, stats_world
 
 
 # flax's truncated_normal draws a standard normal cut at +-2; this is its
@@ -49,15 +51,15 @@ def _update_running(bn, mean: torch.Tensor, var: torch.Tensor) -> None:
 
 
 def global_moments(x: torch.Tensor, dims, mask: torch.Tensor | None = None):
-    """(mean, biased variance) of ``x`` over ``dims`` and every rank's rows
-    of the active mesh, in two passes; ``mask`` (x's shape over ``dims``,
+    """(mean, biased variance) of ``x`` over ``dims`` and every rank of the
+    active mesh, in two passes; ``mask`` (x's shape over ``dims``,
     1 where a row counts) restricts them to the valid rows."""
     keep = [1 if d in dims else n for d, n in enumerate(x.shape)]
     w = 1.0 if mask is None else mask
     n = x.new_tensor(x.numel() / math.prod(keep)) if mask is None else mask.sum()
-    cnt = global_count(n).clamp_min(1.0)
-    mean = global_sum((x * w).sum(dims)) / cnt
-    var = global_sum(((x - mean.view(keep)) ** 2 * w).sum(dims)) / cnt
+    cnt = stats_count(n).clamp_min(1.0)
+    mean = stats_sum((x * w).sum(dims)) / cnt
+    var = stats_sum(((x - mean.view(keep)) ** 2 * w).sum(dims)) / cnt
     return mean, var
 
 
@@ -78,7 +80,7 @@ class _FlaxStatsBatchNorm:
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]
-        if dp_world() > 1:
+        if stats_world() > 1:
             mean, var = global_moments(x, dims)
             _update_running(self, mean, var)
             return _normalize(x, mean, var, self.eps, self.weight, self.bias)
@@ -108,7 +110,7 @@ class MaskedBatchNorm(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
-        if self.training and dp_world() > 1:
+        if self.training and stats_world() > 1:
             mean, var = global_moments(x, [0], mask.to(x.dtype)[:, None])
             _update_running(self, mean, var)
         elif self.training:

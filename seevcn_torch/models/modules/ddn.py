@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...parallel.mesh import dp_world, global_mean
+from ...parallel.mesh import dp_world, global_mean, stats_world
 from .common import BatchNorm2d, global_moments
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -122,7 +122,7 @@ class _PoolBatchNorm(BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if dp_world() > 1:
+        if stats_world() > 1:
             mean, var = global_moments(x, [0, 2, 3])
         else:
             mean = x.mean((0, 2, 3))

@@ -5,8 +5,8 @@ single-thread switch for the CPU, a switch to the sparse conv's plain
 backward, seeded Mask R-CNN weights with a recorder of its ReLUs' signs,
 the VCN gradient comparison with the recorders of the VCN's discrete
 choices, and W local ranks of a process group spawned on a free port with
-the data-parallel workers they run, which the tests and chip_smoke.py all
-use."""
+the data- and model-parallel workers they run, which the tests and
+chip_smoke.py all use."""
 from __future__ import annotations
 
 import contextlib
@@ -432,7 +432,8 @@ def spawn_ranks(fn, world: int, *args, threads: int = 1, timeout: float = 600.0)
 def step_case(case: dict, world: int = 1) -> dict:
     """One train step of a detector case on ``case["device"]`` (the CPU by
     default): ``train_step`` at one rank, ``shard_train_step`` on this
-    rank's rows of the global batch in a group of ``world``. ``case``: cfg,
+    rank's rows of the global batch in a group of ``world``, over a mesh of
+    ``case["mp"]`` (1 by default) ranks a dp row. ``case``: cfg,
     sd (its state dict), dtype, inputs
     (points or CaDDN's images, validity or P2, gt_boxes, RoI priorities or
     None: the global batch, numpy), extra (the loss inputs by name), seed
@@ -466,8 +467,8 @@ def step_case(case: dict, world: int = 1) -> dict:
     inputs = [cast(a) for a in case["inputs"]]
     extra = {k: cast(v) for k, v in case.get("extra", {}).items()}
     if world > 1:
-        fn = shard_train_step(model)[0]
-        inputs, extra = shard_batch(make_mesh(), (inputs, extra))
+        fn, mesh = shard_train_step(model, make_mesh(mp=case.get("mp", 1)))
+        inputs, extra = shard_batch(mesh, (inputs, extra))
     else:
         fn = train_step
     pts, valid, gt, u = inputs
@@ -493,11 +494,11 @@ def dp_steps_worker(rank: int, world: int, cases: list, device: str = "cpu") -> 
         D.destroy_distributed()
 
 
-def bn_case(case: dict, world: int = 1, rank: int = 0) -> dict:
+def bn_case(case: dict, world: int = 1, rank: int = 0, mp: int = 1) -> dict:
     """A training batch norm (``kind`` BatchNorm2d or MaskedBatchNorm) on
     this rank's rows of ``x`` (the global batch, numpy; ``mask`` the masked
     one's rows), its parameters and running statistics from ``case``,
-    under a data-parallel mesh of ``world`` ranks: -> the output, the input
+    under a mesh of ``world`` ranks, ``mp`` a dp row: -> the output, the input
     gradient of sum(output * ``g``), the parameter gradients (this rank's
     share) and the running statistics, f64."""
     from .models.modules.common import BatchNorm2d, MaskedBatchNorm
@@ -511,7 +512,7 @@ def bn_case(case: dict, world: int = 1, rank: int = 0) -> dict:
             getattr(bn, k).copy_(torch.from_numpy(case[k]))
     bn.train()
     rows = {k: torch.from_numpy(case[k]) for k in ("x", "g", "mask") if k in case}
-    mesh = make_mesh()
+    mesh = make_mesh(mp=mp)
     if world > 1:
         rows = shard_batch(mesh, rows)
     x = rows["x"].clone().requires_grad_(True)
@@ -527,11 +528,12 @@ def bn_case(case: dict, world: int = 1, rank: int = 0) -> dict:
             "running_var": bn.running_var.double().clone()}
 
 
-def parallel_checks_worker(rank: int, world: int, auto_port: int, bn_cases: list) -> dict:
+def parallel_checks_worker(rank: int, world: int, auto_port: int, bn_cases: list,
+                           mp_cases: dict) -> dict:
     """On each rank of a CPU group: the collectives at world 2 (the JAX
     package's tests/test_multihost.py cases), the mesh, ``bn_case`` of each
-    case, then a second group through torchrun's environment (``auto``) on
-    ``auto_port``."""
+    case, ``mp_checks`` of ``mp_cases`` at mp 2, then a second group
+    through torchrun's environment (``auto``) on ``auto_port``."""
     from .parallel import distributed as D
     from .parallel.collectives import (average_reduce_value, get_rank, get_world_size,
                                        merge_results_dist, reduce_dict)
@@ -548,7 +550,8 @@ def parallel_checks_worker(rank: int, world: int, auto_port: int, bn_cases: list
             truncated=merge_results_dist([rank], total_size=1),
             mesh=(make_mesh().rank, make_mesh().world),
             rows=shard_batch(make_mesh(), {"a": np.arange(8).reshape(4, 2)})["a"].tolist(),
-            bn=[bn_case(c, world, rank) for c in bn_cases])
+            bn=[bn_case(c, world, rank) for c in bn_cases],
+            mp=mp_checks(world, 2, **mp_cases))
     finally:
         D.destroy_distributed()
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
@@ -561,6 +564,169 @@ def parallel_checks_worker(rank: int, world: int, auto_port: int, bn_cases: list
     finally:
         D.destroy_distributed()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the mp axis: the BEV map's W over the ranks of a dp row
+# --------------------------------------------------------------------------- #
+
+def spatial_checks(x: np.ndarray, g: dict) -> dict:
+    """``scatter_w``, ``gather_w`` and ``halo_w`` (1 and 1 columns, and the
+    stride-2 conv's 1 and 0) on ``x`` (B, H, W, C), the whole map, under the
+    active mesh, each with a backward of the upstream gradient ``g[name]``
+    (numpy, per mp rank where a rank's output is its own, the output's
+    shape): -> the outputs and the gradients each gives back, f64, and each
+    error that a W or halo that does not fit raises."""
+    from .parallel.mesh import active_mesh
+    from .parallel.spatial import gather_w, halo_w, scatter_w
+
+    r = active_mesh().mp_rank
+    out, full = {}, torch.from_numpy(x)
+
+    def run(name, fn, t):
+        t = t.clone().requires_grad_(True)
+        y = fn(t)
+        gy = g[name][r] if g[name].ndim == y.dim() + 1 else g[name]
+        (y * torch.from_numpy(gy)).sum().backward()
+        out[name] = (y.detach(), t.grad)
+
+    run("scatter", scatter_w, full)
+    slab = out["scatter"][0]
+    run("gather", gather_w, slab)
+    run("halo", lambda t: halo_w(t, 1, 1), slab)
+    run("halo_stride2", lambda t: halo_w(t, 1, 0), slab)
+    for name, fn in (("odd_w", lambda: scatter_w(full[:, :, :-1])),
+                     ("wide_halo", lambda: halo_w(slab, slab.shape[2] + 1, 0))):
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def bev_backbone_case(case: dict, world: int = 1, mp: int = 1) -> dict:
+    """The ``BaseBEVBackbone`` of ``case`` (``kw``, its keywords; ``sd``, its
+    state dict) in training, f64, on this rank's rows of ``x`` (the global
+    batch (B, H, W, C), numpy) under a mesh of ``world`` ranks, ``mp`` a dp
+    row: at mp > 1 the map scattered over W, the backbone on this rank's
+    slab and the output gathered, as ``_AnchorRPN.bev_head`` runs it. ->
+    the output (the whole map of this rank's rows), the input gradient of
+    sum(output * ``g``), the parameter gradients (this rank's share), the
+    running statistics and the slab's width; or, where ``case["w"]``
+    narrows the map to a W that does not split, the error."""
+    from .models.modules.backbone2d import BaseBEVBackbone
+    from .parallel.mesh import make_mesh, set_active_mesh, shard_batch
+    from .parallel.spatial import gather_w, scatter_w
+
+    net = BaseBEVBackbone(**case["kw"]).double()
+    net.load_state_dict(case["sd"])
+    net.train()
+    rows = {k: torch.from_numpy(case[k]) for k in ("x", "g")}
+    mesh = make_mesh(mp=mp)
+    if world > 1:
+        rows = shard_batch(mesh, rows)
+    x = rows["x"][:, :, :case.get("w")].clone().requires_grad_(True)
+    widths = []
+    net.register_forward_pre_hook(lambda m, a: widths.append(a[0].shape[2]))
+    prev = set_active_mesh(mesh)
+    try:
+        y = gather_w(net(scatter_w(x), w_slabs=True)) if mp > 1 else net(x)
+        (y * rows["g"][:, :, :y.shape[2]]).sum().backward()
+    except ValueError as e:
+        return {"error": str(e)}
+    finally:
+        set_active_mesh(prev)
+    return {"y": y.detach(), "x_grad": x.grad,
+            "grads": {n: p.grad.clone() for n, p in net.named_parameters()},
+            "buffers": {n: b.clone() for n, b in net.named_buffers()},
+            "slab_w": widths[0]}
+
+
+def eval_case(case: dict, world: int = 1, mp: int = 1) -> dict:
+    """The eval forward of a detector case (cfg, sd, points and valid of the
+    global batch, numpy) in f64 on this rank's rows under a mesh of
+    ``world`` ranks, ``mp`` a dp row: -> batch_cls_preds, batch_box_preds
+    and the width of the map that its BEV backbone took."""
+    from .models.detectors.second import build_detector
+    from .parallel.mesh import make_mesh, set_active_mesh, shard_batch
+
+    model, _ = build_detector(case["cfg"], case["sd"], device="cpu")
+    model.double().eval()
+    mesh = make_mesh(mp=mp)
+    pts, valid = (torch.from_numpy(np.asarray(a)) for a in case["inputs"][:2])
+    if world > 1:
+        pts, valid = shard_batch(mesh, (pts, valid))
+    widths = []
+    model.backbone_2d.register_forward_pre_hook(lambda m, a: widths.append(a[0].shape[2]))
+    prev = set_active_mesh(mesh)
+    try:
+        with torch.no_grad():
+            out = model(pts.double(), valid)
+    finally:
+        set_active_mesh(prev)
+    return {"batch_cls_preds": out["batch_cls_preds"], "batch_box_preds": out["batch_box_preds"],
+            "bev_w": widths[0]}
+
+
+def epoch_case(case: dict, world: int = 1, mp: int = 1) -> dict:
+    """``eval_one_epoch`` of a detector case (cfg, sd; dataset: a class, its
+    arguments and keywords; batch: frames a dp row) under an active mesh of
+    ``world`` ranks, ``mp`` a dp row (no mesh at world 1): -> the AP dict,
+    the recall counts and the log lines."""
+    from .models.detectors.second import build_detector
+    from .parallel.mesh import make_mesh, set_active_mesh
+    from .train.eval import eval_one_epoch
+
+    model, _ = build_detector(case["cfg"], case["sd"], device="cpu")
+    cls, args, kwargs = case["dataset"]
+    logs = []
+    prev = set_active_mesh(make_mesh(mp=mp) if world > 1 else None)
+    try:
+        _, ap, recall = eval_one_epoch(model.eval(), case["cfg"], cls(*args, **kwargs),
+                                       batch_size=case["batch"], logger=logs.append)
+    finally:
+        set_active_mesh(prev)
+    return {"ap": ap, "recall": recall, "logs": logs}
+
+
+def mp_checks(world: int, mp: int, spatial=None, bev=(), bn=(), evals=(), epochs=(),
+              steps=()) -> dict:
+    """Under this group's mesh of ``mp`` ranks a dp row: its layout (rank,
+    dp, mp, dp index, mp index, and the rows that ``shard_batch`` gives of
+    an 8-row batch), then ``spatial_checks`` of ``spatial`` (x, g) and each
+    case of ``bev_backbone_case``, ``bn_case``, ``eval_case``,
+    ``epoch_case`` and ``step_case`` (each step case at ``mp``)."""
+    from .parallel.mesh import make_mesh, set_active_mesh, shard_batch
+
+    mesh = make_mesh(mp=mp)
+    out = {"layout": (mesh.rank, mesh.dp, mesh.mp, mesh.dp_rank, mesh.mp_rank),
+           "rows": shard_batch(mesh, np.arange(8)).tolist()}
+    if spatial is not None:
+        prev = set_active_mesh(mesh)
+        try:
+            out["spatial"] = spatial_checks(*spatial)
+        finally:
+            set_active_mesh(prev)
+    out["bev"] = [bev_backbone_case(c, world, mp) for c in bev]
+    out["bn"] = [bn_case(c, world, mesh.rank, mp) for c in bn]
+    out["eval"] = [eval_case(c, world, mp) for c in evals]
+    out["epochs"] = [epoch_case(c, world, mp) for c in epochs]
+    out["steps"] = [step_case({**c, "mp": mp}, world) for c in steps]
+    return out
+
+
+def mp_worker(rank: int, world: int, mp: int, cases: dict) -> dict:
+    """``mp_checks`` of ``cases`` on this rank of a CPU gloo group of
+    ``world`` (the ``jax`` launcher's environment), ``mp`` ranks a dp
+    row."""
+    from .parallel import distributed as D
+
+    D.init_distributed("jax", device="cpu")
+    try:
+        return mp_checks(world, mp, **cases)
+    finally:
+        D.destroy_distributed()
 
 
 def sharded_completion_worker(rank: int, world: int, vcn_sd: dict, frames: tuple,

@@ -7,7 +7,11 @@ Across the ranks of a process group each rank takes the frames
 ``range(rank, n, world)`` (the reference's DistributedSampler), and the
 (frame, prediction) pairs and the recall counts are merged over the ranks
 (``parallel.collectives.merge_results_dist``, the reference's
-merge_results_dist) before every rank runs the evaluation.
+merge_results_dist) before every rank runs the evaluation. Under an active
+(dp, mp) mesh (``parallel.mesh.set_active_mesh``) the frames follow the dp
+index and size instead: the mp ranks of a dp row run the same frames
+(SECOND-IoU and SECONDNet each on its W slab of the BEV map), and the first
+of them contributes the row's predictions and counts to the merge.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from ..models.detectors.caddn import CaDDN
 from ..models.detectors.second import post_processing
 from ..ops.iou3d import boxes_iou3d
 from ..parallel.collectives import get_rank, get_world_size, merge_results_dist
+from ..parallel.mesh import active_mesh
 
 
 def recall_record(pred_boxes, pred_mask, gt_boxes, gt_mask, thresh_list) -> dict:
@@ -74,7 +79,9 @@ def eval_one_epoch(model, cfg, dataset, batch_size: int = 1, logger=print,
     recall["num_gt"] = 0
     n = len(dataset) if max_frames is None else min(max_frames, len(dataset))
     t_start = time.time()
-    rank, world = get_rank(), get_world_size()
+    mesh = active_mesh()
+    rank, world = (mesh.dp_rank, mesh.dp) if mesh is not None else \
+        (get_rank(), get_world_size())
     my_frames = list(range(rank, n, world))
     for s in range(0, len(my_frames), batch_size):
         idx = my_frames[s:s + batch_size]
@@ -100,11 +107,13 @@ def eval_one_epoch(model, cfg, dataset, batch_size: int = 1, logger=print,
            f"{dt / max(len(frame_indices), 1):.4f} sec_per_example")
     annos = dataset.generate_prediction_dicts(frame_indices, det_annos, cfg.CLASS_NAMES,
                                               device=dev)
-    if world > 1:
-        pairs = sorted(merge_results_dist(list(zip(frame_indices, annos))),
+    if get_world_size() > 1:
+        # the mp ranks of a dp row hold the same frames: the first one speaks
+        first = mesh is None or mesh.mp_rank == 0
+        pairs = sorted(merge_results_dist(list(zip(frame_indices, annos)) if first else []),
                        key=lambda p: p[0])[:n]
         annos = [p[1] for p in pairs]
-        merged = merge_results_dist([recall])
+        merged = merge_results_dist([recall] if first else [])
         recall = {k: sum(r[k] for r in merged) for k in recall}
     for t in thresh_list:
         logger(f"recall_{t}: {recall[f'recalled_{t}'] / max(recall['num_gt'], 1):.4f}")

@@ -9,13 +9,14 @@ the step's generator, PointRCNN and PartA2, which draw their RoI sample
 from it and no dropout, and SECONDNet, PointPillar, CenterPoint and CaDDN
 (on images), which draw nothing: each model's ``loss`` gives its terms).
 
-``shard_train_step`` is the data-parallel step over a process group (the
-JAX package's ``shard_train_step`` with the batch over its mesh's dp
-axis): each rank takes its rows of the global batch, and the step equals
-the one-process step on the global batch, as JAX's one program over the
-global batch does (batch-norm statistics, loss normalizers and draws of
-the global batch; ``parallel/mesh.py``). It is not OpenPCDet's DDP step,
-which keeps each GPU's own statistics and normalizers.
+``shard_train_step`` is the step over a (dp, mp) mesh of a process group
+(the JAX package's ``shard_train_step``, the batch over its mesh's dp axis
+and, in SECOND-IoU and SECONDNet, the BEV map's W over its mp axis): each
+rank takes its dp row's rows of the global batch, and the step equals the
+one-process step on the global batch, as JAX's one program over the global
+batch does (batch-norm statistics, loss normalizers and draws of the global
+batch; ``parallel/mesh.py``). It is not OpenPCDet's DDP step, which keeps
+each GPU's own statistics and normalizers.
 """
 from __future__ import annotations
 
@@ -88,17 +89,26 @@ def train_step(state: TrainState, points, valid, gt_boxes, generator=None, *,
     return {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}
 
 
-def all_reduce_grads(params) -> None:
+def all_reduce_grads(params, mp: int = 1, sharded=frozenset()) -> None:
     """Sum every parameter's gradient over the ranks (a missing one taken
-    as zero), one all-reduce a dtype."""
-    by_dtype = {}
+    as zero), one all-reduce a dtype and kind. Over an mp axis of ``mp``
+    ranks, the parameters whose ids are in ``sharded`` (a BEV backbone run
+    on W slabs: each rank's gradient is its slab's share) are summed over
+    every rank, and every other one is summed over every rank and divided by
+    ``mp``: the mp ranks of a dp row compute the same replicated work, so
+    this is the sum over the dp rows, and, reduced over every rank, the
+    same on every rank even where the replicated work differs in its last
+    bits between them."""
+    buckets = {}
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
+        buckets.setdefault((id(p) in sharded, p.grad.dtype), []).append(p.grad)
+    for (own_slab, _), grads in buckets.items():
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat)
+        if mp > 1 and not own_slab:
+            flat /= mp
         off = 0
         for g in grads:
             g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -106,21 +116,26 @@ def all_reduce_grads(params) -> None:
 
 
 def shard_train_step(model, mesh=None):
-    """The data-parallel train step of ``model`` over the process group ->
-    (step_fn, mesh). Rank 0's weights and statistics are broadcast to every
-    rank once, here. ``step_fn(state, points, valid, gt_boxes, generator,
-    *, roi_u=None, **loss_inputs)`` takes this rank's rows of the global
-    batch (``mesh.shard_batch``; ``roi_u`` its rows of the priorities, and
-    CaDDN its image rows and their loss inputs) and ``generator`` the same
-    on every rank. Under the active mesh it runs ``train_forward``, whose
-    loss is this rank's share of the global batch's; the gradients are then
-    summed over the ranks, clipped by their global norm and stepped, so the
-    weights stay the same on every rank. -> the metrics of the global
-    batch (every rank's shares summed), the same on every rank."""
+    """The train step of ``model`` over the (dp, mp) mesh of the process
+    group (``make_mesh()``'s, dp only, by default) -> (step_fn, mesh). Rank
+    0's weights and statistics are broadcast to every rank once, here.
+    ``step_fn(state, points, valid, gt_boxes, generator, *, roi_u=None,
+    **loss_inputs)`` takes this rank's dp row's rows of the global batch
+    (``mesh.shard_batch``; ``roi_u`` its rows of the priorities, and CaDDN
+    its image rows and their loss inputs) and ``generator`` the same on
+    every rank. Under the active mesh it runs ``train_forward``, whose loss
+    is its dp row's share of the global batch's (SECOND-IoU and SECONDNet
+    run their BEV backbone on this rank's W slab); the gradients are then
+    summed over the dp rows (``all_reduce_grads``), clipped by their global
+    norm and stepped, so the weights stay the same on every rank. -> the
+    metrics of the global batch (the dp rows' shares summed), the same on
+    every rank."""
     mesh = mesh or make_mesh()
     if mesh.world > 1:
         for t in [*model.parameters(), *model.buffers()]:
             broadcast_(t)
+    sharded = frozenset(id(p) for p in model.backbone_2d.parameters()) \
+        if mesh.mp > 1 and getattr(model, "SHARD_BEV", False) else frozenset()
 
     def step_fn(state: TrainState, points, valid, gt_boxes, generator=None, *,
                 roi_u=None, **loss_inputs) -> dict:
@@ -134,9 +149,10 @@ def shard_train_step(model, mesh=None):
             set_active_mesh(prev)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in tb.items()}}
         if mesh.world > 1:
-            all_reduce_grads(state.optimizer.params)
+            all_reduce_grads(state.optimizer.params, mesh.mp, sharded)
+        if mesh.dp > 1:
             vals = torch.stack([v.to(loss.dtype) for v in metrics.values()])
-            dist.all_reduce(vals)
+            dist.all_reduce(vals, group=mesh.dp_group)
             metrics = dict(zip(metrics, vals.unbind()))
         state.optimizer.step(state.step)
         state.step += 1

@@ -97,10 +97,24 @@ def test_metrics_tensorboard_event_file(tmp_path, monkeypatch):
     import importlib.util
 
     has_tb = importlib.util.find_spec("tensorboard") is not None
+    # tensorboard resolves its lazy ``tensorboard.compat.tf`` once and keeps
+    # it: resolved here, with tensorflow hidden, it would stay the stub for
+    # every later user in this process. The writer runs on fresh copies of
+    # the tensorboard modules, which are dropped after it; the ones found
+    # before are put back as they were.
+    tb_mod = lambda name: name.split(".")[0] == "tensorboard" or \
+        name.startswith("torch.utils.tensorboard")                  # noqa: E731
+    found = {k: v for k, v in sys.modules.items() if tb_mod(k)}
+    for k in found:
+        monkeypatch.delitem(sys.modules, k)
     monkeypatch.setitem(sys.modules, "tensorflow", None)
-    w = T.MetricsWriter(str(tmp_path))
-    w.scalar("loss", 2.0, 7)
-    w.close()
+    try:
+        w = T.MetricsWriter(str(tmp_path))
+        w.scalar("loss", 2.0, 7)
+        w.close()
+    finally:
+        for k in [k for k in sys.modules if tb_mod(k)]:
+            del sys.modules[k]
     assert bool(glob.glob(str(tmp_path / "events.out.tfevents.*"))) == has_tb
     assert os.path.exists(tmp_path / "metrics.jsonl") != has_tb
 

@@ -35,7 +35,11 @@ The data-parallel step (``shard_train_step``) at world 2, one frame a rank
 over two spawned gloo ranks, each given its rows of JAX's priorities, is
 held to the first step's tolerances against the same JAX step on both
 frames, its gradients summed over the ranks; the ranks' weights and
-statistics after it equal bit for bit.
+statistics after it equal bit for bit. So is the step over the same two
+ranks as a (dp 1, mp 2) mesh: both frames on each rank, the BEV backbone
+on 2 of the map's 4 columns a rank. JAX's own test_train_step_dp_mp_mesh
+shows that its mp > 1 step equals its mp 1 step, so JAX's step on the
+global batch is the reference here too.
 """
 import jax
 import jax.numpy as jnp
@@ -51,7 +55,8 @@ from seevcn_tpu.train.train import make_train_step
 from seevcn_tpu.utils.ckpt_compat import detector_variables_from_torch
 from seevcn_torch.models.detectors import configs as C
 from seevcn_torch.models.detectors.second import build_detector
-from seevcn_torch.testing import assert_close, dp_steps_worker, spawn_ranks, to_numpy
+from seevcn_torch.testing import (assert_close, dp_steps_worker, one_cpu_thread, spawn_ranks,
+                                  to_numpy)
 from seevcn_torch.train.train import (apply_gradients, create_train_state,
                                       train_forward, train_step)
 from seevcn_torch.utils.weights import detector_state_dict_from_flax
@@ -169,7 +174,8 @@ def runs(request):
 def sharded_step():
     """Each rank's first step of ``shard_train_step`` at world 2 from the
     ``runs`` weights, on its frame of the inputs and its rows of JAX's
-    first-step priorities."""
+    first-step priorities (``dp``), and on both frames over a (dp 1, mp 2)
+    mesh (``mp``)."""
     ref_sd = seeded_state_dict(0, build_detector(_cfg(), device="cpu")[0],
                                random_stats=True)
     cfg = _tiny_detector_cfg()
@@ -179,7 +185,8 @@ def sharded_step():
         jax.random.split(sample_rng, B)))
     case = {"cfg": _cfg(), "sd": ref_sd, "inputs": (*_inputs(), u), "dtype": torch.float32,
             "build": {"max_voxels": VOXELS}}
-    return [r[0] for r in spawn_ranks(dp_steps_worker, 2, [case])]
+    ranks = spawn_ranks(dp_steps_worker, 2, [case, dict(case, mp=2)])
+    return {"dp": [r[0] for r in ranks], "mp": [r[1] for r in ranks]}
 
 
 def _sure(steps, n):
@@ -192,6 +199,11 @@ def _sure(steps, n):
 
 
 def _check_steps(steps, loss_tol, grad_tol, stat_tol):
+    with one_cpu_thread():      # small tensors: more threads only contend
+        _check_steps_on_one_thread(steps, loss_tol, grad_tol, stat_tol)
+
+
+def _check_steps_on_one_thread(steps, loss_tol, grad_tol, stat_tol):
     s = steps[-1]
     for k in TERMS:
         assert_close(s["metrics"][k], s["jax_metrics"][k], atol=loss_tol,
@@ -279,10 +291,20 @@ def test_gradients_are_clipped_to_the_global_norm():
 def test_shard_train_step_at_world_2_matches_jax(runs, sharded_step):
     """The world-2 step against JAX's step on the global batch, by the
     first step's rule, and the two ranks' weights bit for bit equal."""
-    got = sharded_step[0]
+    _check_sharded(runs, *sharded_step["dp"])
+
+
+def test_dp_mp_step_at_world_2_matches_jax(runs, sharded_step):
+    """The (dp 1, mp 2) step at world 2 against JAX's step on the global
+    batch, by the same rule, and the two ranks' weights bit for bit
+    equal."""
+    _check_sharded(runs, *sharded_step["mp"])
+
+
+def _check_sharded(runs, got, other):
     for name in ("params", "buffers"):
         for n, v in got[name].items():
-            assert torch.equal(v, sharded_step[1][name][n]), f"rank 1's {n}"
+            assert torch.equal(v, other[name][n]), f"rank 1's {n}"
     step = dict(runs[0], metrics=got["terms"], grads=got["grads"],
                 after={**got["params"], **got["buffers"]})
     assert step["samples"] > 0 and float(got["terms"]["rcnn_loss_iou"]) > 0
