@@ -80,10 +80,13 @@ each path card vs CPU, train_detector at SECOND-IoU's flagship widths on
 the completed split (an epoch, then a resume) and test_detector on
 DATA_CONFIG_TAR. Then the paper's other domains (phase 21: Waymo as the
 source, nuScenes, Lyft and Baraja as targets, through the same CLIs). Then
-the demo and the JPEG inputs (phase 22): the committed JPEG fixtures
-decoded on this host against cv2's hashes, generate_masks on JPEGs and on
-PNGs of the same pixels, ``cli/demo.py`` end to end inside
-``profiling.trace()`` (K1 counted) and its SEE on the CPU, the flagship
+the demo and the JPEG inputs (phase 22): the committed JPEG fixtures, one
+of each mode the decoder reads, decoded on this host against cv2's hashes
+(a baseline, a progressive and an arithmetic 900x1600 decode timed),
+generate_masks on JPEGs and on PNGs of the same pixels, ``cli/demo.py`` end
+to end inside ``profiling.trace()`` (K1 counted) and its SEE on the CPU,
+once more on a progressive front image with an EXIF thumbnail (the same
+output), the flagship
 with a bf16 BEV backbone beside its f32 run, two spinning-lidar DA frames
 and the paired BEV IoU against the CPU. Then data parallelism on the one
 card (phase 23): NCCL at world size 1 (collectives on CUDA tensors, and
@@ -1117,8 +1120,8 @@ def profile_kernels(args, fn):
     only, read from its raw kernel records: (device ms summed over them,
     the six kernel names, cut to 60 characters, that took most device
     time, as (name, ms)). ``profile_frame``'s aggregation of CPU ops is
-    too slow for the many small launches of a PointRCNN frame (its FPS and
-    NMS loops); this reads the records directly."""
+    too slow for the many small launches of the detectors of phases 14-18
+    (their FPS, NMS and gather loops); this reads the records directly."""
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CUDA]) as prof:
         fn(*args)
@@ -1371,7 +1374,7 @@ def check_roi_sampler_against_cpu(det_cfg, gt, dev):
             "loss_err": loss_err}
 
 
-def train_flagship(det_cfg, pts, valid, gt, dev, steps: int = 10):
+def train_flagship(det_cfg, pts, valid, gt, dev, steps: int = 5):
     """SECOND-IoU train steps at _flagship_detector_cfg (bf16 3D backbone,
     MAX_NUMBER_OF_VOXELS' train cap, weights from a seed) on the completed
     frames: a warm-up step and ``steps`` timed ones (host clock ending in a
@@ -2060,7 +2063,7 @@ def check_moved(model, start: dict, excused: tuple, what: str) -> list:
     return idle
 
 
-def train_seg2d(dev, card, steps: int = 10, flags=(), tiny_cfg=None, cli_steps: int = 3,
+def train_seg2d(dev, card, steps: int = 5, flags=(), tiny_cfg=None, cli_steps: int = 2,
                 roi_px=(1e-4,), eval_scenes: int = 4):
     """Mask R-CNN training at the CLI's defaults (``--size base``, 384x512,
     batch 8, AdamW lr 1e-3 with the warm-up of 200 over 2,000 steps,
@@ -2194,13 +2197,13 @@ def train_seg2d(dev, card, steps: int = 10, flags=(), tiny_cfg=None, cli_steps: 
     if not all(torch.equal(a[k], b[k]) for k in a):
         raise AssertionError("the reloaded Mask R-CNN's eval forward differs")
 
-    # the CLI itself at its defaults, cut to 3 steps and 2 eval scenes: an
-    # eval point and its checkpoint after step 2, the last checkpoint, and
-    # main's JSON line
+    # the CLI itself at its defaults, cut to ``cli_steps`` steps and 1 eval
+    # scene: an eval point and its checkpoint after step 2, the last
+    # checkpoint, and main's JSON line
     with tempfile.TemporaryDirectory() as work:
         path = os.path.join(work, "cli.ckpt")
         t0 = time.perf_counter()
-        cli_args = ["--steps", str(cli_steps), "--eval_every", "2", "--eval_scenes", "2",
+        cli_args = ["--steps", str(cli_steps), "--eval_every", "2", "--eval_scenes", "1",
                     "--out", path, "--log_every", "1", *flags]
         cli_eval = SEG_CLI.main(cli_args)
         cli_s = time.perf_counter() - t0
@@ -2981,14 +2984,14 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
     fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE))
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
                                         cfg, proj, l2c))
-    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     print("PV-RCNN stages, CUDA-event / host ms (median of 3, each between "
           "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
                                         in stages.items()))
     print(f"PV-RCNN detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
           f"{det_host:.2f} ms host; SEE + PV-RCNN frame {fd_ms:.2f} ms, fused frame "
           f"with PV-RCNN {ff_ms:.2f} ms (host clock, median of 5) on {card}; profiled "
-          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     buckets = {}
     pfe_cfg = cfg.MODEL.PFE
@@ -3078,7 +3081,7 @@ def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 3, cfg=None, tiny_cfg=N
     torch.cuda.synchronize()
     split = {k: ev[i].elapsed_time(ev[i + 1])
              for i, k in enumerate(("forward", "loss", "backward_update"))}
-    busy, top = profile_frame((state, pts, valid, gt, gen), train_step)
+    busy, top = profile_kernels((state, pts, valid, gt, gen), train_step)
     values = [{k: float(v) for k, v in m.items()} for m in losses]
     if not all(math.isfinite(v) for m in values for v in m.values()):
         raise AssertionError(f"a {label} training loss is not finite")
@@ -3108,7 +3111,7 @@ def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 3, cfg=None, tiny_cfg=N
           f"{steps}) = {summary['frames_per_s']:.2f} frames/s; CUDA events: forward "
           f"{split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
           f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; "
-          f"profiled step: device busy {busy:.2f} ms; device time by op: "
+          f"profiled step: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
     print(f"{label} train proposal NMS ({int(nms_cfg.NMS_PRE_MAXSIZE)} -> "
           f"{int(nms_cfg.NMS_POST_MAXSIZE)}, a {int(nms_cfg.NMS_PRE_MAXSIZE)}-step greedy "
@@ -3174,7 +3177,7 @@ def serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
     fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE), reps=3)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
                                         cfg, proj, l2c), reps=3)
-    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     sectors = spc_sectors(state["reps"][0], state["reps_ok"][0], k, det.pfe.num_sectors)
     spc = {"kept": int(state["near"].sum()), "representatives": int(state["reps_ok"].sum()),
            **sectors}
@@ -3184,7 +3187,7 @@ def serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
     print(f"PV-RCNN++ detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
           f"{det_host:.2f} ms host; SEE + PV-RCNN++ frame {fd_ms:.2f} ms, fused frame with "
           f"PV-RCNN++ {ff_ms:.2f} ms (host clock, median of 3) on {card}; profiled "
-          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     print(f"SPC: {spc['kept']} of {int(new_valid.sum())} valid points near a proposal, "
           f"{spc['representatives']} representatives after the grid dedupe; by sector "
@@ -3441,7 +3444,7 @@ def serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
                                         cfg, proj, l2c), reps=3)
-    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     print(f"{label} stages, CUDA-event / host ms (median of 3, each between "
           "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
                                         in stages.items()))
@@ -3453,7 +3456,7 @@ def serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
           f"{det_host:.2f} ms host; SEE + {label} frame {fd_ms:.2f} ms, fused frame with "
           f"{label} {ff_ms:.2f} ms (host clock, median of 3) on {card}; profiled "
-          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     return {"launches": fr["launches"], "fused_launches": fr["fused_launches"],
             "active": active, "cap": dcfg.max_voxels, "kept": kept, "kept_by_class": labels,
@@ -3516,7 +3519,7 @@ def train_single_stage(dev, card, key, pts, valid, gt, steps: int = 5) -> dict:
     torch.cuda.synchronize()
     split = {k: ev[i].elapsed_time(ev[i + 1])
              for i, k in enumerate(("forward", "loss", "backward_update"))}
-    busy, top = profile_frame((state, pts, valid, gt), train_step)
+    busy, top = profile_kernels((state, pts, valid, gt), train_step)
     values = [{k: float(v) for k, v in m.items()} for m in losses]
     if not all(math.isfinite(v) for m in values for v in m.values()):
         raise AssertionError(f"a {label} training loss is not finite")
@@ -3536,7 +3539,7 @@ def train_single_stage(dev, card, key, pts, valid, gt, steps: int = 5) -> dict:
           f"{steps} after a warm-up) = {summary['frames_per_s']:.2f} frames/s; CUDA events: "
           f"forward {split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
           f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; profiled "
-          f"step: device busy {busy:.2f} ms; device time by op: "
+          f"step: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
     return summary
 
@@ -3854,7 +3857,7 @@ def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
                                         cfg, proj, l2c), reps=3)
-    busy, top = profile_frame((det, cfg, new_pts, new_valid), F.detect_stage)
+    busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     print(f"{label} stages, CUDA-event / host ms (median of 3, each between "
           "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
                                         in stages.items()))
@@ -3873,7 +3876,7 @@ def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 5); SEE + {label} "
           f"frame {fd_ms:.2f} ms, fused frame with {label} {ff_ms:.2f} ms (host clock, median "
           f"of 3) on {card}; profiled "
-          f"detect_stage: device busy {busy:.2f} ms; device time by op: "
+          f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     return {"launches": fr["launches"], "fused_launches": fr["fused_launches"],
             "active": active, "cap": dcfg.max_voxels, "jax_extract_capacity": jax_capacity,
@@ -3936,7 +3939,7 @@ def train_center_rcnn(dev, card, key, pts, valid, gt, steps: int = 3) -> dict:
     torch.cuda.synchronize()
     split = {k: ev[i].elapsed_time(ev[i + 1])
              for i, k in enumerate(("forward", "loss", "backward_update"))}
-    busy, top = profile_frame((state, pts, valid, gt, gen), train_step)
+    busy, top = profile_kernels((state, pts, valid, gt, gen), train_step)
     values = [{k: float(v) for k, v in m.items()} for m in losses]
     if not all(math.isfinite(v) for m in values for v in m.values()):
         raise AssertionError(f"a {label} training loss is not finite")
@@ -3962,7 +3965,7 @@ def train_center_rcnn(dev, card, key, pts, valid, gt, steps: int = 3) -> dict:
           f"{steps} after a warm-up) = {summary['frames_per_s']:.2f} frames/s; CUDA events: "
           f"forward {split['forward']:.2f} ms, loss {split['loss']:.2f} ms, backward + update "
           f"{split['backward_update']:.2f} ms; peak device memory {peak:.2f} GiB; profiled "
-          f"step: device busy {busy:.2f} ms; device time by op: "
+          f"step: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top) + f" on {card}")
     return summary
 
@@ -5777,6 +5780,12 @@ DEMO_CALIB = {"intrinsic": [[640.0, 0.0, 630.0], [0.0, 640.0, 360.0], [0.0, 0.0,
                             [1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]]}
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
 DEMO_JPEG = os.path.join(JPEG_FIXTURES, "demo_720x1260_420.jpg")
+#: the same picture, progressive, behind an EXIF segment with a 16 x 9 thumbnail
+DEMO_JPEG_EXIF = os.path.join(JPEG_FIXTURES, "demo_720x1260_progressive_exif.jpg")
+#: phase 22's timed decodes: the nuScenes-size fixture of each entropy coding
+JPEG_TIMED = {"baseline": "nuscenes_900x1600_420.jpg",
+              "progressive": "nuscenes_900x1600_progressive.jpg",
+              "arithmetic": "arithmetic_900x1600.jpg"}
 
 
 def write_demo_tree(root: str, n_frames: int = 1, seed: int = 0, n_points: int = DEMO_POINTS,
@@ -6142,9 +6151,12 @@ def _sync(dev):
 
 
 def check_jpeg_fixtures(dev) -> dict:
-    """Phase 22 (a): every committed JPEG fixture decoded on this host against
-    the sha256 of the array cv2 read where it was written; the progressive
-    one must raise. The 900 x 1600 decode timed (host clock, median of 5)."""
+    """Phase 22 (a): every committed JPEG fixture, one of each mode the
+    decoder reads (``fixtures.json``'s ``mode``: baseline, gray, 4:1:1,
+    progressive, progressive behind an EXIF thumbnail, arithmetic, CMYK,
+    lossless), decoded on this host against the sha256 of the array cv2
+    read where it was written. The 900 x 1600 decodes of JPEG_TIMED timed
+    (host clock, median of 5 after one warm-up)."""
     import hashlib
 
     from seevcn_torch.data import jpeg as JPG
@@ -6154,32 +6166,26 @@ def check_jpeg_fixtures(dev) -> dict:
     build_s = time.time() - t0
     with open(os.path.join(JPEG_FIXTURES, "fixtures.json")) as f:
         table = json.load(f)
-    matched = []
+    matched = {}
     for name, rec in sorted(table.items()):
-        path = os.path.join(JPEG_FIXTURES, name)
-        if rec["progressive"]:
-            try:
-                JPG.read_jpeg(path)
-            except NotImplementedError as e:
-                if "SOF2" not in str(e):
-                    raise
-                continue
-            raise AssertionError(f"{name}: a progressive JPEG decoded")
-        arr = JPG.read_jpeg(path)
+        arr = JPG.read_jpeg(os.path.join(JPEG_FIXTURES, name))
         if list(arr.shape) != rec["shape"] or \
                 hashlib.sha256(arr.tobytes()).hexdigest() != rec["sha256"]:
-            raise AssertionError(f"{name}: the decode is not cv2's array")
-        matched.append(name)
-    with open(os.path.join(JPEG_FIXTURES, "nuscenes_900x1600_420.jpg"), "rb") as f:
-        blob = f.read()
-    times = []
-    for _ in range(6):
-        t0 = time.perf_counter()
-        JPG.decode_jpeg(blob)
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times[1:])
-    return {"build_s": build_s, "matched": matched, "progressive_raises": True,
-            "ms_900x1600": ms, "mp_per_s": 900 * 1600 / 1e6 / (ms / 1e3)}
+            raise AssertionError(f"{name} ({rec['mode']}): the decode is not cv2's array")
+        matched[name] = rec["mode"]
+    ms = {}
+    for mode, name in JPEG_TIMED.items():
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            blob = f.read()
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            JPG.decode_jpeg(blob)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[mode] = statistics.median(times[1:])
+    return {"build_s": build_s, "matched": matched, "modes": sorted(set(matched.values())),
+            "ms_900x1600": ms,
+            "mp_per_s": {k: 900 * 1600 / 1e6 / (v / 1e3) for k, v in ms.items()}}
 
 
 def masks_jpeg_vs_png(dev, base: str) -> dict:
@@ -6259,7 +6265,7 @@ def demo_cli(dev, base: str) -> dict:
     res, runs = {}, []
     for i in range(2):
         t0 = time.time()
-        DEMO.main(args + ["--out", os.path.join(base, f"out{i}")])
+        timed = DEMO.main(args + ["--out", os.path.join(base, f"out{i}")])
         _sync(dev)
         runs.append(time.time() - t0)
     tdir = os.path.join(base, "trace")
@@ -6286,6 +6292,7 @@ def demo_cli(dev, base: str) -> dict:
     if png.shape != (1500, 1500, 3) or not np.isfinite(boxes).all() or len(boxes) < 1 \
             or not (scores > 0.3).all() or got["completed_pts"] is None:
         raise AssertionError(f"the demo: png {png.shape}, {len(boxes)} detections")
+    res["exif_front"] = demo_on_exif_front(dev, base, args, got, timed)
     res.update(instances=got["instances"], completed_rows=len(got["completed_pts"]),
                dropped=got["dropped"], detections=len(boxes), rows_cut=got["rows_cut"],
                frame_rows=len(got["frame_points"]), first_s=runs[0], s=runs[1],
@@ -6311,6 +6318,58 @@ def demo_cli(dev, base: str) -> dict:
             or share > SEE_ROW_SHARE or stray > 2 * SEE_ROW_SLACK:
         raise AssertionError(f"the demo's frame on the card off the CPU's: {res['card_vs_cpu']}")
     return res
+
+
+#: the demo's outputs the front image cannot move: its SEE pass and the
+#: detector's input (exact), then the detector's boxes and scores, which
+#: two runs on the same input leave apart in their last bits on the card
+#: (its atomics): held at tests/test_torch_demo.py's f32 tolerance
+DEMO_EXACT = ("instances", "dropped", "rows_cut", "completed_pts", "frame_points")
+DEMO_BOX_TOL, DEMO_SCORE_TOL = 1e-4, 1e-5
+
+
+def demo_apart(a: dict, b: dict) -> dict:
+    """The exact outputs that differ, and the largest |difference| of the
+    boxes and of the scores (inf where their counts differ)."""
+    out = {"exact": [k for k in DEMO_EXACT
+                     if not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))]}
+    for k in ("boxes", "scores"):
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        out[k] = float(np.abs(x - y).max(initial=0.0)) if x.shape == y.shape else float("inf")
+    return out
+
+
+def demo_on_exif_front(dev, base: str, args: list, traced: dict, timed: dict) -> dict:
+    """Phase 22 (c'): the demo once more, its front image swapped for the
+    progressive copy with an EXIF thumbnail (DEMO_JPEG_EXIF), the launch
+    counts set to 0 just before. Its shape must be the frame's (720, 1260),
+    where kitti/bootstrap's byte scan finds the thumbnail's; K1 launches
+    once; the demo reads the image's shape only, so its SEE output and the
+    detector's input equal the baseline front image's traced run value for
+    value, and the boxes and scores match them at DEMO_BOX_TOL and
+    DEMO_SCORE_TOL (the two baseline runs' own spread printed beside)."""
+    from seevcn_torch.cli import demo as DEMO
+    from seevcn_torch.data.demo_dataset import DemoObjects
+    from seevcn_torch.data.kitti.bootstrap import read_image_shape
+
+    front = os.path.join(base, "image", "front", "000000.jpg")
+    shutil.copyfile(DEMO_JPEG_EXIF, front)
+    shape = DemoObjects(base).get_image_shape(0)
+    scanned = [int(v) for v in read_image_shape(front)]
+    K.reset_launches()
+    t0 = time.time()
+    got = DEMO.main(args + ["--out", os.path.join(base, "out_exif")])
+    _sync(dev)
+    s = time.time() - t0
+    launches = K.LAUNCHES["min_sqdist_pruned"]
+    shutil.copyfile(DEMO_JPEG, front)
+    apart = demo_apart(got, traced)
+    out = {"shape": list(shape), "byte_scan_shape": scanned, "k1_launches": launches, "s": s,
+           "apart": apart, "baseline_runs_apart": demo_apart(timed, traced)}
+    if shape != DEMO_IMAGE or (dev.type == "cuda" and launches != 1) or apart["exact"] \
+            or apart["boxes"] > DEMO_BOX_TOL or apart["scores"] > DEMO_SCORE_TOL:
+        raise AssertionError(f"the demo on the EXIF front image: {out}")
+    return out
 
 
 def glob_one(pattern: str) -> str:
@@ -6499,9 +6558,11 @@ def demo_jpeg(dev, card, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt)
     t0 = time.time()
     res["jpeg"] = check_jpeg_fixtures(dev)
     j = res["jpeg"]
-    print(f"phase 22 JPEG: {len(j['matched'])} fixtures equal cv2's arrays (sha256), the "
-          f"progressive one raises; 900x1600 4:2:0 decode {j['ms_900x1600']:.2f} ms = "
-          f"{j['mp_per_s']:.1f} MP/s (host clock, median of 5; g++ build {j['build_s']:.1f} s)")
+    print(f"phase 22 JPEG: {len(j['matched'])} fixtures equal cv2's arrays (sha256), modes "
+          f"{', '.join(j['modes'])}; 900x1600 4:2:0 decode (host clock, median of 5): " +
+          ", ".join(f"{k} {v:.2f} ms = {j['mp_per_s'][k]:.1f} MP/s"
+                    for k, v in j["ms_900x1600"].items()) +
+          f"; g++ build {j['build_s']:.1f} s; on the host of {card}")
     parts["jpeg"], t0 = time.time() - t0, time.time()
     with tempfile.TemporaryDirectory(prefix="demo_jpeg_") as base:
         res["generate_masks"] = masks_jpeg_vs_png(dev, os.path.join(base, "masks"))
@@ -6525,6 +6586,13 @@ def demo_jpeg(dev, card, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt)
               f"{d['trace_kernels']} kernel names in the trace, K1's {d['k1_in_trace']}; PNG "
               f"{d['png']}; card vs CPU "
               f"{d['card_vs_cpu']} on {card}")
+        e = d["exif_front"]
+        print(f"phase 22 demo on the progressive EXIF-thumbnail front image: shape "
+              f"{tuple(e['shape'])} (the byte scan's {tuple(e['byte_scan_shape'])}), K1 "
+              f"{e['k1_launches']} launch, {e['s']:.2f} s; against the baseline image's "
+              f"traced run: {e['apart']} (the SEE output and detector input exact, boxes "
+              f"within {DEMO_BOX_TOL}, scores within {DEMO_SCORE_TOL}; the two baseline runs "
+              f"apart: {e['baseline_runs_apart']}) on {card}")
         parts["demo"], t0 = time.time() - t0, time.time()
     res["bev_bf16"] = bev_bf16(dev, new_pts, new_valid, det, det_cfg, g_pts, g_valid, g_gt)
     b = res["bev_bf16"]
@@ -7542,12 +7610,22 @@ def model_parallel(dev, card, g_pts, g_valid, g_gt) -> dict:
 
 
 def phase_alone(dev, card, phase: int) -> int:
-    """``--phase 23`` / ``--phase 24``: that phase after the set-up it needs
-    (the kernels built, VCN_VC at seeded weights, phase 9's 4 GT frames
-    completed in one process); no other phase runs and no result line is
-    printed."""
+    """``--phase 22`` / ``--phase 23`` / ``--phase 24``: that phase after the
+    set-up it needs (the kernels built; for 23 and 24 VCN_VC at seeded
+    weights and phase 9's 4 GT frames completed in one process; 22 runs its
+    JPEG fixtures and the demo only); no other phase runs and no result line
+    is printed."""
     t0 = time.time()
     K.build(K.KERNELS)
+    if phase == 22:
+        res = {"jpeg": check_jpeg_fixtures(dev)}
+        with tempfile.TemporaryDirectory(prefix="demo_jpeg_") as base:
+            res["demo"] = demo_cli(dev, os.path.join(base, "demo"))
+        print(json.dumps({"jpeg": res["jpeg"], "demo_launches": res["demo"]["demo_launches"],
+                          "demo_s": res["demo"]["s"], "exif_front": res["demo"]["exif_front"],
+                          "card_vs_cpu": res["demo"]["card_vs_cpu"], "card": card}))
+        print(f"phase 22 (JPEG fixtures and the demo) {time.time() - t0:.1f} s with its set-up")
+        return 0
     vcn = VCNInference("VCN_VC", seeded_vcn_state_dict(0), device=dev)
     scenes = [make_scene(seed, 150_000, 32) for seed in range(4)]
     g_pts, g_valid, g_gt, g_stats, _, _ = check_gt_completion(vcn, scenes, dev)
@@ -7564,11 +7642,11 @@ def phase_alone(dev, card, phase: int) -> int:
 
 def main(argv=None) -> int:
     """Every phase, then the kernels line and the result line; with
-    ``--phase 23`` or ``--phase 24``, that phase alone (``phase_alone``)."""
+    ``--phase 22``, 23 or 24, that phase alone (``phase_alone``)."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", type=int, choices=[23, 24], default=None,
+    ap.add_argument("--phase", type=int, choices=[22, 23, 24], default=None,
                     help="run only this phase, after the set-up it needs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -7589,10 +7667,21 @@ def main(argv=None) -> int:
         return phase_alone(dev, card, args.phase)
     t_start = time.time()
 
-    # --- 1. build every kernel, one nvcc per source, all at once ----------
+    # --- 1. build every kernel, one nvcc per source, all at once, and the
+    # host JPEG decoder (g++) beside them ------------------------------------
+    from seevcn_torch.data import jpeg as JPG
+
     t0 = time.time()
+    jpeg_build = {}
+    jpeg_thread = threading.Thread(target=lambda: jpeg_build.update(
+        s=(JPG.build(), time.time() - t0)[1]))
+    jpeg_thread.start()
     logs = K.build(K.KERNELS)
-    print(f"build: {time.time() - t0:.1f} s for {list(K.KERNELS)}")
+    jpeg_thread.join()
+    if "s" not in jpeg_build:
+        raise RuntimeError("the JPEG decoder did not build")
+    print(f"build: {time.time() - t0:.1f} s for {list(K.KERNELS)}, the JPEG decoder "
+          f"(g++, beside them) {jpeg_build['s']:.1f} s")
     usage = ptxas_usage("\n".join(logs.values()))
     for fn, (regs, spill) in usage.items():
         print(f"  {fn}: {regs} registers, {spill} bytes spilled")

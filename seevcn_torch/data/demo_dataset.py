@@ -5,19 +5,23 @@ demo/see_vcn_dataset.py:13-136 and the Baraja custom adapter).
 The tree:
   root/pcd/<frame>.pcd, root/calib/<frame>.json,
   root/image/<cam>/<frame>.jpg, and a COCO JSON of masks a camera.
-An image's size comes from its JPEG (or PNG) header, not from a decode.
+An image's size comes from its JPEG frame header (read by the decoder's
+own marker walk, with OpenCV's EXIF orientation) or its PNG IHDR, not from
+a decode; where ``cv2.imread`` would return None (neither format, or a
+JPEG that libjpeg refuses) it is the default shape, as in JAX.
 """
 from __future__ import annotations
 
 import glob
 import os
+import struct
 
 import numpy as np
 
 from ..geom.calibration import JsonCalibration
 from ..geom.pcd_io import read_pcd
 from ..see.masks import CocoMasks
-from .kitti.bootstrap import read_image_shape
+from .jpeg import image_shape as jpeg_image_shape
 
 
 class DemoObjects:
@@ -48,10 +52,13 @@ class DemoObjects:
         return JsonCalibration(os.path.join(self.root, "calib", f"{self.frames[idx]}.json"))
 
     def get_image_shape(self, idx, channel="front"):
-        """(H, W) of the frame's image, or the default shape without one."""
+        """(H, W) of the array ``cv2.imread`` gives for the frame's image, or
+        the default shape where there is no file or cv2 would return None."""
         path = os.path.join(self.root, "image", channel, f"{self.frames[idx]}.jpg")
         if os.path.exists(path):
-            return tuple(int(v) for v in read_image_shape(path))
+            shape = _image_shape(path)
+            if shape is not None:
+                return shape
         return self.image_shape
 
     def map_pointcloud_to_image(self, idx, camera_channel="front", min_dist=1.0):
@@ -75,3 +82,20 @@ class DemoObjects:
 
     def get_save_fname(self, idx, tag="vcn_demo"):
         return os.path.join(self.root, tag, self.frames[idx])
+
+
+def _image_shape(path: str):
+    """(H, W) of a PNG (its IHDR) or a JPEG (``data/jpeg.image_shape``), or
+    None where ``cv2.imread`` returns None: a file of neither format, a PNG
+    cut before its IHDR, a JPEG whose headers libjpeg refuses."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] == b"\x89PNG\r\n\x1a\n" and len(blob) >= 24:
+        w, h = struct.unpack(">II", blob[16:24])
+        return int(h), int(w)
+    if blob[:2] == b"\xff\xd8":
+        try:
+            return jpeg_image_shape(blob, path)
+        except ValueError:   # corrupt headers, or a mode libjpeg refuses too
+            return None
+    return None

@@ -11,7 +11,9 @@ detector at ``_tiny_detector_cfg`` (their ``_mini_detector_cfg`` patched)
 to keep to one small JAX compile.
 
 Tolerances: the adapter's projections, instances and image shapes equal
-JAX's exactly (JAX reads the JPEG with cv2, the port its header). The
+JAX's exactly (JAX reads the JPEG with cv2, the port its frame header),
+also for a front image with an EXIF thumbnail, an arithmetic-coded one
+and one cv2 cannot read. The
 replaced frame is held with the SEE workflow's row bounds: the same
 instances, completed row counts within SEE_ROW_SLACK, at most
 SEE_ROW_SHARE of the rows farther than SEE_ROW_TOL m from the other
@@ -23,7 +25,9 @@ import contextlib
 import copy
 import io
 import os
+import shutil
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -33,8 +37,10 @@ import __graft_entry__ as G
 from chip_smoke import (SEE_ROW_SHARE, SEE_ROW_SLACK, SEE_ROW_TOL, rows_apart,
                         seeded_state_dict, seeded_vcn_state_dict, write_demo_tree)
 from seevcn_torch.cli import demo as TDEMO
+from seevcn_torch import testing_jpeg as E
 from seevcn_torch.cli import run_see as RS
 from seevcn_torch.data.demo_dataset import DemoObjects
+from seevcn_torch.data.kitti.bootstrap import read_image_shape
 from seevcn_torch.geom.pcd_io import read_pcd
 from seevcn_torch.models.detectors import configs as DC
 from seevcn_torch.models.detectors.second import build_detector
@@ -105,6 +111,42 @@ def test_map_pointcloud_to_image_matches_jax(tree):
     assert len(t.get_camera_instances(0)) == 4
     np.testing.assert_array_equal(t.get_pointcloud(0), j.get_pointcloud(0))
     assert t.get_save_fname(0) == j.get_save_fname(0)
+
+
+def _front_image(case: str) -> bytes:
+    img = E.picture(90, 160, 5)
+    if case == "thumbnail":   # an EXIF APP1 holding a 16 x 9 JPEG ahead of the frame
+        thumb = cv2.imencode(".jpg", cv2.resize(img, (16, 9)))[1].tobytes()
+        return E.with_segment(cv2.imencode(".jpg", img)[1].tobytes(),
+                              E.exif_app1(1, thumbnail=thumb))
+    if case == "arithmetic":
+        comps, tables = E.blocks_from_image(img, ((2, 2), (1, 1), (1, 1)))
+        return E.encode_arithmetic(comps, tables, 160, 90)
+    return b"not an image " * 100
+
+
+@pytest.mark.parametrize("case", ["thumbnail", "arithmetic", "garbage"])
+def test_image_shape_is_cv2s(tree, tmp_path, case):
+    """The image shape the demo crops its projection to is the array
+    cv2.imread gives (JAX's get_image_shape): the frame header after an
+    EXIF thumbnail's (where kitti/bootstrap's byte scan, JAX's own quirk,
+    finds the thumbnail's 9 x 16), an arithmetic-coded file's, and the
+    default shape for a file cv2 cannot read."""
+    root = tmp_path / "demo"
+    for sub in ("pcd", "calib"):
+        shutil.copytree(tree / sub, root / sub)
+    path = root / "image" / "front" / "000000.jpg"
+    path.parent.mkdir(parents=True)
+    path.write_bytes(_front_image(case))
+    t, j = DemoObjects(str(root)), JDemoObjects(str(root))
+    want = {"thumbnail": (90, 160), "arithmetic": (90, 160), "garbage": (720, 1260)}[case]
+    assert t.get_image_shape(0) == tuple(j.get_image_shape(0)) == want
+    if case == "thumbnail":
+        assert read_image_shape(str(path)).tolist() == [9, 16]
+    tm, jm = t.map_pointcloud_to_image(0), j.map_pointcloud_to_image(0)
+    assert tm.keys() == jm.keys()
+    for k in tm:
+        np.testing.assert_array_equal(np.asarray(tm[k]), np.asarray(jm[k]), err_msg=k)
 
 
 def _kept_apart(points, frame_t, n_t, frame_j, n_j):

@@ -5,13 +5,17 @@ dispatcher of the CLIs (seevcn_torch.data.image).
 Inputs: synthetic pictures (gradients, filled shapes, noise from a seeded
 RandomState) written by cv2 at qualities 50, 75 and 95, in the sampling
 modes 4:4:4, 4:2:2, 4:2:0 and 4:4:0, grayscale, with restart intervals, at
-odd and tiny sizes; and the committed fixtures of tests/data/jpeg
-(scripts/make_jpeg_fixtures.py) against the sha256 of cv2's array.
+odd and tiny sizes; the committed fixtures of tests/data/jpeg
+(scripts/make_jpeg_fixtures.py) against the sha256 of cv2's array; and the
+files both readers refuse, most from the test-side encoder
+(seevcn_torch.testing_jpeg). tests/test_torch_jpeg_modes.py holds the
+other modes (progressive, 4:1:1, arithmetic, four components, lossless,
+EXIF orientation).
 
-Tolerance: none. Every baseline mode is cv2's array byte for byte
-(libjpeg-turbo's integer IDCT, fancy upsampling and colour tables).
-Progressive, 4:1:1, arithmetic-coded and 12-bit files raise
-NotImplementedError naming their marker; truncated data raises ValueError.
+Tolerance: none. Every mode is cv2's array byte for byte (libjpeg-turbo's
+integer IDCT, fancy upsampling and colour tables). A file cv2.imread
+returns None for raises RefusedJpeg naming what libjpeg refuses;
+truncated data raises ValueError.
 """
 import hashlib
 import json
@@ -21,9 +25,9 @@ import cv2
 import numpy as np
 import pytest
 
+from seevcn_torch import testing_jpeg as E
 from seevcn_torch.data.image import read_image_bgr
-from seevcn_torch.data.jpeg import decode_jpeg, jpeg_info, read_jpeg
-from seevcn_torch.data.kitti.bootstrap import read_image_shape
+from seevcn_torch.data.jpeg import RefusedJpeg, decode_jpeg, image_shape, jpeg_info, read_jpeg
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "data", "jpeg")
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
@@ -86,18 +90,19 @@ def test_grayscale_and_restart_intervals(tmp_path, case):
 
 def test_committed_fixtures_match_their_hashes():
     """The fixtures chip_smoke.py decodes on the card's host (which has no
-    cv2): their recorded cv2 hashes, and cv2 itself here."""
+    cv2), every mode among them: their recorded cv2 hashes and shapes, and
+    cv2 itself here."""
     with open(os.path.join(FIXTURES, "fixtures.json")) as f:
         table = json.load(f)
-    assert len(table) == 8
+    assert len(table) == 14
+    assert {rec["mode"] for rec in table.values()} == {
+        "baseline", "baseline_gray", "baseline_411", "progressive", "progressive_exif",
+        "arithmetic", "cmyk", "lossless"}
     assert sum(os.path.getsize(os.path.join(FIXTURES, k)) for k in table) < 1 << 20
     for name, rec in table.items():
         path = os.path.join(FIXTURES, name)
-        assert tuple(int(v) for v in read_image_shape(path)) == tuple(rec["shape"][:2])
-        if rec["progressive"]:
-            with pytest.raises(NotImplementedError, match="SOF2"):
-                read_jpeg(path)
-            continue
+        with open(path, "rb") as f:
+            assert image_shape(f.read()) == tuple(rec["shape"][:2]), name
         got = read_jpeg(path)
         assert list(got.shape) == rec["shape"]
         assert hashlib.sha256(got.tobytes()).hexdigest() == rec["sha256"], name
@@ -108,25 +113,87 @@ def _with_byte(blob: bytes, offset: int, value: int) -> bytes:
     return blob[:offset] + bytes([value]) + blob[offset + 1:]
 
 
-def test_unsupported_modes_raise(tmp_path):
-    """Progressive (cv2's IMWRITE_JPEG_PROGRESSIVE) and 4:1:1 are cv2's own
-    files; arithmetic coding and 12-bit samples are a baseline file with its
-    SOF0 marker or its precision byte changed."""
-    img = _picture(40, 48, 3)
-    prog = _roundtrip(tmp_path, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive JPEG \\(SOF2\\)"):
-        read_jpeg(prog)
-    s411 = _roundtrip(tmp_path, img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                      cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
-    with pytest.raises(NotImplementedError, match="sampling factor 4x1"):
-        read_jpeg(s411)
-    with open(_roundtrip(tmp_path, img, []), "rb") as f:
+def _refused_file(case: str) -> bytes:
+    """A file of a mode libjpeg refuses: cv2's own baseline file with a
+    byte changed, or the test-side encoder's file."""
+    img = E.picture(24, 40, 2)
+    with open(os.path.join(FIXTURES, "odd_37x53.jpg"), "rb") as f:
         blob = f.read()
     sof = blob.index(b"\xff\xc0")
-    with pytest.raises(NotImplementedError, match="arithmetic-coded JPEG \\(SOF9\\)"):
-        decode_jpeg(_with_byte(blob, sof + 1, 0xC9))
-    with pytest.raises(NotImplementedError, match="12-bit"):
-        decode_jpeg(_with_byte(blob, sof + 4, 12))
+    comps, tables = E.blocks_from_image(img, ((1, 1), (1, 1), (1, 1)))
+    planes = [img[..., i] for i in range(3)]
+    if case.startswith("sof"):
+        return _with_byte(blob, sof + 1, 0xC0 + int(case[3:]))
+    if case == "precision_byte_12":
+        return _with_byte(blob, sof + 4, 12)
+    if case == "twelve_bit":   # well-formed: 12-bit levels and coefficients
+        return E.encode_huffman([dict(c, blocks=c["blocks"] * 16) for c in comps], tables,
+                                40, 24, sof=0xC1, precision=12)
+    if case == "dnl_height":
+        return blob[:sof + 5] + b"\x00\x00" + blob[sof + 7:]
+    if case == "two_components":
+        return E.encode_huffman(comps[:2], tables, 40, 24)
+    if case == "five_components":
+        return E.encode_huffman(comps + [dict(comps[0], id=4), dict(comps[0], id=5)], tables,
+                                40, 24, app=b"")
+    if case == "fractional_sampling":   # luma 3x1 over chroma 2x1
+        c3 = E.blocks_from_image(img, ((3, 1), (3, 1), (3, 1)))[0]
+        c3[1] = dict(c3[1], h=2, blocks=c3[1]["blocks"][:, :c3[1]["blocks"].shape[1] * 2 // 3])
+        return E.encode_huffman(c3, tables, 40, 24)
+    if case == "eleven_blocks_an_mcu":   # 2x4 + 1x2 + 1x1
+        return E.encode_huffman(E.blocks_from_image(img, ((2, 4), (1, 2), (1, 1)))[0],
+                                tables, 40, 24)
+    if case == "lossless_gray":
+        return E.encode_lossless(planes[:1], 40, 24)
+    if case == "lossless_ycbcr":
+        return E.encode_lossless(planes, 40, 24)
+    if case == "lossless_ycck":
+        return E.encode_lossless(planes + planes[:1], 40, 24, app=E.adobe_app14(2))
+    if case == "lossless_12_bit":
+        return E.encode_lossless([p.astype(np.int64) * 16 for p in planes], 40, 24,
+                                 precision=12, app=E.adobe_app14(0))
+    if case == "lossless_arithmetic":
+        b = E.encode_lossless(planes, 40, 24, app=E.adobe_app14(0))
+        return _with_byte(b, b.index(b"\xff\xc3") + 1, 0xCB)
+    if case == "progressive_without_dht":
+        prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+        return _without_first_tables(prog)
+    assert case == "lossless_without_dht"
+    return _without_first_tables(E.encode_lossless(planes, 40, 24, app=E.adobe_app14(0)))
+
+
+def _without_first_tables(blob: bytes) -> bytes:
+    """``blob`` without the DHT segments ahead of its first scan."""
+    out, i = blob[:2], 2
+    while blob[i + 1] != 0xDA:
+        n = 2 + int.from_bytes(blob[i + 2:i + 4], "big")
+        if blob[i + 1] != 0xC4:
+            out += blob[i:i + n]
+        i += n
+    return out + blob[i:]
+
+
+REFUSED = ["sof5", "sof6", "sof7", "sof13", "sof14", "sof15", "precision_byte_12", "twelve_bit",
+           "dnl_height", "two_components", "five_components", "fractional_sampling",
+           "eleven_blocks_an_mcu", "lossless_gray", "lossless_ycbcr", "lossless_ycck",
+           "lossless_12_bit", "lossless_arithmetic", "progressive_without_dht",
+           "lossless_without_dht"]
+
+
+@pytest.mark.parametrize("case", REFUSED)
+def test_unsupported_modes_raise(case):
+    """What the decoder refuses, cv2.imread refuses too (None): hierarchical
+    frames; a precision byte changed to 12 and a well-formed 12-bit file;
+    a DNL height; 2 and 5 components; a fractional sampling ratio; 11
+    blocks an MCU; lossless frames that need a colour conversion, 12-bit
+    lossless and lossless arithmetic; progressive and lossless scans with
+    no Huffman table (only the sequential decoder falls back on the
+    standard ones). Progressive, 4:1:1 and arithmetic files now decode
+    (tests/test_torch_jpeg_modes.py)."""
+    blob = _refused_file(case)
+    assert cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR) is None
+    with pytest.raises(RefusedJpeg):
+        decode_jpeg(blob)
 
 
 def _with_first_counts(blob: bytes, counts: list) -> bytes:
