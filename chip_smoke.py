@@ -39,11 +39,11 @@ config, the CLI's ``main`` with them, one HTC + DCN step through the API).
 Then PV-RCNN (phase 14): the tiny model's eval and train step against the
 CPU, PV-RCNN at OpenPCDet's pv_rcnn.yaml widths on the SEE frame's
 completed cloud (``see_and_detect``, K1 counted) and through ``run_frame``,
-its stages timed, and 1 + 3 train steps at batch 2. Then PV-RCNN++
+its stages timed, and 1 + 1 train steps at batch 2. Then PV-RCNN++
 (phase 15): the tiny model (SPC + VectorPool) against the CPU, PV-RCNN++ at
 pv_rcnn_plusplus.yaml's PFE on the same cloud and through ``run_frame`` (K1
 counted in each), its stages timed (the proposal filter and the sector FPS
-among them), and 1 + 3 train steps at batch 2. Then the single-stage
+among them), and 1 + 1 train steps at batch 2. Then the single-stage
 detectors (phase 16): the tiny PointPillar, multi-head residual SECONDNet and
 focal SECONDNet against the CPU in eval and in a train step, the ATSS
 assigner against the CPU, PointPillar at pointpillar.yaml's widths and the
@@ -54,14 +54,14 @@ and Voxel R-CNN (phase 17): the tiny models against the CPU in eval and in
 a train step, each at full width (centerpoint.yaml's model on the flagship's
 grid, voxel_rcnn_car.yaml) on the SEE frame's completed cloud and through
 ``run_frame`` (K1 counted), their stages, first BEV conv and Voxel R-CNN's
-pools timed, and 1 + 1 + 3 train steps (batch 4 and 2). Then PointRCNN and
+pools timed, and 1 + 1 + 1 train steps (batch 4 and 2). Then PointRCNN and
 Part-A2 (phase 18): the tiny models against the CPU in eval and in a train
 step (their f32 selections pinned to the CPU's), the inverse sparse conv
 against the CPU forward and backward, each at full width (pointrcnn.yaml,
 PartA2.yaml) on the SEE frame's completed cloud and through ``run_frame``
 (K1 counted), their stages and ops alone timed (ball queries, three-NN,
 FPS, inverse convs, roiaware pools, the first BEV conv), PointRCNN also on
-16,384 resampled points, and 1 + 1 + 3 train steps (batch 2 and 4).
+16,384 resampled points, and 1 + 1 + 1 train steps (batch 2 and 4).
 Then CaDDN and the KITTI data path (phase 19): the tiny CaDDN in both
 forms against the CPU in eval and in a train step (the frustum cells
 pinned to the CPU's), a synthetic KITTI split of 8 frames written to a
@@ -103,16 +103,22 @@ the one card (phase 24): gloo ranks on the same card at (dp 1, mp 2) and
 (halo exchanges, the gather before the heads): its BEV backbone on the
 slabs and its eval forward against the whole map, its steps against the
 world-1 step, the tiny sharded detectors and PointPillar (replicated over
-mp) against theirs, every rank bit-equal, the exchanges timed. Every failed
-check raises, so the exit code is not 0. The last line of standard output
-is one JSON object naming the device; the line before it holds the kernel
-summary.
+mp) against theirs, every rank bit-equal, the exchanges timed. Then the
+repo's own SEE experiments through ``seevcn_torch.experiments`` (phase 25):
+the DA sets and VC data generated, VCN_VC and VCN_CN trained an epoch, the
+sets completed on the GT path (K1 once a frame) with one frame card vs CPU,
+the raw and completed-source SECOND-IoU trained 10 steps each, the
+runbook's five evals and the AP table, and the DET-vs-GT mask paths on two
+frames (K1 twice a frame). Every failed check raises, so the exit code is
+not 0. The last line of standard output is one JSON object naming the
+device; the line before it holds the kernel summary.
 
     python3 chip_smoke.py --phase 23
     python3 chip_smoke.py --phase 24
+    python3 chip_smoke.py --phase 25
 
-runs phase 23 or 24 alone, after the set-up it needs, and prints no result
-line.
+runs phase 23, 24 or 25 alone, after the set-up it needs, and prints no
+result line.
 
 It needs one CUDA card and nvcc; it imports nothing of JAX or seevcn_tpu.
 """
@@ -188,7 +194,8 @@ from seevcn_torch.train.optim import build_lr_schedule, build_seg2d_optimizer
 from seevcn_torch.train.train import (TrainState, apply_gradients, create_train_state,
                                       train_forward, train_step)
 from seevcn_torch.testing import (K2_CARD_EDGES, VCN_BIASES_BEFORE_BN,
-                                  assert_vcn_grads_close, k2_edge_case, one_cpu_thread,
+                                  assert_vcn_grads_close, completed_rows_apart,
+                                  k2_edge_case, one_cpu_thread,
                                   plain_sparse_backward, seeded_seg2d_weights,
                                   seg2d_relu_signs, tiny_htc_cfg, tiny_seg2d_cfg,
                                   vcn_loss_selections, vcn_pool_points,
@@ -482,6 +489,13 @@ def seeded_vcn_state_dict(seed: int, model_name: str = "VCN_VC",
 
 def _to(dev, scene):
     return {k: torch.from_numpy(v).to(dev) for k, v in scene.items()}
+
+
+#: phases 14-18's timing depth: the detector's ``detect_stage`` (CUDA events,
+#: median of DETECT_REPS), the SEE + detector and fused frames (host clock, one
+#: run after the counted runs, which warm them up) and the timed train steps
+#: (after a warm-up step); cut from 5 / 3-5 / 3 to pay for phase 25's time
+DETECT_REPS, FRAME_REPS, TIMED_STEPS = 3, 1, 1
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -2979,18 +2993,19 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
           f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
 
     stages, state = time_stages(pvrcnn_stages, det, cfg, new_pts[None], new_valid[None])
-    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
-    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
-    fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE))
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid),
+                       reps=DETECT_REPS)
+    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=DETECT_REPS)
+    fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE), reps=FRAME_REPS)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
-                                        cfg, proj, l2c))
+                                        cfg, proj, l2c), reps=FRAME_REPS)
     busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     print("PV-RCNN stages, CUDA-event / host ms (median of 3, each between "
           "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
                                         in stages.items()))
-    print(f"PV-RCNN detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
+    print(f"PV-RCNN detect_stage {det_ms:.2f} ms (CUDA events, median of {DETECT_REPS}), "
           f"{det_host:.2f} ms host; SEE + PV-RCNN frame {fd_ms:.2f} ms, fused frame "
-          f"with PV-RCNN {ff_ms:.2f} ms (host clock, median of 5) on {card}; profiled "
+          f"with PV-RCNN {ff_ms:.2f} ms (host clock, one run) on {card}; profiled "
           f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     buckets = {}
@@ -3027,7 +3042,7 @@ def serve_pvrcnn(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
             "buckets": buckets, **alone}
 
 
-def train_pvrcnn(dev, card, pts, valid, gt, steps: int = 3, cfg=None, tiny_cfg=None,
+def train_pvrcnn(dev, card, pts, valid, gt, steps: int = TIMED_STEPS, cfg=None, tiny_cfg=None,
                  label: str = "PV-RCNN", tiny_grad_tol: float = 1e-3) -> dict:
     """Phase 14 training (phase 15's with PV-RCNN++'s configs): the tiny step
     at ``tiny_cfg`` card vs the CPU's f64 step, then 1 + ``steps`` train
@@ -3172,11 +3187,12 @@ def serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
 
     pts, vld = new_pts[None], new_valid[None]
     stages, state = time_stages(pvrcnn_stages, det, cfg, pts, vld)
-    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
-    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
-    fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE), reps=3)
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid),
+                       reps=DETECT_REPS)
+    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=DETECT_REPS)
+    fd_ms = host_ms(lambda: F.see_and_detect(*args, det, cfg, IMAGE_SIZE), reps=FRAME_REPS)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
-                                        cfg, proj, l2c), reps=3)
+                                        cfg, proj, l2c), reps=FRAME_REPS)
     busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     sectors = spc_sectors(state["reps"][0], state["reps_ok"][0], k, det.pfe.num_sectors)
     spc = {"kept": int(state["near"].sum()), "representatives": int(state["reps_ok"].sum()),
@@ -3184,9 +3200,9 @@ def serve_pvrcnn_plusplus(dev, card, s, vcn, seg, proj, l2c, image) -> dict:
     print("PV-RCNN++ stages, CUDA-event / host ms (median of 3, each between "
           "synchronizes): " + ", ".join(f"{n} {a:.2f} / {b:.2f}" for n, (a, b)
                                         in stages.items()))
-    print(f"PV-RCNN++ detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
+    print(f"PV-RCNN++ detect_stage {det_ms:.2f} ms (CUDA events, median of {DETECT_REPS}), "
           f"{det_host:.2f} ms host; SEE + PV-RCNN++ frame {fd_ms:.2f} ms, fused frame with "
-          f"PV-RCNN++ {ff_ms:.2f} ms (host clock, median of 3) on {card}; profiled "
+          f"PV-RCNN++ {ff_ms:.2f} ms (host clock, one run) on {card}; profiled "
           f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     print(f"SPC: {spc['kept']} of {int(new_valid.sum())} valid points near a proposal, "
@@ -3412,7 +3428,7 @@ def serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     """Phase 16 serving of ``key`` (pointpillar or second_multihead, weights
     from seed 0) on the SEE frame's completed cloud: ``see_and_detect`` and
     ``run_frame`` (K1 counted in each, peak memory), ``detect_stage`` timed
-    (CUDA events, median of 5), its stages, post-processing's NMS alone,
+    (CUDA events, median of DETECT_REPS), its stages, post-processing's NMS alone,
     the active pillars or voxels against the cap, device busy and top
     ops."""
     label, full, _ = SINGLE_STAGE[key]
@@ -3439,11 +3455,13 @@ def serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     pts, vld = new_pts[None], new_valid[None]
     stages, out = time_stages(single_stage_stages, det, cfg, pts, vld)
     nms = time_single_stage_nms(out, cfg)
-    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
-    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid))
-    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid),
+                       reps=DETECT_REPS)
+    det_host = host_ms(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=DETECT_REPS)
+    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE),
+                    reps=FRAME_REPS)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
-                                        cfg, proj, l2c), reps=3)
+                                        cfg, proj, l2c), reps=FRAME_REPS)
     busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     print(f"{label} stages, CUDA-event / host ms (median of 3, each between "
           "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
@@ -3453,9 +3471,9 @@ def serve_single_stage(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
           f"{nms['nms_ms']:.2f} ms, of which the {nms['k']} x {nms['k']} rotated IoU "
           f"{nms['iou_ms']:.2f} ms and the greedy scan {nms['greedy_scan_ms']:.2f} ms a "
           "pass (CUDA events, median of 3)")
-    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 5), "
+    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of {DETECT_REPS}), "
           f"{det_host:.2f} ms host; SEE + {label} frame {fd_ms:.2f} ms, fused frame with "
-          f"{label} {ff_ms:.2f} ms (host clock, median of 3) on {card}; profiled "
+          f"{label} {ff_ms:.2f} ms (host clock, one run) on {card}; profiled "
           f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     return {"launches": fr["launches"], "fused_launches": fr["fused_launches"],
@@ -3817,10 +3835,10 @@ def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     """Phase 17 serving of ``key`` (centerpoint or voxel_rcnn, its full
     config, weights from seed 0) on the SEE frame's completed cloud:
     ``see_and_detect`` and ``run_frame`` (K1 counted in each, peak memory),
-    ``detect_stage`` timed (CUDA events, median of 5) and its stages, the
-    first BEV conv alone, Voxel R-CNN's pools alone, the active voxels
-    against the cap and against JAX's extraction capacity, device busy and
-    top ops; the SEE + detector and fused frames (host, median of 3)."""
+    ``detect_stage`` timed (CUDA events, median of DETECT_REPS) and its
+    stages, the first BEV conv alone, Voxel R-CNN's pools alone, the active
+    voxels against the cap and against JAX's extraction capacity, device
+    busy and top ops; the SEE + detector and fused frames (host, one run)."""
     label, full, _ = CENTER_RCNN[key]
     cfg = full()
     det, dcfg = build_detector(cfg, device="cpu")
@@ -3853,10 +3871,12 @@ def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     conv = time_first_bev_conv(det, state["bev"])
     pools = time_roi_pools(det, state) if key == "voxel_rcnn" else {}
     head_convs = time_center_head_convs(det, state["bev"]) if key == "centerpoint" else {}
-    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=5)
-    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid),
+                       reps=DETECT_REPS)
+    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE),
+                    reps=FRAME_REPS)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det,
-                                        cfg, proj, l2c), reps=3)
+                                        cfg, proj, l2c), reps=FRAME_REPS)
     busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     print(f"{label} stages, CUDA-event / host ms (median of 3, each between "
           "synchronizes): " + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b)
@@ -3873,9 +3893,9 @@ def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
               f"centres, r {p['radius']}): ball query {p['ball_query_ms']:.2f} ms, bound "
               f"{p['ball_query_bound_ms']:.4f} ms (the f32 distance pass at 3.35 TB/s); the "
               f"whole pool {p['pool_ms']:.2f} ms (CUDA events, median of 3)")
-    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 5); SEE + {label} "
-          f"frame {fd_ms:.2f} ms, fused frame with {label} {ff_ms:.2f} ms (host clock, median "
-          f"of 3) on {card}; profiled "
+    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of {DETECT_REPS}); SEE "
+          f"+ {label} frame {fd_ms:.2f} ms, fused frame with {label} {ff_ms:.2f} ms (host "
+          f"clock, one run) on {card}; profiled "
           f"detect_stage: device busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     return {"launches": fr["launches"], "fused_launches": fr["fused_launches"],
@@ -3887,7 +3907,7 @@ def serve_center_rcnn(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
             "device_busy_ms": busy, "top_ops": top}
 
 
-def train_center_rcnn(dev, card, key, pts, valid, gt, steps: int = 3) -> dict:
+def train_center_rcnn(dev, card, key, pts, valid, gt, steps: int = TIMED_STEPS) -> dict:
     """Phase 17 training of ``key`` at full width (f32, the config's batch:
     CenterPoint 4, Voxel R-CNN 2; the train voxel cap; weights from seed 0)
     on the GT-completed frames: 1 + 1 + ``steps`` train steps (step 1
@@ -4307,11 +4327,11 @@ def serve_point_part(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     """Phase 18 serving of ``key`` (pointrcnn or parta2, its full config,
     weights from seed 0) on the SEE frame's completed cloud:
     ``see_and_detect`` and ``run_frame`` (K1 counted in each, peak memory),
-    ``detect_stage`` timed (CUDA events, median of 3) and its stages (one
+    ``detect_stage`` timed (CUDA events, one run) and its stages (one
     run after the warm-up of the frames above), the ops alone, Part-A2's
     first BEV conv alone and its active voxels against the cap and JAX's
     extraction capacity, device busy and top ops, the SEE + detector and
-    fused frames (host clock, median of 3 after the counted runs);
+    fused frames (host clock, one run after the counted runs);
     PointRCNN also at 16,384 points
     resampled from the frame by ``resample_points`` (seed 0)."""
     label, full, _ = POINT_PART[key]
@@ -4357,10 +4377,12 @@ def serve_point_part(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
           f"{kept} boxes kept (by class {labels}); peak device memory {fr['peak']:.2f} GiB")
     print(f"fused frame with {label} (run_frame): kernel launches {fr['fused_launches']}; "
           f"{fr['spliced_f']} completions spliced, {fr['kept_f']} boxes kept")
-    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=3, warmup=0)
-    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE), reps=3)
+    det_ms = time_cuda(lambda: F.detect_stage(det, cfg, new_pts, new_valid), reps=FRAME_REPS,
+                       warmup=0)
+    fd_ms = host_ms(lambda: F.see_and_detect(*fr["args"], det, cfg, IMAGE_SIZE),
+                    reps=FRAME_REPS)
     ff_ms = host_ms(lambda: F.run_frame(image, s["points"], s["valid"], seg, vcn, det, cfg,
-                                        proj, l2c), reps=3)
+                                        proj, l2c), reps=FRAME_REPS)
     busy, top = profile_kernels((det, cfg, new_pts, new_valid), F.detect_stage)
     print(f"{label} stages, CUDA-event / host ms (one run, each between synchronizes): "
           + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in stages.items()))
@@ -4385,9 +4407,9 @@ def serve_point_part(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
                 for m, v in ops["roiaware"].items())
             + f"; first BEV conv ({conv['shape']}, cuDNN f32) {conv['ms']:.3f} ms, bound "
             f"{conv['bound_ms']:.4f} ms at 67 TFLOP/s")
-    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, median of 3); SEE + {label} "
-          f"frame {fd_ms:.2f} ms, fused frame with {label} {ff_ms:.2f} ms (host clock, median "
-          f"of 3 after the counted runs) on {card}; profiled detect_stage: device "
+    print(f"{label} detect_stage {det_ms:.2f} ms (CUDA events, one run); SEE + {label} "
+          f"frame {fd_ms:.2f} ms, fused frame with {label} {ff_ms:.2f} ms (host clock, one run "
+          f"after the counted runs) on {card}; profiled detect_stage: device "
           f"busy {busy:.2f} ms; device time by kernel: "
           + "; ".join(f"{n} {t:.2f} ms" for n, t in top))
     res.update(stage_ms=stages, ops=ops, detect_ms=det_ms, see_detect_frame_ms=fd_ms,
@@ -4395,7 +4417,7 @@ def serve_point_part(dev, card, key, s, vcn, seg, proj, l2c, image) -> dict:
     return res
 
 
-def train_point_part(dev, card, key, pts, valid, gt, steps: int = 3) -> dict:
+def train_point_part(dev, card, key, pts, valid, gt, steps: int = TIMED_STEPS) -> dict:
     """Phase 18 training of ``key`` at full width (f32, the config's batch:
     PointRCNN 2, Part-A2 4 at its train voxel cap; weights from seed 0) on
     the GT-completed frames: 1 + 1 + ``steps`` train steps (step 1 checked,
@@ -7609,14 +7631,306 @@ def model_parallel(dev, card, g_pts, g_valid, g_gt) -> dict:
     return res
 
 
+# --- phase 25: the repo's own SEE experiments through seevcn_torch.experiments -------
+
+#: phase 25's depth at full width (22,000-point frames, 8 GT slots, azimuth
+#: 0.25 deg, VCN at 1,024 points, SECOND-IoU at da_detector_cfg): source
+#: train / val frames (64 beams), target val frames (16 beams), the VC data's
+#: frames a beam count (3: with 1 a beam count the VC set holds 8 training
+#: objects, fewer than one batch of 16), the detector's steps and batch, and
+#: the maskpath frames
+DA_TRAIN_FRAMES, DA_VAL_FRAMES, DA_TGT_FRAMES, DA_VC_FRAMES = 4, 2, 2, 3
+DA_STEPS, DA_BATCH, MASKPATH_FRAMES = 10, 4, 2
+#: a completed instance card vs CPU: its unique rows within DA_ROW_ATOL of the
+#: other side's but for DA_STRAY_ROWS a side within DA_STRAY_M (a partial-mesh
+#: k-NN pick at an f32 near tie; tests/test_torch_da_experiment.py)
+DA_ROW_ATOL, DA_STRAY_ROWS, DA_STRAY_M = 5e-5, 2, 0.1
+#: the runbook's five evals (scripts/da_run_tpu3.sh:77-81) under the names of
+#: da2's table for the source completed by VCN_CN (its see2 rows): name,
+#: detector, set
+DA_EVALS = (("raw_tgt", "det_raw", "tgt_val"), ("see2_tgt", "det_see", "tgt_val.completed"),
+            ("raw_src", "det_raw", "src_val"), ("see2_src", "det_see", "src_val.completed"),
+            ("raw_tgtcomp2", "det_raw", "tgt_val.completed"))
+
+
+def state_reloads(saved: dict, model) -> bool:
+    """A state dict read back from a checkpoint equals ``model``'s, key for
+    key and bit for bit (the loaders give a batch-norm counter the shape
+    (1,), which is compared by value)."""
+    live = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return saved.keys() == live.keys() and all(
+        torch.equal(v.reshape(live[k].shape), live[k]) for k, v in saved.items())
+
+
+def hold_da_frame_against_cpu(path: str, vcn_path: str, dev) -> dict:
+    """Frame 0 of the set at ``path`` completed by the VCN_CN of ``vcn_path``
+    (GT boxes to the VCN) on the card and on the CPU: the same instances
+    completed, each instance's rows within DA_ROW_ATOL of the CPU's but
+    for DA_STRAY_ROWS a side within DA_STRAY_M (``completed_rows_apart``),
+    and the card's replacement equal to the plain full-cloud sweep of its
+    own completion (points within 1e-5 r^2 of r^2 excepted)."""
+    from seevcn_torch.experiments.da_experiment import load_set
+
+    frame = [torch.from_numpy(x[:1]) for x in load_set(path)]
+    sd = load_vcn_checkpoint(vcn_path, "VCN_CN")
+    runs = {d.type: complete_gt_frames(VCNInference("VCN_CN", sd, device=d), *frame, device=d,
+                                       vcn_boxes=True) for d in (dev, torch.device("cpu"))}
+    (pts_d, valid_d, st_d), (_, valid_c, st_c) = runs[dev.type], runs["cpu"]
+    if not torch.equal(st_d["inst_valid"].cpu(), st_c["inst_valid"]):
+        raise AssertionError("DA frame card vs CPU: other instances completed")
+    rows = completed_rows_apart(st_d["completed"].cpu().numpy(), st_c["completed"].numpy(),
+                                DA_ROW_ATOL)
+    p = frame[0].shape[1]
+    flat = st_d["completed"][0].reshape(-1, 3)
+    flat_valid = st_d["inst_valid"][0].repeat_interleave(st_d["completed"].shape[2])
+    d = MD.min_sqdist_plain(pts_d[0, :p], flat, flat_valid)
+    expect = frame[1][0].to(dev) & ~(d <= RADIUS * RADIUS)
+    tie = (d - RADIUS * RADIUS).abs() <= 1e-5 * RADIUS * RADIUS
+    mismatch = int(((expect != valid_d[0, :p]) & ~tie).sum())
+    res = {**rows, "instances": int(st_c["inst_valid"].sum()),
+           "kept_apart_cpu": int((valid_d.cpu() != valid_c).sum()),
+           "replacement_mismatches": mismatch, "ties": int(tie.sum())}
+    if rows["stray_rows_max"] > DA_STRAY_ROWS or rows["rows_apart_max"] > DA_STRAY_M \
+            or mismatch or res["instances"] < 1:
+        raise AssertionError(f"DA frame card vs CPU: {res}")
+    return res
+
+
+def da_voxels(path: str, cfg, dev) -> dict:
+    """Each frame of the completed set at ``path`` voxelized at ``cfg``'s grid
+    with no cap: its active voxels, which must stay under the train and test
+    caps (the detector would drop the voxels past its cap)."""
+    from seevcn_torch.experiments.da_experiment import load_set
+    from seevcn_torch.ops.voxelize import voxelize
+
+    pts, val = load_set(path)[:2]
+    proc = cfg.DATA_CONFIG.DATA_PROCESSOR[0]
+    caps = {k: int(v) for k, v in proc.MAX_NUMBER_OF_VOXELS.items()}
+    active = [int(voxelize(torch.from_numpy(p).to(dev), torch.from_numpy(v).to(dev),
+                           point_cloud_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                           voxel_size=proc.VOXEL_SIZE, max_voxels=len(p)).mask.sum())
+              for p, v in zip(pts, val)]
+    if max(active) >= min(caps.values()):
+        raise AssertionError(f"a completed DA frame fills {max(active)} voxels, caps {caps}")
+    return {"rows": int(pts.shape[1]), "active": active, "caps": caps}
+
+
+def da_train(DAX, name: str, train_set: str, out: str, flags: list, dev) -> dict:
+    """``da_experiment train`` for DA_STEPS steps at DA_BATCH (bf16 backbone),
+    each step's CUDA events recorded around ``train_step``: finite losses,
+    every parameter moved from the seeded start, ``ckpt.pth`` reloaded bit
+    for bit."""
+    from seevcn_torch.utils.ckpt import detector_state_dict_from_torch, load_torch_checkpoint
+
+    events, real = [], DAX.train_step
+
+    def timed(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if dev.type == "cuda" \
+            else None
+        if ev:
+            ev[0].record()
+        out_ = real(*args, **kw)
+        if ev:
+            ev[1].record()
+            events.append(ev)
+        return out_
+
+    DAX.train_step = timed
+    try:
+        got = DAX.main(["train", "--train", train_set, "--out", out, "--steps", str(DA_STEPS),
+                        "--batch", str(DA_BATCH), "--bf16", "--remat", "none",
+                        "--log_every", "1", "--ckpt_every", str(DA_STEPS)] + flags)
+    finally:
+        DAX.train_step = real
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    model = got["state"].model
+    start, _ = DAX.seeded_detector(DAX.da_detector_cfg(0), "cpu")
+    start = dict(start.named_parameters())
+    still = [n for n, p in model.named_parameters() if torch.equal(p.detach().cpu(), start[n])]
+    ck = load_torch_checkpoint(os.path.join(out, "ckpt.pth"))
+    reload_equal = state_reloads(detector_state_dict_from_torch(ck["model_state"]), model)
+    res = {"losses": got["losses"], "step_ms_host": [s * 1e3 for s in got["step_s"]],
+           "step_ms_events": [a.elapsed_time(b) for a, b in events],
+           "still": still, "ckpt_it": int(ck["it"]), "reload_bit_equal": reload_equal}
+    if len(got["losses"]) != DA_STEPS or not all(math.isfinite(v) for v in got["losses"]) \
+            or still or not reload_equal or ck["it"] != DA_STEPS:
+        raise AssertionError(f"DA training {name}: {res}")
+    return res
+
+
+def da_experiments(dev, card) -> dict:
+    """Phase 25: the repo's own SEE experiments through the port's entry
+    points (``seevcn_torch.experiments``), at full width and cut depth: the
+    DA sets and VC data (``da_generate``), VCN_VC and VCN_CN one epoch each
+    (``train_vcn_da``), the GT-path completion of the source sets by VCN_CN
+    and of the target by VCN_VC (K1 once a frame, ``da_launches``), one
+    completed frame card vs CPU, the completed frames' voxels against the
+    caps, the raw and completed-source detectors (``train``), the runbook's
+    five evals and the batch-1 / batch-3 identity (``eval``), the AP table
+    (``da_table``), and the DET-vs-GT mask paths on MASKPATH_FRAMES frames
+    with a seeded Mask R-CNN (``measure_maskpath_impact``, K1 twice a
+    frame)."""
+    from seevcn_torch.experiments import da_experiment as DAX
+    from seevcn_torch.experiments import da_generate as DAG
+    from seevcn_torch.experiments import da_table as DAT
+    from seevcn_torch.experiments import measure_maskpath_impact as MPI
+    from seevcn_torch.experiments import train_vcn_da as TVD
+
+    flags = [] if dev.type == "cuda" else ["--cpu"]
+    parts, res, t_phase = {}, {}, time.time()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="da_experiments_") as base:
+        da = os.path.join(base, "da")
+        t0 = time.time()
+        DAG.main(["--out", da, "--n_train", str(DA_TRAIN_FRAMES), "--n_val", str(DA_VAL_FRAMES),
+                  "--n_tgt", str(DA_TGT_FRAMES), "--vc_frames", str(DA_VC_FRAMES)])
+        n_frames = DA_TRAIN_FRAMES + DA_VAL_FRAMES + DA_TGT_FRAMES
+        res["generate"] = {"s": time.time() - t0, "frames": n_frames + 3 * DA_VC_FRAMES,
+                           "vc_objects": len(os.listdir(os.path.join(da, "vc_data")))}
+        res["generate"]["s_per_frame"] = res["generate"]["s"] / res["generate"]["frames"]
+        parts["generate"], t0 = time.time() - t0, time.time()
+
+        vcn_path, res["vcn"] = {}, {}
+        for model in ("VCN_VC", "VCN_CN"):
+            out = os.path.join(base, f"vcn_{model}")
+            trainer, state = TVD.main(["--epochs", "1", "--batch_size", "16", "--data",
+                                       os.path.join(da, "vc_data"), "--out", out, "--model",
+                                       model] + flags)
+            # the held-out split (every 10th object) is under one batch of 16, so
+            # fit's validation (every --val_freq 10 epochs) would write no
+            # ckpt-best: the epoch's ckpt-last serves, and the split is validated
+            # here in one batch
+            vcn_path[model] = os.path.join(out, "ckpt-last.pth")
+            equal = state_reloads(load_vcn_checkpoint(vcn_path[model], model), state.model)
+            held = VCDataset(os.path.join(da, "vc_data"), n_points=1024, n_complete=2048)
+            held.samples = held.samples[::10]
+            cdl1 = float(trainer.validate(state, held, len(held))["CDL1"])
+            res["vcn"][model] = {"val_cdl1": cdl1, "val_objects": len(held),
+                                 "reload_bit_equal": equal}
+            if not math.isfinite(cdl1) or not equal:
+                raise AssertionError(f"train_vcn_da {model}: {res['vcn'][model]}")
+        parts["train_vcn_da"], t0 = time.time() - t0, time.time()
+
+        K.reset_launches()
+        res["complete"] = {}
+        for name, model in (("src_train", "VCN_CN"), ("src_val", "VCN_CN"),
+                            ("tgt_val", "VCN_VC")):
+            res["complete"][name] = DAX.main(["complete", "--set", os.path.join(da, f"{name}.npz"),
+                                              "--vcn", vcn_path[model], "--model", model] + flags)
+        sync()
+        res["da_launches"] = K.LAUNCHES["min_sqdist_pruned"]
+        if dev.type == "cuda" and res["da_launches"] != n_frames:
+            raise AssertionError(f"K1 launched {res['da_launches']} times for {n_frames} "
+                                 "completed DA frames")
+        parts["complete"], t0 = time.time() - t0, time.time()
+        res["card_vs_cpu"] = hold_da_frame_against_cpu(os.path.join(da, "src_train.npz"),
+                                                       vcn_path["VCN_CN"], dev)
+        res["voxels"] = da_voxels(os.path.join(da, "src_train.completed.npz"),
+                                  DAX.da_detector_cfg(0), dev)
+        parts["card_vs_cpu"], t0 = time.time() - t0, time.time()
+
+        res["train"] = {name: da_train(DAX, name, os.path.join(da, f"{src}.npz"),
+                                       os.path.join(da, name), flags, dev)
+                        for name, src in (("det_raw", "src_train"),
+                                          ("det_see", "src_train.completed"))}
+        parts["train"], t0 = time.time() - t0, time.time()
+
+        res["eval"] = {}
+        for name, det, set_name in DA_EVALS:
+            t1 = time.time()
+            s_ = DAX.main(["eval", "--ckpt", os.path.join(da, det, "ckpt.pth"), "--set",
+                           os.path.join(da, f"{set_name}.npz"), "--out_json",
+                           os.path.join(da, f"ap_{name}.json")] + flags)
+            res["eval"][name] = {k: s_[k] for k in ("ap_3d_07_r40", "ap_bev_07_r40", "n_frames",
+                                                    "n_dets")}
+            res["eval"][name]["s_per_frame"] = (time.time() - t1) / s_["n_frames"]
+        parity = {b: DAX.main(["eval", "--ckpt", os.path.join(da, "det_see", "ckpt.pth"),
+                               "--set", os.path.join(da, "tgt_val.completed.npz"),
+                               "--score_thresh", "0.0", "--eval_batch", str(b)] + flags)
+                  for b in (1, 3)}
+        keys = ("n_dets", "ap_3d_07_r40", "ap_bev_07_r40")
+        res["eval_batch_parity"] = {b: {k: parity[b][k] for k in keys} for b in parity}
+        if any(parity[1][k] != parity[3][k] for k in keys):
+            raise AssertionError(f"eval at batch 1 and 3 differ: {res['eval_batch_parity']}")
+        res["table"] = DAT.main(["--protocol", "da2", da])
+        parts["eval"], t0 = time.time() - t0, time.time()
+
+        seg_cfg = SM.Seg2DConfig()
+        seg_path = os.path.join(base, "seg2d.ckpt")
+        save_seg2d_checkpoint(seg_path, init_seg2d(SM.MaskRCNN(seg_cfg),
+                                                   torch.Generator().manual_seed(0)), seg_cfg)
+        K.reset_launches()
+        res["maskpath"] = MPI.main(["--ckpt", seg_path, "--frames", str(MASKPATH_FRAMES),
+                                    "--vcn_ckpt", vcn_path["VCN_VC"]] + flags)
+        sync()
+        res["maskpath_launches"] = K.LAUNCHES["min_sqdist_pruned"]
+        if dev.type == "cuda" and res["maskpath_launches"] != 2 * MASKPATH_FRAMES:
+            raise AssertionError(f"K1 launched {res['maskpath_launches']} times in "
+                                 f"{MASKPATH_FRAMES} maskpath frames")
+        parts["maskpath"] = time.time() - t0
+    res["part_s"], res["phase_s"] = parts, time.time() - t_phase
+
+    comp = res["complete"]
+    tr = res["train"]
+    print(f"phase 25 da_generate: {res['generate']['frames']} frames (sets "
+          f"{DA_TRAIN_FRAMES} + {DA_VAL_FRAMES} at 64 beams, {DA_TGT_FRAMES} at 16; VC "
+          f"{DA_VC_FRAMES} a beam count, {res['generate']['vc_objects']} objects) in "
+          f"{res['generate']['s']:.1f} s = {res['generate']['s_per_frame']:.2f} s a frame (host)")
+    print("phase 25 train_vcn_da (1 epoch, batch 16): " + "; ".join(
+        f"{m} CDL1 on the {v['val_objects']} held-out objects {v['val_cdl1']:.4f}, "
+        f"ckpt-last reloads bit for bit "
+        f"{v['reload_bit_equal']}" for m, v in res["vcn"].items()))
+    print("phase 25 complete (GT path, source VCN_CN, target VCN_VC): " + "; ".join(
+        f"{n} {c['frames']} frames {c['s'] / c['frames']:.3f} s a frame, in-box fraction of "
+        f"added points {c['in_box']:.3f}" for n, c in comp.items())
+        + f"; K1 launches (da_launches) {res['da_launches']} for {n_frames} frames")
+    cv = res["card_vs_cpu"]
+    print(f"phase 25 one completed source frame card vs CPU: {cv['instances']} instances, "
+          f"stray rows of an instance at most {cv['stray_rows_max']} (bound {DA_STRAY_ROWS}), "
+          f"rows apart at most {cv['rows_apart_max']:.3g} m (bound {DA_STRAY_M}), worst point "
+          f"difference among the rest {cv['point_diff_max']:.3g} m; scan points kept apart "
+          f"{cv['kept_apart_cpu']}; the card's replacement vs the plain sweep "
+          f"{cv['replacement_mismatches']} mismatches ({cv['ties']} ties)")
+    vx = res["voxels"]
+    print(f"phase 25 completed source frames ({vx['rows']} rows): active voxels {vx['active']} "
+          f"against the caps {vx['caps']}")
+    for name, t in tr.items():
+        ev = t["step_ms_events"]
+        print(f"phase 25 train {name} ({DA_STEPS} steps, batch {DA_BATCH}, bf16): losses "
+              + ", ".join(f"{v:.4f}" for v in t["losses"])
+              + f"; step ms host first {t['step_ms_host'][0]:.1f}, then median "
+              f"{statistics.median(t['step_ms_host'][1:]):.1f}"
+              + (f"; CUDA events first {ev[0]:.1f}, then median {statistics.median(ev[1:]):.1f}"
+                 if ev else "") + f"; ckpt.pth at it {t['ckpt_it']} reloads bit for bit")
+    print(f"phase 25 eval (APs after {DA_STEPS} steps, not gated): " + "; ".join(
+        f"{n} 3D {e['ap_3d_07_r40']:.2f} BEV {e['ap_bev_07_r40']:.2f} dets {e['n_dets']} "
+        f"{e['s_per_frame']:.3f} s a frame" for n, e in res["eval"].items())
+        + f"; --eval_batch 1 vs 3 (score 0.0): {res['eval_batch_parity']}")
+    print("phase 25 AP table:\n" + "\n".join(res["table"]))
+    print(f"phase 25 maskpath: {res['maskpath']}; K1 launches {res['maskpath_launches']} "
+          f"for {MASKPATH_FRAMES} frames on {card}")
+    print("phase 25 by part, s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return res
+
+
 def phase_alone(dev, card, phase: int) -> int:
-    """``--phase 22`` / ``--phase 23`` / ``--phase 24``: that phase after the
-    set-up it needs (the kernels built; for 23 and 24 VCN_VC at seeded
-    weights and phase 9's 4 GT frames completed in one process; 22 runs its
-    JPEG fixtures and the demo only); no other phase runs and no result line
-    is printed."""
+    """``--phase 22`` / ``--phase 23`` / ``--phase 24`` / ``--phase 25``: that
+    phase after the set-up it needs (the kernels built; for 23 and 24 VCN_VC
+    at seeded weights and phase 9's 4 GT frames completed in one process; 22
+    runs its JPEG fixtures and the demo only; 25 needs nothing more); no
+    other phase runs and no result line is printed."""
     t0 = time.time()
     K.build(K.KERNELS)
+    if phase == 25:
+        da = da_experiments(dev, card)
+        print(f"da_launches {da['da_launches']}, maskpath {da['maskpath_launches']}; phase 25 "
+              f"{da['phase_s']:.1f} s, {time.time() - t0:.1f} s with its set-up")
+        return 0
     if phase == 22:
         res = {"jpeg": check_jpeg_fixtures(dev)}
         with tempfile.TemporaryDirectory(prefix="demo_jpeg_") as base:
@@ -7642,11 +7956,11 @@ def phase_alone(dev, card, phase: int) -> int:
 
 def main(argv=None) -> int:
     """Every phase, then the kernels line and the result line; with
-    ``--phase 22``, 23 or 24, that phase alone (``phase_alone``)."""
+    ``--phase 22``, 23, 24 or 25, that phase alone (``phase_alone``)."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", type=int, choices=[22, 23, 24], default=None,
+    ap.add_argument("--phase", type=int, choices=[22, 23, 24, 25], default=None,
                     help="run only this phase, after the set-up it needs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -8019,7 +8333,7 @@ def main(argv=None) -> int:
     kernels[0]["pvrcnn_plusplus_launches"] = {
         "see_and_detect": plusplus["launches"]["min_sqdist_pruned"],
         "run_frame": plusplus["fused_launches"]["min_sqdist_pruned"]}
-    plusplus["train"] = train_pvrcnn(dev, card, g_pts, g_valid, g_gt, steps=3,
+    plusplus["train"] = train_pvrcnn(dev, card, g_pts, g_valid, g_gt, steps=TIMED_STEPS,
                                      cfg=DC.pvrcnn_plusplus_detector_cfg(),
                                      tiny_cfg=DC.tiny_pvrcnn_plusplus_cfg(),
                                      label="PV-RCNN++", tiny_grad_tol=PLUSPLUS_F32_GRAD)
@@ -8097,6 +8411,13 @@ def main(argv=None) -> int:
     print(f"phase 24 (model parallelism) ran {mpr['phase_s']:.0f} s; chip_smoke ran "
           f"{time.time() - t_start:.0f} s after start-up")
 
+    # --- 25. the repo's own SEE experiments: DA run and the mask-path measurement ----
+    da = da_experiments(dev, card)
+    kernels[0]["da_launches"] = {"complete": da["da_launches"],
+                                 "maskpath": da["maskpath_launches"]}
+    print(f"phase 25 (the DA experiment, maskpath) ran {da['phase_s']:.0f} s; chip_smoke ran "
+          f"{time.time() - t_start:.0f} s after start-up")
+
     # --- summary lines ---------------------------------------------------------
     print(json.dumps({
         "kernels": kernels, "stage_ms": stage_ms, "frame_ms": f_ms,
@@ -8126,7 +8447,11 @@ def main(argv=None) -> int:
             "tiny_vs_cpu", "tiny_steps_vs_cpu", "part_s", "phase_s")}},
         "kitti_data": caddn["kitti_data"], "kitti_workflow": workflow,
         "domain_workflow": domains, "demo_jpeg": demo, "data_parallel": dp,
-        "model_parallel": mpr, "card": smi}, default=str))
+        "model_parallel": mpr, "da_experiments": {k: da[k] for k in (
+            "generate", "vcn", "complete", "da_launches", "card_vs_cpu", "voxels", "eval",
+            "eval_batch_parity", "maskpath", "maskpath_launches", "part_s", "phase_s")},
+        "da_train": {n: {k: v for k, v in t.items() if k != "still"}
+                     for n, t in da["train"].items()}, "card": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,7 +38,8 @@ def gt_membership(points: torch.Tensor, valid: torch.Tensor, gt_boxes: torch.Ten
 @torch.no_grad()
 def complete_gt_frames(vcn, points: torch.Tensor, valid: torch.Tensor,
                        gt_boxes: torch.Tensor, gt_mask: torch.Tensor, *,
-                       device="cuda", sanity_max_dist: float = 2.0):
+                       device="cuda", sanity_max_dist: float = 2.0,
+                       vcn_boxes: bool = False):
     """GT-path completion of a batch of F frames on ``device``.
 
     points (F, P, 3), valid (F, P), gt_boxes (F, D, >=7), gt_mask (F, D);
@@ -49,8 +50,11 @@ def complete_gt_frames(vcn, points: torch.Tensor, valid: torch.Tensor,
     completed surfaces appended; stats holds, each (F, D, ...), the isolated
     and completed instances and their validity (``ok``, ``sane``,
     ``inst_valid = ok & sane``, the reference's returned ``ok``; ``sane``
-    the guard at ``sanity_max_dist``). TF32 is off, as in
-    ``complete_frame``."""
+    the guard at ``sanity_max_dist``). With ``vcn_boxes`` the VCN also takes
+    each instance's GT box, its dimensions clamped to at least 0.1 so that a
+    padding row's canonicalisation never divides by zero: the reference
+    completes the source domain with VCN_CN, canonicalised by the GT box
+    (VCN_CN.py:111-156). TF32 is off, as in ``complete_frame``."""
     dev = resolve_device(device)
     tf32_off()
     points, valid, gt_boxes, gt_mask = (t.to(dev) for t in (points, valid,
@@ -60,7 +64,11 @@ def complete_gt_frames(vcn, points: torch.Tensor, valid: torch.Tensor,
         points[i], gt_membership(points[i], valid[i], gt_boxes[i], gt_mask[i]),
         out_pts=vcn.num_points) for i in range(f)))
     iso, ok = torch.stack(iso), torch.stack(ok)
-    completed, sane = vcn_stage(vcn, iso.flatten(0, 1), sanity_max_dist)
+    boxes = None
+    if vcn_boxes:
+        boxes = gt_boxes[..., :7].flatten(0, 1).clone()
+        boxes[:, 3:6] = boxes[:, 3:6].clamp_min(0.1)
+    completed, sane = vcn_stage(vcn, iso.flatten(0, 1), sanity_max_dist, boxes)
     completed, sane = completed.view(iso.shape), sane.view(f, d)
     inst_valid = ok & sane
     new_pts, new_valid = zip(*(replace_stage(points[i], valid[i], completed[i],

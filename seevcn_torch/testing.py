@@ -91,6 +91,24 @@ K2_EDGES = ("n1_m513", "n1023_m1", "n1025_m511_invalid", "n1030_m1025",
 K2_CARD_EDGES = K2_EDGES + ("n20000_m40000",)
 
 
+def completed_rows_apart(got: np.ndarray, ref: np.ndarray, atol: float) -> dict:
+    """Completed instances (..., n, 3) of two runs of the SEE completion: each
+    instance's unique rows against the other run's nearest, both ways, in
+    f64. -> {"stray_rows_max": the most rows of an instance side farther
+    than ``atol``, "rows_apart_max": the largest gap, "point_diff_max": the
+    largest gap of the rows within ``atol``}. A partial-mesh k-NN pick at a
+    near tie of its f32 distances moves a row or two of an instance."""
+    stray, worst, close = 0, 0.0, 0.0
+    for a, b in zip(got.reshape(-1, *got.shape[-2:]), ref.reshape(-1, *ref.shape[-2:])):
+        ua, ub = (np.unique(x, axis=0).astype(np.float64) for x in (a, b))
+        d = np.sqrt(((ua[:, None] - ub[None]) ** 2).sum(-1))
+        for near in (d.min(1), d.min(0)):
+            stray = max(stray, int((near > atol).sum()))
+            worst = max(worst, float(near.max()))
+            close = max(close, float(near[near <= atol].max(initial=0.0)))
+    return {"stray_rows_max": stray, "rows_apart_max": worst, "point_diff_max": close}
+
+
 def k2_edge_case(name: str):
     """One of K2_CARD_EDGES as numpy (a (N, 3), b (M, 3), valid (M,) or
     None), made from a seed."""

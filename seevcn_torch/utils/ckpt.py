@@ -31,6 +31,8 @@ importer reads for it.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -131,16 +133,22 @@ def load_detector_checkpoint(path: str) -> dict:
     return detector_state_dict_from_torch(ckpt.get("model_state", ckpt))
 
 
-def save_detector_checkpoint(path: str, model, epoch: int = 0, it: int = 0):
+def save_detector_checkpoint(path: str, model, epoch: int = 0, it: int = 0,
+                             optimizer_state=None, **extra):
     """Write an OpenPCDet-format detector ``.pth`` (train_utils.py:145-178):
     the reference's schema and its legacy, non-zipfile pickle, so reference
     tooling reads it as it reads its own. ``model`` is the port's detector
-    or its state dict; spconv weights go out in the 2.x layout."""
+    or its state dict; spconv weights go out in the 2.x layout.
+    ``optimizer_state`` (a torch optimizer's state dict) and the ``extra``
+    keys go in beside them. Written atomically (a temporary file, then
+    os.replace): a run killed mid-write leaves the previous file whole."""
     sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
     torch.save({"epoch": epoch, "it": it,
                 "model_state": {k: v.detach().cpu().clone() for k, v in sd.items()},
-                "optimizer_state": None, "version": "seevcn_torch+0.1"},
-               path, _use_new_zipfile_serialization=False)
+                "optimizer_state": optimizer_state, "version": "seevcn_torch+0.1",
+                **extra},
+               path + ".tmp", _use_new_zipfile_serialization=False)
+    os.replace(path + ".tmp", path)
 
 
 def deeplabv3_state_dict_from_torch(state_dict, num_classes: int) -> dict:
